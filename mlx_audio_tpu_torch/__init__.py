@@ -1,0 +1,11 @@
+"""mlx_audio_tpu_torch: the PyTorch and CUDA port of mlx_audio_tpu.
+
+The JAX package ``mlx_audio_tpu`` is the reference; this package mirrors its
+layout and names and imports nothing of it, nor JAX.  Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``.  The hot kernels are
+CUDA C++ for Hopper (``csrc/``), compiled at first use (``build.py``); on
+CPU tensors each kernel's plain PyTorch version runs instead.
+
+Ported so far: Kokoro-82M synthesis end to end
+(``mlx_audio_tpu_torch.models.tts.kokoro``).
+"""

@@ -45,3 +45,10 @@ def _deterministic_layer_init():
 
     _layers._INIT_RNG = _np.random.default_rng(0)
     yield
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: runs the port's CUDA kernels on an NVIDIA GPU; skips without one",
+    )
