@@ -1,33 +1,49 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of Kokoro-82M (``mlx_audio_tpu_torch``) on one
-NVIDIA GPU, and check its hand-written CUDA kernels.
+"""Drive the PyTorch port (``mlx_audio_tpu_torch``) on one NVIDIA GPU:
+Kokoro-82M synthesis and CSM-1B speech through int8 decode, and check its
+hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
 Phases; the failure of any one ends the script with a non-zero exit:
 
-1. print the card (``nvidia-smi``), torch and CUDA versions; build the
-   three kernels from ``mlx_audio_tpu_torch/csrc/`` with ``nvcc`` for
-   ``sm_90a`` into ``mlx_audio_tpu_torch/csrc/build/``;
+1. print the card (``nvidia-smi``), torch and CUDA versions; build the five
+   kernels from ``mlx_audio_tpu_torch/csrc/`` with ``nvcc`` for ``sm_90a``
+   into ``mlx_audio_tpu_torch/csrc/build/`` (one ``nvcc`` each, together);
 2. hold every kernel against its plain PyTorch version on the card at the
-   Kokoro-82M shapes (float32, TF32 off), and time kernel, plain version
-   and one library call;
-3. run ``Model.generate``, ``Model.generate_batch`` and
-   ``Model.synthesize_batch`` at the full Kokoro-82M width with seeded
-   random weights;
-4. run the bench-shaped pass (batch 8, phoneme bucket 512, frame bucket
-   1300, durations capped at alternating 2/3) through ``duration_stage``
-   and ``synthesis_stage``, median of 5 synced iterations, then one more
-   iteration under ``torch.profiler`` for the device time by kernel;
-5. print one ``{"kernels": [...]}`` line, then the device line last.
+   main paths' shapes (float32, TF32 off): the three Kokoro-82M kernels,
+   ``quantized_matmul`` at every projection of CSM-1B's path (int8, 1 to
+   128 rows; int4 at the llama-1B ones) and ``depth_draft`` on a full
+   llama-100M pack (greedy and sampled, tokens equal); time kernel, plain
+   version and one library call (``quantized_matmul``'s operands cold in
+   L2), and print where the kernel and the dequantize-and-matmul path
+   cross;
+3. run Kokoro-82M's ``Model.generate``, ``Model.generate_batch`` and
+   ``Model.synthesize_batch`` at full width with seeded random weights;
+4. run the Kokoro bench-shaped pass (batch 8, phoneme bucket 512, frame
+   bucket 1300, durations capped at alternating 2/3) through
+   ``duration_stage`` and ``synthesis_stage``, median of 5 synced
+   iterations, then one more iteration under ``torch.profiler``;
+5. CSM-1B at full width (llama-1B backbone, llama-100M depth decoder,
+   Mimi with 32 codebooks, seeded random weights, ``quantize_model`` to
+   int8 in groups of 128, a stub tokenizer, 2 s of seeded reference audio):
+   greedy ``generate`` without and with ``enable_spec_decode()`` (the frames
+   must be equal), ``generate_batch`` of 4 texts, and one sampled
+   ``generate`` with spec decode; ``quantized_matmul`` held against its
+   plain version on the operands of its first call at each (rows, I, O)
+   these runs gave it; then a timed breakdown (prefill, frame loop, Mimi)
+   and a ``torch.profiler`` view of the spec-decode frame loop;
+6. print one ``{"kernels": [...]}`` line, then the device line last.
 
-Launch counters are set to 0 just before phases 3 and 4 and read just
-after: each kernel must have launched in each.  Needs one CUDA card and
-the repository checkout around this file; it imports nothing of JAX.
+Launch counters are set to 0 just before each run of phases 3 to 5 and read
+just after: each kernel of a run's path must have launched in it.  Needs
+one CUDA card and the repository checkout around this file; it imports
+nothing of JAX.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import statistics
 import subprocess
@@ -42,8 +58,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): float32 outside the
-# tensor cores, and HBM3 bandwidth.  The port's kernels run float32 FMAs.
+# tensor cores, dense int8 tensor-core operations, and HBM3 bandwidth.  The
+# port's kernels run float32 FMAs, and depth_draft int8 dot products.
 PEAK_F32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
 
 TOL = {"atol": 1e-4, "rtol": 1e-4}  # as tests/test_pallas_ops.py uses
@@ -55,7 +73,13 @@ KERNEL_INFO = {
                        "mlx_audio_tpu/nn/pallas_ops.py:259"),
     "banded_conv1d": ("mlx_audio_tpu_torch/csrc/banded_conv1d.cu",
                       "mlx_audio_tpu/nn/pallas_ops.py:353"),
+    "quantized_matmul": ("mlx_audio_tpu_torch/csrc/quantized_matmul.cu",
+                         "mlx_audio_tpu/nn/pallas_ops.py:170"),
+    "depth_draft": ("mlx_audio_tpu_torch/csrc/depth_draft.cu",
+                    "mlx_audio_tpu/nn/pallas_depth.py:424"),
 }
+# the kernels each main-path run must launch
+KOKORO_KERNELS = ("lstm", "dilated_conv1d", "banded_conv1d")
 
 # Kokoro phoneme alphabet text: the pipeline's fallback G2P passes it
 # through unchanged.
@@ -101,8 +125,41 @@ def median_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops = flops / PEAK_F32_FLOPS
+def queued_ms(fns, reps: int) -> float:
+    """Device time of one call in ms: at least ``reps`` calls queued behind
+    a sleeping kernel, so that the host's launch cost does not leave the
+    card idle between them, and CUDA events around the whole run.  ``fns``
+    is one call, or a list of the same call on distinct copies of its
+    operands, taken in turn (each once per round), so that a call finds
+    its operands cold in L2 as a decode step does."""
+    fns = list(fns) if isinstance(fns, (list, tuple)) else [fns]
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    calls = max(reps, len(fns))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for n in range(calls):
+        fns[n % len(fns)]()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+# an operand set of at least this many bytes, read in turn, leaves none of
+# it in the H100's 50 MB L2 when its turn comes again
+COLD_BYTES = 2 * 50 * 2 ** 20
+
+
+def cold_copies(nbytes: int) -> int:
+    return max(1, -(-COLD_BYTES // nbytes))
+
+
+def bound_ms(flops: float, nbytes: float,
+             peak_ops: float = PEAK_F32_FLOPS) -> tuple[float, str]:
+    t_ops = flops / peak_ops
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
@@ -214,6 +271,117 @@ def _conv_cases(gen):
         }
 
 
+# (I, O) of every QuantizedLinear on CSM-1B's path: the llama-1B backbone's
+# and the llama-100M depth decoder's projections (q, k, v and o apart), the
+# backbone-to-decoder projection and the codebook-0 head (2051 columns, the
+# last tile part empty)
+QMM_SHAPES = (((2048, 2048), "llama-1B q, o"), ((2048, 512), "llama-1B k, v"),
+              ((2048, 8192), "llama-1B gate, up"), ((8192, 2048), "llama-1B down"),
+              ((1024, 1024), "llama-100M q, o"), ((1024, 256), "llama-100M k, v"),
+              ((1024, 8192), "llama-100M gate, up"), ((8192, 1024), "llama-100M down"),
+              ((2048, 1024), "projection"), ((2048, 2051), "codebook0_head"))
+# decode steps (1 row a step, 2 at a frame's first depth step, 4 and 8 in a
+# batch of 4), the 32-row verify pass, and enough row counts between them
+# and a 128-row prefill to place the kernel's crossover with the plain path
+QMM_ROWS = (1, 8, 16, 32, 48, 64, 128)
+QMM_ROWS_INT4 = (1, 8, 128)
+
+
+def _qmm_cases(gen):
+    """quantized_matmul at every (I, O) of CSM-1B's path in int8, and at
+    the llama-1B ones in int4, groups of 128.  Timed calls take the codes
+    (and the library's dense weight) from enough distinct copies to be
+    cold in L2.  The library call is one cuBLAS matmul against the weight
+    dequantized ahead of time."""
+    from mlx_audio_tpu_torch.nn import kernels
+    from mlx_audio_tpu_torch.nn.layers import Linear
+    from mlx_audio_tpu_torch.nn.quantize import QuantizedLinear
+
+    for (i, o), role in QMM_SHAPES:
+        for bits in (8, 4):
+            if bits == 4 and not role.startswith("llama-1B"):
+                continue
+            lin = Linear(i, o, bias=False)
+            lin.weight.data = torch.randn(o, i, generator=gen, device="cuda") * i ** -0.5
+            q = QuantizedLinear.from_linear(lin, group_size=128, bits=bits)
+            dense = q.to_linear().weight.data.cuda()
+            qbytes = q.weight.numel() + 4 * (q.scales.numel() + q.biases.numel())
+            sets = [(q.weight.clone(), q.scales.clone(), q.biases.clone())
+                    for _ in range(cold_copies(qbytes))]
+            denses = [dense.clone() for _ in range(cold_copies(4 * dense.numel()))]
+            for b in (QMM_ROWS if bits == 8 else QMM_ROWS_INT4):
+                x = torch.randn(b, i, generator=gen, device="cuda")
+                kern = [lambda a=(x, *w, 128, q.packed): kernels.quantized_matmul(*a)
+                        for w in sets]
+                plain = [lambda a=(x, *w, 128, q.packed): kernels.quantized_matmul_plain(*a)
+                         for w in sets]
+                lib = [lambda x=x, w=w: x @ w.t() for w in denses]
+                yield {
+                    "kernel": "quantized_matmul", "queued": True, "rows": b,
+                    "bits": bits, "io": (i, o),
+                    "shape": f"B={b} I={i} O={o} int{bits} gs128 ({role})",
+                    "kernel_fn": kern[0], "plain_fn": plain[0], "library_fn": lib[0],
+                    "timed": (kern, plain, lib),
+                    "flops": 2.0 * b * i * o,
+                    "bytes": qbytes + 4 * b * (i + o),
+                }
+
+
+def _draft_cases(gen):
+    """depth_draft on a full llama-100M pack (CSM's depth decoder: 4 layers,
+    Dm 1024, F 8192, 8 query and 2 key/value heads of 128, 31 heads of 2051
+    codes), greedy and at temperature 0.9 / top-k 50 on fixed noise."""
+    from mlx_audio_tpu_torch.models.lm.llama import LLAMA_FLAVORS, LlamaModel
+    from mlx_audio_tpu_torch.models.sampling import gumbel
+    from mlx_audio_tpu_torch.nn import kernels
+    from mlx_audio_tpu_torch.nn.pallas_depth import depth_draft_plain, pack_depth
+
+    cfg = LLAMA_FLAVORS["llama-100M"]
+    nc, vocab, db = 32, 2051, 2048
+    with torch.device("cuda"):
+        dec = LlamaModel(cfg, use_embed_tokens=False)
+    for m in dec.modules():
+        if hasattr(m, "init_weights"):
+            m.init_weights(gen)
+    dm = cfg.hidden_size
+    packed = pack_depth(
+        dec, torch.randn(db, dm, generator=gen, device="cuda") * db ** -0.5,
+        torch.randn(nc - 1, dm, vocab, generator=gen, device="cuda") * dm ** -0.5,
+        torch.rand(nc * vocab, db, generator=gen, device="cuda") * 2 - 1, vocab)
+    del dec
+    shape = (cfg.num_hidden_layers, cfg.num_key_value_heads, 40, cfg.head_dim)
+    kc, vc = torch.zeros(shape, device="cuda"), torch.zeros(shape, device="cuda")
+    kc[:, :, :2] = torch.randn(*shape[:2], 2, shape[3], generator=gen, device="cuda")
+    vc[:, :, :2] = torch.randn(*shape[:2], 2, shape[3], generator=gen, device="cuda")
+    n_steps, vpad = nc - 2, packed.heads.shape[1]
+    c1 = torch.tensor(17, device="cuda")
+    weights = sum(t.numel() * t.element_size() for t in (
+        packed.wqkv, packed.sqkv, packed.wo, packed.so, packed.wgu, packed.sgu,
+        packed.wdown, packed.sdown, packed.norms, packed.final_norm))
+    head = (packed.heads[0].numel() + 4 * packed.sheads[0].numel()
+            + 2 * packed.emb_proj.shape[-1])
+    macs = (packed.wqkv.numel() + packed.wo.numel() + packed.wgu.numel()
+            + packed.wdown.numel() + packed.heads[0].numel())
+    for temp, top_k in ((0.0, 0), (0.9, 50)):
+        noise = (gumbel((n_steps, vpad), gen, "cuda") if temp > 0
+                 else torch.zeros(n_steps, vpad, device="cuda"))
+        args = (packed, kc, vc, c1, noise, vocab, temp, top_k)
+        yield {
+            "kernel": "depth_draft", "exact": True, "queued": True,
+            "plain_host_bound": True,  # thousands of small launches
+            "shape": f"llama-100M, {n_steps} steps, temp {temp} top_k {top_k}",
+            "kernel_fn": lambda a=args: kernels.depth_draft(*a),
+            "plain_fn": lambda a=args: depth_draft_plain(*a),
+            "library_fn": None,
+            # every step streams all layers' int8 weights and scales, one
+            # head and one embedding row; the caches, noise and tokens once
+            "flops": 2.0 * macs * n_steps,
+            "bytes": (n_steps * (weights + head) + 2 * 4 * kc.numel()
+                      + 4 * noise.numel() + 4 * n_steps),
+            "peak_ops": PEAK_INT8_OPS,
+        }
+
+
 def _outputs(res):
     if isinstance(res, torch.Tensor):
         return [res]
@@ -231,7 +399,9 @@ def check_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     records = {name: [] for name in KERNEL_INFO}
     bad = []
-    for case in (*_lstm_cases(gen), *_conv_cases(gen)):
+    cases = itertools.chain(_lstm_cases(gen), _conv_cases(gen), _qmm_cases(gen),
+                            _draft_cases(gen))
+    for case in cases:
         name = case["kernel"]
         before = kernels.LAUNCHES[name]
         got = _outputs(case["kernel_fn"]())
@@ -240,28 +410,64 @@ def check_kernels() -> dict:
             bad.append(f"{name} {case['shape']}: kernel not launched")
         ref = _outputs(case["plain_fn"]())
         err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-        ok = all(torch.allclose(g, r, **TOL) for g, r in zip(got, ref))
-        ms = median_ms(case["kernel_fn"], 10)
-        plain_ms = median_ms(case["plain_fn"], 3)
-        with torch.no_grad():
-            library_ms = median_ms(case["library_fn"], 10)
-        bms, by = bound_ms(case["flops"], case["bytes"])
+        if case.get("exact"):
+            ok = all(torch.equal(g, r) for g, r in zip(got, ref))
+        else:
+            ok = all(torch.allclose(g, r, **TOL) for g, r in zip(got, ref))
+        # short kernels are timed queued (device time); the Kokoro cases keep
+        # the per-call median of earlier runs
+        timer = queued_ms if case.get("queued") else median_ms
+        kern_t, plain_t, lib_t = case.get(
+            "timed", (case["kernel_fn"], case["plain_fn"], case["library_fn"]))
+        ms = timer(kern_t, 10)
+        plain_ms = (median_ms if case.get("plain_host_bound") else timer)(
+            plain_t, 3)
+        library_ms = None
+        if lib_t is not None:
+            with torch.no_grad():
+                library_ms = timer(lib_t, 10)
+        bms, by = bound_ms(case["flops"], case["bytes"],
+                           case.get("peak_ops", PEAK_F32_FLOPS))
         rec = {"shape": case["shape"], "max_abs_err": err, "ok": ok,
                "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-               "bound_by": by, "library_ms": library_ms}
+               "bound_by": by, "library_ms": library_ms,
+               **{k: case[k] for k in ("rows", "bits", "io") if k in case}}
         records[name].append(rec)
-        print(f"{name:15s} {case['shape']:40s} max_abs_err {err:.3e} "
-              f"(atol {TOL['atol']}, rtol {TOL['rtol']}) "
-              f"{'ok' if ok else 'DISAGREES'}  kernel {ms:.3f} ms  "
-              f"plain {plain_ms:.3f} ms  library {library_ms:.3f} ms  "
+        lib = "—" if library_ms is None else f"{library_ms:.3f} ms"
+        rule = "tokens equal" if case.get("exact") else \
+            f"atol {TOL['atol']}, rtol {TOL['rtol']}"
+        print(f"{name:16s} {case['shape']:52s} max_abs_err {err:.3e} "
+              f"({rule}) {'ok' if ok else 'DISAGREES'}  kernel {ms:.3f} ms  "
+              f"plain {plain_ms:.3f} ms  library {lib}  "
               f"bound {bms:.4f} ms ({by})", flush=True)
         if not ok:
             bad.append(f"{name} {case['shape']}: max_abs_err {err:.3e}")
-        del got, ref
+        del got, ref, case
         torch.cuda.empty_cache()
     if bad:
         fail("kernel check: " + "; ".join(bad))
+    qmm_crossover(records["quantized_matmul"])
     return records
+
+
+def qmm_crossover(recs) -> None:
+    """Where QuantizedLinear's two paths cross on this card: per int8 shape,
+    the most rows at which the kernel is no slower than the plain path it
+    takes above ``KERNEL_MAX_ROWS`` (dequantize, then one matmul)."""
+    from mlx_audio_tpu_torch.nn.quantize import KERNEL_MAX_ROWS
+
+    wins = {}
+    for r in recs:
+        if r["bits"] == 8:
+            rows = wins.setdefault(r["io"], [])
+            if r["ms"] <= r["plain_ms"]:
+                rows.append(r["rows"])
+    best = {io: max(rows, default=0) for io, rows in wins.items()}
+    print("quantized_matmul crossover (int8, most rows at which the kernel is "
+          "no slower than dequantize-and-matmul): "
+          + ", ".join(f"I={i} O={o}: {n}" for (i, o), n in best.items())
+          + f"; every shape: {min(best.values())}; KERNEL_MAX_ROWS "
+          f"{KERNEL_MAX_ROWS}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -414,6 +620,246 @@ def profile_pass(run_once) -> None:
         print(f"  {ms:10.2f} ms {n:6d}x  {name[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: CSM-1B
+# ---------------------------------------------------------------------------
+
+CSM_CONFIG = {"backbone_flavor": "llama-1B", "decoder_flavor": "llama-100M",
+              "text_vocab_size": 128_256, "audio_vocab_size": 2051,
+              "audio_num_codebooks": 32}
+CSM_FRAMES = 25  # 2 s of audio a greedy generate
+CSM_TEXT = "The port speaks with a borrowed voice."
+CSM_BATCH_TEXTS = ["One short line.", "A second line, a little longer.",
+                   "Three.", "And the fourth line closes the batch."]
+CSM_REF_TEXT = "This is the reference voice."
+CSM_KERNEL_GROUPS = (("qmm_kernel", "quantized_matmul (this repo)"),
+                     ("depth_draft_kernel", "depth_draft (this repo)"),
+                     ("gemm", "cuBLAS"), ("xmma", "cuBLAS"),
+                     ("elementwise", "elementwise"), ("reduce", "reduction"),
+                     ("index", "gather / scatter"), ("softmax", "softmax"))
+
+
+class StubTokenizer:
+    """Llama-3-sized token ids from characters (no tokenizer files ship)."""
+
+    def encode(self, text: str) -> list:
+        return [128_000] + [1_000 + (ord(c) * 7_919) % 120_000 for c in text] + [128_001]
+
+
+def build_csm():
+    from mlx_audio_tpu_torch.models.tts.sesame import Model
+    from mlx_audio_tpu_torch.nn.quantize import quantize_model
+
+    t0 = time.perf_counter()
+    model = Model(CSM_CONFIG, text_tokenizer=StubTokenizer(), device="cuda")
+    # codes past Mimi's 2048 bins (the audio vocabulary has 2051) decode to
+    # NaN; a trained CSM does not emit them, so neither do these random
+    # weights: their logits are held at 0, below the top of 2048 random ones
+    bins = model.mimi.cfg.quantizer_bins
+    with torch.no_grad():
+        model.model.codebook0_head.weight[bins:] = 0
+        model.model.audio_head[..., bins:] = 0
+    quantize_model(model.model, group_size=128, bits=8)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    nbytes = sum(t.numel() * t.element_size() for t in model.model.state_dict().values())
+    print(f"CSM-1B built and quantized (int8, groups of 128) in "
+          f"{time.perf_counter() - t0:.1f} s; LM state {nbytes / 1e9:.3f} GB",
+          flush=True)
+    return model
+
+
+def _check_results(name, results, frames=None):
+    if not results:
+        fail(f"{name}: no audio")
+    for r in results:
+        if not (r.samples == 1920 * r.token_count and r.token_count > 0
+                and np.isfinite(r.audio).all()):
+            fail(f"{name}: {r.samples} samples for {r.token_count} frames")
+        if frames is not None and r.token_count != frames:
+            fail(f"{name}: {r.token_count} frames, expected {frames}")
+
+
+def csm_runs(model, launches: dict) -> dict:
+    """The entry points: greedy generate without and with spec decode (the
+    frames must be equal), generate_batch, sampled generate with spec."""
+    from mlx_audio_tpu_torch.nn import kernels
+
+    ref = (np.random.default_rng(0).standard_normal(48_000) * 0.1).astype(np.float32)
+    kw = dict(ref_audio=ref, ref_text=CSM_REF_TEXT,
+              max_audio_length_ms=CSM_FRAMES * 80)
+    decoded = []
+    decode = model.mimi.decode
+
+    def recording_decode(codes):
+        decoded.append(codes.clone())
+        return decode(codes)
+
+    model.mimi.decode = recording_decode
+    # the operands of quantized_matmul's first call at each shape the path
+    # gives it, to hold the kernel against its plain version there
+    path_calls = {}
+    qmm = kernels.quantized_matmul
+
+    def recording_qmm(x, codes, scales, biases, group_size, packed=False):
+        key = (x.shape[0], x.shape[1], codes.shape[0], group_size, packed)
+        if key not in path_calls:
+            path_calls[key] = (x.clone(), codes, scales, biases, group_size, packed)
+        return qmm(x, codes, scales, biases, group_size, packed)
+
+    kernels.quantized_matmul = recording_qmm
+    wall = {}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        launches[name] = dict(kernels.LAUNCHES)
+        return out
+
+    try:
+        plain = run("csm_generate", lambda: list(
+            model.generate(CSM_TEXT, temperature=0.0, **kw)))
+        model.model.enable_spec_decode()
+        model.model.spec_stats = [0, 0]
+        spec = run("csm_generate_spec", lambda: list(
+            model.generate(CSM_TEXT, temperature=0.0, **kw)))
+        accept = model.model.spec_stats[:]
+        batch = run("csm_generate_batch", lambda: model.generate_batch(
+            CSM_BATCH_TEXTS, temperature=0.0, **kw))
+        sampled = run("csm_generate_spec_sampled", lambda: list(
+            model.generate(CSM_TEXT, temperature=0.9, top_k=50, seed=3, **kw)))
+    finally:
+        model.mimi.decode = decode
+        kernels.quantized_matmul = qmm
+    _check_results("csm generate", plain, CSM_FRAMES)
+    _check_results("csm generate (spec)", spec, CSM_FRAMES)
+    _check_results("csm generate_batch", batch)
+    _check_results("csm generate (spec, sampled)", sampled)
+    if not torch.equal(decoded[0], decoded[1]):
+        n = int((decoded[0] != decoded[1]).sum())
+        fail(f"csm: greedy frames differ with spec decode ({n} codes)")
+    for name, need in (("csm_generate", ("quantized_matmul",)),
+                       ("csm_generate_spec", ("quantized_matmul", "depth_draft")),
+                       ("csm_generate_batch", ("quantized_matmul",)),
+                       ("csm_generate_spec_sampled", ("quantized_matmul", "depth_draft"))):
+        missing = [k for k in need if launches[name][k] == 0]
+        if missing:
+            fail(f"{name}: kernels never launched: {missing}")
+    path_err, bad = 0.0, []
+    for key, args in sorted(path_calls.items()):
+        got, ref = qmm(*args), kernels.quantized_matmul_plain(*args)
+        err = float((got - ref).abs().max())
+        path_err = max(path_err, err)
+        if not torch.allclose(got, ref, **TOL):
+            bad.append(f"rows {key[0]} I={key[1]} O={key[2]}: {err:.3e}")
+    if bad:
+        fail("quantized_matmul disagrees with its plain version at the CSM "
+             "path's shapes: " + "; ".join(bad))
+    print(f"quantized_matmul at the {len(path_calls)} (rows, I, O) the CSM "
+          f"path gave it, on the path's own operands: max_abs_err "
+          f"{path_err:.3e} (atol {TOL['atol']}, rtol {TOL['rtol']}) ok; rows "
+          + ", ".join(str(n) for n in sorted({k[0] for k in path_calls}))
+          + "; (I, O) " + ", ".join(f"({i}, {o})" for i, o in
+                                   sorted({k[1:3] for k in path_calls})), flush=True)
+    print(f"csm: greedy frames equal with and without spec decode "
+          f"({CSM_FRAMES} frames x 32 codebooks); draft accepted "
+          f"{accept[0]} of {accept[1]} tokens ({accept[0] / max(accept[1], 1):.4f}); "
+          f"wall s: " + ", ".join(f"{k} {v:.3f}" for k, v in wall.items())
+          + "; generate_batch frames "
+          + ", ".join(str(r.token_count) for r in batch), flush=True)
+    return {"accept": accept, "wall": wall, "qmm_path_err": path_err,
+            "qmm_path_shapes": len(path_calls)}
+
+
+def csm_breakdown(model) -> dict:
+    """One spec-decode batch-1 generation through the model's own steps,
+    synced between them: prefill, frame loop, Mimi; then a profiled frame
+    loop."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mlx_audio_tpu_torch.models.tts.sesame import Segment
+
+    ref = (np.random.default_rng(1).standard_normal(48_000) * 0.1).astype(np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prompt = model._prompt(CSM_TEXT, [Segment(0, CSM_REF_TEXT, ref)], 0, True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        caches, pad_len, last_h = model._prefill([prompt], CSM_FRAMES)
+        first = model.model.first_frame(last_h, 0.0, 0, model.generator)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        rest = model._frame_chunk(caches, pad_len, first, CSM_FRAMES - 1, 0.0, 0)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        codes = torch.cat([first[None], rest]).permute(1, 2, 0)
+        audio = model.mimi.decode(codes)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+    audio_s = audio.shape[-1] / 24_000
+    out = {"ref_encode_s": t1 - t0, "prefill_s": t2 - t1, "frame_loop_s": t3 - t2,
+           "mimi_decode_s": t4 - t3, "frames": CSM_FRAMES,
+           "frames_per_s": (CSM_FRAMES - 1) / (t3 - t2),
+           "real_time_factor": (t4 - t0) / audio_s,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print("csm breakdown (batch 1, greedy, spec decode, int8): " + ", ".join(
+        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in out.items()),
+        flush=True)
+
+    with torch.no_grad():
+        caches, pad_len, last_h = model._prefill([prompt], CSM_FRAMES)
+        first = model.model.first_frame(last_h, 0.0, 0, model.generator)
+        model._frame_chunk(caches, pad_len, first, 2, 0.0, 0)  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model._frame_chunk(caches, pad_len, first, 4, 0.0, 0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        tot, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+    if not spans:
+        print("csm profile: the profiler recorded no device time (not measured)")
+        return out
+    spans.sort()
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s_, e_ in spans[1:]:
+        if s_ > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s_, e_
+        else:
+            cur_e = max(cur_e, e_)
+    busy += cur_e - cur_s
+    window = spans[-1][1] - spans[0][0]
+    groups = {}
+    for name, (ms, n) in by_name.items():
+        group = next((g for key, g in CSM_KERNEL_GROUPS if key in name), "other")
+        groups[group] = groups.get(group, 0.0) + ms
+    device_ms = sum(ms for ms, _ in by_name.values())
+    print(f"csm profile of 4 spec-decode frames: wall {1e3 * wall:.1f} ms, device "
+          f"busy {busy / 1e3:.1f} ms of a {window / 1e3:.1f} ms kernel window "
+          f"(idle share {1 - busy / window:.4f}), {sum(n for _, n in by_name.values())} "
+          f"kernels")
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"  {group:28s} {ms:10.3f} ms  {ms / device_ms:7.2%}")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        print(f"  {ms:10.3f} ms {n:6d}x  {name[:90]}")
+    out["profile_idle_share"] = 1 - busy / window
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -461,8 +907,8 @@ def main() -> int:
     bench = bench_pass(run_once)
     launches["bench"] = dict(kernels.LAUNCHES)
     per_call = {k: v // bench["calls"] for k, v in launches["bench"].items()}
-    for phase, counts in launches.items():
-        missing = [k for k, v in counts.items() if v == 0]
+    for phase in ("entry_points", "bench"):
+        missing = [k for k in KOKORO_KERNELS if launches[phase][k] == 0]
         if missing:
             fail(f"phase {phase}: kernels never launched: {missing}")
     print(f"launches: {json.dumps(launches)}; per bench synthesis call "
@@ -476,22 +922,42 @@ def main() -> int:
           f"stage {bench['synthesis_stage_s']:.4f} s; iterations "
           f"{', '.join(f'{t:.4f}' for t in bench['iter_s'])} s), peak {bench['peak_memory_gb']:.2f} GB, on {card}")
     profile_pass(run_once)
+    del model, run_once
+    torch.cuda.empty_cache()
+
+    csm = build_csm()
+    csm_run = csm_runs(csm, launches)
+    csm_breakdown(csm)
+    csm_phases = [k for k in launches if k.startswith("csm_")]
+    print(f"csm launches: {json.dumps({k: launches[k] for k in csm_phases})}; "
+          f"per spec-decode frame: " + json.dumps({
+              k: launches["csm_generate_spec"][k] / CSM_FRAMES
+              for k in ("quantized_matmul", "depth_draft")}))
 
     kernel_line = []
     for name, (source, replaces) in KERNEL_INFO.items():
         cases = records[name]
         head = max(cases, key=lambda r: r["bound_ms"])
-        kernel_line.append({
+        main = ("entry_points", "bench") if name in KOKORO_KERNELS else csm_phases
+        entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": launches["entry_points"][name] + launches["bench"][name],
-            "launches_per_synthesis": per_call[name],
+            "launches": sum(launches[p][name] for p in main),
             "max_abs_err": max(r["max_abs_err"] for r in cases),
             "shape": head["shape"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "cases": cases,
-        })
+            "cases": len(cases),
+        }
+        if name == "quantized_matmul":
+            entry["max_abs_err"] = max(entry["max_abs_err"], csm_run["qmm_path_err"])
+            entry["path_shapes"] = csm_run["qmm_path_shapes"]
+        if name in KOKORO_KERNELS:
+            entry["launches_per_synthesis"] = per_call[name]
+        else:
+            entry["launches_per_spec_frame"] = (
+                launches["csm_generate_spec"][name] / CSM_FRAMES)
+        kernel_line.append(entry)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernel_line}))

@@ -20,11 +20,15 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNELS = ("lstm", "dilated_conv1d", "banded_conv1d")
+KERNELS = ("lstm", "dilated_conv1d", "banded_conv1d", "quantized_matmul",
+           "depth_draft")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# depth_draft must round every product and sum as its plain version does:
+# no contracted multiply-adds
+EXTRA_FLAGS = {"depth_draft": ("--fmad=false",)}
 NVCC_TIMEOUT_S = 600
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -45,7 +49,7 @@ def nvcc_path() -> str:
 
 
 def _digest(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + EXTRA_FLAGS.get(name, ())).encode())
     for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
@@ -66,7 +70,8 @@ def build(names=KERNELS) -> dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+        cmd = [nvcc_path(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()),
+               "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)

@@ -1,0 +1,8 @@
+from mlx_audio_tpu_torch.codec.mimi.mimi import (
+    Mimi,
+    MimiConfig,
+    mimi_202407,
+    mimi_from_hf_config,
+)
+
+__all__ = ["Mimi", "MimiConfig", "mimi_202407", "mimi_from_hf_config"]

@@ -10,12 +10,17 @@ stores them in torch's layouts, so:
 * WN ``weight_g`` ``[1, 1, Cout]`` (conv, output axis) or ``[1, Cin, 1]``
   (transposed conv, input axis) -> ``[C, 1, 1]`` on the same axis;
 * everything else (linear ``[out, in]``, LSTM, norms, embeddings, snake
-  alphas) keeps its layout and name.
+  alphas, CSM's ``audio_head`` [nc-1, Dm, V], RoPE tables, quantized uint8
+  codes with their float32 scales and biases) keeps its layout, dtype and
+  name.
 
-In Kokoro the transposed convs are the ``ups`` upsamplers and the ``pool``
-depthwise upsamplers, recognised by a path component of that name, as the
-JAX package's ``sanitize`` recognises them.  Tests feed it ``dict(named_arrays(jax_model))`` as numpy arrays; the
-port never imports JAX to use it.
+The transposed convs are recognised by a path component, as the JAX
+package's sanitizers recognise them: in Kokoro the ``ups`` upsamplers and
+the ``pool`` depthwise upsamplers; in Mimi ``upsample`` (SEANet's
+``DecoderLayer.upsample`` and Mimi's depthwise ``upsample``).  Mimi's
+``downsample`` is an ordinary conv.  Tests feed it
+``dict(named_arrays(jax_model))`` as numpy arrays; the port never imports
+JAX to use it.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ import torch
 
 def _is_transposed_conv(key: str) -> bool:
     parts = key.split(".")
-    return "ups" in parts or "pool" in parts
+    return "ups" in parts or "pool" in parts or "upsample" in parts
 
 
 def params_from_jax(named: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:

@@ -11,6 +11,7 @@ from mlx_audio_tpu_torch.nn.layers import (
     InstanceNorm1d,
     LayerNorm,
     Linear,
+    RMSNorm,
     WNConv1d,
     WNConvTranspose1d,
     conv1d,
@@ -24,7 +25,7 @@ from mlx_audio_tpu_torch.nn.layers import (
 from mlx_audio_tpu_torch.nn.recurrent import LSTM, lstm_scan, masked_flip
 
 __all__ = [
-    "Linear", "Embedding", "LayerNorm", "InstanceNorm1d", "AdaIN1d",
+    "Linear", "Embedding", "LayerNorm", "RMSNorm", "InstanceNorm1d", "AdaIN1d",
     "AdaLayerNorm", "Conv1d", "WNConv1d", "WNConvTranspose1d", "Identity",
     "conv1d", "conv1d_route", "conv_transpose1d",
     "depthwise_conv_transpose1d", "weight_norm", "get_padding", "leaky_relu",

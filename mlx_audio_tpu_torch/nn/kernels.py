@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels: wrappers, plain versions, counters.
 
-Counterpart of ``mlx_audio_tpu/nn/pallas_ops.py``.  Three kernels carry the
-Kokoro-82M main path:
+Counterpart of ``mlx_audio_tpu/nn/pallas_ops.py`` and of the kernel in
+``mlx_audio_tpu/nn/pallas_depth.py``.  Three kernels carry the Kokoro-82M
+main path:
 
 * ``lstm`` (``csrc/lstm.cu``) replaces ``lstm_pallas``;
 * ``dilated_conv1d`` (``csrc/dilated_conv1d.cu``) replaces
@@ -10,30 +11,44 @@ Kokoro-82M main path:
   ``banded_conv1d_pallas``, with ``banded_weight`` the port of
   ``_banded_weight``.
 
+Two carry CSM-1B's quantized, speculative decode:
+
+* ``quantized_matmul`` (``csrc/quantized_matmul.cu``) replaces
+  ``quantized_matmul``;
+* ``depth_draft`` (``csrc/depth_draft.cu``) replaces
+  ``depth_draft_pallas``; its plain version is
+  ``nn.pallas_depth.depth_draft_plain``.
+
 Each wrapper takes its plain PyTorch version for a tensor that lies on the
 CPU, and only then.  For a CUDA tensor it launches the kernel or raises:
 there is no fallback.  Every launch adds one to the kernel's entry in
 ``LAUNCHES``, so a run can show that it went through the kernels.  The
-kernels take float32 only (bf16 is a later slice).
+kernels take float32 activations only (bf16 is a later slice).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
 
 from mlx_audio_tpu_torch import build
+from mlx_audio_tpu_torch.nn.pallas_depth import PackedDepth, depth_draft_plain
 
-LAUNCHES = {"lstm": 0, "dilated_conv1d": 0, "banded_conv1d": 0}
+LAUNCHES = {"lstm": 0, "dilated_conv1d": 0, "banded_conv1d": 0,
+            "quantized_matmul": 0, "depth_draft": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     "lstm": ("lstm_forward", [_P] * 8 + [_I] * 3 + [_P]),
     "dilated_conv1d": ("dilated_conv1d_forward", [_P] * 3 + [_I] * 6 + [_P]),
     "banded_conv1d": ("banded_conv1d_forward", [_P] * 3 + [_I] * 5 + [_P]),
+    "quantized_matmul": ("quantized_matmul_forward", [_P] * 5 + [_I] * 5 + [_P]),
+    "depth_draft": ("depth_draft_forward", [_P] * 24 + [_I] * 12 + [_F] * 2 + [_P]),
 }
 
 # shared memory one Hopper block may use (227 KB)
@@ -72,11 +87,12 @@ def _launch(name: str, device: torch.device, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def _on_cpu(name: str, *tensors: torch.Tensor) -> bool:
+def _on_cpu(name: str, *tensors: torch.Tensor, other=()) -> bool:
     """True when the plain version serves the call; checks what the kernel
-    takes when it does not."""
+    takes when it does not: ``tensors`` float32, ``other`` any dtype, all
+    contiguous and on one device."""
     dev = tensors[0].device
-    if any(t.device != dev for t in tensors):
+    if any(t.device != dev for t in (*tensors, *other)):
         raise ValueError(f"{name}: tensors on different devices")
     if dev.type == "cpu":
         return True
@@ -85,8 +101,8 @@ def _on_cpu(name: str, *tensors: torch.Tensor) -> bool:
     for t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f"{name} kernel takes float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} kernel takes contiguous tensors")
+    if not all(t.is_contiguous() for t in (*tensors, *other)):
+        raise ValueError(f"{name} kernel takes contiguous tensors")
     return False
 
 
@@ -241,3 +257,107 @@ def banded_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _launch("banded_conv1d", x.device, x.data_ptr(), wb.data_ptr(),
             out.data_ptr(), b, l, c, c_out, k)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Weight-only dequantize-matmul
+# ---------------------------------------------------------------------------
+
+
+def quantized_matmul_plain(x, codes, scales, biases, group_size: int,
+                           packed: bool = False):
+    """Plain version: dequantize the whole weight, then one matmul."""
+    q = torch.cat([codes & 0xF, codes >> 4], dim=-1) if packed else codes
+    o, i = q.shape
+    w = (q.reshape(o, i // group_size, group_size).to(scales.dtype)
+         * scales[..., None] + biases[..., None]).reshape(o, i)
+    return x @ w.t()
+
+
+def quantized_matmul(x: torch.Tensor, codes: torch.Tensor,
+                     scales: torch.Tensor, biases: torch.Tensor,
+                     group_size: int, packed: bool = False) -> torch.Tensor:
+    """y [B, O] = x [B, I] @ (q * scale + bias)^T with grouped affine uint8
+    codes [O, I], or two 4-bit codes a byte [O, I/2] in the concat-half
+    layout when ``packed``; scales and biases [O, I / group_size].  The
+    dense weight is never formed."""
+    if _on_cpu("quantized_matmul", x, scales, biases, other=(codes,)):
+        return quantized_matmul_plain(x, codes, scales, biases, group_size,
+                                      packed)
+    rows, i = x.shape
+    o, stored = codes.shape
+    groups = i // group_size if group_size > 0 else 0
+    if (codes.dtype != torch.uint8 or group_size <= 0 or i % group_size
+            or stored != (i // 2 if packed else i) or (packed and i % 2)
+            or scales.shape != (o, groups) or biases.shape != (o, groups)
+            or rows < 1):
+        raise ValueError(
+            f"quantized_matmul: x {tuple(x.shape)}, codes {tuple(codes.shape)} "
+            f"{codes.dtype}, scales {tuple(scales.shape)}, group_size "
+            f"{group_size}, packed {packed}")
+    y = torch.empty((rows, o), device=x.device, dtype=torch.float32)
+    _launch("quantized_matmul", x.device, x.data_ptr(), codes.data_ptr(),
+            scales.data_ptr(), biases.data_ptr(), y.data_ptr(), rows, i, o,
+            group_size, int(packed))
+    return y
+
+
+# ---------------------------------------------------------------------------
+# CSM depth-decoder draft (30 sequential int8 steps in one launch)
+# ---------------------------------------------------------------------------
+
+# depth_draft.cu reads a token's logits into registers, 8 per thread of a
+# 512-thread block
+DRAFT_MAX_VPAD = 8 * 512
+
+
+def depth_draft(packed: PackedDepth, cache_k0: torch.Tensor,
+                cache_v0: torch.Tensor, c1: torch.Tensor, noise: torch.Tensor,
+                vocab: int, temp: float = 0.0, top_k: int = 0) -> torch.Tensor:
+    """Draft c2..c31 of one CSM frame, the signature of
+    ``depth_draft_pallas``: caches [L, Hkv, Cap, Dh] float32 with positions
+    0 and 1 filled, c1 a 0-dim (or [1]) integer tensor, noise [S, Vp]
+    Gumbel rows (zeros when greedy).  Returns int32 tokens [S]."""
+    tensors = (cache_k0, cache_v0, noise, packed.sqkv, packed.so, packed.sgu,
+               packed.sdown, packed.norms, packed.final_norm, packed.sheads,
+               packed.rope_cos, packed.rope_sin)
+    other = (packed.wqkv, packed.wo, packed.wgu, packed.wdown, packed.heads,
+             packed.emb_proj)
+    if _on_cpu("depth_draft", *tensors, other=other):
+        return depth_draft_plain(packed, cache_k0, cache_v0, c1, noise, vocab,
+                                 temp, top_k)
+    n_layers, hkv, cap, dh = cache_k0.shape
+    cqkv, dm = packed.wqkv.shape[1:]
+    f_inter = packed.wdown.shape[2]
+    n_steps, vpad = noise.shape
+    hq = cqkv // dh - 2 * hkv
+    if (any(t.dtype != torch.int8 for t in other[:5])
+            or packed.emb_proj.dtype != torch.bfloat16
+            or dm % 128 or (hq * dh) % 128 or f_inter % 128 or dh % 2
+            or hq < hkv or hq % hkv or vpad > DRAFT_MAX_VPAD
+            or not 0 < vocab <= vpad or packed.heads.shape[:2] != (n_steps, vpad)
+            or n_steps + 2 > min(cap, packed.rope_cos.shape[0])
+            or cache_v0.shape != cache_k0.shape
+            # the kernel reads the int8 rows with 16-byte loads
+            or any(t.data_ptr() % 16 for t in other[:5])):
+        raise ValueError(
+            f"depth_draft: pack {tuple(packed.wqkv.shape)}, heads "
+            f"{tuple(packed.heads.shape)}, cache {tuple(cache_k0.shape)}, "
+            f"noise {tuple(noise.shape)}, vocab {vocab}")
+    dev = cache_k0.device
+    kc, vc = cache_k0.clone(), cache_v0.clone()
+    c1 = c1.reshape(1).to(device=dev, dtype=torch.int32)
+    tokens = torch.empty(n_steps, device=dev, dtype=torch.int32)
+    f32 = dict(device=dev, dtype=torch.float32)
+    qkv, y = torch.empty(cqkv, **f32), torch.empty(dm, **f32)
+    h, logits = torch.empty(f_inter, **f32), torch.empty(vpad, **f32)
+    ptrs = [t.data_ptr() for t in (
+        packed.wqkv, packed.sqkv, packed.wo, packed.so, packed.wgu,
+        packed.sgu, packed.wdown, packed.sdown, packed.norms,
+        packed.final_norm, packed.heads, packed.sheads, packed.emb_proj,
+        packed.rope_cos, packed.rope_sin, kc, vc, noise, c1, tokens, qkv, y,
+        h, logits)]
+    _launch("depth_draft", dev, *ptrs, n_layers, dm, f_inter, hq, hkv, dh,
+            cap, vocab, vpad, n_steps, top_k, packed.rope_cos.shape[0],
+            float(temp), 1.0 / math.sqrt(dh))
+    return tokens

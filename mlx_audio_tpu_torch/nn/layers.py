@@ -1,5 +1,5 @@
 """Shared building blocks: the subset of ``mlx_audio_tpu/nn/layers.py`` that
-Kokoro uses, in PyTorch.
+Kokoro, Llama and Mimi use, in PyTorch.
 
 Conventions:
 
@@ -102,6 +102,24 @@ class LayerNorm(nn.Module):
         mean = x.mean(-1, keepdim=True)
         var = x.var(-1, keepdim=True, correction=0)
         return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+
+
+class RMSNorm(nn.Module):
+    """x / rms(x) * weight, normalised in float32."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = _param(dim)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + self.eps)
+        return (y * self.weight).to(x.dtype)
 
 
 class InstanceNorm1d(nn.Module):

@@ -78,3 +78,60 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         kernels.dilated_conv1d(x, w)
     with pytest.raises(ValueError):
         kernels.banded_conv1d(x.float().transpose(1, 2), w.float())
+
+
+@pytest.mark.parametrize("rows,i,o,gs,bits", [(1, 2048, 384, 128, 8),
+                                               (3, 1024, 200, 64, 4),
+                                               (37, 512, 130, 16, 8),
+                                               (9, 96, 40, 6, 4)])
+def test_quantized_matmul_kernel_matches_plain(cuda, rows, i, o, gs, bits):
+    from mlx_audio_tpu_torch.nn.layers import Linear
+    from mlx_audio_tpu_torch.nn.quantize import QuantizedLinear
+
+    rng = np.random.default_rng(3)
+    lin = Linear(i, o, bias=False)
+    lin.weight.data = _randn(rng, (o, i), 0.2, "cpu")
+    q = QuantizedLinear.from_linear(lin, group_size=gs, bits=bits).to(cuda)
+    x = _randn(rng, (rows, i), 0.5, cuda)
+    args = (x, q.weight, q.scales, q.biases, gs, q.packed)
+    before = kernels.LAUNCHES["quantized_matmul"]
+    got = kernels.quantized_matmul(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["quantized_matmul"] == before + 1
+    torch.testing.assert_close(got, kernels.quantized_matmul_plain(*args), **TOL)
+
+
+@pytest.mark.parametrize("temp,top_k", [(0.0, 0), (0.9, 20)])
+def test_depth_draft_kernel_gives_the_plain_tokens(cuda, temp, top_k):
+    from mlx_audio_tpu_torch.models.lm.llama import LlamaConfig, LlamaModel
+    from mlx_audio_tpu_torch.nn.pallas_depth import depth_draft_plain, pack_depth
+
+    nc, vocab, db = 8, 200, 192
+    cfg = LlamaConfig(num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, head_dim=128, hidden_size=256,
+                      intermediate_size=512, rms_norm_eps=1e-5,
+                      vocab_size=vocab, max_position_embeddings=64,
+                      rope_theta=500_000)
+    gen = torch.Generator().manual_seed(0)
+    dec = LlamaModel(cfg, use_embed_tokens=False)
+    for m in dec.modules():
+        if m is not dec and hasattr(m, "init_weights"):
+            m.init_weights(gen)
+    dec = dec.to(cuda)
+    rng = np.random.default_rng(4)
+    packed = pack_depth(dec, _randn(rng, (db, 256), 0.05, cuda),
+                        _randn(rng, (nc - 1, 256, vocab), 0.1, cuda),
+                        _randn(rng, (nc * vocab, db), 0.1, cuda), vocab)
+    kc = torch.zeros(2, 2, 40, 128, device=cuda)
+    vc = torch.zeros_like(kc)
+    kc[:, :, :2] = _randn(rng, (2, 2, 2, 128), 0.3, cuda)
+    vc[:, :, :2] = _randn(rng, (2, 2, 2, 128), 0.3, cuda)
+    vpad = packed.heads.shape[1]
+    noise = (torch.as_tensor(rng.gumbel(size=(nc - 2, vpad)), dtype=torch.float32,
+                             device=cuda) if temp > 0
+             else torch.zeros(nc - 2, vpad, device=cuda))
+    c1 = torch.tensor(3, device=cuda)
+    got = kernels.depth_draft(packed, kc, vc, c1, noise, vocab, temp, top_k)
+    torch.cuda.synchronize()
+    ref = depth_draft_plain(packed, kc, vc, c1, noise, vocab, temp, top_k)
+    assert torch.equal(got.cpu(), ref.cpu())
