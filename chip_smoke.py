@@ -1,23 +1,28 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``mlx_audio_tpu_torch``) on one NVIDIA GPU:
-Kokoro-82M synthesis and CSM-1B speech through int8 decode, and check its
-hand-written CUDA kernels.
+Kokoro-82M synthesis, CSM-1B speech through int8 decode (whole and
+streamed), the depth-draft probes, and check its hand-written CUDA
+kernels.
 
     python3 chip_smoke.py
 
 Phases; the failure of any one ends the script with a non-zero exit:
 
-1. print the card (``nvidia-smi``), torch and CUDA versions; build the five
+1. print the card (``nvidia-smi``), torch and CUDA versions; build the eight
    kernels from ``mlx_audio_tpu_torch/csrc/`` with ``nvcc`` for ``sm_90a``
    into ``mlx_audio_tpu_torch/csrc/build/`` (one ``nvcc`` each, together);
 2. hold every kernel against its plain PyTorch version on the card at the
    main paths' shapes (float32, TF32 off): the three Kokoro-82M kernels,
    ``quantized_matmul`` at every projection of CSM-1B's path (int8, 1 to
    128 rows; int4 at the llama-1B ones) and ``depth_draft`` on a full
-   llama-100M pack (greedy and sampled, tokens equal); time kernel, plain
-   version and one library call (``quantized_matmul``'s operands cold in
-   L2), and print where the kernel and the dequantize-and-matmul path
-   cross;
+   llama-100M pack (greedy and sampled, tokens equal), and the three
+   depth-draft probes at the full probe shape (4 layers x 1024 x 28672,
+   chunks of 4096, 30 steps; every mode in int8, the stream modes in bf16
+   too; results equal); time kernel, plain version and one library call
+   (``quantized_matmul``'s operands cold in L2), and print where the
+   kernel and the dequantize-and-matmul path cross;
+   then run the probes' entry point (``scripts/probe_depth.py``, every
+   mode, int8 and bf16);
 3. run Kokoro-82M's ``Model.generate``, ``Model.generate_batch`` and
    ``Model.synthesize_batch`` at full width with seeded random weights;
 4. run the Kokoro bench-shaped pass (batch 8, phoneme bucket 512, frame
@@ -28,15 +33,19 @@ Phases; the failure of any one ends the script with a non-zero exit:
    Mimi with 32 codebooks, seeded random weights, ``quantize_model`` to
    int8 in groups of 128, a stub tokenizer, 2 s of seeded reference audio):
    greedy ``generate`` without and with ``enable_spec_decode()`` (the frames
-   must be equal), ``generate_batch`` of 4 texts, and one sampled
-   ``generate`` with spec decode; ``quantized_matmul`` held against its
+   must be equal), the same with ``stream=True`` (chunks of 3, 4, then 6
+   frames through the stateful Mimi decoder; frames equal, audio within
+   1e-3; time to first audio and each chunk's real-time factor),
+   ``generate_batch`` of 4 texts, and one sampled ``generate`` with spec
+   decode; ``quantized_matmul`` held against its
    plain version on the operands of its first call at each (rows, I, O)
    these runs gave it; then a timed breakdown (prefill, frame loop, Mimi)
    and a ``torch.profiler`` view of the spec-decode frame loop;
 6. print one ``{"kernels": [...]}`` line, then the device line last.
 
-Launch counters are set to 0 just before each run of phases 3 to 5 and read
-just after: each kernel of a run's path must have launched in it.  Needs
+Launch counters are set to 0 just before each run of the probes' entry
+point and of phases 3 to 5, and read just after: each kernel of a run's
+path must have launched in it.  Needs
 one CUDA card and the repository checkout around this file; it imports
 nothing of JAX.
 """
@@ -77,9 +86,16 @@ KERNEL_INFO = {
                          "mlx_audio_tpu/nn/pallas_ops.py:170"),
     "depth_draft": ("mlx_audio_tpu_torch/csrc/depth_draft.cu",
                     "mlx_audio_tpu/nn/pallas_depth.py:424"),
+    "probe_depth": ("mlx_audio_tpu_torch/csrc/probe_depth.cu",
+                    "scripts/probe_depth.py:63"),
+    "probe_vpu": ("mlx_audio_tpu_torch/csrc/probe_vpu.cu",
+                  "scripts/probe_depth.py:148"),
+    "probe_auto": ("mlx_audio_tpu_torch/csrc/probe_auto.cu",
+                   "scripts/probe_depth.py:177"),
 }
 # the kernels each main-path run must launch
 KOKORO_KERNELS = ("lstm", "dilated_conv1d", "banded_conv1d")
+PROBE_KERNELS = ("probe_depth", "probe_vpu", "probe_auto")
 
 # Kokoro phoneme alphabet text: the pipeline's fallback G2P passes it
 # through unchanged.
@@ -382,6 +398,79 @@ def _draft_cases(gen):
         }
 
 
+# The depth-draft probes' shape (scripts/probe_depth.py's defaults): one
+# draft step streams 4 layers of [1024, 28 * 1024] weights in chunks of 4096
+# columns, 30 steps a run
+PROBE_LAYERS, PROBE_DM, PROBE_COLS, PROBE_CHUNK, PROBE_STEPS = 4, 1024, 28 * 1024, 4096, 30
+# CUDA-core int8 rate, derived: the data sheet's 67 TFLOP/s of float32 FMAs
+# is one FMA a lane a clock; one dp4a (4 multiply-adds, 8 operations) a lane
+# a clock is assumed, four times that rate
+PEAK_DP4A_OPS = 4 * PEAK_F32_FLOPS
+
+
+def _probe_cases(gen):
+    """The three probe kernels at the full probe shape: the stream modes in
+    int8 and bf16, mxu and vpu in int8; results equal to the plain
+    versions'.  Library calls, each timed once and counted as many times as
+    the probe repeats its work: an int64 torch.sum over one step's weights
+    (x 30, the stream modes), torch._int_mm of x padded to 32 rows with the
+    resident chunk (x 840, mxu), an f32 torch.matmul of x with it (x 840,
+    vpu)."""
+    from mlx_audio_tpu_torch.nn import kernels
+
+    w8 = torch.randint(-127, 127, (PROBE_LAYERS, PROBE_DM, PROBE_COLS),
+                       generator=gen, device="cuda", dtype=torch.int8)
+    x = torch.randint(-127, 127, (1, PROBE_DM), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    x3 = torch.randint(-127, 127, (PROBE_DM // 8, 8, 128), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    steps, reps = PROBE_STEPS, PROBE_LAYERS * PROBE_COLS // PROBE_CHUNK
+    for dtype in (torch.int8, torch.bfloat16):
+        w = w8 if dtype == torch.int8 else w8.to(dtype)
+        chunked = kernels.chunked_layout(w, PROBE_CHUNK)
+        streamed = steps * w.numel() * w.element_size()
+        plain = lambda c=chunked: kernels.probe_stream_plain(c, steps)  # noqa: E731
+        library = lambda w=w: w.sum(dtype=torch.int64)  # noqa: E731
+        name = "int8" if dtype == torch.int8 else "bf16"
+        for mode in ("dma", "dmac", "dma8", "dmabig", "auto"):
+            if mode == "auto":
+                kern = lambda c=chunked: kernels.probe_auto(c, steps)  # noqa: E731
+            elif mode == "dma":
+                kern = lambda w=w: kernels.probe_depth(w, None, "dma", steps, PROBE_CHUNK)  # noqa: E731
+            else:
+                kern = lambda c=chunked, m=mode: kernels.probe_depth(c, None, m, steps)  # noqa: E731
+            yield {
+                "kernel": "probe_auto" if mode == "auto" else "probe_depth",
+                "exact": True, "rule": "results equal", "shape": f"{mode} {name}, 4 x 1024 x 28672, 30 steps",
+                "kernel_fn": kern, "plain_fn": plain, "library_fn": library,
+                "library_repeat": steps, "flops": 0.0, "bytes": float(streamed)}
+        del chunked
+    chunked = kernels.chunked_layout(w8, PROBE_CHUNK)
+    chunk0 = chunked[0].contiguous()
+    xvec = x3[:, :, 0].reshape(-1)
+    dot_ops = 2.0 * PROBE_DM * PROBE_CHUNK * reps * steps
+    x32 = torch.zeros(32, PROBE_DM, device="cuda", dtype=torch.int8)
+    x32[0] = x[0]
+    yield {
+        "kernel": "probe_depth", "exact": True, "rule": "results equal",
+        "shape": f"mxu int8, {reps} matvecs [1, 1024] @ [1024, 4096] a step, 30 steps",
+        "kernel_fn": lambda: kernels.probe_depth(chunked, x, "mxu", steps),
+        "plain_fn": lambda: kernels.probe_dot_plain(chunk0, x, reps * steps),
+        "library_fn": lambda: torch._int_mm(x32, chunk0), "library_repeat": reps * steps,
+        "flops": dot_ops, "bytes": float(chunk0.numel() + PROBE_DM + 8),
+        "peak_ops": PEAK_INT8_OPS}
+    xf, cf = xvec.float()[None], chunk0.float()
+    w3 = chunk0.reshape(PROBE_DM // 8, 8, PROBE_CHUNK)
+    yield {
+        "kernel": "probe_vpu", "exact": True, "rule": "results equal",
+        "shape": f"vpu int8, {reps} matvecs [1, 1024] @ [1024, 4096] a step, 30 steps",
+        "kernel_fn": lambda: kernels.probe_vpu(w3, x3, steps, reps),
+        "plain_fn": lambda: kernels.probe_dot_plain(chunk0, xvec, reps * steps),
+        "library_fn": lambda: torch.matmul(xf, cf), "library_repeat": reps * steps,
+        "flops": dot_ops, "bytes": float(chunk0.numel() + PROBE_DM + 8),
+        "peak_ops": PEAK_DP4A_OPS}
+
+
 def _outputs(res):
     if isinstance(res, torch.Tensor):
         return [res]
@@ -400,7 +489,7 @@ def check_kernels() -> dict:
     records = {name: [] for name in KERNEL_INFO}
     bad = []
     cases = itertools.chain(_lstm_cases(gen), _conv_cases(gen), _qmm_cases(gen),
-                            _draft_cases(gen))
+                            _draft_cases(gen), _probe_cases(gen))
     for case in cases:
         name = case["kernel"]
         before = kernels.LAUNCHES[name]
@@ -425,7 +514,7 @@ def check_kernels() -> dict:
         library_ms = None
         if lib_t is not None:
             with torch.no_grad():
-                library_ms = timer(lib_t, 10)
+                library_ms = timer(lib_t, 10) * case.get("library_repeat", 1)
         bms, by = bound_ms(case["flops"], case["bytes"],
                            case.get("peak_ops", PEAK_F32_FLOPS))
         rec = {"shape": case["shape"], "max_abs_err": err, "ok": ok,
@@ -434,7 +523,7 @@ def check_kernels() -> dict:
                **{k: case[k] for k in ("rows", "bits", "io") if k in case}}
         records[name].append(rec)
         lib = "—" if library_ms is None else f"{library_ms:.3f} ms"
-        rule = "tokens equal" if case.get("exact") else \
+        rule = case.get("rule", "tokens equal") if case.get("exact") else \
             f"atol {TOL['atol']}, rtol {TOL['rtol']}"
         print(f"{name:16s} {case['shape']:52s} max_abs_err {err:.3e} "
               f"({rule}) {'ok' if ok else 'DISAGREES'}  kernel {ms:.3f} ms  "
@@ -468,6 +557,29 @@ def qmm_crossover(recs) -> None:
           + ", ".join(f"I={i} O={o}: {n}" for (i, o), n in best.items())
           + f"; every shape: {min(best.values())}; KERNEL_MAX_ROWS "
           f"{KERNEL_MAX_ROWS}", flush=True)
+
+
+def drive_probes(launches: dict) -> None:
+    """The probes' entry point (``mlx_audio_tpu_torch.scripts.probe_depth``)
+    at its defaults: every mode in int8, then every mode but mxu in bf16.
+    Every stream mode must give one result in both runs (same draws)."""
+    from mlx_audio_tpu_torch.nn import kernels
+    from mlx_audio_tpu_torch.scripts import probe_depth
+
+    stream_sums = set()
+    for dtype in ("int8", "bf16"):
+        modes = [m for m in probe_depth.MODES if dtype == "int8" or m != "mxu"]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        records = probe_depth.run(modes, iters=5, dtype=dtype, device="cuda")
+        torch.cuda.synchronize()
+        launches[f"probes_{dtype}"] = dict(kernels.LAUNCHES)
+        missing = [k for k in PROBE_KERNELS if launches[f"probes_{dtype}"][k] == 0]
+        if missing:
+            fail(f"probe entry point ({dtype}): kernels never launched: {missing}")
+        stream_sums |= {r["checksum"] for r in records if r["mode"] not in ("mxu", "vpu")}
+    if len(stream_sums) != 1:
+        fail(f"probe entry point: stream modes disagree: {sorted(stream_sums)}")
 
 
 # ---------------------------------------------------------------------------
@@ -573,17 +685,11 @@ KERNEL_GROUPS = (("lstm_kernel", "lstm (this repo)"),
                  ("scan", "scan (cumsum)"), ("reduce", "reduction"))
 
 
-def profile_pass(run_once) -> None:
-    """One bench iteration under torch.profiler: device time by kernel
-    group and by kernel, and the device's idle share between the first and
-    the last kernel."""
+def device_time(prof):
+    """From a torch.profiler run: (device-busy us, us from the first kernel's
+    start to the last one's end, {kernel name: (ms, launches)})."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_once(7)
-        wall = time.perf_counter() - t0
     spans, by_name = [], {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -593,8 +699,7 @@ def profile_pass(run_once) -> None:
         tot, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (tot + (end - start) / 1e3, n + 1)
     if not spans:
-        print("profile: the profiler recorded no device time (not measured)")
-        return
+        return 0.0, 0.0, {}
     spans.sort()
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s_, e_ in spans[1:]:
@@ -604,7 +709,23 @@ def profile_pass(run_once) -> None:
         else:
             cur_e = max(cur_e, e_)
     busy += cur_e - cur_s
-    window = spans[-1][1] - spans[0][0]
+    return busy, spans[-1][1] - spans[0][0], by_name
+
+
+def profile_pass(run_once) -> None:
+    """One bench iteration under torch.profiler: device time by kernel
+    group and by kernel, and the device's idle share between the first and
+    the last kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_once(7)
+        wall = time.perf_counter() - t0
+    busy, window, by_name = device_time(prof)
+    if not by_name:
+        print("profile: the profiler recorded no device time (not measured)")
+        return
     groups = {}
     for name, (ms, n) in by_name.items():
         group = next((g for key, g in KERNEL_GROUPS if key in name), "other")
@@ -696,6 +817,21 @@ def csm_runs(model, launches: dict) -> dict:
         return decode(codes)
 
     model.mimi.decode = recording_decode
+    streamed_codes = []
+    decode_stateful = model.mimi.decode_frames_stateful
+
+    def recording_stateful(codes, state):
+        streamed_codes.append(codes.clone())
+        return decode_stateful(codes, state)
+
+    model.mimi.decode_frames_stateful = recording_stateful
+
+    def stream_run():
+        t0, out = time.perf_counter(), []
+        for r in model.generate(CSM_TEXT, temperature=0.0, stream=True, **kw):
+            out.append((r, time.perf_counter() - t0))
+        return out
+
     # the operands of quantized_matmul's first call at each shape the path
     # gives it, to hold the kernel against its plain version there
     path_calls = {}
@@ -728,12 +864,14 @@ def csm_runs(model, launches: dict) -> dict:
         spec = run("csm_generate_spec", lambda: list(
             model.generate(CSM_TEXT, temperature=0.0, **kw)))
         accept = model.model.spec_stats[:]
+        stream = run("csm_generate_spec_stream", stream_run)
         batch = run("csm_generate_batch", lambda: model.generate_batch(
             CSM_BATCH_TEXTS, temperature=0.0, **kw))
         sampled = run("csm_generate_spec_sampled", lambda: list(
             model.generate(CSM_TEXT, temperature=0.9, top_k=50, seed=3, **kw)))
     finally:
         model.mimi.decode = decode
+        model.mimi.decode_frames_stateful = decode_stateful
         kernels.quantized_matmul = qmm
     _check_results("csm generate", plain, CSM_FRAMES)
     _check_results("csm generate (spec)", spec, CSM_FRAMES)
@@ -742,8 +880,10 @@ def csm_runs(model, launches: dict) -> dict:
     if not torch.equal(decoded[0], decoded[1]):
         n = int((decoded[0] != decoded[1]).sum())
         fail(f"csm: greedy frames differ with spec decode ({n} codes)")
+    stream_info = check_stream(stream, streamed_codes, decoded[1], spec[0].audio)
     for name, need in (("csm_generate", ("quantized_matmul",)),
                        ("csm_generate_spec", ("quantized_matmul", "depth_draft")),
+                       ("csm_generate_spec_stream", ("quantized_matmul", "depth_draft")),
                        ("csm_generate_batch", ("quantized_matmul",)),
                        ("csm_generate_spec_sampled", ("quantized_matmul", "depth_draft"))):
         missing = [k for k in need if launches[name][k] == 0]
@@ -772,14 +912,54 @@ def csm_runs(model, launches: dict) -> dict:
           + "; generate_batch frames "
           + ", ".join(str(r.token_count) for r in batch), flush=True)
     return {"accept": accept, "wall": wall, "qmm_path_err": path_err,
-            "qmm_path_shapes": len(path_calls)}
+            "qmm_path_shapes": len(path_calls), "stream": stream_info}
+
+
+# the first chunk, the ramp chunk, then streaming_interval 0.5 s = 6 frames
+STREAM_SCHEDULE = (3, 4) + (6,) * 10
+
+
+def check_stream(stream, streamed_codes, whole_codes, whole_audio) -> dict:
+    """The streamed greedy run against the whole one: chunk sizes 3, 4, then
+    6; the same frames; audio within atol 1e-3.  Prints the time to first
+    audio and each chunk's frames, wall seconds and real-time factor."""
+    sizes = [r.token_count for r, _ in stream]
+    want, left = [], CSM_FRAMES
+    for n in STREAM_SCHEDULE:
+        if left <= 0:
+            break
+        want.append(min(n, left))
+        left -= n
+    if sizes != want:
+        fail(f"csm stream: chunks of {sizes} frames, expected {want}")
+    frames = torch.cat([c[..., :n] for c, n in zip(streamed_codes, sizes)], dim=-1)
+    if not torch.equal(frames, whole_codes):
+        n = int((frames != whole_codes).sum()) if frames.shape == whole_codes.shape else -1
+        fail(f"csm stream: streamed frames differ from the whole generate's ({n} codes)")
+    audio = np.concatenate([r.audio for r, _ in stream])
+    if audio.shape != whole_audio.shape or not np.isfinite(audio).all():
+        fail(f"csm stream: audio {audio.shape}, whole {whole_audio.shape}")
+    err = float(np.abs(audio - whole_audio).max())
+    if err > 1e-3:
+        fail(f"csm stream: audio differs from the whole generate's by {err:.3e}")
+    ends = [t for _, t in stream]
+    walls = [ends[0]] + [b - a for a, b in zip(ends, ends[1:])]
+    rtf = [w / (n * 0.08) for w, n in zip(walls, sizes)]
+    steady = sum(walls[1:]) / (0.08 * sum(sizes[1:]))
+    print(f"csm stream (batch 1, greedy, spec decode, int8, streaming_interval "
+          f"0.5): time to first audio {ends[0]:.4f} s; chunks (frames, wall s, RTF) "
+          + ", ".join(f"({n}, {w:.4f}, {x:.4f})" for n, w, x in zip(sizes, walls, rtf))
+          + f"; after the first chunk RTF {steady:.4f}; frames equal to the whole "
+          f"generate's, audio max abs diff {err:.3e} (atol 1e-3); on {gpu_line()}",
+          flush=True)
+    return {"ttfa_s": ends[0], "chunk_frames": sizes, "chunk_wall_s": walls,
+            "chunk_rtf": rtf, "steady_rtf": steady, "audio_err": err}
 
 
 def csm_breakdown(model) -> dict:
     """One spec-decode batch-1 generation through the model's own steps,
     synced between them: prefill, frame loop, Mimi; then a profiled frame
     loop."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from mlx_audio_tpu_torch.models.tts.sesame import Segment
@@ -823,26 +1003,10 @@ def csm_breakdown(model) -> dict:
             model._frame_chunk(caches, pad_len, first, 4, 0.0, 0)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        spans.append((e.time_range.start, e.time_range.end))
-        tot, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (tot + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
-    if not spans:
+    busy, window, by_name = device_time(prof)
+    if not by_name:
         print("csm profile: the profiler recorded no device time (not measured)")
         return out
-    spans.sort()
-    busy, cur_s, cur_e = 0.0, *spans[0]
-    for s_, e_ in spans[1:]:
-        if s_ > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s_, e_
-        else:
-            cur_e = max(cur_e, e_)
-    busy += cur_e - cur_s
-    window = spans[-1][1] - spans[0][0]
     groups = {}
     for name, (ms, n) in by_name.items():
         group = next((g for key, g in CSM_KERNEL_GROUPS if key in name), "other")
@@ -857,6 +1021,57 @@ def csm_breakdown(model) -> dict:
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"  {ms:10.3f} ms {n:6d}x  {name[:90]}")
     out["profile_idle_share"] = 1 - busy / window
+    return out
+
+
+def csm_stream_breakdown(model) -> dict:
+    """Where a streamed generate's time goes: the same greedy streamed run
+    again (warm), the stateful Mimi decode of 25 frames alone against the
+    batch decode of the same codes, and a profile of one 6-frame stateful
+    decode."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ref = (np.random.default_rng(0).standard_normal(48_000) * 0.1).astype(np.float32)
+    t0, ends = time.perf_counter(), []
+    for r in model.generate(CSM_TEXT, temperature=0.0, stream=True, ref_audio=ref,
+                            ref_text=CSM_REF_TEXT, max_audio_length_ms=CSM_FRAMES * 80):
+        ends.append((r.token_count, time.perf_counter() - t0))
+    mimi = model.mimi
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    codes = torch.randint(0, mimi.cfg.quantizer_bins, (1, mimi.cfg.quantizer_nq, CSM_FRAMES),
+                          generator=gen, device="cuda")
+    times = {}
+    for name, fn in (("stateful", lambda: mimi.decode_frames_stateful(codes, mimi.init_state(1))),
+                     ("batch", lambda: mimi.decode(codes))):
+        fn()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t1
+    state = mimi.init_state(1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        mimi.decode_frames_stateful(codes[..., :6], state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    busy, window, by_name = device_time(prof)
+    out = {"warm_ttfa_s": ends[0][1], "warm_total_s": ends[-1][1],
+           "mimi_stateful_ms_per_frame": 1e3 * times["stateful"] / CSM_FRAMES,
+           "mimi_batch_ms_per_frame": 1e3 * times["batch"] / CSM_FRAMES}
+    print("csm stream breakdown: warm streamed run, time to first audio "
+          f"{ends[0][1]:.4f} s, all {sum(n for n, _ in ends)} frames {ends[-1][1]:.4f} s; "
+          f"Mimi over {CSM_FRAMES} frames: stateful {times['stateful']:.4f} s "
+          f"({out['mimi_stateful_ms_per_frame']:.2f} ms a frame), batch "
+          f"{times['batch']:.4f} s; on {gpu_line()}", flush=True)
+    if by_name:
+        print(f"  profile of a 6-frame stateful decode: wall {1e3 * wall:.1f} ms, "
+              f"device busy {busy / 1e3:.2f} ms of a {window / 1e3:.1f} ms window, "
+              f"{sum(n for _, n in by_name.values())} kernels")
+        for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+            print(f"  {ms:10.3f} ms {n:6d}x  {name[:90]}")
+        out["mimi_profile_busy_ms"] = busy / 1e3
+        out["mimi_profile_wall_ms"] = 1e3 * wall
     return out
 
 
@@ -890,9 +1105,10 @@ def main() -> int:
 
     build_kernels()
     records = check_kernels()
+    launches = {}
+    drive_probes(launches)
 
     model = Model(kokoro_82m_config(), device="cuda")
-    launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         voice = str(Path(tmp) / "voice.npy")
         pack = np.random.default_rng(0).standard_normal((510, 1, 256)) * 0.1
@@ -928,6 +1144,7 @@ def main() -> int:
     csm = build_csm()
     csm_run = csm_runs(csm, launches)
     csm_breakdown(csm)
+    csm_stream_breakdown(csm)
     csm_phases = [k for k in launches if k.startswith("csm_")]
     print(f"csm launches: {json.dumps({k: launches[k] for k in csm_phases})}; "
           f"per spec-decode frame: " + json.dumps({
@@ -938,7 +1155,9 @@ def main() -> int:
     for name, (source, replaces) in KERNEL_INFO.items():
         cases = records[name]
         head = max(cases, key=lambda r: r["bound_ms"])
-        main = ("entry_points", "bench") if name in KOKORO_KERNELS else csm_phases
+        main = (("entry_points", "bench") if name in KOKORO_KERNELS
+                else ("probes_int8", "probes_bf16") if name in PROBE_KERNELS
+                else csm_phases)
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
@@ -954,7 +1173,7 @@ def main() -> int:
             entry["path_shapes"] = csm_run["qmm_path_shapes"]
         if name in KOKORO_KERNELS:
             entry["launches_per_synthesis"] = per_call[name]
-        else:
+        elif name not in PROBE_KERNELS:
             entry["launches_per_spec_frame"] = (
                 launches["csm_generate_spec"][name] / CSM_FRAMES)
         kernel_line.append(entry)

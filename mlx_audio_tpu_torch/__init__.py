@@ -7,8 +7,9 @@ CUDA C++ for Hopper (``csrc/``), compiled at first use (``build.py``); on
 CPU tensors each kernel's plain PyTorch version runs instead.
 
 Ported so far: Kokoro-82M synthesis end to end
-(``mlx_audio_tpu_torch.models.tts.kokoro``), and CSM-1B speech through
-int8 weight-only decode and the speculative depth decode
+(``mlx_audio_tpu_torch.models.tts.kokoro``); CSM-1B speech through int8
+weight-only decode and the speculative depth decode, whole or streamed
 (``mlx_audio_tpu_torch.models.tts.sesame``, with Llama in ``models.lm``,
-Mimi in ``codec.mimi`` and ``nn.quantize``).
+Mimi's batch and stateful paths in ``codec.mimi`` and ``nn.quantize``); and
+the depth-draft probes (``mlx_audio_tpu_torch.scripts.probe_depth``).
 """

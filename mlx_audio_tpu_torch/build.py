@@ -21,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
 KERNELS = ("lstm", "dilated_conv1d", "banded_conv1d", "quantized_matmul",
-           "depth_draft")
+           "depth_draft", "probe_depth", "probe_vpu", "probe_auto")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,17 +1,19 @@
 """Mimi neural codec (Kyutai): 24 kHz audio, 12.5 Hz frames, residual
-codebooks (counterpart of ``mlx_audio_tpu/codec/mimi/mimi.py``), batch
-``encode`` and ``decode``.
+codebooks (counterpart of ``mlx_audio_tpu/codec/mimi/mimi.py``): batch
+``encode`` and ``decode``, and the stateful frame-by-frame path
+(``init_state``, ``encode_step``, ``decode_step``, ``decode_frames``,
+``decode_frames_stateful``) that CSM's streaming generate decodes through.
 
 Contracts: 5 s of 24 kHz audio -> codes [B, nq, 63] -> audio
-[B, 1, 120960].  The streaming (stateful) path and the checkpoint
-sanitizers are later slices; weights load from the JAX package through
-``convert.params_from_jax``.
+[B, 1, 120960].  The checkpoint sanitizers are a later slice; weights load
+from the JAX package through ``convert.params_from_jax``.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -97,6 +99,17 @@ def mimi_from_hf_config(d: dict) -> MimiConfig:
         quantizer_dim=d.get("vector_quantization_hidden_dimension", 256))
 
 
+class MimiState(NamedTuple):
+    """Streaming carry: conv states and the transformers' rotating caches."""
+
+    encoder: dict
+    encoder_tf: list
+    downsample: object
+    decoder: dict
+    decoder_tf: list
+    upsample: object
+
+
 class Mimi(nn.Module):
     def __init__(self, cfg: MimiConfig):
         super().__init__()
@@ -142,3 +155,48 @@ class Mimi(nn.Module):
         x = self.upsample(self.quantizer.decode(codes))
         x = self.decoder_transformer(x)[0]
         return self.decoder(x).transpose(1, 2)
+
+    # -- streaming ---------------------------------------------------------
+
+    def init_state(self, batch: int, dtype=None) -> MimiState:
+        return MimiState(
+            encoder=self.encoder.init_state(batch, dtype),
+            encoder_tf=self.encoder_transformer.init_cache(batch, dtype),
+            downsample=self.downsample.init_state(batch, dtype),
+            decoder=self.decoder.init_state(batch, dtype),
+            decoder_tf=self.decoder_transformer.init_cache(batch, dtype),
+            upsample=self.upsample.init_state(batch, dtype))
+
+    @torch.no_grad()
+    def encode_step(self, state: MimiState, audio: torch.Tensor):
+        """One frame of audio [B, 1920, 1] -> (codes [B, nq, 1], state)."""
+        x, enc = self.encoder.step(state.encoder, audio)
+        outs, tf = self.encoder_transformer.step(state.encoder_tf, x)
+        x, ds = self.downsample.step(state.downsample, outs[0])
+        return self.quantizer.encode(x), state._replace(
+            encoder=enc, encoder_tf=tf, downsample=ds)
+
+    @torch.no_grad()
+    def decode_step(self, state: MimiState, codes: torch.Tensor):
+        """codes [B, nq, 1] -> (audio [B, 1920, 1], state)."""
+        x, up = self.upsample.step(state.upsample, self.quantizer.decode(codes))
+        outs, tf = self.decoder_transformer.step(state.decoder_tf, x)
+        audio, dec = self.decoder.step(state.decoder, outs[0])
+        return audio, state._replace(upsample=up, decoder_tf=tf, decoder=dec)
+
+    def decode_frames(self, codes: torch.Tensor,
+                      state: Optional[MimiState] = None) -> torch.Tensor:
+        """Frame-by-frame decode of codes [B, nq, T] -> audio
+        [B, 1, T * 1920], from a fresh state unless one is given."""
+        if state is None:
+            state = self.init_state(codes.shape[0])
+        return self.decode_frames_stateful(codes, state)[0]
+
+    def decode_frames_stateful(self, codes: torch.Tensor, state: MimiState):
+        """Like ``decode_frames``, but takes and returns the state, so that
+        successive chunks continue one stream (CSM's streaming yields)."""
+        frames = []
+        for t in range(codes.shape[-1]):
+            audio, state = self.decode_step(state, codes[..., t:t + 1])
+            frames.append(audio[..., 0])
+        return torch.cat(frames, dim=1)[:, None, :], state

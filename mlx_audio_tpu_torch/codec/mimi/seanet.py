@@ -1,5 +1,8 @@
-"""SEANet encoder and decoder, Mimi's convolutional backbone, batch path
-(counterpart of ``mlx_audio_tpu/codec/mimi/seanet.py``).  NLC layout."""
+"""SEANet encoder and decoder, Mimi's convolutional backbone, batch and
+stateful paths (counterpart of ``mlx_audio_tpu/codec/mimi/seanet.py``).
+NLC layout.  A streaming state is a nested dict of conv carries from
+``init_state``, threaded through ``step``; Mimi's chunks are whole frames,
+so both branches of every residual always align."""
 
 from __future__ import annotations
 
@@ -52,6 +55,24 @@ class SeanetResnetBlock(nn.Module):
             x = conv(F.elu(x))
         return x + (residual if self.shortcut is None else self.shortcut(residual))
 
+    def init_state(self, batch: int, dtype=None) -> dict:
+        state = {"block": [c.init_state(batch, dtype) for c in self.block]}
+        if self.shortcut is not None:
+            state["shortcut"] = self.shortcut.init_state(batch, dtype)
+        return state
+
+    def step(self, state: dict, x: torch.Tensor):
+        residual = x
+        new_block = []
+        for conv, s in zip(self.block, state["block"]):
+            x, s = conv.step(s, F.elu(x))
+            new_block.append(s)
+        new_state = {"block": new_block}
+        if self.shortcut is None:
+            return x + residual, new_state
+        sc, new_state["shortcut"] = self.shortcut.step(state["shortcut"], residual)
+        return x + sc, new_state
+
 
 def _residuals(cfg: SeanetConfig, dim: int) -> nn.ModuleList:
     return nn.ModuleList(
@@ -71,6 +92,18 @@ class EncoderLayer(nn.Module):
         for r in self.residuals:
             x = r(x)
         return self.downsample(F.elu(x))
+
+    def init_state(self, batch: int, dtype=None) -> dict:
+        return {"residuals": [r.init_state(batch, dtype) for r in self.residuals],
+                "downsample": self.downsample.init_state(batch, dtype)}
+
+    def step(self, state: dict, x: torch.Tensor):
+        rs = []
+        for r, s in zip(self.residuals, state["residuals"]):
+            x, s = r.step(s, x)
+            rs.append(s)
+        x, ds = self.downsample.step(state["downsample"], F.elu(x))
+        return x, {"residuals": rs, "downsample": ds}
 
 
 class SeanetEncoder(nn.Module):
@@ -92,6 +125,20 @@ class SeanetEncoder(nn.Module):
             x = layer(x)
         return self.final_conv1d(F.elu(x))
 
+    def init_state(self, batch: int, dtype=None) -> dict:
+        return {"init": self.init_conv1d.init_state(batch, dtype),
+                "layers": [layer.init_state(batch, dtype) for layer in self.layers],
+                "final": self.final_conv1d.init_state(batch, dtype)}
+
+    def step(self, state: dict, x: torch.Tensor):
+        x, si = self.init_conv1d.step(state["init"], x)
+        ls = []
+        for layer, s in zip(self.layers, state["layers"]):
+            x, s = layer.step(s, x)
+            ls.append(s)
+        x, sf = self.final_conv1d.step(state["final"], F.elu(x))
+        return x, {"init": si, "layers": ls, "final": sf}
+
 
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: SeanetConfig, ratio: int, mult: int):
@@ -106,6 +153,18 @@ class DecoderLayer(nn.Module):
         for r in self.residuals:
             x = r(x)
         return x
+
+    def init_state(self, batch: int, dtype=None) -> dict:
+        return {"upsample": self.upsample.init_state(batch, dtype),
+                "residuals": [r.init_state(batch, dtype) for r in self.residuals]}
+
+    def step(self, state: dict, x: torch.Tensor):
+        x, us = self.upsample.step(state["upsample"], F.elu(x))
+        rs = []
+        for r, s in zip(self.residuals, state["residuals"]):
+            x, s = r.step(s, x)
+            rs.append(s)
+        return x, {"upsample": us, "residuals": rs}
 
 
 class SeanetDecoder(nn.Module):
@@ -126,3 +185,17 @@ class SeanetDecoder(nn.Module):
         for layer in self.layers:
             x = layer(x)
         return self.final_conv1d(F.elu(x))
+
+    def init_state(self, batch: int, dtype=None) -> dict:
+        return {"init": self.init_conv1d.init_state(batch, dtype),
+                "layers": [layer.init_state(batch, dtype) for layer in self.layers],
+                "final": self.final_conv1d.init_state(batch, dtype)}
+
+    def step(self, state: dict, x: torch.Tensor):
+        x, si = self.init_conv1d.step(state["init"], x)
+        ls = []
+        for layer, s in zip(self.layers, state["layers"]):
+            x, s = layer.step(s, x)
+            ls.append(s)
+        x, sf = self.final_conv1d.step(state["final"], F.elu(x))
+        return x, {"init": si, "layers": ls, "final": sf}

@@ -1,11 +1,12 @@
-"""Mimi's transformer, batch path (counterpart of
+"""Mimi's transformer, batch and streaming paths (counterpart of
 ``mlx_audio_tpu/codec/mimi/transformer.py``): windowed causal self-attention
-(``context`` frames) with the interleaved-pair ("traditional") RoPE."""
+(``context`` frames) with the interleaved-pair ("traditional") RoPE.  The
+streaming step carries a rotating KV cache of ``context`` slots."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -57,6 +58,15 @@ def rope_traditional(x: torch.Tensor, positions: torch.Tensor,
     return out.reshape(x.shape).to(x.dtype)
 
 
+class RotCacheState(NamedTuple):
+    """Rotating KV cache: [B, H, W, D] ring buffers and the number of tokens
+    written so far (slot p % W holds position p)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    offset: int
+
+
 class Attention(nn.Module):
     """Packed-QKV windowed causal self-attention."""
 
@@ -70,21 +80,59 @@ class Attention(nn.Module):
         self.in_proj = Linear(cfg.d_model, 3 * cfg.d_model, bias=cfg.bias_attn)
         self.out_proj = Linear(cfg.d_model, cfg.d_model, bias=cfg.bias_attn)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _qkv(self, x: torch.Tensor, positions: torch.Tensor):
         b, t, _ = x.shape
         qkv = self.in_proj(x).reshape(b, t, 3, self.num_heads, self.head_dim)
         q, k, v = (qkv[:, :, n].transpose(1, 2) for n in range(3))
-        pos = torch.arange(t, device=x.device)
         if self.use_rope:
-            q = rope_traditional(q, pos, self.max_period)
-            k = rope_traditional(k, pos, self.max_period)
+            q = rope_traditional(q, positions, self.max_period)
+            k = rope_traditional(k, positions, self.max_period)
+        return q, k, v
+
+    def _attend(self, q, k, v, allowed) -> torch.Tensor:
+        b, _, t, _ = q.shape
         scores = (q @ k.transpose(-1, -2)).float() * self.head_dim ** -0.5
-        i, j = pos[:, None], pos[None, :]
-        allowed = (j <= i) & (i - j < self.context)
         scores = torch.where(allowed, scores, -1e9)
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        out = (probs @ v).transpose(1, 2).reshape(b, t, -1)
-        return self.out_proj(out)
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        return self.out_proj((probs @ v).transpose(1, 2).reshape(b, t, -1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pos = torch.arange(x.shape[1], device=x.device)
+        q, k, v = self._qkv(x, pos)
+        i, j = pos[:, None], pos[None, :]
+        return self._attend(q, k, v, (j <= i) & (i - j < self.context))
+
+    # -- streaming ---------------------------------------------------------
+
+    def init_cache(self, batch: int, dtype=None) -> RotCacheState:
+        w = self.in_proj.weight
+        shape = (batch, self.num_heads, self.context, self.head_dim)
+        return RotCacheState(k=w.new_zeros(shape, dtype=dtype),
+                             v=w.new_zeros(shape, dtype=dtype), offset=0)
+
+    def step(self, cache: RotCacheState, x: torch.Tensor):
+        """One streaming step of t <= context tokens, x [B, t, D] ->
+        (out [B, t, D], cache).  The step attends over the ring as it was
+        before this step (each slot's position known from the offset) plus
+        its own keys, causally; only then are the new keys written, so that
+        no write evicts a key still inside an earlier query's window."""
+        t, w, off = x.shape[1], self.context, cache.offset
+        dev = x.device
+        positions = off + torch.arange(t, device=dev)
+        q, k, v = self._qkv(x, positions)
+        # slot s holds the largest position p <= off - 1 with p = s (mod w)
+        s = torch.arange(w, device=dev)
+        p_old = (off - 1) - torch.remainder(off - 1 - s, w)
+        qp = positions[:, None]
+        valid_old = (p_old[None] >= 0) & (p_old[None] <= qp) & (p_old[None] > qp - w)
+        i = torch.arange(t, device=dev)
+        valid = torch.cat([valid_old, i[None, :] <= i[:, None]], dim=1)
+        out = self._attend(q, torch.cat([cache.k, k], dim=2),
+                           torch.cat([cache.v, v], dim=2), valid)
+        slots = torch.remainder(positions, w)
+        return out, RotCacheState(k=cache.k.index_copy(2, slots, k),
+                                  v=cache.v.index_copy(2, slots, v),
+                                  offset=off + t)
 
 
 class LayerScale(nn.Module):
@@ -147,6 +195,12 @@ class TransformerLayer(nn.Module):
         m = self.gating(self.norm2(x))
         return x + (m if self.layer_scale_2 is None else self.layer_scale_2(m))
 
+    def step(self, cache: RotCacheState, x: torch.Tensor):
+        a, cache = self.self_attn.step(cache, self.norm1(x))
+        x = x + (a if self.layer_scale_1 is None else self.layer_scale_1(a))
+        m = self.gating(self.norm2(x))
+        return x + (m if self.layer_scale_2 is None else self.layer_scale_2(m)), cache
+
 
 class ProjectedTransformer(nn.Module):
     """Transformer stack with optional input and output projections."""
@@ -166,3 +220,15 @@ class ProjectedTransformer(nn.Module):
         for layer in self.layers:
             x = layer(x)
         return [x if p is None else p(x) for p in self.output_projs]
+
+    def init_cache(self, batch: int, dtype=None) -> list:
+        return [layer.self_attn.init_cache(batch, dtype) for layer in self.layers]
+
+    def step(self, caches: list, x: torch.Tensor):
+        if self.input_proj is not None:
+            x = self.input_proj(x)
+        new_caches = []
+        for layer, c in zip(self.layers, caches):
+            x, c = layer.step(c, x)
+            new_caches.append(c)
+        return [x if p is None else p(x) for p in self.output_projs], new_caches

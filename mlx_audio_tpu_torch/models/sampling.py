@@ -4,9 +4,14 @@ A categorical draw is an argmax over ``logits + Gumbel noise``, as
 ``jax.random.categorical`` computes it.  The noise comes from an explicit
 ``torch.Generator``, or is passed in as ``noise`` (the same shape as the
 logits): a test that hands in the JAX package's Gumbel draws gets the JAX
-package's samples.  ``temp == 0`` is greedy and draws nothing.  Over
-[B, V] logits the rows share one draw of [B, V] noise (the JAX package
-keys row i with ``fold_in(key, i)``).
+package's samples.  ``temp == 0`` is greedy and draws nothing.
+
+``sample_top_k_rows`` and ``sample_top_p_rows`` sample [B, V] logits row
+by row: row i draws its noise from a generator of its own seeded
+``(seed * 1_000_003 + i) mod 2**64``, so a row's sample depends on the
+call's seed, its row index and its own logits only, whatever rows share
+its batch (the JAX package keys row i with ``fold_in(key, i)``).  A decode
+loop takes each call's seed from ``call_seed`` on a host-side generator.
 """
 
 from __future__ import annotations
@@ -95,3 +100,42 @@ def sample_top_p(logits: torch.Tensor, temp: float = 1.0, top_p: float = 1.0,
                     -1, keepdim=True) >= top_p)
         logits = torch.where(logits < tau, float("-inf"), logits)
     return _categorical(logits, generator, noise)
+
+
+def call_seed(generator: torch.Generator) -> int:
+    """The seed of one sampling call: 62 random bits from a CPU generator
+    (drawn on the host, so a decode loop does not wait for the card)."""
+    return int(torch.randint(0, 2 ** 62, (), generator=generator))
+
+
+def row_generator(seed: int, row: int, device=None) -> torch.Generator:
+    """Row ``row``'s generator of a call seeded ``seed``."""
+    return torch.Generator(device).manual_seed((seed * 1_000_003 + row) % 2 ** 64)
+
+
+def _row_noise(logits: torch.Tensor, n: int, seed: int) -> torch.Tensor:
+    dev = logits.device
+    return torch.stack([gumbel((n,), row_generator(seed, i, dev), dev)
+                        for i in range(logits.shape[0])])
+
+
+def sample_top_k_rows(logits: torch.Tensor, temp: float = 1.0, top_k: int = 0,
+                      seed: int = 0) -> torch.Tensor:
+    """Per-row top-k over [B, V] logits: row i's Gumbel noise comes from
+    ``row_generator(seed, i)``.  Returns int32 [B]."""
+    if temp == 0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    v = logits.shape[-1]
+    # the large-vocabulary path draws among the k kept values
+    n = top_k if 0 < top_k < v and v >= _BISECT_MIN_VOCAB else v
+    return sample_top_k(logits, temp, top_k, noise=_row_noise(logits, n, seed))
+
+
+def sample_top_p_rows(logits: torch.Tensor, temp: float = 1.0,
+                      top_p: float = 1.0, seed: int = 0) -> torch.Tensor:
+    """Per-row nucleus sampling over [B, V] logits (see
+    ``sample_top_k_rows``)."""
+    if temp == 0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    return sample_top_p(logits, temp, top_p,
+                        noise=_row_noise(logits, logits.shape[-1], seed))

@@ -15,12 +15,19 @@ decodes the frames to 24 kHz audio.
   from an int8 pack, one teacher-forced pass verifies them, and the rejected
   tail is finished step by step, so the emitted frames are the plain
   decode's (bit-equal under greedy decoding up to float ties).
-* Sampling noise comes from the model's ``torch.Generator``, seeded per
-  ``generate`` call; the JAX package's PRNG cannot be reproduced, so only
-  greedy decodes are compared with it.
-* Left for later slices: ``stream=True`` and the stateful Mimi path, the
-  silentcipher watermark, the tokenizer loader (pass ``text_tokenizer``),
-  the mesh and data-parallel branches, and bf16.
+* Sampling draws come from the model's host-side ``torch.Generator``,
+  seeded per ``generate`` call: each sampling call takes a seed from it in
+  frame order, and each batch row samples with its own generator of that
+  seed (``models.sampling.sample_top_k_rows``), so a row's draw does not
+  depend on its batch.  The JAX package's PRNG cannot be reproduced, so
+  only greedy decodes are compared with it.
+* ``generate(stream=True)`` yields the first 3 frames' audio, then 4, then
+  chunks of ``streaming_interval * 12.5`` frames, each decoded through
+  Mimi's carried streaming state; a chunk schedule changes when audio
+  leaves, not which frames are sampled.
+* Left for later slices: the silentcipher watermark, the tokenizer loader
+  (pass ``text_tokenizer``), the mesh and data-parallel branches, and
+  bf16.
 """
 
 from __future__ import annotations
@@ -43,7 +50,12 @@ from mlx_audio_tpu_torch.models.lm.llama import (
     LlamaModel,
     lm_dtype,
 )
-from mlx_audio_tpu_torch.models.sampling import gumbel, sample_top_k
+from mlx_audio_tpu_torch.models.sampling import (
+    call_seed,
+    gumbel,
+    row_generator,
+    sample_top_k_rows,
+)
 from mlx_audio_tpu_torch.nn import kernels
 from mlx_audio_tpu_torch.nn.layers import Embedding, Linear, _uniform_
 from mlx_audio_tpu_torch.nn.pallas_depth import _dense, gumbel_argmax, pack_depth
@@ -139,8 +151,11 @@ class SesameModel(nn.Module):
         return self.spec_decode and batch == 1 and self._spec_packed is not None
 
     def first_frame(self, last_h, temp, top_k, generator):
-        c0 = sample_top_k(self.codebook0_head(last_h), temp, top_k,
-                          generator)[:, None].long()
+        """The frame after hidden state last_h [B, D]: codebook 0 from the
+        backbone's head, then the depth decode.  ``generator`` (CPU) gives
+        each sampling call's seed."""
+        c0 = sample_top_k_rows(self.codebook0_head(last_h), temp, top_k,
+                               call_seed(generator))[:, None].long()
         if self._use_spec(last_h.shape[0]):
             return self._depth_decode_spec(last_h, c0, temp, top_k, generator)
         return self._depth_decode(last_h, c0, temp, top_k, generator)
@@ -166,8 +181,8 @@ class SesameModel(nn.Module):
                 embed = self.embed_audio(i, codes[-1])
                 h, _ = self.decoder.step(caches, self.projection(embed), pad0)
             logits = h[:, -1] @ self.audio_head[i]
-            codes.append(sample_top_k(logits, temp, top_k,
-                                      generator)[:, None].long())
+            codes.append(sample_top_k_rows(logits, temp, top_k,
+                                           call_seed(generator))[:, None].long())
         return torch.cat(codes, dim=1)
 
     # -- speculative depth decode (batch 1) --------------------------------
@@ -190,8 +205,9 @@ class SesameModel(nn.Module):
         vpad = packed.heads.shape[1]
         dev = last_h.device
         pad0 = torch.zeros(1, dtype=torch.long, device=dev)
-        noise = (gumbel((nc - 1, vpad), generator, dev) if temp > 0
-                 else torch.zeros(nc - 1, vpad, device=dev))
+        # one row: its noise block comes from the row-0 generator of a seed
+        noise = (gumbel((nc - 1, vpad), row_generator(call_seed(generator), 0, dev),
+                        dev) if temp > 0 else torch.zeros(nc - 1, vpad, device=dev))
 
         def padded(logits):
             return F.pad(logits, (0, vpad - v), value=float("-inf"))
@@ -270,7 +286,7 @@ class Model(nn.Module):
         self._text_tokenizer = text_tokenizer
         self._sample_rate = int(mimi.sample_rate)
         self.device = device
-        self.generator = torch.Generator(device)
+        self.generator = torch.Generator()  # host side: the sampling calls' seeds
         # imperceptible AI-audio watermark on every output; disable only with
         # apply_watermark=False
         self.apply_watermark = config.get("apply_watermark", True)
@@ -428,11 +444,13 @@ class Model(nn.Module):
                  max_audio_length_ms: float = 90_000,
                  ref_audio: Optional[np.ndarray] = None,
                  ref_text: Optional[str] = None, stream: bool = False,
-                 voice_match: bool = True, temperature: float = 0.9,
-                 top_k: int = 50, seed: int = 0, **kwargs):
-        """Text -> one GenerationResult per text segment (batch 1)."""
-        if stream:
-            raise NotImplementedError("stream=True is not ported yet")
+                 streaming_interval: float = 0.5, voice_match: bool = True,
+                 temperature: float = 0.9, top_k: int = 50, seed: int = 0,
+                 **kwargs):
+        """Text -> one GenerationResult per text segment (batch 1), or with
+        ``stream=True`` one per chunk of frames as they are decoded: the
+        first ``min(3, max frames)``, then 4, then
+        ``max(1, int(streaming_interval * 12.5))`` at a time."""
         context = self._context(context, speaker, ref_audio, ref_text)
         max_frames = int(max_audio_length_ms / 80)
         if isinstance(text, str):
@@ -440,9 +458,14 @@ class Model(nn.Module):
         self.generator.manual_seed(seed)
         for seg_idx, prompt in enumerate(text):
             start = time.perf_counter()
-            frames = self._generate_frames(
-                self._prompt(prompt, context, speaker, voice_match),
-                max_frames, FRAME_CHUNK, temperature, top_k)
+            tokens = self._prompt(prompt, context, speaker, voice_match)
+            if stream:
+                yield from self._generate_stream(
+                    tokens, max_frames, max(1, int(streaming_interval * 12.5)),
+                    temperature, top_k, seg_idx, start)
+                continue
+            frames = self._generate_frames(tokens, max_frames, FRAME_CHUNK,
+                                           temperature, top_k)
             if not frames:
                 continue
             codes = torch.as_tensor(np.stack(frames, axis=-1), device=self.device)[None]
@@ -450,6 +473,56 @@ class Model(nn.Module):
             yield make_generation_result(audio, self._sample_rate, seg_idx,
                                          len(frames), time.perf_counter() - start,
                                          self.device)
+
+    @torch.no_grad()
+    def _generate_stream(self, prompt, max_frames, chunk, temp, top_k,
+                         seg_idx, start):
+        """Streaming decode of one segment: GenerationResults of the first
+        ``min(3, max_frames)`` frames (cut at an end-of-speech frame), then
+        of a ramp chunk of 4, then of ``chunk`` frames each, every chunk's
+        audio decoded through the carried Mimi state.  Frames are sampled
+        in the order the non-streaming decode samples them."""
+        spf = self._mimi.samples_per_frame
+        state = self._mimi.init_state(1)
+
+        def emit(codes, n):
+            nonlocal state, start
+            audio, state = self._mimi.decode_frames_stateful(codes, state)
+            audio = self._watermark(audio[0, 0, :n * spf].cpu().numpy())
+            result = make_generation_result(audio, self._sample_rate, seg_idx, n,
+                                            time.perf_counter() - start, self.device)
+            start = time.perf_counter()
+            return result
+
+        caches, pad_len, last_h = self._prefill([prompt], max_frames)
+        last = self.model.first_frame(last_h, temp, top_k, self.generator)
+        n_first = min(3, max_frames)
+        out = last[None]
+        if n_first > 1:
+            out = torch.cat([out, self._frame_chunk(caches, pad_len, last,
+                                                    n_first - 1, temp, top_k)])
+        eos = np.nonzero((out[:, 0].cpu().numpy() == 0).all(axis=1))[0]
+        n_valid = int(eos[0]) if len(eos) else n_first
+        if n_valid:
+            yield emit(out.permute(1, 2, 0), n_valid)
+        if len(eos) or n_valid >= max_frames:
+            return
+        produced, last, ramp = n_first, out[-1], [4]
+        while produced < max_frames:
+            n = min(ramp.pop(0) if ramp else chunk, max_frames - produced)
+            out = self._frame_chunk(caches, pad_len, last, n, temp, top_k)
+            frames = []
+            for f in out[:, 0].cpu().numpy():
+                if (f == 0).all():
+                    break
+                frames.append(f)
+            produced += len(frames)
+            if frames:
+                codes = torch.as_tensor(np.stack(frames, axis=-1), device=self.device)
+                yield emit(codes[None], len(frames))
+            if len(frames) < n:
+                return
+            last = out[-1]
 
     @torch.no_grad()
     def generate_batch(self, texts: List[str], speaker: int = 0,

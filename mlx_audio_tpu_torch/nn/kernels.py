@@ -19,6 +19,20 @@ Two carry CSM-1B's quantized, speculative decode:
   ``depth_draft_pallas``; its plain version is
   ``nn.pallas_depth.depth_draft_plain``.
 
+Three are the depth-draft probes of ``scripts/probe_depth.py``, which time
+one draft step's weight stream and its batch-1 int8 arithmetic apart
+(entry point: ``mlx_audio_tpu_torch.scripts.probe_depth``):
+
+* ``probe_depth`` (``csrc/probe_depth.cu``) replaces ``make(mode)``: the
+  stream modes ``dma``, ``dmac``, ``dma8``, ``dmabig`` and the tensor-core
+  ``mxu`` mode;
+* ``probe_vpu`` (``csrc/probe_vpu.cu``) replaces ``make_vpu()``;
+* ``probe_auto`` (``csrc/probe_auto.cu``) replaces ``make_auto()``.
+
+The TPU probes return no defined value; each port probe returns an exact
+int64 that depends on every byte it streams or every product it computes
+(``probe_stream_plain``, ``probe_dot_plain``).
+
 Each wrapper takes its plain PyTorch version for a tensor that lies on the
 CPU, and only then.  For a CUDA tensor it launches the kernel or raises:
 there is no fallback.  Every launch adds one to the kernel's entry in
@@ -30,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -38,7 +53,8 @@ from mlx_audio_tpu_torch import build
 from mlx_audio_tpu_torch.nn.pallas_depth import PackedDepth, depth_draft_plain
 
 LAUNCHES = {"lstm": 0, "dilated_conv1d": 0, "banded_conv1d": 0,
-            "quantized_matmul": 0, "depth_draft": 0}
+            "quantized_matmul": 0, "depth_draft": 0, "probe_depth": 0,
+            "probe_vpu": 0, "probe_auto": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +65,9 @@ _SIGNATURES = {
     "banded_conv1d": ("banded_conv1d_forward", [_P] * 3 + [_I] * 5 + [_P]),
     "quantized_matmul": ("quantized_matmul_forward", [_P] * 5 + [_I] * 5 + [_P]),
     "depth_draft": ("depth_draft_forward", [_P] * 24 + [_I] * 12 + [_F] * 2 + [_P]),
+    "probe_depth": ("probe_depth_forward", [_P] * 3 + [_I] * 7 + [_P]),
+    "probe_vpu": ("probe_vpu_forward", [_P] * 3 + [_I] * 4 + [_P]),
+    "probe_auto": ("probe_auto_forward", [_P] * 2 + [_I] * 5 + [_P]),
 }
 
 # shared memory one Hopper block may use (227 KB)
@@ -91,7 +110,7 @@ def _on_cpu(name: str, *tensors: torch.Tensor, other=()) -> bool:
     """True when the plain version serves the call; checks what the kernel
     takes when it does not: ``tensors`` float32, ``other`` any dtype, all
     contiguous and on one device."""
-    dev = tensors[0].device
+    dev = (*tensors, *other)[0].device
     if any(t.device != dev for t in (*tensors, *other)):
         raise ValueError(f"{name}: tensors on different devices")
     if dev.type == "cpu":
@@ -361,3 +380,125 @@ def depth_draft(packed: PackedDepth, cache_k0: torch.Tensor,
             cap, vocab, vpad, n_steps, top_k, packed.rope_cos.shape[0],
             float(temp), 1.0 / math.sqrt(dh))
     return tokens
+
+
+# ---------------------------------------------------------------------------
+# Depth-draft probes: one draft step's weight stream and batch-1 s8 dots
+# ---------------------------------------------------------------------------
+
+PROBE_MODES = {"dma": 0, "dmac": 1, "dma8": 2, "dmabig": 3, "mxu": 4}
+# largest |product| of two values in [-127, 127): a step's int32 sums stay
+# below 2**31 when they hold fewer products than this bound allows
+_MAX_PRODUCT = 127 * 127
+
+
+def chunked_layout(w: torch.Tensor, chunk: int) -> torch.Tensor:
+    """[L, dm, cols] -> [L * cols / chunk, dm, chunk]: block l * n + j is
+    columns [j * chunk, (j + 1) * chunk) of w[l] (the probes' pre-chunked
+    layout)."""
+    n_layers, dm, cols = w.shape
+    n = cols // chunk
+    return (w.reshape(n_layers, dm, n, chunk).permute(0, 2, 1, 3)
+            .reshape(n_layers * n, dm, chunk).contiguous())
+
+
+def probe_stream_plain(w_chunked: torch.Tensor, steps: int) -> torch.Tensor:
+    """Plain version of the stream probes: steps * sum over chunks c of
+    (c + 1) * sum(chunk c), in int64 (the values are integers in int8 or
+    bf16)."""
+    c = w_chunked.shape[0]
+    flat = w_chunked.reshape(c, -1)
+    if flat.dtype != torch.int8:
+        flat = flat.to(torch.int32)
+    sums = flat.sum(1, dtype=torch.int64)
+    weights = torch.arange(1, c + 1, device=flat.device, dtype=torch.int64)
+    return (sums * weights).sum() * steps
+
+
+def probe_dot_plain(chunk: torch.Tensor, x: torch.Tensor, reps: int) -> torch.Tensor:
+    """Plain version of the dot probes: reps * sum(x @ chunk) in int64, for
+    chunk [dm, cw] and x [dm] int8."""
+    return (chunk.to(torch.int64) * x.reshape(-1, 1).to(torch.int64)).sum() * reps
+
+
+def _probe_out(name: str, w: torch.Tensor, *others: torch.Tensor) -> torch.Tensor:
+    if any(t.dtype != torch.int8 for t in others):
+        raise TypeError(f"{name}: x must be int8")
+    if not all(t.is_contiguous() for t in (w, *others)):
+        raise ValueError(f"{name} kernel takes contiguous tensors")
+    if w.data_ptr() % 16:  # bulk copies and 16-byte loads
+        raise ValueError(f"{name} kernel takes 16-byte aligned weights")
+    return torch.zeros((), device=w.device, dtype=torch.int64)
+
+
+def probe_depth(w: torch.Tensor, x: Optional[torch.Tensor], mode: str,
+                steps: int, chunk: Optional[int] = None) -> torch.Tensor:
+    """The ``make(mode)`` probes over ``steps`` draft steps; an int64 0-dim
+    result.  ``dma`` takes the strided weights w [L, dm, cols] and the chunk
+    width; the other modes the chunked layout [L * cols / chunk, dm, chunk].
+    The stream modes take int8 or bf16 and ignore x; ``mxu`` takes int8 w
+    and x [1, dm], and computes on block 0."""
+    if mode not in PROBE_MODES:
+        raise ValueError(f"probe_depth: mode {mode!r} not in {sorted(PROBE_MODES)}")
+    if w.dtype not in (torch.int8, torch.bfloat16) or (
+            mode == "mxu" and (w.dtype != torch.int8 or x is None)):
+        raise TypeError(f"probe_depth {mode}: w {w.dtype}, x "
+                        f"{None if x is None else x.dtype}")
+    if mode == "dma":
+        n_layers, dm, cols = w.shape
+        if chunk is None or chunk < 1 or cols % chunk:
+            raise ValueError(f"probe_depth dma: chunk {chunk} must divide {cols}")
+    else:
+        n_layers, dm, chunk = w.shape
+        cols = chunk
+    others = (x,) if mode == "mxu" else ()
+    if _on_cpu("probe_depth", other=(w, *others)):
+        if mode == "mxu":
+            return probe_dot_plain(w[0], x, n_layers * steps)
+        return probe_stream_plain(chunked_layout(w, chunk) if mode == "dma" else w,
+                                  steps)
+    if mode == "mxu" and (x.numel() != dm or n_layers * dm * _MAX_PRODUCT >= 2 ** 31):
+        raise ValueError(f"probe_depth mxu: x {tuple(x.shape)}, {n_layers} "
+                         f"matvecs of dm {dm} a step overflow int32")
+    out = _probe_out("probe_depth", w, *others)
+    _launch("probe_depth", w.device, w.data_ptr(),
+            x.data_ptr() if mode == "mxu" else None, out.data_ptr(),
+            PROBE_MODES[mode], w.element_size(), n_layers, dm, cols, chunk,
+            steps)
+    return out
+
+
+def probe_vpu(w3: torch.Tensor, x3: torch.Tensor, steps: int,
+              reps: int) -> torch.Tensor:
+    """The ``make_vpu()`` probe: ``reps`` int8 matvecs a step of x (the first
+    column of x3 [dm/8, 8, 128]) with the resident chunk w3 [dm/8, 8, cw]
+    read as [dm, cw]; an int64 0-dim result."""
+    g, eight, cw = w3.shape
+    dm = g * eight
+    if w3.dtype != torch.int8 or x3.shape[:2] != (g, eight):
+        raise ValueError(f"probe_vpu: w3 {tuple(w3.shape)} {w3.dtype}, x3 "
+                         f"{tuple(x3.shape)}")
+    x = x3[:, :, 0].reshape(dm).contiguous()
+    if _on_cpu("probe_vpu", other=(w3, x)):
+        return probe_dot_plain(w3.reshape(dm, cw), x, reps * steps)
+    if reps * (dm // 8) * _MAX_PRODUCT >= 2 ** 31:
+        raise ValueError(f"probe_vpu: {reps} matvecs of dm {dm} a step "
+                         "overflow int32")
+    out = _probe_out("probe_vpu", w3, x)
+    _launch("probe_vpu", w3.device, w3.data_ptr(), x.data_ptr(),
+            out.data_ptr(), dm, cw, reps, steps)
+    return out
+
+
+def probe_auto(w_chunked: torch.Tensor, steps: int) -> torch.Tensor:
+    """The ``make_auto()`` probe: stream the chunked weights [C, dm, cw]
+    (int8 or bf16) once a step; the stream probes' int64 result."""
+    if w_chunked.dtype not in (torch.int8, torch.bfloat16):
+        raise TypeError(f"probe_auto: {w_chunked.dtype}")
+    if _on_cpu("probe_auto", other=(w_chunked,)):
+        return probe_stream_plain(w_chunked, steps)
+    c, dm, cw = w_chunked.shape
+    out = _probe_out("probe_auto", w_chunked)
+    _launch("probe_auto", w_chunked.device, w_chunked.data_ptr(),
+            out.data_ptr(), w_chunked.element_size(), c, dm, cw, steps)
+    return out

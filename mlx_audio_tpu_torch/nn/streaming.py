@@ -1,14 +1,17 @@
-"""Causal convolutions of the streaming codecs, batch path (counterpart of
-``mlx_audio_tpu/nn/streaming.py``).
+"""Causal convolutions of the streaming codecs, batch and stateful paths
+(counterpart of ``mlx_audio_tpu/nn/streaming.py``).
 
 NLC layout.  Weights in torch's layouts: conv [out, in/groups, k],
-transposed conv [in, out, k] or depthwise [C, 1, k].  The stateful
-``step`` / ``init_state`` path of the JAX package is a later slice.
+transposed conv [in, out, k] or depthwise [C, 1, k].  ``init_state`` gives
+a carry and ``step`` returns a new one (the old one is left as it was), as
+the JAX package threads them; a step's chunk length is a multiple of the
+conv's stride, as every codec frame is.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -20,6 +23,19 @@ from mlx_audio_tpu_torch.nn.layers import (
     conv1d,
     conv_transpose1d,
 )
+
+
+class ConvState(NamedTuple):
+    """Carry of a streaming causal conv: the trailing receptive-field tail."""
+
+    buf: torch.Tensor  # [B, K_eff - S, C_in]
+    first: bool        # the left pad is not applied yet
+
+
+class ConvTrState(NamedTuple):
+    """Carry of a streaming transposed conv: the pending overlap tail."""
+
+    buf: torch.Tensor  # [B, K - S, C_out], bias-free partial sums
 
 
 class StreamableConv1d(nn.Module):
@@ -71,6 +87,33 @@ class StreamableConv1d(nn.Module):
                    self.dilation, self.groups)
         return y + self.bias if self.bias is not None else y
 
+    # -- streaming ---------------------------------------------------------
+
+    def init_state(self, batch: int, dtype=None) -> ConvState:
+        pad = self.effective_ksize - self.stride
+        in_ch = self.weight.shape[1] * self.groups
+        return ConvState(
+            buf=self.weight.new_zeros((batch, pad, in_ch), dtype=dtype),
+            first=True)
+
+    def step(self, state: ConvState, x: torch.Tensor):
+        """x [B, L, C_in], L a multiple of the stride -> ([B, L / S, C_out],
+        state).  With ``pad_mode="edge"`` the first step's left pad repeats
+        the first sample, as the batch path pads."""
+        pad = self.effective_ksize - self.stride
+        if pad > 0:
+            init = state.buf
+            if self.pad_mode == "edge" and state.first:
+                init = x[:, :1].expand_as(init)
+            full = torch.cat([init, x], dim=1)
+        else:
+            full = x
+        y = conv1d(full, self.weight, self.stride, 0, self.dilation, self.groups)
+        if self.bias is not None:
+            y = y + self.bias
+        new_buf = full[:, full.shape[1] - pad:] if pad > 0 else state.buf
+        return y, ConvState(buf=new_buf, first=False)
+
 
 class StreamableConvTranspose1d(nn.Module):
     """Causal transposed conv: groups 1 or depthwise."""
@@ -103,3 +146,29 @@ class StreamableConvTranspose1d(nn.Module):
             return y[:, :y.shape[1] - padding_total]
         left = padding_total - padding_total // 2
         return y[:, left:y.shape[1] - padding_total // 2]
+
+    # -- streaming ---------------------------------------------------------
+
+    def init_state(self, batch: int, dtype=None) -> ConvTrState:
+        if self.ksize < self.stride:
+            # a "gappy" transposed conv: the batch path works, but exact
+            # streaming would need an end-of-stream flush of the ragged tail
+            raise NotImplementedError(
+                "streaming ConvTranspose1d requires ksize >= stride")
+        out_ch = self.weight.shape[1] * self.groups
+        return ConvTrState(buf=self.weight.new_zeros(
+            (batch, self.ksize - self.stride, out_ch), dtype=dtype))
+
+    def step(self, state: ConvTrState, x: torch.Tensor):
+        """x [B, L, C_in] -> ([B, L * S, C_out], state).  The carried overlap
+        is bias-free; the bias is added to the emitted samples only."""
+        pad = self.ksize - self.stride
+        y = conv_transpose1d(x, self.weight, self.stride, groups=self.groups)
+        if pad > 0:
+            y = torch.cat([y[:, :pad] + state.buf, y[:, pad:]], dim=1)
+        emit_len = y.shape[1] - pad
+        emit = y[:, :emit_len]
+        if self.bias is not None:
+            emit = emit + self.bias
+        new_buf = y[:, emit_len:] if pad > 0 else state.buf
+        return emit, ConvTrState(buf=new_buf)

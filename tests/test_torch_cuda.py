@@ -135,3 +135,50 @@ def test_depth_draft_kernel_gives_the_plain_tokens(cuda, temp, top_k):
     torch.cuda.synchronize()
     ref = depth_draft_plain(packed, kc, vc, c1, noise, vocab, temp, top_k)
     assert torch.equal(got.cpu(), ref.cpu())
+
+
+def _probe_weights(dtype, device, n_layers=4, dm=1024, cols=28 * 1024):
+    rng = np.random.default_rng(5)
+    w = torch.as_tensor(rng.integers(-127, 127, size=(n_layers, dm, cols)).astype(np.int8))
+    if dtype == "bf16":
+        w = w.to(torch.bfloat16)
+    x = torch.as_tensor(rng.integers(-127, 127, size=(1, dm), dtype=np.int8))
+    return w.to(device), x.to(device)
+
+
+@pytest.mark.parametrize("mode,dtype", [
+    (m, d) for m in ("dma", "dmac", "dma8", "dmabig") for d in ("int8", "bf16")
+] + [("mxu", "int8")])
+def test_probe_depth_kernel_equals_plain(cuda, mode, dtype):
+    w, x = _probe_weights(dtype, cuda)
+    chunked = kernels.chunked_layout(w, 4096)
+    before = kernels.LAUNCHES["probe_depth"]
+    if mode == "dma":
+        got = kernels.probe_depth(w, x, mode, 3, 4096)
+    else:
+        got = kernels.probe_depth(chunked, x, mode, 3)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["probe_depth"] == before + 1
+    ref = (kernels.probe_dot_plain(chunked[0], x, 3 * chunked.shape[0])
+           if mode == "mxu" else kernels.probe_stream_plain(chunked, 3))
+    assert int(got) == int(ref)
+
+
+def test_probe_vpu_kernel_equals_plain(cuda):
+    w, _ = _probe_weights("int8", cuda)
+    chunk0 = kernels.chunked_layout(w, 4096)[0]
+    x3 = torch.as_tensor(np.random.default_rng(6).integers(
+        -127, 127, size=(128, 8, 128), dtype=np.int8), device=cuda)
+    got = kernels.probe_vpu(chunk0.reshape(128, 8, 4096), x3, 3, 28)
+    torch.cuda.synchronize()
+    ref = kernels.probe_dot_plain(chunk0, x3[:, :, 0].reshape(-1), 3 * 28)
+    assert int(got) == int(ref)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bf16"])
+def test_probe_auto_kernel_equals_plain(cuda, dtype):
+    w, _ = _probe_weights(dtype, cuda, dm=256, cols=3 * 1024)
+    chunked = kernels.chunked_layout(w, 1024)
+    got = kernels.probe_auto(chunked, 2)
+    torch.cuda.synchronize()
+    assert int(got) == int(kernels.probe_stream_plain(chunked, 2))

@@ -149,3 +149,23 @@ def test_generator_draws_are_reproducible():
     a = sampling.sample_top_k(logits, 1.0, 0, torch.Generator().manual_seed(5))
     b = sampling.sample_top_k(logits, 1.0, 0, torch.Generator().manual_seed(5))
     assert torch.equal(a, b) and a.dtype == torch.int32
+
+
+def test_per_row_samplers_draw_independently_of_the_batch():
+    """Row 0 of a 2-row call equals a 1-row call bit for bit, top-k (small
+    and large vocabulary) and top-p alike; temperature 0 is greedy."""
+    rng = np.random.default_rng(9)
+    for v, top_k in ((64, 10), (20000, 40)):
+        logits = torch.as_tensor(rng.standard_normal((2, v)), dtype=torch.float32)
+        two = sampling.sample_top_k_rows(logits, 0.9, top_k, seed=11)
+        one = sampling.sample_top_k_rows(logits[:1], 0.9, top_k, seed=11)
+        assert two[0] == one[0] and two.dtype == torch.int32
+    logits = torch.as_tensor(rng.standard_normal((3, 64)), dtype=torch.float32)
+    rows = sampling.sample_top_p_rows(logits, 1.0, 0.8, seed=3)
+    assert sampling.sample_top_p_rows(logits[:1], 1.0, 0.8, seed=3)[0] == rows[0]
+    # row i's draw follows its own logits: the same logits in every row of
+    # one call still give rows their own noise
+    same = sampling.sample_top_k_rows(logits[:1].expand(64, -1), 2.0, 0, seed=3)
+    assert len(set(same.tolist())) > 1
+    torch.testing.assert_close(sampling.sample_top_k_rows(logits, 0.0, 5, seed=1),
+                               torch.argmax(logits, -1).to(torch.int32))

@@ -198,3 +198,73 @@ def test_model_runs_on_cuda_unless_asked_for_the_cpu():
         pytest.skip("a GPU is present: the default device is usable")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Model(tiny_config(), text_tokenizer=FakeTokenizer())
+
+
+def _recorded_stream(port, **kw):
+    """Streamed results, and the frames each chunk handed to Mimi."""
+    seen = []
+    decode = port.mimi.decode_frames_stateful
+
+    def recording(codes, state):
+        seen.append(codes[0].T.numpy().copy())
+        return decode(codes, state)
+
+    port.mimi.decode_frames_stateful = recording
+    try:
+        results = list(port.generate("hello", stream=True, **kw))
+    finally:
+        port.mimi.decode_frames_stateful = decode
+    frames = np.concatenate([f[:r.token_count] for f, r in zip(seen, results)])
+    return results, frames
+
+
+def test_streamed_greedy_frames_and_chunks_match_jax():
+    """Greedy streaming: the port's chunk sizes equal the JAX package's
+    generate(stream=True), its frames the JAX frames, and its audio the JAX
+    streamed audio."""
+    jm = _jax_model(False)
+    port = _port_model(jm, False)
+    ref_audio = _ref_audio(5)
+    kw = dict(ref_audio=ref_audio, ref_text="reference text",
+              max_audio_length_ms=1200, temperature=0.0)
+    ref = list(jm.generate("hello", stream=True, **kw))
+    got, frames = _recorded_stream(port, **kw)
+    assert [r.token_count for r in got] == [r.token_count for r in ref]
+    assert got[0].token_count == 3 and len(got) > 2 and got[1].token_count == 4
+    toks, mask = jm._tokenize_segment(
+        JaxSegment(0, "reference text hello", ref_audio), add_eos=False)
+    ref_frames = np.stack([f for part in jm._generate_frame_chunks(
+        toks.astype(np.int32), mask, 1200 // 80, 32, 0.0, 0,
+        jax.random.PRNGKey(0)) for f in part])
+    np.testing.assert_array_equal(frames, ref_frames)
+    np.testing.assert_allclose(np.concatenate([r.audio for r in got]),
+                               np.concatenate([np.asarray(r.audio) for r in ref]),
+                               atol=1e-3, rtol=0)
+
+
+def test_streamed_sampled_audio_equals_non_streamed(pair):
+    """At temperature 0.9 the streamed chunks concatenate to the
+    non-streaming audio: the same frames in the same draw order, decoded
+    through the carried Mimi state."""
+    port = pair[1]
+    kw = dict(ref_audio=_ref_audio(6), ref_text="ref", max_audio_length_ms=1200,
+              temperature=0.9, top_k=10, seed=4)
+    streamed = list(port.generate("hi there", stream=True, streaming_interval=0.24, **kw))
+    (whole,) = list(port.generate("hi there", **kw))
+    assert sum(r.token_count for r in streamed) == whole.token_count
+    assert all(r.samples == 1920 * r.token_count for r in streamed)
+    np.testing.assert_allclose(np.concatenate([r.audio for r in streamed]), whole.audio,
+                               atol=1e-3, rtol=0)
+
+
+def test_spec_decode_streams_the_plain_greedy_frames(pair):
+    port = pair[1]
+    kw = dict(ref_audio=_ref_audio(7), ref_text="ref", max_audio_length_ms=800,
+              temperature=0.0)
+    _, plain = _recorded_stream(port, **kw)
+    port.model.enable_spec_decode()
+    try:
+        _, spec = _recorded_stream(port, **kw)
+    finally:
+        port.model.spec_decode = False
+    np.testing.assert_array_equal(spec, plain)
