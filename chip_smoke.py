@@ -12,7 +12,9 @@ Phases; the failure of any one ends the script with a non-zero exit:
    kernels from ``mlx_audio_tpu_torch/csrc/`` with ``nvcc`` for ``sm_90a``
    into ``mlx_audio_tpu_torch/csrc/build/`` (one ``nvcc`` each, together);
 2. hold every kernel against its plain PyTorch version on the card at the
-   main paths' shapes (float32, TF32 off): the three Kokoro-82M kernels,
+   main paths' shapes (float32, TF32 off): the three Kokoro-82M kernels
+   (``banded_conv1d`` computes in 3xTF32 on the tensor cores and prints
+   that bound beside the float32-FMA one),
    ``quantized_matmul`` at every projection of CSM-1B's path (int8, 1 to
    128 rows; int4 at the llama-1B ones) and ``depth_draft`` on a full
    llama-100M pack (greedy and sampled, tokens equal), and the three
@@ -67,9 +69,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): float32 outside the
-# tensor cores, dense int8 tensor-core operations, and HBM3 bandwidth.  The
-# port's kernels run float32 FMAs, and depth_draft int8 dot products.
+# tensor cores, dense TF32 and int8 tensor-core operations, and HBM3
+# bandwidth.  The port's kernels run float32 FMAs, depth_draft int8 dot
+# products, and banded_conv1d 3xTF32: three TF32 products a float32
+# multiply-add, so its float32 rate is a third of the TF32 peak.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
 
@@ -284,6 +290,13 @@ def _conv_cases(gen):
                 F.conv1d(x, w, None, 1, p, d),
             "flops": 2.0 * b * l * c * c * k,
             "bytes": 4.0 * (2 * b * l * c + k * c * c),
+            # banded_conv1d runs 3xTF32 on the tensor cores: its float32-FMA
+            # bound is printed beside it, and its error and the plain
+            # version's against the plain version in float64
+            **({"peak_ops": PEAK_3XTF32_FLOPS, "f32_fma_bound": True,
+                "float64_fn": lambda x=x, w=w, d=d: _dilated_conv1d_residue(
+                    x.double(), w.double(), d, kernels.banded_conv1d_plain)}
+               if name == "banded_conv1d" else {}),
         }
 
 
@@ -521,14 +534,25 @@ def check_kernels() -> dict:
                "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                "bound_by": by, "library_ms": library_ms,
                **{k: case[k] for k in ("rows", "bits", "io") if k in case}}
+        bound = f"bound {bms:.4f} ms ({by})"
+        if case.get("f32_fma_bound"):
+            rec["bound_f32_fma_ms"] = bound_ms(case["flops"], case["bytes"])[0]
+            bound = (f"bound 3xTF32 {bms:.4f} ms ({by}), float32 FMA "
+                     f"{rec['bound_f32_fma_ms']:.4f} ms")
+        if "float64_fn" in case:
+            exact = case["float64_fn"]()
+            rec["max_abs_err_f64"] = float((got[0].double() - exact).abs().max())
+            rec["plain_max_abs_err_f64"] = float((ref[0].double() - exact).abs().max())
+            bound += (f"; against float64: kernel {rec['max_abs_err_f64']:.3e}, "
+                      f"plain {rec['plain_max_abs_err_f64']:.3e}")
+            del exact
         records[name].append(rec)
         lib = "—" if library_ms is None else f"{library_ms:.3f} ms"
         rule = case.get("rule", "tokens equal") if case.get("exact") else \
             f"atol {TOL['atol']}, rtol {TOL['rtol']}"
         print(f"{name:16s} {case['shape']:52s} max_abs_err {err:.3e} "
               f"({rule}) {'ok' if ok else 'DISAGREES'}  kernel {ms:.3f} ms  "
-              f"plain {plain_ms:.3f} ms  library {lib}  "
-              f"bound {bms:.4f} ms ({by})", flush=True)
+              f"plain {plain_ms:.3f} ms  library {lib}  {bound}", flush=True)
         if not ok:
             bad.append(f"{name} {case['shape']}: max_abs_err {err:.3e}")
         del got, ref, case
@@ -1167,6 +1191,8 @@ def main() -> int:
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "cases": len(cases),
+            **{k: head[k] for k in ("bound_f32_fma_ms", "max_abs_err_f64",
+                                    "plain_max_abs_err_f64") if k in head},
         }
         if name == "quantized_matmul":
             entry["max_abs_err"] = max(entry["max_abs_err"], csm_run["qmm_path_err"])

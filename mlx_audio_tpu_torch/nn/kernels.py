@@ -8,8 +8,9 @@ main path:
 * ``dilated_conv1d`` (``csrc/dilated_conv1d.cu``) replaces
   ``dilated_conv1d_pallas``;
 * ``banded_conv1d`` (``csrc/banded_conv1d.cu``) replaces
-  ``banded_conv1d_pallas``, with ``banded_weight`` the port of
-  ``_banded_weight``.
+  ``banded_conv1d_pallas``: an implicit-GEMM conv on the tensor cores that
+  forms no band; its plain version keeps the banded formulation, with
+  ``banded_weight`` the port of ``_banded_weight``.
 
 Two carry CSM-1B's quantized, speculative decode:
 
@@ -74,6 +75,9 @@ _SIGNATURES = {
 SMEM_LIMIT_BYTES = 232448
 _CONV_TILE = 64      # csrc/tile_fma.cuh kTile
 _CONV_CHANNELS = 16  # csrc/dilated_conv1d.cu kChannels
+# csrc/banded_conv1d.cu: kTileM, kSlice, kStages; window and weight rows
+# padded by 4 and 8 floats
+_BANDED_TILE_M, _BANDED_TILE_N, _BANDED_SLICE, _BANDED_STAGES = 192, 128, 8, 3
 
 
 def reset_launches() -> None:
@@ -223,8 +227,18 @@ def dilated_conv1d(x: torch.Tensor, w: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Banded-matmul dense conv1d
+# Dense conv1d: a 3xTF32 implicit GEMM in the kernel, banded in the plain
+# version
 # ---------------------------------------------------------------------------
+
+
+def banded_conv1d_smem_bytes(k: int) -> int:
+    """Shared memory of one banded_conv1d block (csrc/banded_conv1d.cu):
+    three stages of the halo window and K [8, 128] weight slices, and the
+    split remainder of one window."""
+    window = (_BANDED_TILE_M + k - 1) * (_BANDED_SLICE + 4)
+    weights = k * _BANDED_SLICE * (_BANDED_TILE_N + 8)
+    return 4 * (_BANDED_STAGES * (window + weights) + window)
 
 
 def banded_groups(k: int) -> int:
@@ -263,17 +277,24 @@ def banded_conv1d_plain(x, w):
 
 def banded_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Dense (dilation-1) 'same'-padded conv, NLC: x [B, L, C] * w
-    [K, C, Cout] -> [B, L, Cout], through the banded weight.  K odd."""
+    [K, C, Cout] -> [B, L, Cout].  K odd.  The kernel reads w as it is and
+    forms no banded weight (3xTF32 products on the tensor cores); the plain
+    version still goes through W_band.  The kernel takes C and Cout
+    multiples of 8, 16-byte aligned x and w, and K up to 13."""
     if _on_cpu("banded_conv1d", x, w):
         return banded_conv1d_plain(x, w)
     b, l, c = x.shape
     k, c_w, c_out = w.shape
-    if c_w != c or k % 2 == 0:
+    if (c_w != c or k % 2 == 0 or b < 1 or l < 1 or c % _BANDED_SLICE
+            or c_out % 8 or x.data_ptr() % 16 or w.data_ptr() % 16):
         raise ValueError(f"banded_conv1d: x {tuple(x.shape)}, w "
-                         f"{tuple(w.shape)}")
-    wb = banded_weight(w, banded_groups(k))
+                         f"{tuple(w.shape)}: the kernel takes K odd, C and "
+                         "Cout multiples of 8, 16-byte aligned tensors")
+    if banded_conv1d_smem_bytes(k) > SMEM_LIMIT_BYTES:
+        raise ValueError(f"banded_conv1d: K={k} needs more shared memory "
+                         "than a block has")
     out = torch.empty((b, l, c_out), device=x.device, dtype=torch.float32)
-    _launch("banded_conv1d", x.device, x.data_ptr(), wb.data_ptr(),
+    _launch("banded_conv1d", x.device, x.data_ptr(), w.data_ptr(),
             out.data_ptr(), b, l, c, c_out, k)
     return out
 

@@ -191,11 +191,13 @@ class Identity(nn.Module):
 def banded_conv_supported(k: int, c: int, c_out: int, l: int) -> bool:
     """Shape rules of the JAX package's banded gate: K >= 5 and odd, C and
     Cout multiples of 128, at least 4096 rows, and a band waste 8Q/K <= 3.
-    Its 10 MiB VMEM budget for W_band is a TPU fact and is dropped: the
-    Hopper kernel stages fixed 64 x 64 tiles whatever K, C and Cout are."""
+    Its 10 MiB VMEM budget for W_band is a TPU fact: the Hopper kernel
+    forms no band, and its own limit is shared memory, whose stages grow
+    with K (K <= 13)."""
     if k < 5 or k % 2 == 0 or c % 128 or c_out % 128 or l < 4096:
         return False
-    return 8 * kernels.banded_groups(k) / k <= 3.0
+    return (8 * kernels.banded_groups(k) / k <= 3.0
+            and kernels.banded_conv1d_smem_bytes(k) <= kernels.SMEM_LIMIT_BYTES)
 
 
 def conv1d_route(k: int, c: int, c_out: int, l: int, dilation: int = 1,

@@ -59,14 +59,28 @@ def test_dilated_conv_kernel_matches_plain(cuda, l, c, c_out, k, d):
     torch.testing.assert_close(got, kernels.dilated_conv1d_plain(x, w, d), **TOL)
 
 
-@pytest.mark.parametrize("l,c,c_out,k,d", [(4133, 128, 128, 7, 1),
-                                           (4133, 128, 256, 11, 1),
-                                           (9001, 128, 128, 7, 3)])
-def test_banded_conv_kernel_matches_plain(cuda, l, c, c_out, k, d):
+@pytest.mark.parametrize("b,l,c,c_out,k,d", [
+    (2, 4133, 128, 128, 7, 1),
+    (2, 4133, 128, 256, 11, 1),
+    (2, 9001, 128, 128, 7, 3),
+    (2, 100, 128, 128, 11, 1),     # L below one 192-sample tile
+    (2, 9, 128, 128, 11, 1),       # L below K: every window runs off both ends
+    (2, 15601, 128, 128, 11, 1),   # odd L, the tail of 156 001
+    (2, 4133, 256, 128, 7, 1),     # C = 256, Cout = 128
+    (3, 4133, 128, 128, 11, 1),    # B = 3
+    (2, 4133, 128, 128, 5, 1),
+    (2, 4133, 128, 128, 13, 1),
+    (2, 1000, 64, 72, 7, 1),       # Cout not a multiple of the 128 tile
+])
+def test_banded_conv_kernel_matches_plain(cuda, b, l, c, c_out, k, d):
     rng = np.random.default_rng(2)
-    x = _randn(rng, (2, l, c), 0.1, cuda)
+    # outputs of about 0.5, as at Kokoro's widths
+    x = _randn(rng, (b, l, c), 0.3, cuda)
     w = _randn(rng, (k, c, c_out), 0.05, cuda)
+    before = kernels.LAUNCHES["banded_conv1d"]
     got = _dilated_conv1d_residue(x, w, d, kernels.banded_conv1d)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["banded_conv1d"] == before + 1
     ref = _dilated_conv1d_residue(x, w, d, kernels.banded_conv1d_plain)
     torch.testing.assert_close(got, ref, **TOL)
 
@@ -78,6 +92,23 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         kernels.dilated_conv1d(x, w)
     with pytest.raises(ValueError):
         kernels.banded_conv1d(x.float().transpose(1, 2), w.float())
+    xf, wf = x.float(), w.float()
+    bad = {
+        "C not a multiple of 8": (xf[..., :124].contiguous(), wf[:, :124].contiguous()),
+        "Cout not a multiple of 8": (xf, wf[..., :124].contiguous()),
+        "x not 16-byte aligned": (torch.zeros(64 * 128 + 1, device=cuda)[1:].view(1, 64, 128), wf),
+        "w not 16-byte aligned": (xf, torch.zeros(3 * 128 * 128 + 2, device=cuda)[2:].view(3, 128, 128)),
+        "K even": (xf, torch.zeros(4, 128, 128, device=cuda)),
+        "K past the shared memory": (xf, torch.zeros(15, 128, 128, device=cuda)),
+    }
+    before = kernels.LAUNCHES["banded_conv1d"]
+    for why, (xb, wb) in bad.items():
+        try:
+            kernels.banded_conv1d(xb, wb)
+        except ValueError:
+            continue
+        pytest.fail(f"banded_conv1d took {why}")
+    assert kernels.LAUNCHES["banded_conv1d"] == before
 
 
 @pytest.mark.parametrize("rows,i,o,gs,bits", [(1, 2048, 384, 128, 8),

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from mlx_audio_tpu.nn.layers import _dilated_conv1d_residue as jax_residue
 from mlx_audio_tpu.nn.pallas_ops import (
@@ -98,6 +99,104 @@ def test_banded_residue_fold_matches_pallas():
     ref = jax_residue(jnp.asarray(x), jnp.asarray(w), d,
                       partial(banded_conv1d_pallas, interpret=True))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **CONV_TOL)
+
+
+# The CUDA banded_conv1d kernel computes in 3xTF32 on the tensor cores: each
+# float32 operand a is split into a_big = tf32_rna(a) and a_small =
+# tf32_rna(a - a_big), and each multiply-add is small*big + big*small +
+# big*big, summed in float32, per tap over the window shifted by tap.  The
+# tests below emulate that arithmetic in PyTorch; the kernel itself is held
+# against banded_conv1d_plain on the card (tests/test_torch_cuda.py).
+# Tolerances: the emulation drops small*small (2**-22 of a product) and
+# rounds small to TF32 (2**-24 of an operand), so its error is near
+# float32's, and atol/rtol 1e-5 (ten times tighter than the card's 1e-4)
+# hold it to the plain version and to the Pallas kernel.
+SCHEME_TOL = {"atol": 1e-5, "rtol": 1e-5}
+
+
+def _tf32_rna(t: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32's 10 mantissa bits, ties away from zero, as
+    cvt.rna.tf32.f32 rounds: add half a unit of the 13 dropped bits to the
+    magnitude, then clear them."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_conv(x: torch.Tensor, w: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """'Same' dense conv x [B, L, C] * w [K, C, Cout] in the kernel's
+    arithmetic: ``passes`` 3 is 3xTF32, 1 one TF32 product (big*big)."""
+    b, l, _ = x.shape
+    k = w.shape[0]
+    pad = (k - 1) // 2
+    xp = F.pad(x, (0, 0, pad, k - 1 - pad))
+    x_big, w_big = _tf32_rna(xp), _tf32_rna(w)
+    x_small, w_small = _tf32_rna(xp - x_big), _tf32_rna(w - w_big)
+    out = torch.zeros(b, l, w.shape[2])
+    for tap in range(k):
+        xb, xs = x_big[:, tap:tap + l], x_small[:, tap:tap + l]
+        if passes == 3:
+            out += xs @ w_big[tap] + xb @ w_small[tap]
+        out += xb @ w_big[tap]
+    return out
+
+
+def _kokoro_conv_inputs(rng, b, l, c, c_out, k):
+    """x and w at the scales chip_smoke.py uses: outputs of about 0.5 at
+    Kokoro's K = 11, C = 128, as in its resblocks."""
+    x = (rng.standard_normal((b, l, c)) * 0.3).astype(np.float32)
+    w = (rng.standard_normal((k, c, c_out)) * 0.05).astype(np.float32)
+    return x, w
+
+
+def test_tf32_rna_rounds_as_cvt_rna():
+    v = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10 + 2.0 ** -11,
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12, 3.0e-39])
+    want = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9,
+                         -(1.0 + 2.0 ** -10), 1.0, 3.0e-39])
+    got = _tf32_rna(v)
+    # the tie 1 + 2**-11 rounds away from zero (rna), not to even
+    torch.testing.assert_close(got[:5], want[:5], atol=0, rtol=0)
+    assert float(got[5]) == pytest.approx(3.0e-39, rel=2.0 ** -10)
+
+
+@pytest.mark.parametrize("k", [5, 7, 11, 13])
+@pytest.mark.parametrize("c_out", [128, 256])
+def test_three_tf32_scheme_matches_plain_and_pallas(k, c_out):
+    rng = np.random.default_rng(100 + k + c_out)
+    x, w = _kokoro_conv_inputs(rng, 2, 4096 + 37, 128, c_out, k)
+    got = _tf32_conv(torch.as_tensor(x), torch.as_tensor(w))
+    plain = kernels.banded_conv1d_plain(torch.as_tensor(x), torch.as_tensor(w))
+    torch.testing.assert_close(got, plain, **SCHEME_TOL)
+    ref = banded_conv1d_pallas(jnp.asarray(x), jnp.asarray(w), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **SCHEME_TOL)
+
+
+def test_three_tf32_scheme_through_the_residue_fold():
+    k, c, d = 11, 128, 3
+    rng = np.random.default_rng(d)
+    x, w = _kokoro_conv_inputs(rng, 1, 9000, c, c, k)
+    xt, wt = torch.as_tensor(x), torch.as_tensor(w)
+    got = _dilated_conv1d_residue(xt, wt, d, _tf32_conv)
+    plain = _dilated_conv1d_residue(xt, wt, d, kernels.banded_conv1d_plain)
+    torch.testing.assert_close(got, plain, **SCHEME_TOL)
+    ref = jax_residue(jnp.asarray(x), jnp.asarray(w), d,
+                      partial(banded_conv1d_pallas, interpret=True))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **SCHEME_TOL)
+
+
+def test_one_tf32_pass_misses_the_card_tolerance():
+    """Why three products: at Kokoro's K = 11 depth (K C = 1408) one TF32
+    pass keeps 10 mantissa bits and lands several 1e-4 off the float32
+    conv, outside the atol/rtol 1e-4 the card holds kernels to; 3xTF32
+    stays inside it."""
+    rng = np.random.default_rng(11)
+    x, w = _kokoro_conv_inputs(rng, 2, 4096 + 37, 128, 128, 11)
+    xt, wt = torch.as_tensor(x), torch.as_tensor(w)
+    plain = kernels.banded_conv1d_plain(xt, wt)
+    one = _tf32_conv(xt, wt, passes=1)
+    assert float((one - plain).abs().max()) > 3e-4
+    assert not torch.allclose(one, plain, atol=1e-4, rtol=1e-4)
+    assert torch.allclose(_tf32_conv(xt, wt), plain, atol=1e-4, rtol=1e-4)
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():

@@ -22,6 +22,7 @@ from mlx_audio_tpu_torch import dsp as tdsp
 from mlx_audio_tpu_torch import nn as tnn
 from mlx_audio_tpu_torch.convert import params_from_jax
 from mlx_audio_tpu_torch.models.tts.kokoro import istftnet as tist
+from mlx_audio_tpu_torch.nn import kernels as tnn_kernels
 
 ATOL = 1e-5
 ROOT = Path(__file__).resolve().parent.parent
@@ -201,6 +202,17 @@ def test_kokoro_82m_resblock_convs_reach_the_kernels():
     assert tnn.conv1d_route(3, 1090, 1024, KOKORO_FRAMES, 1, 1, 1, 1) == "library"
     assert tnn.conv1d_route(7, 128, 128, length, 1, 1, 1, 3,
                             torch.bfloat16) == "library"
+
+
+@pytest.mark.parametrize("k,route", [(11, "banded"), (13, "banded"),
+                                     (15, "shifted")])
+def test_banded_route_stops_where_the_kernel_runs_out_of_shared_memory(k, route):
+    """The banded kernel stages K weight slices a stage, so its shared
+    memory grows with K; the route sends no K to it that its wrapper would
+    refuse on the card: K = 15 goes to the shifted kernel instead."""
+    fits = tnn_kernels.banded_conv1d_smem_bytes(k) <= tnn_kernels.SMEM_LIMIT_BYTES
+    assert fits == (route == "banded")
+    assert tnn.conv1d_route(k, 128, 128, 8192, 1, 1, 1, (k - 1) // 2) == route
 
 
 def test_port_imports_no_jax():
