@@ -13,8 +13,9 @@ Phases; the failure of any one ends the script with a non-zero exit:
    into ``mlx_audio_tpu_torch/csrc/build/`` (one ``nvcc`` each, together);
 2. hold every kernel against its plain PyTorch version on the card at the
    main paths' shapes (float32, TF32 off): the three Kokoro-82M kernels
-   (``banded_conv1d`` computes in 3xTF32 on the tensor cores and prints
-   that bound beside the float32-FMA one),
+   (``dilated_conv1d`` and ``banded_conv1d`` compute in 3xTF32 on the
+   tensor cores and print that bound beside the float32-FMA one, and their
+   error against a float64 run of the plain version),
    ``quantized_matmul`` at every projection of CSM-1B's path (int8, 1 to
    128 rows; int4 at the llama-1B ones) and ``depth_draft`` on a full
    llama-100M pack (greedy and sampled, tokens equal), and the three
@@ -71,8 +72,8 @@ ROOT = Path(__file__).resolve().parent
 # Published peaks of one H100 SXM (NVIDIA data sheet): float32 outside the
 # tensor cores, dense TF32 and int8 tensor-core operations, and HBM3
 # bandwidth.  The port's kernels run float32 FMAs, depth_draft int8 dot
-# products, and banded_conv1d 3xTF32: three TF32 products a float32
-# multiply-add, so its float32 rate is a third of the TF32 peak.
+# products, and the two conv kernels 3xTF32: three TF32 products a float32
+# multiply-add, so their float32 rate is a third of the TF32 peak.
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
@@ -290,13 +291,17 @@ def _conv_cases(gen):
                 F.conv1d(x, w, None, 1, p, d),
             "flops": 2.0 * b * l * c * c * k,
             "bytes": 4.0 * (2 * b * l * c + k * c * c),
-            # banded_conv1d runs 3xTF32 on the tensor cores: its float32-FMA
-            # bound is printed beside it, and its error and the plain
-            # version's against the plain version in float64
-            **({"peak_ops": PEAK_3XTF32_FLOPS, "f32_fma_bound": True,
-                "float64_fn": lambda x=x, w=w, d=d: _dilated_conv1d_residue(
-                    x.double(), w.double(), d, kernels.banded_conv1d_plain)}
-               if name == "banded_conv1d" else {}),
+            # both conv kernels run 3xTF32 on the tensor cores: the
+            # float32-FMA bound is printed beside that one, and the kernel's
+            # error and the plain version's against the plain version in
+            # float64
+            "peak_ops": PEAK_3XTF32_FLOPS, "f32_fma_bound": True,
+            "float64_fn": (
+                (lambda x=x, w=w, d=d: kernels.dilated_conv1d_plain(
+                    x.double(), w.double(), d))
+                if name == "dilated_conv1d" else
+                (lambda x=x, w=w, d=d: _dilated_conv1d_residue(
+                    x.double(), w.double(), d, kernels.banded_conv1d_plain))),
         }
 
 

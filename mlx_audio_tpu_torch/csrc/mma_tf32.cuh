@@ -1,0 +1,56 @@
+// Helpers shared by the two 3xTF32 convolution kernels (banded_conv1d.cu,
+// dilated_conv1d.cu): cp.async copies into shared memory, the TF32 split of
+// a float32 value, ldmatrix and the m16n8k8 TF32 tensor-core product.
+#pragma once
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+__device__ inline uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes from global to shared memory; zeros when !valid (src-size 0)
+__device__ inline void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// v rounded to TF32, ties away from zero: the rounding of
+// cvt.rna.tf32.f32 for every finite v, done with an integer add and mask,
+// which issue faster on an H100 than the conversion instruction (NaN
+// payloads below bit 13 may come out as inf)
+__device__ inline uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+}
+
+// a = big + small, both TF32 (float32 with the low 13 bits zero)
+__device__ inline void split_tf32(float v, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(v);
+  small = tf32_rna(v - __uint_as_float(big));
+}
+
+__device__ inline void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ inline void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}

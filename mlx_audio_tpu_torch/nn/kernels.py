@@ -6,9 +6,10 @@ main path:
 
 * ``lstm`` (``csrc/lstm.cu``) replaces ``lstm_pallas``;
 * ``dilated_conv1d`` (``csrc/dilated_conv1d.cu``) replaces
-  ``dilated_conv1d_pallas``;
+  ``dilated_conv1d_pallas``: an implicit-GEMM conv on the tensor cores
+  whose taps read one staged window ``d`` rows apart;
 * ``banded_conv1d`` (``csrc/banded_conv1d.cu``) replaces
-  ``banded_conv1d_pallas``: an implicit-GEMM conv on the tensor cores that
+  ``banded_conv1d_pallas``: the same implicit GEMM at dilation 1 that
   forms no band; its plain version keeps the banded formulation, with
   ``banded_weight`` the port of ``_banded_weight``.
 
@@ -73,11 +74,11 @@ _SIGNATURES = {
 
 # shared memory one Hopper block may use (227 KB)
 SMEM_LIMIT_BYTES = 232448
-_CONV_TILE = 64      # csrc/tile_fma.cuh kTile
-_CONV_CHANNELS = 16  # csrc/dilated_conv1d.cu kChannels
-# csrc/banded_conv1d.cu: kTileM, kSlice, kStages; window and weight rows
-# padded by 4 and 8 floats
-_BANDED_TILE_M, _BANDED_TILE_N, _BANDED_SLICE, _BANDED_STAGES = 192, 128, 8, 3
+# csrc/banded_conv1d.cu and csrc/dilated_conv1d.cu: kTileM, kTileN; window
+# and weight rows padded by 4 and 8 floats
+_MMA_TILE_M, _MMA_TILE_N = 192, 128
+# csrc/dilated_conv1d.cu kConfigs: (channel slice, stages), in the order tried
+_DILATED_CONFIGS = ((32, 2), (8, 3), (8, 2))
 
 
 def reset_launches() -> None:
@@ -182,15 +183,47 @@ def lstm(x_proj: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Dilated conv1d as K shifted matmuls over a halo window
+# The two 3xTF32 implicit-GEMM convolutions: dilated, and dense (banded in
+# its plain version)
 # ---------------------------------------------------------------------------
+
+
+def _mma_conv_smem_bytes(k: int, span: int, channels: int,
+                         stages: int) -> int:
+    """Shared memory of one block of the 3xTF32 conv kernels: ``stages``
+    stages of the halo window (192 + span rows of ``channels``) and K
+    [channels, 128] weight slices, and the split remainder of one window."""
+    window = (_MMA_TILE_M + span) * (channels + 4)
+    weights = k * channels * (_MMA_TILE_N + 8)
+    return 4 * (stages * (window + weights) + window)
+
+
+def _check_mma_conv(name: str, x: torch.Tensor, w: torch.Tensor,
+                    smem: int) -> None:
+    """What the 3xTF32 conv kernels take: K odd, C and Cout multiples of 8,
+    16-byte aligned x and w, a block's shared memory within the limit."""
+    b, l, c = x.shape
+    k, c_w, c_out = w.shape
+    if (c_w != c or k % 2 == 0 or b < 1 or l < 1 or c % 8 or c_out % 8
+            or x.data_ptr() % 16 or w.data_ptr() % 16):
+        raise ValueError(f"{name}: x {tuple(x.shape)}, w {tuple(w.shape)}: "
+                         "the kernel takes K odd, C and Cout multiples of 8, "
+                         "16-byte aligned tensors")
+    if smem > SMEM_LIMIT_BYTES:
+        raise ValueError(f"{name}: w {tuple(w.shape)} needs {smem} bytes of "
+                         "shared memory, more than a block has")
 
 
 def dilated_conv1d_smem_bytes(k: int, dilation: int) -> int:
     """Shared memory of one dilated_conv1d block (csrc/dilated_conv1d.cu):
-    the halo window of 16 channels plus K [16, 64] weight slices."""
-    window = (_CONV_TILE + (k - 1) * dilation) | 1
-    return 4 * (_CONV_CHANNELS * window + k * _CONV_CHANNELS * _CONV_TILE)
+    that of the first (slice, stages) in ``_DILATED_CONFIGS`` that fits a
+    block, or of the last when none does."""
+    span = (k - 1) * dilation
+    for channels, stages in _DILATED_CONFIGS:
+        smem = _mma_conv_smem_bytes(k, span, channels, stages)
+        if smem <= SMEM_LIMIT_BYTES:
+            break
+    return smem
 
 
 def dilated_conv1d_plain(x, w, dilation: int = 1):
@@ -209,36 +242,29 @@ def dilated_conv1d_plain(x, w, dilation: int = 1):
 def dilated_conv1d(x: torch.Tensor, w: torch.Tensor,
                    dilation: int = 1) -> torch.Tensor:
     """'Same'-padded dilated conv, NLC: x [B, L, C] * w [K, C, Cout] ->
-    [B, L, Cout].  K odd."""
+    [B, L, Cout].  K odd.  The kernel computes 3xTF32 products on the
+    tensor cores, every tap reading one staged window at row offset
+    tap * dilation; it takes C and Cout multiples of 8, 16-byte aligned x
+    and w, and a window whose stages fit a block's shared memory."""
     if _on_cpu("dilated_conv1d", x, w):
         return dilated_conv1d_plain(x, w, dilation)
+    if dilation < 1:
+        raise ValueError(f"dilated_conv1d: dilation {dilation}")
+    k = w.shape[0]
+    _check_mma_conv("dilated_conv1d", x, w,
+                    dilated_conv1d_smem_bytes(k, dilation))
     b, l, c = x.shape
-    k, c_w, c_out = w.shape
-    if c_w != c or k % 2 == 0 or dilation < 1:
-        raise ValueError(f"dilated_conv1d: x {tuple(x.shape)}, w "
-                         f"{tuple(w.shape)}, dilation {dilation}")
-    if dilated_conv1d_smem_bytes(k, dilation) > SMEM_LIMIT_BYTES:
-        raise ValueError(f"dilated_conv1d: K={k}, d={dilation} needs more "
-                         "shared memory than a block has")
+    c_out = w.shape[2]
     out = torch.empty((b, l, c_out), device=x.device, dtype=torch.float32)
     _launch("dilated_conv1d", x.device, x.data_ptr(), w.data_ptr(),
             out.data_ptr(), b, l, c, c_out, k, dilation)
     return out
 
 
-# ---------------------------------------------------------------------------
-# Dense conv1d: a 3xTF32 implicit GEMM in the kernel, banded in the plain
-# version
-# ---------------------------------------------------------------------------
-
-
 def banded_conv1d_smem_bytes(k: int) -> int:
     """Shared memory of one banded_conv1d block (csrc/banded_conv1d.cu):
-    three stages of the halo window and K [8, 128] weight slices, and the
-    split remainder of one window."""
-    window = (_BANDED_TILE_M + k - 1) * (_BANDED_SLICE + 4)
-    weights = k * _BANDED_SLICE * (_BANDED_TILE_N + 8)
-    return 4 * (_BANDED_STAGES * (window + weights) + window)
+    three stages of a window of 192 + K - 1 rows."""
+    return _mma_conv_smem_bytes(k, k - 1, 8, 3)
 
 
 def banded_groups(k: int) -> int:
@@ -283,16 +309,10 @@ def banded_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     multiples of 8, 16-byte aligned x and w, and K up to 13."""
     if _on_cpu("banded_conv1d", x, w):
         return banded_conv1d_plain(x, w)
+    k = w.shape[0]
+    _check_mma_conv("banded_conv1d", x, w, banded_conv1d_smem_bytes(k))
     b, l, c = x.shape
-    k, c_w, c_out = w.shape
-    if (c_w != c or k % 2 == 0 or b < 1 or l < 1 or c % _BANDED_SLICE
-            or c_out % 8 or x.data_ptr() % 16 or w.data_ptr() % 16):
-        raise ValueError(f"banded_conv1d: x {tuple(x.shape)}, w "
-                         f"{tuple(w.shape)}: the kernel takes K odd, C and "
-                         "Cout multiples of 8, 16-byte aligned tensors")
-    if banded_conv1d_smem_bytes(k) > SMEM_LIMIT_BYTES:
-        raise ValueError(f"banded_conv1d: K={k} needs more shared memory "
-                         "than a block has")
+    c_out = w.shape[2]
     out = torch.empty((b, l, c_out), device=x.device, dtype=torch.float32)
     _launch("banded_conv1d", x.device, x.data_ptr(), w.data_ptr(),
             out.data_ptr(), b, l, c, c_out, k)

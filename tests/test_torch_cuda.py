@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from mlx_audio_tpu_torch import build
 from mlx_audio_tpu_torch.nn import kernels
 from mlx_audio_tpu_torch.nn.layers import _dilated_conv1d_residue
 
@@ -48,14 +49,30 @@ def test_lstm_kernel_matches_plain(cuda, b, t, h):
         torch.testing.assert_close(g, r, **TOL)
 
 
-@pytest.mark.parametrize("l,c,c_out,k,d", [(1111, 128, 128, 3, 1),
-                                           (2500, 256, 128, 7, 3),
-                                           (777, 128, 256, 11, 5)])
-def test_dilated_conv_kernel_matches_plain(cuda, l, c, c_out, k, d):
+@pytest.mark.parametrize("b,l,c,c_out,k,d", [
+    (2, 1111, 128, 128, 3, 1),
+    (2, 2500, 256, 128, 7, 3),
+    (2, 777, 128, 256, 11, 5),
+    (2, 100, 128, 128, 3, 1),      # L below one 192-sample tile
+    (2, 7, 128, 128, 3, 5),        # L below the span (K-1) d: taps off both ends
+    (2, 15601, 128, 128, 3, 1),    # odd L, the tail of 156 001
+    (2, 4133, 256, 128, 3, 1),     # C = 256, Cout = 128
+    (3, 4133, 128, 128, 3, 1),     # B = 3
+    (2, 4133, 128, 128, 3, 3),
+    (2, 4133, 256, 256, 3, 5),
+    (2, 4133, 128, 128, 15, 1),    # two stages: three do not fit
+    (2, 1000, 64, 72, 3, 1),       # Cout not a multiple of the 128 tile
+    (2, 1000, 72, 64, 3, 1),       # C not a multiple of the 32-channel slice
+])
+def test_dilated_conv_kernel_matches_plain(cuda, b, l, c, c_out, k, d):
     rng = np.random.default_rng(1)
-    x = _randn(rng, (2, l, c), 0.3, cuda)
-    w = _randn(rng, (k, c, c_out), 0.1, cuda)
+    # outputs of about 0.5, as at Kokoro's widths
+    x = _randn(rng, (b, l, c), 0.3, cuda)
+    w = _randn(rng, (k, c, c_out), 0.05, cuda)
+    before = kernels.LAUNCHES["dilated_conv1d"]
     got = kernels.dilated_conv1d(x, w, d)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["dilated_conv1d"] == before + 1
     torch.testing.assert_close(got, kernels.dilated_conv1d_plain(x, w, d), **TOL)
 
 
@@ -85,6 +102,17 @@ def test_banded_conv_kernel_matches_plain(cuda, b, l, c, c_out, k, d):
     torch.testing.assert_close(got, ref, **TOL)
 
 
+@pytest.mark.parametrize("k,d", [(3, 1), (3, 5), (7, 3), (11, 5), (13, 1),
+                                 (15, 1), (3, 1000)])
+def test_conv_shared_memory_agrees_with_the_kernels(cuda, k, d):
+    """The wrappers' shared-memory counts, which conv1d_route gates on, are
+    the bytes the kernels ask for at launch."""
+    dilated = build.load("dilated_conv1d").dilated_conv1d_smem_bytes
+    assert dilated(k, d) == kernels.dilated_conv1d_smem_bytes(k, d)
+    banded = build.load("banded_conv1d").banded_conv1d_smem_bytes
+    assert banded(k) == kernels.banded_conv1d_smem_bytes(k)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(1, 64, 128, device=cuda, dtype=torch.float64)
     w = torch.zeros(3, 128, 128, device=cuda, dtype=torch.float64)
@@ -99,16 +127,24 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         "x not 16-byte aligned": (torch.zeros(64 * 128 + 1, device=cuda)[1:].view(1, 64, 128), wf),
         "w not 16-byte aligned": (xf, torch.zeros(3 * 128 * 128 + 2, device=cuda)[2:].view(3, 128, 128)),
         "K even": (xf, torch.zeros(4, 128, 128, device=cuda)),
-        "K past the shared memory": (xf, torch.zeros(15, 128, 128, device=cuda)),
     }
-    before = kernels.LAUNCHES["banded_conv1d"]
-    for why, (xb, wb) in bad.items():
-        try:
-            kernels.banded_conv1d(xb, wb)
-        except ValueError:
-            continue
-        pytest.fail(f"banded_conv1d took {why}")
-    assert kernels.LAUNCHES["banded_conv1d"] == before
+    # banded_conv1d: K = 15 overflows three stages; dilated_conv1d: a window
+    # of 192 + 2000 rows (K = 3, d = 1000) overflows two
+    calls = {"banded_conv1d": lambda xb, wb, d: kernels.banded_conv1d(xb, wb),
+             "dilated_conv1d": kernels.dilated_conv1d}
+    for name, past_smem, d_past in (("banded_conv1d", 15, 1),
+                                    ("dilated_conv1d", 3, 1000)):
+        cases = {why: (xb, wb, 1) for why, (xb, wb) in bad.items()}
+        cases["past the shared memory"] = (
+            xf, torch.zeros(past_smem, 128, 128, device=cuda), d_past)
+        before = kernels.LAUNCHES[name]
+        for why, (xb, wb, d) in cases.items():
+            try:
+                calls[name](xb, wb, d)
+            except ValueError:
+                continue
+            pytest.fail(f"{name} took {why}")
+        assert kernels.LAUNCHES[name] == before
 
 
 @pytest.mark.parametrize("rows,i,o,gs,bits", [(1, 2048, 384, 128, 8),

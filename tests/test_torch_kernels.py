@@ -101,12 +101,13 @@ def test_banded_residue_fold_matches_pallas():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **CONV_TOL)
 
 
-# The CUDA banded_conv1d kernel computes in 3xTF32 on the tensor cores: each
-# float32 operand a is split into a_big = tf32_rna(a) and a_small =
-# tf32_rna(a - a_big), and each multiply-add is small*big + big*small +
-# big*big, summed in float32, per tap over the window shifted by tap.  The
-# tests below emulate that arithmetic in PyTorch; the kernel itself is held
-# against banded_conv1d_plain on the card (tests/test_torch_cuda.py).
+# The CUDA banded_conv1d and dilated_conv1d kernels compute in 3xTF32 on the
+# tensor cores: each float32 operand a is split into a_big = tf32_rna(a) and
+# a_small = tf32_rna(a - a_big), and each multiply-add is small*big +
+# big*small + big*big, summed in float32, per tap over the window shifted by
+# tap * dilation.  The tests below emulate that arithmetic in PyTorch; the
+# kernels themselves are held against their plain versions on the card
+# (tests/test_torch_cuda.py).
 # Tolerances: the emulation drops small*small (2**-22 of a product) and
 # rounds small to TF32 (2**-24 of an operand), so its error is near
 # float32's, and atol/rtol 1e-5 (ten times tighter than the card's 1e-4)
@@ -122,18 +123,22 @@ def _tf32_rna(t: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def _tf32_conv(x: torch.Tensor, w: torch.Tensor, passes: int = 3) -> torch.Tensor:
-    """'Same' dense conv x [B, L, C] * w [K, C, Cout] in the kernel's
-    arithmetic: ``passes`` 3 is 3xTF32, 1 one TF32 product (big*big)."""
+def _tf32_conv(x: torch.Tensor, w: torch.Tensor, passes: int = 3,
+               dilation: int = 1) -> torch.Tensor:
+    """'Same' conv x [B, L, C] * w [K, C, Cout] with taps ``dilation`` rows
+    apart, in the kernels' arithmetic: ``passes`` 3 is 3xTF32, 1 one TF32
+    product (big*big)."""
     b, l, _ = x.shape
     k = w.shape[0]
-    pad = (k - 1) // 2
-    xp = F.pad(x, (0, 0, pad, k - 1 - pad))
+    span = (k - 1) * dilation
+    pad = span // 2
+    xp = F.pad(x, (0, 0, pad, span - pad))
     x_big, w_big = _tf32_rna(xp), _tf32_rna(w)
     x_small, w_small = _tf32_rna(xp - x_big), _tf32_rna(w - w_big)
     out = torch.zeros(b, l, w.shape[2])
     for tap in range(k):
-        xb, xs = x_big[:, tap:tap + l], x_small[:, tap:tap + l]
+        at = tap * dilation
+        xb, xs = x_big[:, at:at + l], x_small[:, at:at + l]
         if passes == 3:
             out += xs @ w_big[tap] + xb @ w_small[tap]
         out += xb @ w_big[tap]
@@ -168,6 +173,24 @@ def test_three_tf32_scheme_matches_plain_and_pallas(k, c_out):
     plain = kernels.banded_conv1d_plain(torch.as_tensor(x), torch.as_tensor(w))
     torch.testing.assert_close(got, plain, **SCHEME_TOL)
     ref = banded_conv1d_pallas(jnp.asarray(x), jnp.asarray(w), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **SCHEME_TOL)
+
+
+@pytest.mark.parametrize("dilation", [1, 3, 5])
+@pytest.mark.parametrize("c", [128, 256])
+def test_three_tf32_scheme_at_the_dilated_taps(dilation, c):
+    """The dilated kernel's arithmetic at Kokoro's K = 3 resblock convs: every
+    tap reads the window tap * dilation rows in; L = 2500 is no multiple of
+    the 192-sample tile.  Held to the plain version and to the Pallas kernel
+    at SCHEME_TOL, for the reason given above."""
+    rng = np.random.default_rng(200 + 10 * dilation + c)
+    x, w = _kokoro_conv_inputs(rng, 2, 2500, c, 128, 3)
+    xt, wt = torch.as_tensor(x), torch.as_tensor(w)
+    got = _tf32_conv(xt, wt, dilation=dilation)
+    plain = kernels.dilated_conv1d_plain(xt, wt, dilation)
+    torch.testing.assert_close(got, plain, **SCHEME_TOL)
+    ref = dilated_conv1d_pallas(jnp.asarray(x), jnp.asarray(w), dilation,
+                                interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **SCHEME_TOL)
 
 

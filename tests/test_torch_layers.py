@@ -215,6 +215,21 @@ def test_banded_route_stops_where_the_kernel_runs_out_of_shared_memory(k, route)
     assert tnn.conv1d_route(k, 128, 128, 8192, 1, 1, 1, (k - 1) // 2) == route
 
 
+@pytest.mark.parametrize("k,d,channels,stages", [(3, 1, 32, 2), (3, 5, 32, 2),
+                                                 (11, 5, 8, 3), (15, 1, 8, 2)])
+def test_dilated_kernel_shared_memory_and_route(k, d, channels, stages):
+    """csrc/dilated_conv1d.cu stages a halo window of 192 + (K-1) d rows and
+    K [s, 128] weight slices, S deep, plus one split window: 4 (S (W + 136 s
+    K) + W) bytes with W = (s + 4) (192 + (K-1) d), taking the first (s, S)
+    of (32, 2), (8, 3), (8, 2) that fits a block.  Every one of these still
+    routes to it."""
+    window = (channels + 4) * (192 + (k - 1) * d)
+    want = 4 * (stages * (window + 136 * channels * k) + window)
+    assert tnn_kernels.dilated_conv1d_smem_bytes(k, d) == want
+    assert want <= tnn_kernels.SMEM_LIMIT_BYTES
+    assert tnn.conv1d_route(k, 128, 128, 8192, d, 1, 1, (k - 1) * d // 2) == "shifted"
+
+
 def test_port_imports_no_jax():
     """Neither the port nor chip_smoke.py imports JAX or the JAX package."""
     files = sorted((ROOT / "mlx_audio_tpu_torch").rglob("*.py"))
