@@ -22,8 +22,10 @@ Phases; the failure of any one ends the script with a non-zero exit:
    depth-draft probes at the full probe shape (4 layers x 1024 x 28672,
    chunks of 4096, 30 steps; every mode in int8, the stream modes in bf16
    too; results equal); time kernel, plain version and one library call
-   (``quantized_matmul``'s operands cold in L2), and print where the
-   kernel and the dequantize-and-matmul path cross;
+   (``quantized_matmul``'s operands cold in L2), check that every row of
+   a 2-, 8- and 32-row ``quantized_matmul`` equals the 1-row call on it bit
+   for bit, and print where the kernel and the dequantize-and-matmul path
+   cross;
    then run the probes' entry point (``scripts/probe_depth.py``, every
    mode, int8 and bf16);
 3. run Kokoro-82M's ``Model.generate``, ``Model.generate_batch`` and
@@ -43,7 +45,8 @@ Phases; the failure of any one ends the script with a non-zero exit:
    decode; ``quantized_matmul`` held against its
    plain version on the operands of its first call at each (rows, I, O)
    these runs gave it; then a timed breakdown (prefill, frame loop, Mimi)
-   and a ``torch.profiler`` view of the spec-decode frame loop;
+   and a ``torch.profiler`` view of the spec-decode frame loop, with
+   ``quantized_matmul``'s calls and device time in it;
 6. print one ``{"kernels": [...]}`` line, then the device line last.
 
 Launch counters are set to 0 just before each run of the probes' entry
@@ -343,6 +346,7 @@ def _qmm_cases(gen):
             sets = [(q.weight.clone(), q.scales.clone(), q.biases.clone())
                     for _ in range(cold_copies(qbytes))]
             denses = [dense.clone() for _ in range(cold_copies(4 * dense.numel()))]
+            parts, _ = kernels.quantized_matmul_parts(i, o, 128, q.packed)
             for b in (QMM_ROWS if bits == 8 else QMM_ROWS_INT4):
                 x = torch.randn(b, i, generator=gen, device="cuda")
                 kern = [lambda a=(x, *w, 128, q.packed): kernels.quantized_matmul(*a)
@@ -353,12 +357,40 @@ def _qmm_cases(gen):
                 yield {
                     "kernel": "quantized_matmul", "queued": True, "rows": b,
                     "bits": bits, "io": (i, o),
-                    "shape": f"B={b} I={i} O={o} int{bits} gs128 ({role})",
+                    "shape": f"B={b} I={i} O={o} int{bits} gs128 parts {parts} ({role})",
                     "kernel_fn": kern[0], "plain_fn": plain[0], "library_fn": lib[0],
                     "timed": (kern, plain, lib),
                     "flops": 2.0 * b * i * o,
                     "bytes": qbytes + 4 * b * (i + o),
                 }
+
+
+def qmm_row_independence(gen) -> None:
+    """Each row of a 2-, 8- and 32-row quantized_matmul equals, bit for bit,
+    the 1-row call on that row (the kernel sums in one order whatever the
+    row count), at every int8 shape of QMM_SHAPES and at llama-1B's q, o in
+    int4, groups of 128."""
+    from mlx_audio_tpu_torch.nn import kernels
+    from mlx_audio_tpu_torch.nn.layers import Linear
+    from mlx_audio_tpu_torch.nn.quantize import QuantizedLinear
+
+    shapes = [(io, 8) for io, _ in QMM_SHAPES] + [(QMM_SHAPES[0][0], 4)]
+    for (i, o), bits in shapes:
+        lin = Linear(i, o, bias=False)
+        lin.weight.data = torch.randn(o, i, generator=gen, device="cuda") * i ** -0.5
+        q = QuantizedLinear.from_linear(lin, group_size=128, bits=bits)
+        w = (q.weight, q.scales, q.biases, 128, q.packed)
+        x = torch.randn(32, i, generator=gen, device="cuda")
+        ones = torch.cat([kernels.quantized_matmul(x[r:r + 1], *w) for r in range(32)])
+        for rows in (2, 8, 32):
+            got = kernels.quantized_matmul(x[:rows], *w)
+            if not torch.equal(got, ones[:rows]):
+                n = int((got != ones[:rows]).any(1).sum())
+                fail(f"quantized_matmul I={i} O={o} int{bits}: {n} of {rows} "
+                     "rows differ from the 1-row calls on them")
+    print("quantized_matmul rows independent: every row of 2-, 8- and 32-row "
+          "calls equals the 1-row call bit for bit, at "
+          + ", ".join(f"I={i} O={o} int{b}" for (i, o), b in shapes), flush=True)
 
 
 def _draft_cases(gen):
@@ -564,6 +596,7 @@ def check_kernels() -> dict:
         torch.cuda.empty_cache()
     if bad:
         fail("kernel check: " + "; ".join(bad))
+    qmm_row_independence(gen)
     qmm_crossover(records["quantized_matmul"])
     return records
 
@@ -992,6 +1025,7 @@ def csm_breakdown(model) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from mlx_audio_tpu_torch.models.tts.sesame import Segment
+    from mlx_audio_tpu_torch.nn import kernels
 
     ref = (np.random.default_rng(1).standard_normal(48_000) * 0.1).astype(np.float32)
     torch.cuda.reset_peak_memory_stats()
@@ -1027,11 +1061,13 @@ def csm_breakdown(model) -> dict:
         first = model.model.first_frame(last_h, 0.0, 0, model.generator)
         model._frame_chunk(caches, pad_len, first, 2, 0.0, 0)  # warm
         torch.cuda.synchronize()
+        kernels.reset_launches()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             model._frame_chunk(caches, pad_len, first, 4, 0.0, 0)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        qmm_calls = kernels.LAUNCHES["quantized_matmul"]
     busy, window, by_name = device_time(prof)
     if not by_name:
         print("csm profile: the profiler recorded no device time (not measured)")
@@ -1049,6 +1085,15 @@ def csm_breakdown(model) -> dict:
         print(f"  {group:28s} {ms:10.3f} ms  {ms / device_ms:7.2%}")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"  {ms:10.3f} ms {n:6d}x  {name[:90]}")
+    part_ms, sum_ms, sums = 0.0, 0.0, 0
+    for name, (ms, n) in by_name.items():
+        if "qmm_kernel_sum" in name:
+            sum_ms, sums = sum_ms + ms, sums + n
+        elif "qmm_kernel_part" in name:
+            part_ms += ms
+    print(f"  quantized_matmul in the 4 frames: {qmm_calls} calls, device "
+          f"{part_ms + sum_ms:.3f} ms (part kernels {part_ms:.3f} ms, {sums} "
+          f"sums {sum_ms:.3f} ms); on {gpu_line()}")
     out["profile_idle_share"] = 1 - busy / window
     return out
 

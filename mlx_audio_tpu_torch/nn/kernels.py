@@ -65,7 +65,7 @@ _SIGNATURES = {
     "lstm": ("lstm_forward", [_P] * 8 + [_I] * 3 + [_P]),
     "dilated_conv1d": ("dilated_conv1d_forward", [_P] * 3 + [_I] * 6 + [_P]),
     "banded_conv1d": ("banded_conv1d_forward", [_P] * 3 + [_I] * 5 + [_P]),
-    "quantized_matmul": ("quantized_matmul_forward", [_P] * 5 + [_I] * 5 + [_P]),
+    "quantized_matmul": ("quantized_matmul_forward", [_P] * 6 + [_I] * 5 + [_P]),
     "depth_draft": ("depth_draft_forward", [_P] * 24 + [_I] * 12 + [_F] * 2 + [_P]),
     "probe_depth": ("probe_depth_forward", [_P] * 3 + [_I] * 7 + [_P]),
     "probe_vpu": ("probe_vpu_forward", [_P] * 3 + [_I] * 4 + [_P]),
@@ -334,13 +334,39 @@ def quantized_matmul_plain(x, codes, scales, biases, group_size: int,
     return x @ w.t()
 
 
+# csrc/quantized_matmul.cu kPartCols: stored columns a part, at most
+QMM_PART_COLS = 2048
+
+
+def quantized_matmul_parts(i: int, o: int, group_size: int,
+                           packed: bool) -> tuple[int, int]:
+    """(parts, P): the kernel cuts the I (or I/2 packed) stored columns into
+    ``parts`` pieces of P columns, the last one possibly shorter.  P is the
+    most columns up to ``QMM_PART_COLS`` that are a multiple of the group
+    size (``QMM_PART_COLS`` itself, a multiple of 16, when a group is
+    longer), or all of them when they fit.  It depends on these arguments
+    alone, never on the row count, so every row count sums in one order;
+    ``o`` does not change it today.  Mirrors ``quantized_matmul_parts`` of
+    csrc/quantized_matmul.cu, which returns the count."""
+    stored = i // 2 if packed else i
+    if group_size <= QMM_PART_COLS:
+        cols = QMM_PART_COLS // group_size * group_size
+    else:
+        cols = QMM_PART_COLS
+    cols = min(cols, stored)
+    return -(-stored // cols), cols
+
+
 def quantized_matmul(x: torch.Tensor, codes: torch.Tensor,
                      scales: torch.Tensor, biases: torch.Tensor,
                      group_size: int, packed: bool = False) -> torch.Tensor:
     """y [B, O] = x [B, I] @ (q * scale + bias)^T with grouped affine uint8
     codes [O, I], or two 4-bit codes a byte [O, I/2] in the concat-half
     layout when ``packed``; scales and biases [O, I / group_size].  The
-    dense weight is never formed."""
+    dense weight is never formed.  The kernel sums each of
+    ``quantized_matmul_parts`` pieces of I apart and adds the parts in
+    ascending order (a second launch, into y, where there is more than one),
+    so a row's result does not depend on the rows batched with it."""
     if _on_cpu("quantized_matmul", x, scales, biases, other=(codes,)):
         return quantized_matmul_plain(x, codes, scales, biases, group_size,
                                       packed)
@@ -356,9 +382,13 @@ def quantized_matmul(x: torch.Tensor, codes: torch.Tensor,
             f"{codes.dtype}, scales {tuple(scales.shape)}, group_size "
             f"{group_size}, packed {packed}")
     y = torch.empty((rows, o), device=x.device, dtype=torch.float32)
+    parts, _ = quantized_matmul_parts(i, o, group_size, packed)
+    ws = (torch.empty((parts, rows, o), device=x.device, dtype=torch.float32)
+          if parts > 1 else None)
     _launch("quantized_matmul", x.device, x.data_ptr(), codes.data_ptr(),
-            scales.data_ptr(), biases.data_ptr(), y.data_ptr(), rows, i, o,
-            group_size, int(packed))
+            scales.data_ptr(), biases.data_ptr(), y.data_ptr(),
+            None if ws is None else ws.data_ptr(), rows, i, o, group_size,
+            int(packed))
     return y
 
 

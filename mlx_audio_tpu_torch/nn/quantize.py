@@ -28,11 +28,12 @@ from mlx_audio_tpu_torch.nn import kernels
 from mlx_audio_tpu_torch.nn.layers import Embedding, Linear
 
 # rows up to which QuantizedLinear takes the kernel: decode steps and CSM's
-# 32-row verify pass.  chip_smoke.py prints where the two paths cross; on an
-# H100 80GB HBM3 at 700 W the kernel was no slower than dequantize-and-matmul
-# up to 32 rows at every projection of CSM-1B, and slower at 48 to 128 (it
-# runs float32 FMAs, and re-reads the codes for every 8 rows).  The JAX
-# package's TPU kernel takes up to 512.
+# 32-row verify pass, which must share the kernel's summation order for
+# spec-decode frames to equal plain ones.  chip_smoke.py prints where the two
+# paths cross; on an H100 80GB HBM3 at 700 W the kernel is no slower than
+# dequantize-and-matmul up to 64 rows at every projection of CSM-1B, and
+# slower at 128 (it runs float32 FMAs, and re-reads the codes for every 8
+# rows).  The JAX package's TPU kernel takes up to 512.
 KERNEL_MAX_ROWS = 32
 
 

@@ -147,18 +147,32 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         assert kernels.LAUNCHES[name] == before
 
 
-@pytest.mark.parametrize("rows,i,o,gs,bits", [(1, 2048, 384, 128, 8),
-                                               (3, 1024, 200, 64, 4),
-                                               (37, 512, 130, 16, 8),
-                                               (9, 96, 40, 6, 4)])
-def test_quantized_matmul_kernel_matches_plain(cuda, rows, i, o, gs, bits):
+def _quantized(rng, i, o, gs, bits, device):
     from mlx_audio_tpu_torch.nn.layers import Linear
     from mlx_audio_tpu_torch.nn.quantize import QuantizedLinear
 
-    rng = np.random.default_rng(3)
     lin = Linear(i, o, bias=False)
     lin.weight.data = _randn(rng, (o, i), 0.2, "cpu")
-    q = QuantizedLinear.from_linear(lin, group_size=gs, bits=bits).to(cuda)
+    return QuantizedLinear.from_linear(lin, group_size=gs, bits=bits).to(device)
+
+
+@pytest.mark.parametrize("rows,i,o,gs,bits", [
+    (1, 2048, 384, 128, 8),
+    (3, 1024, 200, 64, 4),
+    (37, 512, 130, 16, 8),
+    (9, 96, 40, 6, 4),
+    (1, 8192, 1024, 128, 8),    # 4 parts
+    (1, 8192 + 128, 1024, 128, 8),  # the last part short
+    (32, 1024, 8192, 128, 8),   # CSM's verify
+    (1, 2048, 2048, 128, 4),    # int4, 1 part
+    (1, 2048, 2051, 128, 8),    # the codebook-0 head: O not a multiple of a tile
+    (5, 96, 72, 12, 8),         # 4-code loads (group of 12)
+    (4, 5760, 40, 12, 4),       # 4-code loads, packed, 2 parts
+    (2, 8192, 64, 4096, 8),     # a group longer than a part
+])
+def test_quantized_matmul_kernel_matches_plain(cuda, rows, i, o, gs, bits):
+    rng = np.random.default_rng(3)
+    q = _quantized(rng, i, o, gs, bits, cuda)
     x = _randn(rng, (rows, i), 0.5, cuda)
     args = (x, q.weight, q.scales, q.biases, gs, q.packed)
     before = kernels.LAUNCHES["quantized_matmul"]
@@ -166,6 +180,49 @@ def test_quantized_matmul_kernel_matches_plain(cuda, rows, i, o, gs, bits):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["quantized_matmul"] == before + 1
     torch.testing.assert_close(got, kernels.quantized_matmul_plain(*args), **TOL)
+
+
+def test_quantized_matmul_kernel_takes_unaligned_codes(cuda):
+    """Codes 4 bytes past a 16-byte boundary take the 4-code loads."""
+    rng = np.random.default_rng(7)
+    q = _quantized(rng, 2048, 96, 128, 8, cuda)
+    buf = torch.zeros(q.weight.numel() + 4, dtype=torch.uint8, device=cuda)
+    codes = buf[4:].view(q.weight.shape)
+    codes.copy_(q.weight)
+    assert codes.data_ptr() % 16 == 4
+    x = _randn(rng, (3, 2048), 0.5, cuda)
+    got = kernels.quantized_matmul(x, codes, q.scales, q.biases, 128, False)
+    ref = kernels.quantized_matmul_plain(x, q.weight, q.scales, q.biases, 128)
+    torch.testing.assert_close(got, ref, **TOL)
+
+
+@pytest.mark.parametrize("i,o,bits", [(8192, 1024, 8), (1024, 8192, 8),
+                                      (2048, 2048, 4)])
+def test_quantized_matmul_rows_are_independent(cuda, i, o, bits):
+    """Each row of a 2-, 8-, 9- or 32-row call equals, bit for bit, the
+    1-row call on that row: CSM's 32-row verify must give a decode step's
+    logits."""
+    rng = np.random.default_rng(8)
+    q = _quantized(rng, i, o, 128, bits, cuda)
+    w = (q.weight, q.scales, q.biases, 128, q.packed)
+    x = _randn(rng, (32, i), 0.5, cuda)
+    ones = [kernels.quantized_matmul(x[r:r + 1], *w)[0] for r in range(32)]
+    for rows in (2, 8, 9, 32):
+        got = kernels.quantized_matmul(x[:rows], *w)
+        for r in range(rows):
+            assert torch.equal(got[r], ones[r]), (rows, r)
+
+
+@pytest.mark.parametrize("i,o,gs,bits", [(8192, 1024, 128, 8),
+                                         (8192 + 128, 1024, 128, 8),
+                                         (2048, 2048, 128, 4), (96, 40, 6, 4),
+                                         (8192, 64, 4096, 8)])
+def test_quantized_matmul_parts_agree_with_the_kernel(cuda, i, o, gs, bits):
+    """The wrapper sizes the workspace with the kernel's count of parts."""
+    lib = build.load("quantized_matmul")
+    packed = bits == 4
+    assert (lib.quantized_matmul_parts(i, o, gs, int(packed))
+            == kernels.quantized_matmul_parts(i, o, gs, packed)[0])
 
 
 @pytest.mark.parametrize("temp,top_k", [(0.0, 0), (0.9, 20)])

@@ -172,3 +172,66 @@ def test_no_plain_fallback_off_the_cpu(name):
         args = (PackedDepth(*[meta] * 15), meta, meta, meta, meta, 10)
     with pytest.raises(ValueError, match="no kernel for device"):
         getattr(kernels, name)(*args)
+
+
+def _qmm_shapes():
+    from chip_smoke import QMM_SHAPES
+
+    cases = [(i, o, gs, packed) for (i, o), _ in QMM_SHAPES
+             for gs in (64, 128) for packed in (False, True)]
+    return cases + [(96, 40, 6, False), (96, 40, 6, True)]
+
+
+@pytest.mark.parametrize("i,o,gs,packed", _qmm_shapes())
+def test_quantized_matmul_parts_cover_i_in_groups(i, o, gs, packed):
+    """The kernel's split over I: parts x P stored columns cover the stored
+    width with a last part that is not empty, P is a multiple of the group
+    size, and the choice takes no row count."""
+    import inspect
+
+    assert list(inspect.signature(kernels.quantized_matmul_parts).parameters) \
+        == ["i", "o", "group_size", "packed"]
+    parts, cols = kernels.quantized_matmul_parts(i, o, gs, packed)
+    stored = i // 2 if packed else i
+    assert (parts - 1) * cols < stored <= parts * cols
+    assert cols % gs == 0
+    assert cols == min(stored, kernels.QMM_PART_COLS // gs * gs)
+
+
+def _split_sum(x, w, stored, cols):
+    """x [B, I] @ w [O, I]^T as the kernel sums it: one float32 product per
+    part of the stored columns (with their high-nibble columns I/2 on when
+    packed), the parts added in ascending order."""
+    i = x.shape[1]
+    y = None
+    for p0 in range(0, stored, cols):
+        idx = np.arange(p0, min(p0 + cols, stored))
+        if stored != i:
+            idx = np.concatenate([idx, idx + stored])
+        part = x[:, idx] @ w[:, idx].T
+        y = part if y is None else (y + part).astype(np.float32)
+    return y
+
+
+@pytest.mark.parametrize("rows", [1, 32])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_split_sum_matches_plain_and_pallas(rows, bits):
+    """The kernel's split over I at CSM's largest I, emulated on the CPU,
+    against the plain version and the JAX package's Pallas kernel
+    (interpret mode), at the tolerance of
+    test_plain_quantized_matmul_matches_pallas."""
+    i, o, gs = 8192, 256, 128
+    j, t = _linear(i, o, seed=9, bias=False)
+    qj = jq.QuantizedLinear.from_linear(j, group_size=gs, bits=bits)
+    qt = tq.QuantizedLinear.from_linear(t, group_size=gs, bits=bits)
+    parts, cols = kernels.quantized_matmul_parts(i, o, gs, qt.packed)
+    assert parts == (2 if qt.packed else 4)
+    x = np.random.default_rng(10).standard_normal((rows, i)).astype(np.float32) * 0.5
+    w = qt.to_linear().weight.detach().numpy()
+    got = _split_sum(x, w, qt.weight.shape[1], cols)
+    plain = kernels.quantized_matmul_plain(torch.as_tensor(x), qt.weight,
+                                           qt.scales, qt.biases, gs, qt.packed)
+    ref = jax_quantized_matmul(jnp.asarray(x), qj.weight, qj.scales, qj.biases,
+                               gs, packed=qj.packed, interpret=True)
+    np.testing.assert_allclose(got, plain.numpy(), **KERNEL_TOL)
+    np.testing.assert_allclose(got, np.asarray(ref), **KERNEL_TOL)
