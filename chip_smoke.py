@@ -13,7 +13,9 @@ Phases; the failure of any one ends the script with a non-zero exit:
    into ``mlx_audio_tpu_torch/csrc/build/`` (one ``nvcc`` each, together);
 2. hold every kernel against its plain PyTorch version on the card at the
    main paths' shapes (float32, TF32 off): the three Kokoro-82M kernels
-   (``dilated_conv1d`` and ``banded_conv1d`` compute in 3xTF32 on the
+   (``lstm`` at Kokoro's H=256 on its cluster route, whose
+   ``cudaOccupancyMaxActiveClusters`` it prints, and at H=100 on its row
+   route; ``dilated_conv1d`` and ``banded_conv1d`` compute in 3xTF32 on the
    tensor cores and print that bound beside the float32-FMA one, and their
    error against a float64 run of the plain version),
    ``quantized_matmul`` at every projection of CSM-1B's path (int8, 1 to
@@ -51,7 +53,8 @@ Phases; the failure of any one ends the script with a non-zero exit:
 
 Launch counters are set to 0 just before each run of the probes' entry
 point and of phases 3 to 5, and read just after: each kernel of a run's
-path must have launched in it.  Needs
+path must have launched in it, and Kokoro's ``lstm`` launches only on the
+cluster route.  Needs
 one CUDA card and the repository checkout around this file; it imports
 nothing of JAX.
 """
@@ -215,37 +218,48 @@ def build_kernels() -> None:
 
 
 def _lstm_cases(gen):
+    from mlx_audio_tpu_torch import build
     from mlx_audio_tpu_torch.nn import kernels
 
-    b, h = 8, 256
-    for t in (512, 1300):
-        for reverse in (False, True):
-            x_proj = torch.randn(b, t, 4 * h, generator=gen, device="cuda") * 0.3
-            w_h = torch.randn(4 * h, h, generator=gen, device="cuda") * 0.1
-            # the reverse direction is the forward recurrence over flipped
-            # time, as nn.recurrent.lstm_scan runs it
-            xp = (x_proj.flip(1) if reverse else x_proj).contiguous()
-            wh = w_h.t().contiguous()
-            h0 = torch.zeros(b, h, device="cuda")
-            lib = torch.nn.LSTM(4 * h, h, batch_first=True).cuda()
-            with torch.no_grad():
-                # identity input weight: the library LSTM then computes the
-                # same function of x_proj
-                lib.weight_ih_l0.copy_(torch.eye(4 * h))
-                lib.weight_hh_l0.copy_(w_h)
-                lib.bias_ih_l0.zero_()
-                lib.bias_hh_l0.zero_()
-            yield {
-                "kernel": "lstm",
-                "shape": f"B={b} T={t} H={h} {'reverse' if reverse else 'forward'}",
-                "kernel_fn": lambda xp=xp, wh=wh, h0=h0: kernels.lstm(xp, wh, h0, h0),
-                "plain_fn": lambda xp=xp, wh=wh, h0=h0:
-                    kernels.lstm_plain(xp, wh, h0, h0),
-                "library_fn": lambda lib=lib, xp=xp: lib(xp),
-                "flops": 2.0 * b * t * h * 4 * h,
-                "bytes": 4.0 * (b * t * 4 * h + 4 * h * h + 2 * b * h
-                                + 2 * b * t * h + 2 * b * h),
-            }
+    b = 8
+    cs = build.load("lstm").lstm_cluster_size()
+    print(f"lstm: H=256 takes the {kernels.lstm_route(256)} route, clusters of "
+          f"{cs} CTAs; cudaOccupancyMaxActiveClusters "
+          f"{kernels.lstm_max_active_clusters(256)}", flush=True)
+    # Kokoro's two shapes, both directions, on the cluster route; then one
+    # H that takes the row route, drawn apart so the other kernels' inputs
+    # stay as they were
+    row_gen = torch.Generator(device="cuda").manual_seed(1)
+    shapes = [(t, 256, rev, gen) for t in (512, 1300) for rev in (False, True)]
+    for t, h, reverse, g in shapes + [(64, 100, False, row_gen)]:
+        route = kernels.lstm_route(h)
+        x_proj = torch.randn(b, t, 4 * h, generator=g, device="cuda") * 0.3
+        w_h = torch.randn(4 * h, h, generator=g, device="cuda") * 0.1
+        # the reverse direction is the forward recurrence over flipped
+        # time, as nn.recurrent.lstm_scan runs it
+        xp = (x_proj.flip(1) if reverse else x_proj).contiguous()
+        wh = w_h.t().contiguous()
+        h0 = torch.zeros(b, h, device="cuda")
+        lib = torch.nn.LSTM(4 * h, h, batch_first=True).cuda()
+        with torch.no_grad():
+            # identity input weight: the library LSTM then computes the
+            # same function of x_proj
+            lib.weight_ih_l0.copy_(torch.eye(4 * h))
+            lib.weight_hh_l0.copy_(w_h)
+            lib.bias_ih_l0.zero_()
+            lib.bias_hh_l0.zero_()
+        yield {
+            "kernel": "lstm",
+            "shape": f"B={b} T={t} H={h} {'reverse' if reverse else 'forward'}"
+                     f" route {route}" + (f" CS={cs}" if route == "cluster" else ""),
+            "kernel_fn": lambda xp=xp, wh=wh, h0=h0: kernels.lstm(xp, wh, h0, h0),
+            "plain_fn": lambda xp=xp, wh=wh, h0=h0:
+                kernels.lstm_plain(xp, wh, h0, h0),
+            "library_fn": lambda lib=lib, xp=xp: lib(xp),
+            "flops": 2.0 * b * t * h * 4 * h,
+            "bytes": 4.0 * (b * t * 4 * h + 4 * h * h + 2 * b * h
+                            + 2 * b * t * h + 2 * b * h),
+        }
 
 
 def _conv_cases(gen):
@@ -739,7 +753,8 @@ def bench_pass(run_once, iters: int = 5) -> dict:
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
-KERNEL_GROUPS = (("lstm_kernel", "lstm (this repo)"),
+KERNEL_GROUPS = (("lstm_cluster_kernel", "lstm (this repo)"),
+                 ("lstm_row_kernel", "lstm (this repo)"),
                  ("dilated_conv1d_kernel", "dilated_conv1d (this repo)"),
                  ("banded_conv1d_kernel", "banded_conv1d (this repo)"),
                  ("gemm", "cuBLAS / cuDNN"), ("xmma", "cuBLAS / cuDNN"),
@@ -791,14 +806,15 @@ def profile_pass(run_once) -> None:
     groups = {}
     for name, (ms, n) in by_name.items():
         group = next((g for key, g in KERNEL_GROUPS if key in name), "other")
-        groups[group] = groups.get(group, 0.0) + ms
+        g_ms, g_n = groups.get(group, (0.0, 0))
+        groups[group] = (g_ms + ms, g_n + n)
     device_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     print(f"profile of one bench iteration: wall {1e3 * wall:.1f} ms, device "
           f"busy {busy / 1e3:.1f} ms of a {window / 1e3:.1f} ms kernel window "
           f"(idle share {1 - busy / window:.4f})")
-    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"  {group:28s} {ms:10.2f} ms  {ms / device_ms:7.2%}")
+    for group, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {group:28s} {ms:10.2f} ms  {ms / device_ms:7.2%}  {n:6d} launches")
     for name, (ms, n) in top:
         print(f"  {ms:10.2f} ms {n:6d}x  {name[:90]}")
 
@@ -1191,18 +1207,24 @@ def main() -> int:
         with torch.no_grad():
             drive_entry_points(model, voice)
         launches["entry_points"] = dict(kernels.LAUNCHES)
+        lstm_routes = {"entry_points": dict(kernels.LSTM_ROUTE_LAUNCHES)}
 
     run_once = bench_runner(model)
     kernels.reset_launches()
     bench = bench_pass(run_once)
     launches["bench"] = dict(kernels.LAUNCHES)
+    lstm_routes["bench"] = dict(kernels.LSTM_ROUTE_LAUNCHES)
     per_call = {k: v // bench["calls"] for k, v in launches["bench"].items()}
     for phase in ("entry_points", "bench"):
         missing = [k for k in KOKORO_KERNELS if launches[phase][k] == 0]
         if missing:
             fail(f"phase {phase}: kernels never launched: {missing}")
+        # Kokoro-82M's LSTMs are all H = 256: the cluster route
+        if lstm_routes[phase]["row"] or not lstm_routes[phase]["cluster"]:
+            fail(f"phase {phase}: lstm launches by route {lstm_routes[phase]}")
     print(f"launches: {json.dumps(launches)}; per bench synthesis call "
-          f"{json.dumps(per_call)}")
+          f"{json.dumps(per_call)}; lstm by route "
+          f"{json.dumps(lstm_routes)}")
     print(f"bench pass (batch {BENCH_BATCH}, {N_BUCKET} phonemes, "
           f"{F_BUCKET} frames, f32): "
           f"{bench['audio_seconds_per_second']:.2f} audio-s/s, median "

@@ -4,7 +4,10 @@ Counterpart of ``mlx_audio_tpu/nn/pallas_ops.py`` and of the kernel in
 ``mlx_audio_tpu/nn/pallas_depth.py``.  Three kernels carry the Kokoro-82M
 main path:
 
-* ``lstm`` (``csrc/lstm.cu``) replaces ``lstm_pallas``;
+* ``lstm`` (``csrc/lstm.cu``) replaces ``lstm_pallas``: one cluster of 8
+  CTAs a batch row, each with its slice of the recurrent weight on chip,
+  ``h`` exchanged through distributed shared memory (``lstm_route`` sends
+  the hidden sizes it does not take to a one-block-a-row kernel);
 * ``dilated_conv1d`` (``csrc/dilated_conv1d.cu``) replaces
   ``dilated_conv1d_pallas``: an implicit-GEMM conv on the tensor cores
   whose taps read one staged window ``d`` rows apart;
@@ -62,7 +65,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "lstm": ("lstm_forward", [_P] * 8 + [_I] * 3 + [_P]),
+    "lstm": ("lstm_forward", [_P] * 8 + [_I] * 4 + [_P]),
     "dilated_conv1d": ("dilated_conv1d_forward", [_P] * 3 + [_I] * 6 + [_P]),
     "banded_conv1d": ("banded_conv1d_forward", [_P] * 3 + [_I] * 5 + [_P]),
     "quantized_matmul": ("quantized_matmul_forward", [_P] * 6 + [_I] * 5 + [_P]),
@@ -84,6 +87,8 @@ _DILATED_CONFIGS = ((32, 2), (8, 3), (8, 2))
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for route in LSTM_ROUTE_LAUNCHES:
+        LSTM_ROUTE_LAUNCHES[route] = 0
 
 
 def _kernel(name: str):
@@ -134,6 +139,41 @@ def _on_cpu(name: str, *tensors: torch.Tensor, other=()) -> bool:
 # LSTM recurrence
 # ---------------------------------------------------------------------------
 
+# csrc/lstm.cu: CTAs of a cluster (one cluster a batch row), threads a gate
+# column (each sums a quarter of k), and the most of k one thread holds in
+# registers (so H <= 256 on the cluster route)
+LSTM_CLUSTER_SIZE = 8
+LSTM_K_SPLIT = 4
+LSTM_MAX_K = 64
+# LAUNCHES["lstm"] split by the route each launch took
+LSTM_ROUTE_LAUNCHES = {"cluster": 0, "row": 0}
+
+
+def lstm_route(h: int) -> str:
+    """The LSTM kernel that takes hidden size ``h`` (``lstm_route`` in
+    csrc/lstm.cu): "cluster" where a thread's quarter of k is whole float4s
+    (h % 16 == 0), a CTA's units are whole (h % 8 == 0) and its weight
+    slice fits in registers (h <= 256: 64 floats a thread at 2 h threads a
+    CTA); "row", the one-block-a-row kernel, for every other h."""
+    threads = 4 * LSTM_K_SPLIT * h // LSTM_CLUSTER_SIZE
+    fits = (16 <= h <= LSTM_K_SPLIT * LSTM_MAX_K and h % 16 == 0
+            and h % LSTM_CLUSTER_SIZE == 0 and threads % 32 == 0
+            and threads <= 1024)
+    return "cluster" if fits else "row"
+
+
+def lstm_max_active_clusters(h: int) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the cluster route's launch at
+    hidden size ``h`` on the current card: how many batch rows run at once."""
+    lib = build.load("lstm")
+    lib.lstm_max_active_clusters.argtypes = [_I, ctypes.POINTER(_I)]
+    n = _I(0)
+    code = lib.lstm_max_active_clusters(h, ctypes.byref(n))
+    if code:
+        raise RuntimeError(f"lstm: cudaOccupancyMaxActiveClusters failed: "
+                           f"CUDA error {code}")
+    return n.value
+
 
 def lstm_plain(x_proj, wh, h0, c0):
     """Plain version of the LSTM kernel: gates = x_proj[:, t] + h @ wh in
@@ -164,6 +204,7 @@ def lstm(x_proj: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor,
     wh:     [H, 4H] recurrent weight (transposed torch W_hh),
     h0/c0:  [B, H] initial state.
     Returns (hidden states [B, T, H], cell states [B, T, H], (h_T, c_T)).
+    On the card it launches the kernel ``lstm_route(H)`` names.
     """
     if _on_cpu("lstm", x_proj, wh, h0, c0):
         return lstm_plain(x_proj, wh, h0, c0)
@@ -176,9 +217,12 @@ def lstm(x_proj: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor,
     cs = torch.empty_like(hs)
     h_last = torch.empty((b, h), device=x_proj.device, dtype=torch.float32)
     c_last = torch.empty_like(h_last)
+    route = lstm_route(h)
     _launch("lstm", x_proj.device, x_proj.data_ptr(), wh.data_ptr(),
             h0.data_ptr(), c0.data_ptr(), hs.data_ptr(), cs.data_ptr(),
-            h_last.data_ptr(), c_last.data_ptr(), b, t, h)
+            h_last.data_ptr(), c_last.data_ptr(), b, t, h,
+            int(route == "cluster"))
+    LSTM_ROUTE_LAUNCHES[route] += 1
     return hs, cs, (h_last, c_last)
 
 

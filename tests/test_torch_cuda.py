@@ -33,20 +33,56 @@ def _randn(rng, shape, scale, device):
                            dtype=torch.float32, device=device)
 
 
-@pytest.mark.parametrize("b,t,h", [(3, 37, 128), (8, 64, 256)])
+def _lstm_inputs(b, t, h, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return (_randn(rng, (b, t, 4 * h), 0.3, device),
+            _randn(rng, (h, 4 * h), 0.1, device),
+            _randn(rng, (b, h), 0.1, device), _randn(rng, (b, h), 0.1, device))
+
+
+# both routes: H 128 and 256 take the cluster, 100 the row kernel
+@pytest.mark.parametrize("b,t,h", [(3, 37, 128)] + [
+    (b, t, h) for b in (1, 3, 8, 9) for t in (1, 64, 1300)
+    for h in (128, 256, 100)])
 def test_lstm_kernel_matches_plain(cuda, b, t, h):
-    rng = np.random.default_rng(0)
-    xp = _randn(rng, (b, t, 4 * h), 0.3, cuda)
-    wh = _randn(rng, (h, 4 * h), 0.1, cuda)
-    h0 = _randn(rng, (b, h), 0.1, cuda)
-    c0 = _randn(rng, (b, h), 0.1, cuda)
+    xp, wh, h0, c0 = _lstm_inputs(b, t, h, cuda)
+    route = kernels.lstm_route(h)
     before = kernels.LAUNCHES["lstm"]
+    before_route = kernels.LSTM_ROUTE_LAUNCHES[route]
     got = kernels.lstm(xp, wh, h0, c0)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["lstm"] == before + 1
+    assert kernels.LSTM_ROUTE_LAUNCHES[route] == before_route + 1
     ref = kernels.lstm_plain(xp, wh, h0, c0)
     for g, r in zip((got[0], got[1], *got[2]), (ref[0], ref[1], *ref[2])):
         torch.testing.assert_close(g, r, **TOL)
+
+
+@pytest.mark.parametrize("b,t,h", [(8, 1300, 256), (9, 64, 128), (3, 64, 100)])
+def test_lstm_kernel_is_deterministic(cuda, b, t, h):
+    """Two launches give equal bits, and every row equals a one-row launch
+    on it: the sum order depends on H alone."""
+    xp, wh, h0, c0 = _lstm_inputs(b, t, h, cuda, seed=1)
+    first = kernels.lstm(xp, wh, h0, c0)
+    second = kernels.lstm(xp, wh, h0, c0)
+    torch.cuda.synchronize()
+    for g, r in zip((first[0], first[1], *first[2]),
+                    (second[0], second[1], *second[2])):
+        assert torch.equal(g, r)
+    for row in (0, b - 1):
+        one = kernels.lstm(xp[row:row + 1].contiguous(), wh,
+                           h0[row:row + 1].contiguous(),
+                           c0[row:row + 1].contiguous())
+        torch.cuda.synchronize()
+        assert torch.equal(one[0][0], first[0][row])
+        assert torch.equal(one[2][1][0], first[2][1][row])
+
+
+def test_lstm_route_agrees_with_the_kernel(cuda):
+    lib = build.load("lstm")
+    assert lib.lstm_cluster_size() == kernels.LSTM_CLUSTER_SIZE
+    for h in range(4, 1100, 4):
+        assert (lib.lstm_route(h) == 1) == (kernels.lstm_route(h) == "cluster"), h
 
 
 @pytest.mark.parametrize("b,l,c,c_out,k,d", [

@@ -28,6 +28,7 @@ from mlx_audio_tpu_torch.nn import kernels, lstm_scan
 from mlx_audio_tpu_torch.nn.layers import _dilated_conv1d_residue
 
 LSTM_ATOL = 1e-5
+LSTM_KERNEL_TOL = {"atol": 1e-4, "rtol": 1e-4}  # as on the card
 CONV_TOL = {"atol": 1e-4, "rtol": 1e-4}
 
 
@@ -58,6 +59,85 @@ def test_lstm_plain_matches_pallas_and_scan(reverse):
     for got, ref in [(hs, hs_p), (cs, cs_p), (h_t, h_p), (c_t, c_p)]:
         np.testing.assert_allclose(got.numpy(), np.asarray(ref),
                                    atol=LSTM_ATOL)
+
+
+def _lstm_cluster_emulated(x_proj, wh, h0, c0):
+    """csrc/lstm.cu's cluster route in float32: CTA r of a row's cluster owns
+    units [r U, (r+1) U) and their i, f, g, o columns; a column's dot is
+    four quarter partials over k, each the sum of a thread's four
+    interleaved accumulators, added in the kernel's order; after every step
+    each CTA gathers h from all the CTAs.
+
+    It checks the partition's arithmetic (which columns a CTA owns, that
+    the cell update stays local, that h gathered from every CTA is the
+    whole h), not the kernel: its CPU matmuls do not follow the kernel's
+    sequential fmaf order.  The kernel's own sum order is held on the card
+    by test_torch_cuda.py::test_lstm_kernel_is_deterministic."""
+    ctas, split = kernels.LSTM_CLUSTER_SIZE, kernels.LSTM_K_SPLIT
+    hdim = h0.shape[-1]
+    units, kq = hdim // ctas, hdim // split
+    h, c = h0.clone(), c0.clone()
+    hs, cs = [], []
+    for t in range(x_proj.shape[1]):
+        h_parts, c_parts = [], []
+        for r in range(ctas):
+            cols = torch.tensor([g * hdim + r * units + u
+                                 for g in range(4) for u in range(units)])
+            w = wh[:, cols]
+            partials = []
+            for q in range(split):
+                acc = [h[:, q * kq + m:(q + 1) * kq:4] @ w[q * kq + m:(q + 1) * kq:4]
+                       for m in range(4)]
+                partials.append((acc[0] + acc[1]) + (acc[2] + acc[3]))
+            dot = ((partials[0] + partials[1]) + partials[2]) + partials[3]
+            i, f, g, o = (x_proj[:, t, cols] + dot).split(units, dim=1)
+            c_r = (torch.sigmoid(f) * c[:, r * units:(r + 1) * units]
+                   + torch.sigmoid(i) * torch.tanh(g))
+            h_parts.append(torch.sigmoid(o) * torch.tanh(c_r))
+            c_parts.append(c_r)
+        h, c = torch.cat(h_parts, 1), torch.cat(c_parts, 1)
+        hs.append(h)
+        cs.append(c)
+    return torch.stack(hs, 1), torch.stack(cs, 1), (h, c)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("b,t,h", [(3, 37, 128), (2, 16, 256)])
+def test_lstm_cluster_partition_matches_pallas_and_plain(monkeypatch, b, t, h,
+                                                         reverse):
+    """The cluster route's partition, run through lstm_scan as the kernel
+    would be, against lstm_pallas and lstm_plain."""
+    assert kernels.lstm_route(h) == "cluster"
+    rng = np.random.default_rng(4)
+    x_proj = (rng.standard_normal((b, t, 4 * h)) * 0.3).astype(np.float32)
+    w_h = (rng.standard_normal((4 * h, h)) * 0.1).astype(np.float32)
+    h0 = (rng.standard_normal((b, h)) * 0.1).astype(np.float32)
+    c0 = (rng.standard_normal((b, h)) * 0.1).astype(np.float32)
+    args = tuple(map(torch.as_tensor, (x_proj, w_h, h0, c0)))
+
+    plain = lstm_scan(*args, reverse=reverse, return_cells=True)
+    monkeypatch.setattr(kernels, "lstm", _lstm_cluster_emulated)
+    hs, cs, (h_t, c_t) = lstm_scan(*args, reverse=reverse, return_cells=True)
+
+    xp = jnp.asarray(x_proj[:, ::-1] if reverse else x_proj)
+    hs_p, cs_p, (h_p, c_p) = lstm_pallas(xp, jnp.asarray(w_h.T), jnp.asarray(h0),
+                                         jnp.asarray(c0), interpret=True)
+    if reverse:
+        hs_p, cs_p = hs_p[:, ::-1], cs_p[:, ::-1]
+    for got, pal, ref in [(hs, hs_p, plain[0]), (cs, cs_p, plain[1]),
+                          (h_t, h_p, plain[2][0]), (c_t, c_p, plain[2][1])]:
+        np.testing.assert_allclose(got.numpy(), np.asarray(pal),
+                                   **LSTM_KERNEL_TOL)
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), **LSTM_KERNEL_TOL)
+
+
+@pytest.mark.parametrize("h,route", [(128, "cluster"), (256, "cluster"),
+                                     (100, "row"), (520, "row")])
+def test_lstm_route(h, route):
+    """Kokoro's H = 256 and the tests' 128 take the cluster route; an H that
+    does not split into whole float4 quarters (100) or whose weight slice
+    does not fit on chip (520) takes the row kernel."""
+    assert kernels.lstm_route(h) == route
 
 
 @pytest.mark.parametrize("k,dilation", [(3, 1), (7, 3), (11, 5)])
