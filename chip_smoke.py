@@ -27,7 +27,10 @@ Phases; the failure of any one ends the script with a non-zero exit:
    (``quantized_matmul``'s operands cold in L2), check that every row of
    a 2-, 8- and 32-row ``quantized_matmul`` equals the 1-row call on it bit
    for bit, and print where the kernel and the dequantize-and-matmul path
-   cross;
+   cross; print ``depth_draft``'s times beside those of the kernel as first
+   ported (``PERF.md`` row 5), its bound and the floor of its synchronisation (one
+   launch that passes as many grid-wide synchronisations and does no work,
+   three ways);
    then run the probes' entry point (``scripts/probe_depth.py``, every
    mode, int8 and bf16);
 3. run Kokoro-82M's ``Model.generate``, ``Model.generate_batch`` and
@@ -411,30 +414,13 @@ def _draft_cases(gen):
     """depth_draft on a full llama-100M pack (CSM's depth decoder: 4 layers,
     Dm 1024, F 8192, 8 query and 2 key/value heads of 128, 31 heads of 2051
     codes), greedy and at temperature 0.9 / top-k 50 on fixed noise."""
-    from mlx_audio_tpu_torch.models.lm.llama import LLAMA_FLAVORS, LlamaModel
     from mlx_audio_tpu_torch.models.sampling import gumbel
     from mlx_audio_tpu_torch.nn import kernels
-    from mlx_audio_tpu_torch.nn.pallas_depth import depth_draft_plain, pack_depth
+    from mlx_audio_tpu_torch.nn.pallas_depth import (depth_draft_plain, draft_exchanges,
+                                                     draft_inputs)
 
-    cfg = LLAMA_FLAVORS["llama-100M"]
-    nc, vocab, db = 32, 2051, 2048
-    with torch.device("cuda"):
-        dec = LlamaModel(cfg, use_embed_tokens=False)
-    for m in dec.modules():
-        if hasattr(m, "init_weights"):
-            m.init_weights(gen)
-    dm = cfg.hidden_size
-    packed = pack_depth(
-        dec, torch.randn(db, dm, generator=gen, device="cuda") * db ** -0.5,
-        torch.randn(nc - 1, dm, vocab, generator=gen, device="cuda") * dm ** -0.5,
-        torch.rand(nc * vocab, db, generator=gen, device="cuda") * 2 - 1, vocab)
-    del dec
-    shape = (cfg.num_hidden_layers, cfg.num_key_value_heads, 40, cfg.head_dim)
-    kc, vc = torch.zeros(shape, device="cuda"), torch.zeros(shape, device="cuda")
-    kc[:, :, :2] = torch.randn(*shape[:2], 2, shape[3], generator=gen, device="cuda")
-    vc[:, :, :2] = torch.randn(*shape[:2], 2, shape[3], generator=gen, device="cuda")
-    n_steps, vpad = nc - 2, packed.heads.shape[1]
-    c1 = torch.tensor(17, device="cuda")
+    packed, kc, vc, c1, vocab = draft_inputs(gen)
+    n_steps, vpad = packed.heads.shape[:2]
     weights = sum(t.numel() * t.element_size() for t in (
         packed.wqkv, packed.sqkv, packed.wo, packed.so, packed.wgu, packed.sgu,
         packed.wdown, packed.sdown, packed.norms, packed.final_norm))
@@ -459,7 +445,36 @@ def _draft_cases(gen):
             "bytes": (n_steps * (weights + head) + 2 * 4 * kc.numel()
                       + 4 * noise.numel() + 4 * n_steps),
             "peak_ops": PEAK_INT8_OPS,
+            "exchanges": draft_exchanges(packed), "temp": temp,
         }
+
+
+# depth_draft as first ported (PERF.md row 5), on the same card: greedy and
+# at temperature 0.9 / top-k 50
+DRAFT_FIRST_PORT_MS = {0.0: 5.508, 0.9: 5.728}
+
+
+def draft_summary(records) -> None:
+    """depth_draft's times beside the first port's, the bound and the floor
+    of its synchronisation: one launch of the draft's shape that passes as
+    many synchronisations of every CTA as the draft makes and does no work,
+    by the draft's own exchange of tagged words, by a grid barrier of one
+    counter, and by cooperative_groups' grid.sync()."""
+    from mlx_audio_tpu_torch.nn import kernels
+
+    n = records[0]["exchanges"]
+    dev = torch.device("cuda")
+    floor = {mode: median_ms(lambda m=mode: kernels.depth_draft_sync_only(n, m, dev), 5)
+             for mode in kernels.DRAFT_SYNC_MODES}
+    for r in records:
+        r["sync_only_ms"] = floor
+    print("depth_draft: " + "; ".join(
+        f"{r['shape']}: {r['ms']:.3f} ms (as first ported: "
+        f"{DRAFT_FIRST_PORT_MS[r['temp']]:.3f} ms)" for r in records)
+        + f"; bound {records[0]['bound_ms']:.4f} ms ({records[0]['bound_by']}); "
+        f"sync-only floor, {n} rounds and no work: "
+        + ", ".join(f"{m} {ms:.4f} ms" for m, ms in floor.items())
+        + f"; on {gpu_line()}", flush=True)
 
 
 # The depth-draft probes' shape (scripts/probe_depth.py's defaults): one
@@ -584,7 +599,7 @@ def check_kernels() -> dict:
         rec = {"shape": case["shape"], "max_abs_err": err, "ok": ok,
                "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                "bound_by": by, "library_ms": library_ms,
-               **{k: case[k] for k in ("rows", "bits", "io") if k in case}}
+               **{k: case[k] for k in ("rows", "bits", "io", "exchanges", "temp") if k in case}}
         bound = f"bound {bms:.4f} ms ({by})"
         if case.get("f32_fma_bound"):
             rec["bound_f32_fma_ms"] = bound_ms(case["flops"], case["bytes"])[0]
@@ -612,6 +627,7 @@ def check_kernels() -> dict:
         fail("kernel check: " + "; ".join(bad))
     qmm_row_independence(gen)
     qmm_crossover(records["quantized_matmul"])
+    draft_summary(records["depth_draft"])
     return records
 
 
@@ -1264,7 +1280,8 @@ def main() -> int:
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "cases": len(cases),
             **{k: head[k] for k in ("bound_f32_fma_ms", "max_abs_err_f64",
-                                    "plain_max_abs_err_f64") if k in head},
+                                    "plain_max_abs_err_f64", "sync_only_ms")
+               if k in head},
         }
         if name == "quantized_matmul":
             entry["max_abs_err"] = max(entry["max_abs_err"], csm_run["qmm_path_err"])

@@ -37,9 +37,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
 #include "probe_common.cuh"
 
 namespace {
+
+using bulk::bulk_copy;
+using bulk::mbar_expect_tx;
+using bulk::mbar_init;
+using bulk::mbar_wait;
 
 constexpr int kThreads = 256;
 enum Mode { kDma = 0, kDmac = 1, kDma8 = 2, kDmaBig = 3, kMxu = 4 };
@@ -60,42 +66,6 @@ struct StreamArgs {
   int steps;
   int box_cols, box_rows;  // dma: the tensor-map tile, in elements
 };
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
-                   probe::smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   probe::smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(probe::smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(probe::smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(probe::smem_addr(bar))
-      : "memory");
-}
 
 __device__ __forceinline__ void tma_copy_2d(void* dst, const CUtensorMap* map,
                                             int col, int row, uint64_t* bar) {
@@ -149,7 +119,7 @@ __global__ void __launch_bounds__(kThreads)
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) mbar_init(&bars[s], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    bulk::fence_init();
   }
   __syncthreads();
   if (threadIdx.x == 0)

@@ -21,7 +21,10 @@ Two carry CSM-1B's quantized, speculative decode:
 * ``quantized_matmul`` (``csrc/quantized_matmul.cu``) replaces
   ``quantized_matmul``;
 * ``depth_draft`` (``csrc/depth_draft.cu``) replaces
-  ``depth_draft_pallas``; its plain version is
+  ``depth_draft_pallas``: on every SM a producer warp streams the CTA's
+  share of every matrix through a ring of shared-memory stages with bulk
+  copies, consumer warps compute from it, and each product's outputs pass
+  between SMs as tagged words; its plain version is
   ``nn.pallas_depth.depth_draft_plain``.
 
 Three are the depth-draft probes of ``scripts/probe_depth.py``, which time
@@ -69,7 +72,8 @@ _SIGNATURES = {
     "dilated_conv1d": ("dilated_conv1d_forward", [_P] * 3 + [_I] * 6 + [_P]),
     "banded_conv1d": ("banded_conv1d_forward", [_P] * 3 + [_I] * 5 + [_P]),
     "quantized_matmul": ("quantized_matmul_forward", [_P] * 6 + [_I] * 5 + [_P]),
-    "depth_draft": ("depth_draft_forward", [_P] * 24 + [_I] * 12 + [_F] * 2 + [_P]),
+    "depth_draft": ("depth_draft_forward",
+                    [_P] * 21 + [ctypes.c_uint] + [_I] * 13 + [_F] * 2 + [_P]),
     "probe_depth": ("probe_depth_forward", [_P] * 3 + [_I] * 7 + [_P]),
     "probe_vpu": ("probe_vpu_forward", [_P] * 3 + [_I] * 4 + [_P]),
     "probe_auto": ("probe_auto_forward", [_P] * 2 + [_I] * 5 + [_P]),
@@ -91,9 +95,17 @@ def reset_launches() -> None:
         LSTM_ROUTE_LAUNCHES[route] = 0
 
 
-def _kernel(name: str):
-    """The kernel's C entry point with its argument types declared."""
-    lib = build.load(name)
+# entry points that are not launches: name -> (argument types, result type)
+_QUERIES = {
+    "depth_draft": {"depth_draft_exchange_words": ([_I] * 7, ctypes.c_longlong)},
+}
+
+
+def _library(name: str, variant=None):
+    """The port's build of kernel ``name``, or ``variant``, a library built
+    from the same source with other flags (the tune scripts), with the
+    types of its C entry points declared."""
+    lib = build.load(name) if variant is None else variant
     fn_name, argtypes = _SIGNATURES[name]
     fn = getattr(lib, fn_name)
     if fn.argtypes is None:
@@ -102,18 +114,25 @@ def _kernel(name: str):
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
-    return fn
+        for query, (types, result) in _QUERIES.get(name, {}).items():
+            getattr(lib, query).argtypes = types
+            getattr(lib, query).restype = result
+    return lib
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
+def _launch(name: str, device: torch.device, *args, variant=None) -> None:
+    """Launches kernel ``name`` on the current stream of ``device`` and
+    counts it in ``LAUNCHES``; a ``variant``'s launches are not counted."""
+    lib = _library(name, variant)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        code = _kernel(name)(*args, stream)
+        code = getattr(lib, _SIGNATURES[name][0])(*args, stream)
     if code != 0:
-        msg = getattr(build.load(name), f"{name}_error_string")(code)
+        msg = getattr(lib, f"{name}_error_string")(code)
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {code} "
                            f"({msg.decode()})")
-    LAUNCHES[name] += 1
+    if variant is None:
+        LAUNCHES[name] += 1
 
 
 def _on_cpu(name: str, *tensors: torch.Tensor, other=()) -> bool:
@@ -440,9 +459,56 @@ def quantized_matmul(x: torch.Tensor, codes: torch.Tensor,
 # CSM depth-decoder draft (30 sequential int8 steps in one launch)
 # ---------------------------------------------------------------------------
 
-# depth_draft.cu reads a token's logits into registers, 8 per thread of a
-# 512-thread block
-DRAFT_MAX_VPAD = 8 * 512
+# depth_draft.cu reads a token's logits into registers, 16 per thread of its
+# 256 consumer threads, and h (the MLP's hidden row), 32 per thread
+DRAFT_MAX_VPAD = 16 * 256
+DRAFT_MAX_F = 32 * 256
+# query heads a key/value head (kMaxRep), layers (kMaxLayers)
+DRAFT_MAX_REP = 8
+DRAFT_MAX_LAYERS = 8
+# csrc/depth_draft.cu kStageW: weight bytes of a ring stage; a gate/up pair
+# (2 Dm bytes), an o column (Hq Dh) and a kv head's k (or v) slots must
+# each fit one.  How many stages fit beside the rest of shared memory the
+# kernel counts itself, and its launch fails when the attention's 2 Hkv + 1
+# do not.
+DRAFT_STAGE_BYTES = 16384
+# depth_draft_sync_only's modes and its scratch (int64 words)
+DRAFT_SYNC_MODES = {"grid.sync": 0, "barrier": 1, "exchange": 2}
+_DRAFT_SYNC_WORDS = 512
+# the tags of the draft's exchange are 32-bit
+DRAFT_TAG_LIMIT = 2 ** 32 - 1
+# (device, stream) -> [exchange, tag base]
+_DRAFT_EXCHANGES: dict = {}
+
+
+def depth_draft_supported(n_layers: int, dm: int, f_inter: int, hq: int,
+                          hkv: int, dh: int, n_steps: int, vpad: int) -> bool:
+    """Whether csrc/depth_draft.cu takes these shapes: whole 128-groups,
+    the logits and h in its consumer threads' registers, every gate/up
+    pair, o column and kv head's slots within one ring stage."""
+    return (0 < n_layers <= DRAFT_MAX_LAYERS
+            and not (dm % 128 or (hq * dh) % 128 or f_inter % 128 or dh % 8)
+            and 0 < hkv <= hq and hq % hkv == 0 and hq <= DRAFT_MAX_REP * hkv
+            and vpad <= DRAFT_MAX_VPAD and f_inter <= DRAFT_MAX_F
+            and max(2 * dm, hq * dh, (n_steps + 1) * dh * 4) <= DRAFT_STAGE_BYTES)
+
+
+def draft_exchange(device: torch.device, stream: int, words: int,
+                   n_steps: int, limit: int = DRAFT_TAG_LIMIT):
+    """(exchange, tag base) for one draft launch of ``n_steps`` on
+    ``stream``: one int64 exchange a stream, kept across launches.  The
+    launch tags its words base + 1 .. base + n_steps, above every tag an
+    earlier launch left, so the exchange is zeroed only when it is
+    allocated (or grown) and when the tags would pass ``limit``."""
+    key = (device, stream)
+    xch, base = _DRAFT_EXCHANGES.get(key, (None, 0))
+    if xch is None or xch.numel() < words:
+        xch = torch.zeros(words, device=device, dtype=torch.int64)
+    if base + n_steps > limit:
+        xch.zero_()
+        base = 0
+    _DRAFT_EXCHANGES[key] = (xch, base + n_steps)
+    return xch, base
 
 
 def depth_draft(packed: PackedDepth, cache_k0: torch.Tensor,
@@ -452,6 +518,18 @@ def depth_draft(packed: PackedDepth, cache_k0: torch.Tensor,
     ``depth_draft_pallas``: caches [L, Hkv, Cap, Dh] float32 with positions
     0 and 1 filled, c1 a 0-dim (or [1]) integer tensor, noise [S, Vp]
     Gumbel rows (zeros when greedy).  Returns int32 tokens [S]."""
+    return _depth_draft(packed, cache_k0, cache_v0, c1, noise, vocab, temp,
+                        top_k)
+
+
+def _depth_draft(packed: PackedDepth, cache_k0: torch.Tensor,
+                 cache_v0: torch.Tensor, c1: torch.Tensor, noise: torch.Tensor,
+                 vocab: int, temp: float = 0.0, top_k: int = 0,
+                 ctas: int = 0, variant=None) -> torch.Tensor:
+    """``depth_draft`` on ``ctas`` CTAs of the cooperative launch (one a SM
+    when 0 or more than the SMs), so that a test can give every CTA a long
+    share of each matrix; ``variant``: a build variant's library in place of
+    the port's build (scripts/tune_depth.py), its launches not counted."""
     tensors = (cache_k0, cache_v0, noise, packed.sqkv, packed.so, packed.sgu,
                packed.sdown, packed.norms, packed.final_norm, packed.sheads,
                packed.rope_cos, packed.rope_sin)
@@ -467,12 +545,12 @@ def depth_draft(packed: PackedDepth, cache_k0: torch.Tensor,
     hq = cqkv // dh - 2 * hkv
     if (any(t.dtype != torch.int8 for t in other[:5])
             or packed.emb_proj.dtype != torch.bfloat16
-            or dm % 128 or (hq * dh) % 128 or f_inter % 128 or dh % 2
-            or hq < hkv or hq % hkv or vpad > DRAFT_MAX_VPAD
+            or not depth_draft_supported(n_layers, dm, f_inter, hq, hkv, dh,
+                                         n_steps, vpad)
             or not 0 < vocab <= vpad or packed.heads.shape[:2] != (n_steps, vpad)
-            or n_steps + 2 > min(cap, packed.rope_cos.shape[0])
+            or not 0 < n_steps <= min(cap, packed.rope_cos.shape[0]) - 2
             or cache_v0.shape != cache_k0.shape
-            # the kernel reads the int8 rows with 16-byte loads
+            # bulk copies and 16-byte loads of the int8 rows
             or any(t.data_ptr() % 16 for t in other[:5])):
         raise ValueError(
             f"depth_draft: pack {tuple(packed.wqkv.shape)}, heads "
@@ -482,19 +560,41 @@ def depth_draft(packed: PackedDepth, cache_k0: torch.Tensor,
     kc, vc = cache_k0.clone(), cache_v0.clone()
     c1 = c1.reshape(1).to(device=dev, dtype=torch.int32)
     tokens = torch.empty(n_steps, device=dev, dtype=torch.int32)
-    f32 = dict(device=dev, dtype=torch.float32)
-    qkv, y = torch.empty(cqkv, **f32), torch.empty(dm, **f32)
-    h, logits = torch.empty(f_inter, **f32), torch.empty(vpad, **f32)
-    ptrs = [t.data_ptr() for t in (
+    words = _library("depth_draft", variant).depth_draft_exchange_words(
+        n_layers, dm, hq, hkv, dh, f_inter, vpad)
+    xch, tag_base = draft_exchange(
+        dev, torch.cuda.current_stream(dev).cuda_stream, words, n_steps)
+    operands = (
         packed.wqkv, packed.sqkv, packed.wo, packed.so, packed.wgu,
         packed.sgu, packed.wdown, packed.sdown, packed.norms,
         packed.final_norm, packed.heads, packed.sheads, packed.emb_proj,
-        packed.rope_cos, packed.rope_sin, kc, vc, noise, c1, tokens, qkv, y,
-        h, logits)]
-    _launch("depth_draft", dev, *ptrs, n_layers, dm, f_inter, hq, hkv, dh,
-            cap, vocab, vpad, n_steps, top_k, packed.rope_cos.shape[0],
-            float(temp), 1.0 / math.sqrt(dh))
+        packed.rope_cos, packed.rope_sin, kc, vc, noise, c1, tokens, xch)
+    _launch("depth_draft", dev, *[t.data_ptr() for t in operands], tag_base,
+            n_layers, dm, f_inter, hq, hkv, dh, cap, vocab, vpad, n_steps,
+            top_k, packed.rope_cos.shape[0], ctas, float(temp),
+            1.0 / math.sqrt(dh), variant=variant)
     return tokens
+
+
+def depth_draft_sync_only(rounds: int, mode: str, device: torch.device) -> None:
+    """The floor of the draft's synchronisation: one launch at the draft's
+    shape (one CTA of 288 threads a SM, cooperative) that passes ``rounds``
+    synchronisations of every CTA and does no work.  ``mode``:
+    ``"exchange"``, the draft's own (every CTA puts one tagged word and
+    polls every CTA's); ``"barrier"``, a grid barrier of one counter;
+    ``"grid.sync"``, ``cooperative_groups``'.  A measurement probe: it
+    computes nothing and is not counted in ``LAUNCHES``."""
+    lib = _library("depth_draft")
+    fn = lib.depth_draft_sync_only
+    fn.argtypes = [_P, _I, _I, _I, _P]
+    fn.restype = ctypes.c_int
+    scratch = torch.zeros(_DRAFT_SYNC_WORDS, device=device, dtype=torch.int64)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = fn(scratch.data_ptr(), rounds, DRAFT_SYNC_MODES[mode], 0, stream)
+    if code:
+        msg = lib.depth_draft_error_string(code)
+        raise RuntimeError(f"depth_draft_sync_only: CUDA error {code} ({msg.decode()})")
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,9 @@ the 30 sequential steps c2..c31 of one frame in one launch.
 ``depth_draft_plain`` computes the same function with PyTorch operations
 and is the kernel's plain version.  ``gumbel_argmax`` is the token
 decision that it and the model's verification pass share.
+``draft_inputs`` makes a full llama-100M pack from seeded random weights,
+the shape at which ``chip_smoke.py`` and ``scripts/tune_depth.py`` run the
+kernel.
 
 Layout: the JAX package stores each int8 matrix as x @ W, [In, Out]; here it
 is stored transposed, [Out, In] (scales [Out, In / 128]), so that one output
@@ -137,6 +140,42 @@ def pack_depth(decoder, projection_w: torch.Tensor, audio_head: torch.Tensor,
         emb_proj=ep.to(torch.bfloat16),
         rope_cos=decoder.rope_cos[:64].clone(),
         rope_sin=decoder.rope_sin[:64].clone())
+
+
+def draft_inputs(gen: torch.Generator, vocab: int = 2051, n_codebooks: int = 32):
+    """A full llama-100M depth pack from seeded random weights, as CSM-1B's
+    depth decoder has it (4 layers, Dm 1024, F 8192, 8 query and 2
+    key/value heads of 128, n_codebooks - 1 heads of ``vocab`` codes), and
+    its caches with positions 0 and 1 filled, on ``gen``'s device:
+    (packed, kc, vc, c1, vocab)."""
+    from mlx_audio_tpu_torch.models.lm.llama import LLAMA_FLAVORS, LlamaModel
+
+    cfg = LLAMA_FLAVORS["llama-100M"]
+    dev = gen.device
+    db = 2048
+    with torch.device(dev):
+        dec = LlamaModel(cfg, use_embed_tokens=False)
+    for m in dec.modules():
+        if hasattr(m, "init_weights"):
+            m.init_weights(gen)
+    dm = cfg.hidden_size
+    nc = n_codebooks
+    packed = pack_depth(
+        dec, torch.randn(db, dm, generator=gen, device=dev) * db ** -0.5,
+        torch.randn(nc - 1, dm, vocab, generator=gen, device=dev) * dm ** -0.5,
+        torch.rand(nc * vocab, db, generator=gen, device=dev) * 2 - 1, vocab)
+    del dec
+    shape = (cfg.num_hidden_layers, cfg.num_key_value_heads, 40, cfg.head_dim)
+    kc, vc = torch.zeros(shape, device=dev), torch.zeros(shape, device=dev)
+    kc[:, :, :2] = torch.randn(*shape[:2], 2, shape[3], generator=gen, device=dev)
+    vc[:, :, :2] = torch.randn(*shape[:2], 2, shape[3], generator=gen, device=dev)
+    return packed, kc, vc, torch.tensor(17, device=dev), vocab
+
+
+def draft_exchanges(packed: PackedDepth) -> int:
+    """Exchanges of one draft launch, each a synchronisation of every CTA:
+    4 a layer and 1 after the head, every step."""
+    return packed.heads.shape[0] * (4 * packed.wqkv.shape[0] + 1)
 
 
 # ---------------------------------------------------------------------------

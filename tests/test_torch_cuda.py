@@ -261,15 +261,17 @@ def test_quantized_matmul_parts_agree_with_the_kernel(cuda, i, o, gs, bits):
             == kernels.quantized_matmul_parts(i, o, gs, packed)[0])
 
 
-@pytest.mark.parametrize("temp,top_k", [(0.0, 0), (0.9, 20)])
-def test_depth_draft_kernel_gives_the_plain_tokens(cuda, temp, top_k):
+def _draft_inputs(device, temp=0.0, layers=2, dm=256, heads=(4, 2), f=512,
+                  nc=8, vocab=200):
+    """A depth pack of a small llama (head_dim 128, seeded), its caches with
+    positions 0 and 1 filled, c1 and noise for nc - 2 steps."""
     from mlx_audio_tpu_torch.models.lm.llama import LlamaConfig, LlamaModel
-    from mlx_audio_tpu_torch.nn.pallas_depth import depth_draft_plain, pack_depth
+    from mlx_audio_tpu_torch.nn.pallas_depth import pack_depth
 
-    nc, vocab, db = 8, 200, 192
-    cfg = LlamaConfig(num_hidden_layers=2, num_attention_heads=4,
-                      num_key_value_heads=2, head_dim=128, hidden_size=256,
-                      intermediate_size=512, rms_norm_eps=1e-5,
+    db = 192
+    cfg = LlamaConfig(num_hidden_layers=layers, num_attention_heads=heads[0],
+                      num_key_value_heads=heads[1], head_dim=128,
+                      hidden_size=dm, intermediate_size=f, rms_norm_eps=1e-5,
                       vocab_size=vocab, max_position_embeddings=64,
                       rope_theta=500_000)
     gen = torch.Generator().manual_seed(0)
@@ -277,24 +279,108 @@ def test_depth_draft_kernel_gives_the_plain_tokens(cuda, temp, top_k):
     for m in dec.modules():
         if m is not dec and hasattr(m, "init_weights"):
             m.init_weights(gen)
-    dec = dec.to(cuda)
+    dec = dec.to(device)
     rng = np.random.default_rng(4)
-    packed = pack_depth(dec, _randn(rng, (db, 256), 0.05, cuda),
-                        _randn(rng, (nc - 1, 256, vocab), 0.1, cuda),
-                        _randn(rng, (nc * vocab, db), 0.1, cuda), vocab)
-    kc = torch.zeros(2, 2, 40, 128, device=cuda)
+    packed = pack_depth(dec, _randn(rng, (db, dm), 0.05, device),
+                        _randn(rng, (nc - 1, dm, vocab), 0.1, device),
+                        _randn(rng, (nc * vocab, db), 0.1, device), vocab)
+    kc = torch.zeros(layers, heads[1], 40, 128, device=device)
     vc = torch.zeros_like(kc)
-    kc[:, :, :2] = _randn(rng, (2, 2, 2, 128), 0.3, cuda)
-    vc[:, :, :2] = _randn(rng, (2, 2, 2, 128), 0.3, cuda)
+    kc[:, :, :2] = _randn(rng, (layers, heads[1], 2, 128), 0.3, device)
+    vc[:, :, :2] = _randn(rng, (layers, heads[1], 2, 128), 0.3, device)
     vpad = packed.heads.shape[1]
     noise = (torch.as_tensor(rng.gumbel(size=(nc - 2, vpad)), dtype=torch.float32,
-                             device=cuda) if temp > 0
-             else torch.zeros(nc - 2, vpad, device=cuda))
-    c1 = torch.tensor(3, device=cuda)
-    got = kernels.depth_draft(packed, kc, vc, c1, noise, vocab, temp, top_k)
+                             device=device) if temp > 0
+             else torch.zeros(nc - 2, vpad, device=device))
+    return packed, kc, vc, torch.tensor(3, device=device), noise, vocab
+
+
+# (temp, top_k, CTAs (0: one a SM), shapes): where the kernel's static
+# partition of each matrix over the CTAs and its ring of 16 KB stages meet
+# their edges
+_DRAFT_CASES = {
+    "greedy": (0.0, 0, 0, {}),
+    "top-k": (0.9, 20, 0, {}),
+    "temperature": (0.9, 0, 0, {}),
+    # o and down have 128 columns, fewer than the CTAs of an H100 (132)
+    "fewer-columns-than-ctas": (0.0, 0, 0, dict(dm=128, heads=(1, 1), f=256)),
+    # 3 and 7 CTAs: no matrix splits evenly, and a CTA's gate/up share
+    # (87 KB) is many stages, so the ring wraps within a phase
+    "three-ctas": (0.0, 0, 3, {}),
+    "three-ctas-sampled": (0.9, 20, 3, {}),
+    "seven-ctas": (0.9, 20, 7, {}),
+    "one-step": (0.0, 0, 0, dict(nc=3)),
+    "thirty-steps": (0.9, 20, 0, dict(nc=32)),
+    "thirty-steps-three-ctas": (0.0, 0, 3, dict(nc=32)),
+    # Vp = DRAFT_MAX_VPAD, with and without padded lanes
+    "vpad-at-the-limit": (0.9, 50, 0, dict(vocab=4096, nc=4)),
+    "vpad-at-the-limit-padded": (0.0, 0, 0, dict(vocab=4000, nc=4)),
+    # llama-100M widths: 8 KB down columns (two a stage), 2 KB gate/up pairs
+    "llama-100m-widths": (0.9, 50, 0, dict(layers=1, dm=1024, heads=(8, 2),
+                                            f=8192, nc=4, vocab=2051)),
+    "llama-100m-widths-seven-ctas": (0.0, 0, 7, dict(layers=1, dm=1024,
+                                                     heads=(8, 2), f=8192,
+                                                     nc=4, vocab=2051)),
+}
+
+
+@pytest.mark.parametrize("case", list(_DRAFT_CASES))
+def test_depth_draft_kernel_gives_the_plain_tokens(cuda, case):
+    from mlx_audio_tpu_torch.nn.pallas_depth import depth_draft_plain
+
+    temp, top_k, ctas, shapes = _DRAFT_CASES[case]
+    packed, kc, vc, c1, noise, vocab = _draft_inputs(cuda, temp, **shapes)
+    if case.startswith("vpad"):
+        assert noise.shape[1] == kernels.DRAFT_MAX_VPAD
+    before = kernels.LAUNCHES["depth_draft"]
+    got = kernels._depth_draft(packed, kc, vc, c1, noise, vocab, temp, top_k, ctas)
     torch.cuda.synchronize()
+    assert kernels.LAUNCHES["depth_draft"] == before + 1
     ref = depth_draft_plain(packed, kc, vc, c1, noise, vocab, temp, top_k)
     assert torch.equal(got.cpu(), ref.cpu())
+
+
+def test_depth_draft_kernel_launches_are_bitwise_equal(cuda):
+    packed, kc, vc, c1, noise, vocab = _draft_inputs(cuda, 0.9, nc=32)
+    first = kernels.depth_draft(packed, kc, vc, c1, noise, vocab, 0.9, 20)
+    second = kernels.depth_draft(packed, kc, vc, c1, noise, vocab, 0.9, 20)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    # the wrapper works on copies: the caller's caches are untouched
+    assert not kc[:, :, 2:].any() and not vc[:, :, 2:].any()
+
+
+def test_depth_draft_reads_only_its_own_launchs_words(cuda):
+    """Launches of two shapes in turn share one exchange, which is not
+    zeroed between them: each gives the plain tokens, also when every word
+    it finds carries the last launch's last tag, when its own tags reach
+    2**32 - 1, and when they would wrap (the wrapper then zeroes the
+    exchange and starts the tags again)."""
+    from mlx_audio_tpu_torch.nn.pallas_depth import depth_draft_plain
+
+    cases = [(_draft_inputs(cuda, 0.9, nc=32), 0.9),
+             (_draft_inputs(cuda, 0.0, layers=1, nc=4), 0.0)]
+    refs = [depth_draft_plain(*a, temp, 20) for a, temp in cases]
+    key = (cases[0][0][1].device, torch.cuda.current_stream(cuda).cuda_stream)
+    for i in range(5):
+        (a, temp), ref = cases[i % 2], refs[i % 2]
+        if i == 2:  # every word stale: other values, the last launch's last tag
+            xch, base = kernels._DRAFT_EXCHANGES[key]
+            xch.copy_((base << 32) | (xch & 0xffffffff))
+        if i == 3:  # this launch's tags end at 2**32 - 1
+            xch, _ = kernels._DRAFT_EXCHANGES[key]
+            kernels._DRAFT_EXCHANGES[key] = (xch, kernels.DRAFT_TAG_LIMIT - 2)
+        got = kernels.depth_draft(*a, temp, 20)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), ref.cpu()), i
+    # the fifth launch's 30 tags would have wrapped: they start again from 1
+    assert kernels._DRAFT_EXCHANGES[key][1] == 30
+
+
+@pytest.mark.parametrize("mode", list(kernels.DRAFT_SYNC_MODES))
+def test_depth_draft_sync_only_probe_runs(cuda, mode):
+    kernels.depth_draft_sync_only(510, mode, cuda)
+    torch.cuda.synchronize()
 
 
 def _probe_weights(dtype, device, n_layers=4, dm=1024, cols=28 * 1024):

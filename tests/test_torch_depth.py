@@ -119,3 +119,70 @@ def test_quantized_decoder_packs_its_dequantized_weights(packs):
     from_dense = tpd.pack_depth(dequantize_model(qdec), *inputs, VOCAB)
     for a, b in zip(from_quantized, from_dense):
         assert torch.equal(a, b)
+
+
+# (L, Dm, F, Hq, Hkv, Dh, S, Vp) and whether csrc/depth_draft.cu takes them
+_DRAFT_GATE = {
+    "llama-100m": ((4, 1024, 8192, 8, 2, 128, 30, 2176), True),
+    "tests' pack": ((2, DM, 256, 1, 1, DH, NC - 2, 128), True),
+    # 31 steps: 32 slots of 512 bytes fill a 16 KB stage; 32 do not fit
+    "31-steps": ((4, 1024, 8192, 8, 2, 128, 31, 2176), True),
+    "32-steps": ((4, 1024, 8192, 8, 2, 128, 32, 2176), False),
+    # Dm 8192: a gate/up pair (2 Dm bytes) fills a stage
+    "dm-8192": ((1, 8192, 8192, 8, 2, 128, 4, 2176), True),
+    "dm-8320": ((1, 8320, 8192, 8, 2, 128, 4, 2176), False),
+    "f-past-registers": ((4, 1024, 8192 + 128, 8, 2, 128, 30, 2176), False),
+    "vpad-past-registers": ((4, 1024, 8192, 8, 2, 128, 30, 4096 + 128), False),
+    "nine-layers": ((9, 1024, 8192, 8, 2, 128, 30, 2176), False),
+    "twelve-query-heads-a-kv-head": ((4, 1536, 8192, 12, 1, 128, 30, 2176), False),
+    "dh-not-a-multiple-of-8": ((4, 1024, 8192, 32, 4, 100, 30, 2176), False),
+}
+
+
+@pytest.mark.parametrize("case", list(_DRAFT_GATE))
+def test_draft_shape_gate(case):
+    shape, supported = _DRAFT_GATE[case]
+    assert kernels.depth_draft_supported(*shape) is supported
+
+
+@pytest.fixture
+def exchanges(monkeypatch):
+    monkeypatch.setattr(kernels, "_DRAFT_EXCHANGES", {})
+    return kernels._DRAFT_EXCHANGES
+
+
+def test_draft_exchange_is_kept_across_launches(exchanges):
+    """Launches on one stream share one exchange, not zeroed between them:
+    each launch's tags start above the last launch's."""
+    cpu = torch.device("cpu")
+    xch, base = kernels.draft_exchange(cpu, 7, 100, 30)
+    assert base == 0 and xch.dtype == torch.int64 and xch.numel() == 100
+    assert not xch.any()
+    xch.fill_(-1)
+    again, base = kernels.draft_exchange(cpu, 7, 100, 30)
+    assert again is xch and base == 30 and (again == -1).all()
+    assert kernels.draft_exchange(cpu, 7, 80, 4)[1] == 60
+    other, base = kernels.draft_exchange(cpu, 8, 100, 30)
+    assert other is not xch and base == 0
+
+
+def test_draft_exchange_grows_zeroed(exchanges):
+    cpu = torch.device("cpu")
+    xch, _ = kernels.draft_exchange(cpu, 0, 100, 30)
+    xch.fill_(-1)
+    grown, base = kernels.draft_exchange(cpu, 0, 300, 30)
+    assert grown.numel() == 300 and not grown.any() and base == 30
+
+
+def test_draft_exchange_is_zeroed_before_its_tags_wrap(exchanges):
+    cpu = torch.device("cpu")
+    bases = []
+    for _ in range(4):
+        xch, base = kernels.draft_exchange(cpu, 0, 100, 30, limit=100)
+        bases.append(base)
+        # kept as the last launch left it, or zeroed when it starts over
+        assert (xch == -1).all() if base else not xch.any()
+        xch.fill_(-1)
+    # 90 + 30 would pass the limit: the fourth launch starts again from 0
+    assert bases == [0, 30, 60, 0]
+    assert kernels.draft_exchange(cpu, 0, 100, 30, limit=100)[1] == 30
