@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``mlx_audio_tpu_torch``) on one NVIDIA GPU:
 Kokoro-82M synthesis, CSM-1B speech through int8 decode (whole and
-streamed), the depth-draft probes, and check its hand-written CUDA
-kernels.
+streamed), Orpheus-3B through int8 decode, the DAC-44kHz codec, the
+depth-draft probes, and check its hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -52,12 +52,29 @@ Phases; the failure of any one ends the script with a non-zero exit:
    these runs gave it; then a timed breakdown (prefill, frame loop, Mimi)
    and a ``torch.profiler`` view of the spec-decode frame loop, with
    ``quantized_matmul``'s calls and device time in it;
-6. print one ``{"kernels": [...]}`` line, then the device line last.
+6. Orpheus-3B at the published widths (hidden 3072, 28 layers, 24/8 heads,
+   vocabulary 156 940, tied head; seeded random weights with the stop and
+   audio-marker rows of the embedding at 0; int8 in groups of 64; a stub
+   tokenizer; SNAC-24kHz): greedy ``generate`` of 175 tokens,
+   ``generate_batch`` of 4 texts, one sampled ``generate`` at the defaults;
+   a one-prompt ``generate_tokens_batch`` must equal ``generate_tokens``,
+   and each batch row's tokens shared with its one-row run are printed;
+   ``quantized_matmul`` held against its plain version on the path's
+   operands; tokens/s at batch 1 and 4, the SNAC decode, the real-time
+   factor, peak memory, a profile of 32 decode steps.  Then DAC-44kHz (the
+   published config, seeded random weights): encode and decode 3 s, with
+   the route of every conv printed, ``compress`` and ``decompress`` 3 s,
+   and the same 3 s encoded and decoded on the CPU with the same weights:
+   codes equal, the encoder's latents and the audio within the tolerance;
+7. print one ``{"kernels": [...]}`` line, then the device line last.
 
-Launch counters are set to 0 just before each run of the probes' entry
-point and of phases 3 to 5, and read just after: each kernel of a run's
-path must have launched in it, and Kokoro's ``lstm`` launches only on the
-cluster route.  Needs
+Phase 2 holds ``quantized_matmul`` at Orpheus-3B's shapes too (int8,
+groups of 64, 1 and 4 rows), and the conv kernels at DAC-44kHz's routed
+resblock shapes (K=7, d = 1, 3, 9).  Launch counters are set to 0 just
+before each run of the probes' entry point and of phases 3 to 6, and read
+just after: each kernel of a run's path must have launched in it (Orpheus:
+``quantized_matmul``; DAC's encode and decode: both conv kernels), and
+Kokoro's ``lstm`` launches only on the cluster route.  Needs
 one CUDA card and the repository checkout around this file; it imports
 nothing of JAX.
 """
@@ -265,11 +282,20 @@ def _lstm_cases(gen):
         }
 
 
+# (C, L) of DAC-44kHz's resblocks on a 3 s clip (132 608 samples after the
+# hop padding) whose width is a multiple of 128: the encoder's at C = 128,
+# 256 and 512, the decoder's at 768 and 384 (C = 64, 96 and 192 take the
+# library route)
+DAC_RESBLOCKS = ((128, 66304), (256, 16576), (512, 2072), (768, 2072), (384, 16576))
+
+
 def _conv_cases(gen):
     import torch.nn.functional as F
 
     from mlx_audio_tpu_torch.nn import kernels
     from mlx_audio_tpu_torch.nn.layers import _dilated_conv1d_residue
+
+    from mlx_audio_tpu_torch.nn.layers import conv1d_route
 
     shifted = [((2, 26000, 256), 3, d) for d in (1, 3, 5)]
     shifted.append(((2, 156001, 128), 3, 1))
@@ -277,6 +303,13 @@ def _conv_cases(gen):
               ((2, 26000, 256), 7, 3), ((2, 156001, 128), 11, 3)]
     cases = [("dilated_conv1d", s, k, d) for s, k, d in shifted]
     cases += [("banded_conv1d", s, k, d) for s, k, d in banded]
+    # DAC-44kHz's resblock convs (K=7, d = 1, 3, 9) that take a kernel, on a
+    # 3 s clip, each on the kernel its route names
+    for (c, l), d in itertools.product(DAC_RESBLOCKS, (1, 3, 9)):
+        route = conv1d_route(7, c, c, l, d, padding=3 * d)
+        if route != "library":
+            name = "dilated_conv1d" if route == "shifted" else "banded_conv1d"
+            cases.append((name, (1, l, c), 7, d))
     for name, (b, l, c), k, d in cases:
         x = torch.randn(b, l, c, generator=gen, device="cuda") * 0.3
         w = torch.randn(k, c, c, generator=gen, device="cuda") * 0.05
@@ -305,7 +338,8 @@ def _conv_cases(gen):
         yield {
             "kernel": name,
             "shape": f"[{b}, {l}, {c}] K={k} d={d}"
-                     + (" residue fold" if name == "banded_conv1d" and d > 1 else ""),
+                     + (" residue fold" if name == "banded_conv1d" and d > 1 else "")
+                     + (" (DAC-44kHz)" if b == 1 else ""),
             "kernel_fn": kern, "plain_fn": plain,
             "library_fn": lambda x=x_ncl, w=w_lib, p=pad, d=d:
                 F.conv1d(x, w, None, 1, p, d),
@@ -325,10 +359,10 @@ def _conv_cases(gen):
         }
 
 
-# (I, O) of every QuantizedLinear on CSM-1B's path: the llama-1B backbone's
-# and the llama-100M depth decoder's projections (q, k, v and o apart), the
-# backbone-to-decoder projection and the codebook-0 head (2051 columns, the
-# last tile part empty)
+# (I, O) of every QuantizedLinear on CSM-1B's path (int8 and int4 in groups
+# of 128): the llama-1B backbone's and the llama-100M depth decoder's
+# projections (q, k, v and o apart), the backbone-to-decoder projection and
+# the codebook-0 head (2051 columns, the last tile part empty)
 QMM_SHAPES = (((2048, 2048), "llama-1B q, o"), ((2048, 512), "llama-1B k, v"),
               ((2048, 8192), "llama-1B gate, up"), ((8192, 2048), "llama-1B down"),
               ((1024, 1024), "llama-100M q, o"), ((1024, 256), "llama-100M k, v"),
@@ -339,75 +373,94 @@ QMM_SHAPES = (((2048, 2048), "llama-1B q, o"), ((2048, 512), "llama-1B k, v"),
 # and a 128-row prefill to place the kernel's crossover with the plain path
 QMM_ROWS = (1, 8, 16, 32, 48, 64, 128)
 QMM_ROWS_INT4 = (1, 8, 128)
+# Orpheus-3B's, int8 in groups of 64 (mlx-community/orpheus-3b-0.1-ft-8bit):
+# the projections of its 28 layers and the tied head, a QuantizedEmbedding's
+# as_linear over 156 940 codes; at a decode step of batch 1 and of batch 4
+ORPHEUS_QMM_SHAPES = (((3072, 3072), "Orpheus-3B q, o"), ((3072, 1024), "Orpheus-3B k, v"),
+                      ((3072, 8192), "Orpheus-3B gate, up"), ((8192, 3072), "Orpheus-3B down"),
+                      ((3072, 156_940), "Orpheus-3B tied head"))
+ORPHEUS_QMM_ROWS = (1, 4)
+
+
+def _qmm_shapes():
+    """(family, (I, O), role, group size, bits, row counts) of every
+    quantized_matmul case."""
+    for io, role in QMM_SHAPES:
+        yield "csm", io, role, 128, 8, QMM_ROWS
+        if role.startswith("llama-1B"):
+            yield "csm", io, role, 128, 4, QMM_ROWS_INT4
+    for io, role in ORPHEUS_QMM_SHAPES:
+        yield "orpheus", io, role, 64, 8, ORPHEUS_QMM_ROWS
+
+
+def _quantized(gen, i, o, gs, bits):
+    from mlx_audio_tpu_torch.nn.layers import Linear
+    from mlx_audio_tpu_torch.nn.quantize import QuantizedLinear
+
+    lin = Linear(i, o, bias=False)
+    lin.weight.data = torch.randn(o, i, generator=gen, device="cuda") * i ** -0.5
+    return QuantizedLinear.from_linear(lin, group_size=gs, bits=bits)
 
 
 def _qmm_cases(gen):
     """quantized_matmul at every (I, O) of CSM-1B's path in int8, and at
-    the llama-1B ones in int4, groups of 128.  Timed calls take the codes
-    (and the library's dense weight) from enough distinct copies to be
-    cold in L2.  The library call is one cuBLAS matmul against the weight
-    dequantized ahead of time."""
+    the llama-1B ones in int4, groups of 128; at Orpheus-3B's in int8,
+    groups of 64.  Timed calls take the codes (and the library's dense
+    weight) from enough distinct copies to be cold in L2.  The library call
+    is one cuBLAS matmul against the weight dequantized ahead of time."""
     from mlx_audio_tpu_torch.nn import kernels
-    from mlx_audio_tpu_torch.nn.layers import Linear
-    from mlx_audio_tpu_torch.nn.quantize import QuantizedLinear
 
-    for (i, o), role in QMM_SHAPES:
-        for bits in (8, 4):
-            if bits == 4 and not role.startswith("llama-1B"):
-                continue
-            lin = Linear(i, o, bias=False)
-            lin.weight.data = torch.randn(o, i, generator=gen, device="cuda") * i ** -0.5
-            q = QuantizedLinear.from_linear(lin, group_size=128, bits=bits)
-            dense = q.to_linear().weight.data.cuda()
-            qbytes = q.weight.numel() + 4 * (q.scales.numel() + q.biases.numel())
-            sets = [(q.weight.clone(), q.scales.clone(), q.biases.clone())
-                    for _ in range(cold_copies(qbytes))]
-            denses = [dense.clone() for _ in range(cold_copies(4 * dense.numel()))]
-            parts, _ = kernels.quantized_matmul_parts(i, o, 128, q.packed)
-            for b in (QMM_ROWS if bits == 8 else QMM_ROWS_INT4):
-                x = torch.randn(b, i, generator=gen, device="cuda")
-                kern = [lambda a=(x, *w, 128, q.packed): kernels.quantized_matmul(*a)
-                        for w in sets]
-                plain = [lambda a=(x, *w, 128, q.packed): kernels.quantized_matmul_plain(*a)
-                         for w in sets]
-                lib = [lambda x=x, w=w: x @ w.t() for w in denses]
-                yield {
-                    "kernel": "quantized_matmul", "queued": True, "rows": b,
-                    "bits": bits, "io": (i, o),
-                    "shape": f"B={b} I={i} O={o} int{bits} gs128 parts {parts} ({role})",
-                    "kernel_fn": kern[0], "plain_fn": plain[0], "library_fn": lib[0],
-                    "timed": (kern, plain, lib),
-                    "flops": 2.0 * b * i * o,
-                    "bytes": qbytes + 4 * b * (i + o),
-                }
+    for family, (i, o), role, gs, bits, row_counts in _qmm_shapes():
+        q = _quantized(gen, i, o, gs, bits)
+        dense = q.to_linear().weight.data.cuda()
+        qbytes = q.weight.numel() + 4 * (q.scales.numel() + q.biases.numel())
+        sets = [(q.weight.clone(), q.scales.clone(), q.biases.clone())
+                for _ in range(cold_copies(qbytes))]
+        denses = [dense.clone() for _ in range(cold_copies(4 * dense.numel()))]
+        del dense
+        parts, _ = kernels.quantized_matmul_parts(i, o, gs, q.packed)
+        for b in row_counts:
+            x = torch.randn(b, i, generator=gen, device="cuda")
+            kern = [lambda a=(x, *w, gs, q.packed): kernels.quantized_matmul(*a)
+                    for w in sets]
+            plain = [lambda a=(x, *w, gs, q.packed): kernels.quantized_matmul_plain(*a)
+                     for w in sets]
+            lib = [lambda x=x, w=w: x @ w.t() for w in denses]
+            yield {
+                "kernel": "quantized_matmul", "queued": True, "rows": b,
+                "bits": bits, "io": (i, o), "family": family,
+                "shape": f"B={b} I={i} O={o} int{bits} gs{gs} parts {parts} ({role})",
+                "kernel_fn": kern[0], "plain_fn": plain[0], "library_fn": lib[0],
+                "timed": (kern, plain, lib),
+                "flops": 2.0 * b * i * o,
+                "bytes": qbytes + 4 * b * (i + o),
+            }
 
 
 def qmm_row_independence(gen) -> None:
     """Each row of a 2-, 8- and 32-row quantized_matmul equals, bit for bit,
     the 1-row call on that row (the kernel sums in one order whatever the
-    row count), at every int8 shape of QMM_SHAPES and at llama-1B's q, o in
-    int4, groups of 128."""
+    row count), at every int8 shape of CSM-1B (groups of 128) and of
+    Orpheus-3B (groups of 64), and at llama-1B's q, o in int4."""
     from mlx_audio_tpu_torch.nn import kernels
-    from mlx_audio_tpu_torch.nn.layers import Linear
-    from mlx_audio_tpu_torch.nn.quantize import QuantizedLinear
 
-    shapes = [(io, 8) for io, _ in QMM_SHAPES] + [(QMM_SHAPES[0][0], 4)]
-    for (i, o), bits in shapes:
-        lin = Linear(i, o, bias=False)
-        lin.weight.data = torch.randn(o, i, generator=gen, device="cuda") * i ** -0.5
-        q = QuantizedLinear.from_linear(lin, group_size=128, bits=bits)
-        w = (q.weight, q.scales, q.biases, 128, q.packed)
+    shapes = [(io, 128, 8) for io, _ in QMM_SHAPES] + [(QMM_SHAPES[0][0], 128, 4)]
+    shapes += [(io, 64, 8) for io, _ in ORPHEUS_QMM_SHAPES]
+    for (i, o), gs, bits in shapes:
+        q = _quantized(gen, i, o, gs, bits)
+        w = (q.weight, q.scales, q.biases, gs, q.packed)
         x = torch.randn(32, i, generator=gen, device="cuda")
         ones = torch.cat([kernels.quantized_matmul(x[r:r + 1], *w) for r in range(32)])
         for rows in (2, 8, 32):
             got = kernels.quantized_matmul(x[:rows], *w)
             if not torch.equal(got, ones[:rows]):
                 n = int((got != ones[:rows]).any(1).sum())
-                fail(f"quantized_matmul I={i} O={o} int{bits}: {n} of {rows} "
+                fail(f"quantized_matmul I={i} O={o} int{bits} gs{gs}: {n} of {rows} "
                      "rows differ from the 1-row calls on them")
+        del q, w, ones
     print("quantized_matmul rows independent: every row of 2-, 8- and 32-row "
           "calls equals the 1-row call bit for bit, at "
-          + ", ".join(f"I={i} O={o} int{b}" for (i, o), b in shapes), flush=True)
+          + ", ".join(f"I={i} O={o} int{b} gs{g}" for (i, o), g, b in shapes), flush=True)
 
 
 def _draft_cases(gen):
@@ -599,7 +652,8 @@ def check_kernels() -> dict:
         rec = {"shape": case["shape"], "max_abs_err": err, "ok": ok,
                "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                "bound_by": by, "library_ms": library_ms,
-               **{k: case[k] for k in ("rows", "bits", "io", "exchanges", "temp") if k in case}}
+               **{k: case[k] for k in ("rows", "bits", "io", "family", "exchanges", "temp")
+                  if k in case}}
         bound = f"bound {bms:.4f} ms ({by})"
         if case.get("f32_fma_bound"):
             rec["bound_f32_fma_ms"] = bound_ms(case["flops"], case["bytes"])[0]
@@ -632,14 +686,14 @@ def check_kernels() -> dict:
 
 
 def qmm_crossover(recs) -> None:
-    """Where QuantizedLinear's two paths cross on this card: per int8 shape,
-    the most rows at which the kernel is no slower than the plain path it
+    """Where QuantizedLinear's two paths cross on this card: per int8 shape
+    of CSM-1B, the most rows at which the kernel is no slower than the plain path it
     takes above ``KERNEL_MAX_ROWS`` (dequantize, then one matmul)."""
     from mlx_audio_tpu_torch.nn.quantize import KERNEL_MAX_ROWS
 
     wins = {}
     for r in recs:
-        if r["bits"] == 8:
+        if r["bits"] == 8 and r["family"] == "csm":
             rows = wins.setdefault(r["io"], [])
             if r["ms"] <= r["plain_ms"]:
                 rows.append(r["rows"])
@@ -805,6 +859,17 @@ def device_time(prof):
     return busy, spans[-1][1] - spans[0][0], by_name
 
 
+def kernel_groups(by_name: dict, table) -> dict:
+    """{group: (ms, launches)} of a profile's kernels, each in the group of
+    the first key in ``table`` its name contains, else "other"."""
+    groups = {}
+    for name, (ms, n) in by_name.items():
+        group = next((g for key, g in table if key in name), "other")
+        g_ms, g_n = groups.get(group, (0.0, 0))
+        groups[group] = (g_ms + ms, g_n + n)
+    return groups
+
+
 def profile_pass(run_once) -> None:
     """One bench iteration under torch.profiler: device time by kernel
     group and by kernel, and the device's idle share between the first and
@@ -819,11 +884,7 @@ def profile_pass(run_once) -> None:
     if not by_name:
         print("profile: the profiler recorded no device time (not measured)")
         return
-    groups = {}
-    for name, (ms, n) in by_name.items():
-        group = next((g for key, g in KERNEL_GROUPS if key in name), "other")
-        g_ms, g_n = groups.get(group, (0.0, 0))
-        groups[group] = (g_ms + ms, g_n + n)
+    groups = kernel_groups(by_name, KERNEL_GROUPS)
     device_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     print(f"profile of one bench iteration: wall {1e3 * wall:.1f} ms, device "
@@ -895,6 +956,68 @@ def _check_results(name, results, frames=None):
             fail(f"{name}: {r.token_count} frames, expected {frames}")
 
 
+def path_runner(launches: dict, wall: dict):
+    """run(name, fn): fn() with the launch counters set to 0 just before it
+    and read into launches[name] just after, its wall seconds in
+    wall[name]."""
+    from mlx_audio_tpu_torch.nn import kernels
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        launches[name] = dict(kernels.LAUNCHES)
+        return out
+
+    return run
+
+
+def record_qmm_calls(path_calls: dict):
+    """Route kernels.quantized_matmul through a recorder that keeps the
+    operands of its first call at each (rows, I, O, group size, packed) in
+    path_calls; returns the kernel's wrapper, which the caller puts back."""
+    from mlx_audio_tpu_torch.nn import kernels
+
+    qmm = kernels.quantized_matmul
+
+    def recording_qmm(x, codes, scales, biases, group_size, packed=False):
+        key = (x.shape[0], x.shape[1], codes.shape[0], group_size, packed)
+        if key not in path_calls:
+            path_calls[key] = (x.clone(), codes, scales, biases, group_size, packed)
+        return qmm(x, codes, scales, biases, group_size, packed)
+
+    kernels.quantized_matmul = recording_qmm
+    return qmm
+
+
+def check_qmm_path(path_calls: dict, qmm, label: str) -> float:
+    """quantized_matmul against its plain version on the operands a path
+    gave it; fails past TOL, returns the largest error."""
+    from mlx_audio_tpu_torch.nn import kernels
+
+    path_err, bad = 0.0, []
+    for key, args in sorted(path_calls.items()):
+        got, ref = qmm(*args), kernels.quantized_matmul_plain(*args)
+        err = float((got - ref).abs().max())
+        path_err = max(path_err, err)
+        if not torch.allclose(got, ref, **TOL):
+            bad.append(f"rows {key[0]} I={key[1]} O={key[2]}: {err:.3e}")
+        del got, ref
+    if bad:
+        fail(f"quantized_matmul disagrees with its plain version at the {label} "
+             "path's shapes: " + "; ".join(bad))
+    print(f"quantized_matmul at the {len(path_calls)} (rows, I, O) the {label} "
+          f"path gave it, on the path's own operands: max_abs_err "
+          f"{path_err:.3e} (atol {TOL['atol']}, rtol {TOL['rtol']}) ok; rows "
+          + ", ".join(str(n) for n in sorted({k[0] for k in path_calls}))
+          + "; (I, O) " + ", ".join(f"({i}, {o})" for i, o in
+                                   sorted({k[1:3] for k in path_calls})), flush=True)
+    return path_err
+
+
 def csm_runs(model, launches: dict) -> dict:
     """The entry points: greedy generate without and with spec decode (the
     frames must be equal), generate_batch, sampled generate with spec."""
@@ -926,30 +1049,10 @@ def csm_runs(model, launches: dict) -> dict:
             out.append((r, time.perf_counter() - t0))
         return out
 
-    # the operands of quantized_matmul's first call at each shape the path
-    # gives it, to hold the kernel against its plain version there
     path_calls = {}
-    qmm = kernels.quantized_matmul
-
-    def recording_qmm(x, codes, scales, biases, group_size, packed=False):
-        key = (x.shape[0], x.shape[1], codes.shape[0], group_size, packed)
-        if key not in path_calls:
-            path_calls[key] = (x.clone(), codes, scales, biases, group_size, packed)
-        return qmm(x, codes, scales, biases, group_size, packed)
-
-    kernels.quantized_matmul = recording_qmm
+    qmm = record_qmm_calls(path_calls)
     wall = {}
-
-    def run(name, fn):
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall[name] = time.perf_counter() - t0
-        launches[name] = dict(kernels.LAUNCHES)
-        return out
-
+    run = path_runner(launches, wall)
     try:
         plain = run("csm_generate", lambda: list(
             model.generate(CSM_TEXT, temperature=0.0, **kw)))
@@ -983,22 +1086,7 @@ def csm_runs(model, launches: dict) -> dict:
         missing = [k for k in need if launches[name][k] == 0]
         if missing:
             fail(f"{name}: kernels never launched: {missing}")
-    path_err, bad = 0.0, []
-    for key, args in sorted(path_calls.items()):
-        got, ref = qmm(*args), kernels.quantized_matmul_plain(*args)
-        err = float((got - ref).abs().max())
-        path_err = max(path_err, err)
-        if not torch.allclose(got, ref, **TOL):
-            bad.append(f"rows {key[0]} I={key[1]} O={key[2]}: {err:.3e}")
-    if bad:
-        fail("quantized_matmul disagrees with its plain version at the CSM "
-             "path's shapes: " + "; ".join(bad))
-    print(f"quantized_matmul at the {len(path_calls)} (rows, I, O) the CSM "
-          f"path gave it, on the path's own operands: max_abs_err "
-          f"{path_err:.3e} (atol {TOL['atol']}, rtol {TOL['rtol']}) ok; rows "
-          + ", ".join(str(n) for n in sorted({k[0] for k in path_calls}))
-          + "; (I, O) " + ", ".join(f"({i}, {o})" for i, o in
-                                   sorted({k[1:3] for k in path_calls})), flush=True)
+    path_err = check_qmm_path(path_calls, qmm, "CSM")
     print(f"csm: greedy frames equal with and without spec decode "
           f"({CSM_FRAMES} frames x 32 codebooks); draft accepted "
           f"{accept[0]} of {accept[1]} tokens ({accept[0] / max(accept[1], 1):.4f}); "
@@ -1104,16 +1192,13 @@ def csm_breakdown(model) -> dict:
     if not by_name:
         print("csm profile: the profiler recorded no device time (not measured)")
         return out
-    groups = {}
-    for name, (ms, n) in by_name.items():
-        group = next((g for key, g in CSM_KERNEL_GROUPS if key in name), "other")
-        groups[group] = groups.get(group, 0.0) + ms
+    groups = kernel_groups(by_name, CSM_KERNEL_GROUPS)
     device_ms = sum(ms for ms, _ in by_name.values())
     print(f"csm profile of 4 spec-decode frames: wall {1e3 * wall:.1f} ms, device "
           f"busy {busy / 1e3:.1f} ms of a {window / 1e3:.1f} ms kernel window "
           f"(idle share {1 - busy / window:.4f}), {sum(n for _, n in by_name.values())} "
           f"kernels")
-    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+    for group, (ms, _) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"  {group:28s} {ms:10.3f} ms  {ms / device_ms:7.2%}")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"  {ms:10.3f} ms {n:6d}x  {name[:90]}")
@@ -1179,6 +1264,315 @@ def csm_stream_breakdown(model) -> dict:
         out["mimi_profile_busy_ms"] = busy / 1e3
         out["mimi_profile_wall_ms"] = 1e3 * wall
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: Orpheus-3B int8 and DAC-44kHz
+# ---------------------------------------------------------------------------
+
+ORPHEUS_TOKENS = 175  # generated: 25 SNAC frames of 7 tokens, 2.13 s of audio
+ORPHEUS_FRAME_SAMPLES = 2048  # a frame: 4 steps of SNAC's 512-sample hop
+ORPHEUS_TEXT = "The port speaks in a voice of its own."
+ORPHEUS_BATCH_TEXTS = CSM_BATCH_TEXTS
+ORPHEUS_PROFILE_STEPS = 32
+DAC_SECONDS = 3.0
+
+
+class OrpheusStubTokenizer:
+    """``tokenizer(text).input_ids``: Llama-3-sized ids from characters."""
+
+    def __call__(self, text: str):
+        from types import SimpleNamespace
+
+        return SimpleNamespace(input_ids=StubTokenizer().encode(text))
+
+
+def build_orpheus():
+    """Orpheus-3B at the published widths (ModelConfig's defaults) with
+    seeded random weights on the card, and SNAC-24kHz; int8 in groups of
+    64, as mlx-community/orpheus-3b-0.1-ft-8bit is quantized."""
+    from mlx_audio_tpu_torch.models.tts.llama import Model, ModelConfig
+    from mlx_audio_tpu_torch.models.tts.llama.llama import AUDIO_MARK, STOP_AUDIO
+    from mlx_audio_tpu_torch.nn.quantize import quantize_model
+
+    t0 = time.perf_counter()
+    model = Model(ModelConfig(), tokenizer=OrpheusStubTokenizer(), device="cuda")
+    # a trained Orpheus ends its audio with STOP_AUDIO; with random weights
+    # the stop and the audio marker (which restarts the parsed codes) would
+    # come at random, so their rows of the tied embedding are held at 0:
+    # logit 0, below the top of 156 940 random ones
+    with torch.no_grad():
+        model.lm.model.embed_tokens.weight[[STOP_AUDIO, AUDIO_MARK]] = 0
+    quantize_model(model.lm, group_size=64, bits=8)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    nbytes = sum(t.numel() * t.element_size() for t in model.lm.state_dict().values())
+    print(f"Orpheus-3B built and quantized (int8, groups of 64) in "
+          f"{time.perf_counter() - t0:.1f} s; LM state {nbytes / 1e9:.3f} GB",
+          flush=True)
+    return model
+
+
+def _check_orpheus(name, results, prompts):
+    """One result a prompt, of its prompt and all ORPHEUS_TOKENS (the stop and
+    the audio marker never come), parsed as 7-token frames: the random
+    weights emit no audio marker, so the prompt's tokens parse as codes too,
+    clipped to code 0."""
+    if len(results) != len(prompts):
+        fail(f"{name}: {len(results)} results for {len(prompts)} prompts")
+    for r, p in zip(results, prompts):
+        frames = r.token_count // 7
+        if not (r.token_count == len(p) + ORPHEUS_TOKENS
+                and r.samples == ORPHEUS_FRAME_SAMPLES * frames
+                and np.isfinite(r.audio).all()):
+            fail(f"{name}: {r.token_count} tokens, {r.samples} samples")
+
+
+def _shared(a, b) -> int:
+    """How many leading tokens two runs share."""
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+def orpheus_runs(model, launches: dict) -> dict:
+    """The entry points: greedy generate, generate_batch of 4, one sampled
+    generate at the defaults (temperature 0.6, top-p 0.8, penalty 1.3);
+    then a one-prompt generate_tokens_batch against generate_tokens, and each
+    batch row against its one-row run."""
+    from mlx_audio_tpu_torch.models.lm import causal
+    from mlx_audio_tpu_torch.models.tts.llama import llama as orpheus
+    from mlx_audio_tpu_torch.nn import kernels
+
+    batch_tokens = []
+    batch_fn = orpheus.generate_tokens_batch
+
+    def recording_batch(*a, **k):
+        out = batch_fn(*a, **k)
+        batch_tokens.append([o.tolist() for o in out])
+        return out
+
+    path_calls = {}
+    qmm = record_qmm_calls(path_calls)
+    orpheus.generate_tokens_batch = recording_batch
+    wall = {}
+    run = path_runner(launches, wall)
+    kw = dict(voice="tara", max_tokens=ORPHEUS_TOKENS)
+    try:
+        greedy = run("orpheus_generate", lambda: list(
+            model.generate(ORPHEUS_TEXT, temperature=0.0, **kw)))
+        batch = run("orpheus_generate_batch", lambda: model.generate_batch(
+            ORPHEUS_BATCH_TEXTS, temperature=0.0, **kw))
+        sampled = run("orpheus_generate_sampled", lambda: list(
+            model.generate(ORPHEUS_TEXT, seed=3, **kw)))
+    finally:
+        kernels.quantized_matmul = qmm
+        orpheus.generate_tokens_batch = batch_fn
+    rows = model.prepare_input_ids([ORPHEUS_TEXT] + ORPHEUS_BATCH_TEXTS, "tara")
+    _check_orpheus("orpheus generate", greedy, rows[:1])
+    _check_orpheus("orpheus generate_batch", batch, rows[1:])
+    _check_orpheus("orpheus generate (sampled)", sampled, rows[:1])
+    for name in ("orpheus_generate", "orpheus_generate_batch", "orpheus_generate_sampled"):
+        if launches[name]["quantized_matmul"] == 0:
+            fail(f"{name}: quantized_matmul never launched")
+    path_err = check_qmm_path(path_calls, qmm, "Orpheus")
+
+    gkw = dict(max_tokens=ORPHEUS_TOKENS, temperature=0.0, repetition_penalty=1.3,
+               stop_tokens=(orpheus.STOP_AUDIO,))
+    single = [t for c in causal.generate_tokens(model.lm, rows[0], **gkw) for t in c]
+    one_row = causal.generate_tokens_batch(model.lm, rows[:1], **gkw)[0].tolist()
+    if one_row != single:
+        fail(f"orpheus: a one-prompt generate_tokens_batch differs from "
+             f"generate_tokens after {_shared(one_row, single)} of {len(single)} tokens")
+    shared = []
+    for prompt, row in zip(rows[1:], batch_tokens[0]):
+        alone = [t for c in causal.generate_tokens(model.lm, prompt, **gkw) for t in c]
+        shared.append(_shared(row, alone))
+    print(f"orpheus: greedy, a one-prompt generate_tokens_batch equals "
+          f"generate_tokens ({len(single)} tokens); the 4-row batch's rows share "
+          f"{shared} of {ORPHEUS_TOKENS} tokens with their one-row runs; wall s: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in wall.items()), flush=True)
+    return {"wall": wall, "qmm_path_err": path_err, "batch_shared": shared,
+            "qmm_path_shapes": len(path_calls)}
+
+
+def orpheus_breakdown(model) -> dict:
+    """Batch-1 greedy synthesis through the loop's own steps, synced between
+    them: prompt, prefill and first token, decode loop, SNAC decode; the
+    decode loop at batch 4; then a profile of 32 batch-1 decode steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mlx_audio_tpu_torch.models.lm import causal
+    from mlx_audio_tpu_torch.models.tts.llama import decode_audio_from_codes
+    from mlx_audio_tpu_torch.nn import kernels
+
+    lm = model.lm
+    tokens = ORPHEUS_TOKENS
+    torch.cuda.reset_peak_memory_stats()
+
+    def state(texts):
+        rows = model.prepare_input_ids(texts, "tara")
+        caches, pad_len, prompt, penalty, window = causal._start(
+            lm, rows, tokens, None, 1.3, 20)
+        first = causal._prefill(lm, caches, pad_len, prompt).argmax(-1).to(torch.int32)
+        window[:, -1] = first
+        return caches, pad_len, penalty, window, first
+
+    def steps(st, n):
+        caches, pad_len, penalty, window, last = st
+        return causal._decode_chunk(lm, caches, pad_len, last, window, n, 0.0, 0,
+                                    1.0, penalty, None)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = state([ORPHEUS_TEXT])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    toks, _, _ = steps(st, tokens - 1)
+    toks = [int(st[-1][0])] + toks[:, 0].tolist()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    code_list = model.parse_output(np.asarray(toks)[None])[0]
+    audio = decode_audio_from_codes(code_list, model._snac)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    st4 = state(ORPHEUS_BATCH_TEXTS)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    steps(st4, tokens - 1)
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    audio_s = audio.shape[-1] / model.sample_rate
+    out = {"prefill_s": t1 - t0, "decode_s": t2 - t1, "snac_decode_s": t3 - t2,
+           "tokens": tokens, "tokens_per_s": (tokens - 1) / (t2 - t1),
+           "tokens_per_s_batch4": 4 * (tokens - 1) / (t5 - t4),
+           "audio_s": audio_s, "real_time_factor": (t3 - t0) / audio_s,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print("orpheus breakdown (int8, greedy, penalty 1.3): " + ", ".join(
+        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in out.items())
+        + f"; on {gpu_line()}", flush=True)
+
+    st = state([ORPHEUS_TEXT])
+    steps(st, 2)  # warm
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        steps(st, ORPHEUS_PROFILE_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    qmm_calls = kernels.LAUNCHES["quantized_matmul"]
+    busy, window, by_name = device_time(prof)
+    if not by_name:
+        print("orpheus profile: the profiler recorded no device time (not measured)")
+        return out
+    groups = kernel_groups(by_name, CSM_KERNEL_GROUPS)
+    device_ms = sum(ms for ms, _ in by_name.values())
+    qmm_ms = groups.get("quantized_matmul (this repo)", (0.0, 0))[0]
+    print(f"orpheus profile of {ORPHEUS_PROFILE_STEPS} decode steps (batch 1): wall "
+          f"{1e3 * wall:.1f} ms, device busy {busy / 1e3:.1f} ms of a "
+          f"{window / 1e3:.1f} ms kernel window (idle share {1 - busy / window:.4f}), "
+          f"{sum(n for _, n in by_name.values())} kernels; quantized_matmul "
+          f"{qmm_calls} calls, {qmm_ms:.3f} ms, {qmm_ms / device_ms:.2%} of device time")
+    for group, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {group:28s} {ms:10.3f} ms  {ms / device_ms:7.2%}  {n:6d} launches")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"  {ms:10.3f} ms {n:6d}x  {name[:90]}")
+    out.update(profile_idle_share=1 - busy / window, profile_qmm_share=qmm_ms / device_ms)
+    return out
+
+
+def dac_runs(launches: dict) -> dict:
+    """DAC-44kHz (the published config) with seeded random weights: encode
+    and decode 3 s of seeded audio, compress and decompress 3 s, print the
+    route each conv took; then the same 3 s through the same weights on the
+    CPU (the kernels' plain versions and the library's convs): the codes
+    must be equal, the encoder's latents and the audio within TOL."""
+    from mlx_audio_tpu_torch.codec.dac import DAC, dac_44khz_config
+    from mlx_audio_tpu_torch.nn import layers
+
+    config = dac_44khz_config()
+    dac = DAC(config, device="cuda", seed=0)
+    sr = dac.sample_rate
+    rng = np.random.default_rng(0)
+    audio = (rng.standard_normal(int(DAC_SECONDS * sr)) * 0.1).astype(np.float32)
+    x = torch.as_tensor(audio)[None, None]
+    routes = {}
+    route_fn = layers.conv1d_route
+
+    def recording_route(k, c, c_out, l, dilation=1, stride=1, groups=1,
+                        padding=0, dtype=torch.float32):
+        route = route_fn(k, c, c_out, l, dilation, stride, groups, padding, dtype)
+        key = (route, c, c_out, l, k, dilation, stride, groups)
+        routes[key] = routes.get(key, 0) + 1
+        return route
+
+    def encode_decode():
+        z, codes, latents = dac.encode(x.cuda())
+        return codes, latents, dac.decode(z)
+
+    def compress():
+        f = dac.compress(audio)
+        return f, dac.decompress(f)
+
+    wall = {}
+    run = path_runner(launches, wall)
+    layers.conv1d_route = recording_route
+    try:
+        codes, latents, y = run("dac_encode_decode", encode_decode)
+    finally:
+        layers.conv1d_route = route_fn
+    f, wav = run("dac_compress", compress)
+    frames = -(-audio.shape[0] // dac.hop_length)
+    if (codes.shape != (1, config.n_codebooks, frames)
+            or y.shape != (1, 1, frames * dac.hop_length)):
+        fail(f"dac: codes {tuple(codes.shape)}, audio {tuple(y.shape)}")
+    if not (bool(torch.isfinite(y).all()) and np.isfinite(wav).all()
+            and wav.shape == (1, audio.shape[0]) and f.codes.shape[1] == config.n_codebooks):
+        fail(f"dac: compress codes {f.codes.shape}, decompress {wav.shape}, or not finite")
+    for need in ("banded_conv1d", "dilated_conv1d"):
+        if launches["dac_encode_decode"][need] == 0:
+            fail(f"dac_encode_decode: {need} never launched")
+    by_route = {}
+    for (route, c, c_out, l, k, d, s, g), n in sorted(routes.items()):
+        by_route.setdefault(route, []).append(
+            f"{n}x C={c}->{c_out} L={l} K={k} d={d}" + (f" s={s}" if s > 1 else "")
+            + (f" groups={g}" if g > 1 else ""))
+    for route, convs in by_route.items():
+        calls = sum(int(c.split("x")[0]) for c in convs)
+        print(f"dac conv route {route}: {len(convs)} shapes, {calls} calls: "
+              + "; ".join(convs), flush=True)
+
+    # the same weights and clip on the CPU
+    t0 = time.perf_counter()
+    ref = DAC(config, device="cpu")
+    ref.load_state_dict({k: v.cpu() for k, v in dac.state_dict().items()})
+    z_ref, codes_ref, latents_ref = ref.encode(x)
+    y_ref = ref.decode(z_ref)
+    cpu_s = time.perf_counter() - t0
+    codes, latents, y = codes.cpu(), latents.cpu(), y.cpu()
+    differ = int((codes != codes_ref).sum())
+    latent_err = float((latents - latents_ref).abs().max())
+    y_err = float((y - y_ref).abs().max())
+    print(f"dac ({DAC_SECONDS} s at {sr} Hz): codes {tuple(codes.shape)}, audio "
+          f"{tuple(y.shape)}; compress: {f.codes.shape[-1] // f.chunk_length} windows of "
+          f"{f.chunk_length} frames, decompress {wav.shape}; wall s: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in wall.items())
+          + f"; against the CPU ({cpu_s:.1f} s) on the same {DAC_SECONDS} s: codes "
+          f"differing {differ} of {codes.numel()}, encoder latents max abs diff "
+          f"{latent_err:.3e} (max |latent| {float(latents_ref.abs().max()):.3f}), "
+          f"audio {y_err:.3e} (max |audio| {float(y_ref.abs().max()):.4f}); "
+          f"atol {TOL['atol']}, rtol {TOL['rtol']}", flush=True)
+    if differ:
+        fail(f"dac: {differ} of {codes.numel()} codes on the card differ from the CPU's")
+    if not torch.allclose(latents, latents_ref, **TOL):
+        fail(f"dac: the encoder's latents on the card differ from the CPU's by {latent_err:.3e}")
+    if not torch.allclose(y, y_ref, **TOL):
+        fail(f"dac: decode on the card differs from the CPU's by {y_err:.3e}")
+    return {"wall": wall, "audio_err": y_err, "latent_err": latent_err}
 
 
 def main() -> int:
@@ -1263,10 +1657,29 @@ def main() -> int:
               k: launches["csm_generate_spec"][k] / CSM_FRAMES
               for k in ("quantized_matmul", "depth_draft")}))
 
+    del csm
+    torch.cuda.empty_cache()
+
+    orpheus = build_orpheus()
+    orpheus_run = orpheus_runs(orpheus, launches)
+    orpheus_info = orpheus_breakdown(orpheus)
+    del orpheus
+    torch.cuda.empty_cache()
+    dac_runs(launches)
+    per_token = launches["orpheus_generate"]["quantized_matmul"] / ORPHEUS_TOKENS
+    per_dac = {k: launches["dac_encode_decode"][k] for k in ("banded_conv1d", "dilated_conv1d")}
+    phase6 = {k: v for k, v in launches.items() if k.startswith(("orpheus_", "dac_"))}
+    print(f"phase 6 launches: {json.dumps(phase6)}; "
+          f"quantized_matmul per Orpheus token {per_token:.2f}; per DAC encode and "
+          f"decode of {DAC_SECONDS} s {json.dumps(per_dac)}; Orpheus {json.dumps(orpheus_info)}",
+          flush=True)
+
     kernel_line = []
     for name, (source, replaces) in KERNEL_INFO.items():
         cases = records[name]
         head = max(cases, key=lambda r: r["bound_ms"])
+        # each kernel's launches on its first path (Kokoro's, CSM's or the
+        # probes'), as before phase 6; Orpheus's and DAC's apart below
         main = (("entry_points", "bench") if name in KOKORO_KERNELS
                 else ("probes_int8", "probes_bf16") if name in PROBE_KERNELS
                 else csm_phases)
@@ -1284,13 +1697,18 @@ def main() -> int:
                if k in head},
         }
         if name == "quantized_matmul":
-            entry["max_abs_err"] = max(entry["max_abs_err"], csm_run["qmm_path_err"])
-            entry["path_shapes"] = csm_run["qmm_path_shapes"]
+            entry["max_abs_err"] = max(entry["max_abs_err"], csm_run["qmm_path_err"],
+                                       orpheus_run["qmm_path_err"])
+            entry["path_shapes"] = (csm_run["qmm_path_shapes"]
+                                    + orpheus_run["qmm_path_shapes"])
+            entry["launches_per_orpheus_token"] = per_token
         if name in KOKORO_KERNELS:
             entry["launches_per_synthesis"] = per_call[name]
         elif name not in PROBE_KERNELS:
             entry["launches_per_spec_frame"] = (
                 launches["csm_generate_spec"][name] / CSM_FRAMES)
+        if name in per_dac:
+            entry["launches_per_dac_call"] = per_dac[name]
         kernel_line.append(entry)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -14,36 +14,43 @@ stores them in torch's layouts, so:
   codes with their float32 scales and biases) keeps its layout, dtype and
   name.
 
-The transposed convs are recognised by a path component, as the JAX
-package's sanitizers recognise them: in Kokoro the ``ups`` upsamplers and
-the ``pool`` depthwise upsamplers; in Mimi ``upsample`` (SEANet's
-``DecoderLayer.upsample`` and Mimi's depthwise ``upsample``).  Mimi's
-``downsample`` is an ordinary conv.  Tests feed it
-``dict(named_arrays(jax_model))`` as numpy arrays; the port never imports
-JAX to use it.
+A key is a transposed conv when the module of the port ``module`` that
+owns it is one (``WNConvTranspose1d``, ``StreamableConvTranspose1d``), not
+by its path: DAC's sits at ``decoder.model.N.block.1`` and SNAC's at
+``decoder.blocks.i.pre.1``.  Tests feed it
+``dict(named_arrays(jax_model))`` as numpy arrays, and ``from_pretrained``
+the output of a JAX-layout ``sanitize``; the port never imports JAX to use
+it.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 
-def _is_transposed_conv(key: str) -> bool:
-    parts = key.split(".")
-    return "ups" in parts or "pool" in parts or "upsample" in parts
+def transposed_convs(module: nn.Module) -> set[str]:
+    """Paths of the transposed convs in a port module."""
+    from mlx_audio_tpu_torch.nn.layers import WNConvTranspose1d
+    from mlx_audio_tpu_torch.nn.streaming import StreamableConvTranspose1d
+
+    return {name for name, m in module.named_modules()
+            if isinstance(m, (WNConvTranspose1d, StreamableConvTranspose1d))}
 
 
-def params_from_jax(named: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+def params_from_jax(named: dict[str, np.ndarray],
+                    module: nn.Module) -> dict[str, torch.Tensor]:
     """JAX ``named_arrays`` paths and arrays -> a state_dict for the port's
-    module of the same architecture."""
+    ``module`` of the same architecture."""
+    convt = transposed_convs(module)
     out = {}
     for key, w in named.items():
         w = np.asarray(w)
         if w.ndim == 3 and key.endswith("weight_g"):
             w = w.reshape(-1, 1, 1)
         elif w.ndim == 3 and key.endswith(("weight_v", "weight")):
-            if _is_transposed_conv(key):
+            if key.rpartition(".")[0] in convt:
                 w = w.transpose(1, 2, 0)  # [K, Cin, Cout] -> [Cin, Cout, K]
             else:
                 w = w.transpose(2, 1, 0)  # [K, Cin, Cout] -> [Cout, Cin, K]

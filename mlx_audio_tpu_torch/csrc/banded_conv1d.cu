@@ -30,7 +30,8 @@
 // A 384-thread block owns one batch row, 192 samples and 128 output
 // channels; its 12 warps each own 64 x 32 of them as 4 x 4 m16n8k8 tiles
 // (mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, accumulators in
-// registers).  The block walks C in slices of 8 channels through a ring of
+// registers; each tap's products in their own, folded into the running sum
+// in float32, see mma_tf32.cuh).  The block walks C in slices of 8 channels through a ring of
 // three shared-memory stages filled by 16-byte cp.async.cg copies, so the
 // next slices load while this one multiplies.  A stage holds
 //   the halo window  [192 + K - 1 rows][8 channels, row stride 12] and
@@ -166,6 +167,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     const uint32_t big_base = smem_addr(stage + a_off);
     const float* ws = stage + wf + t * kWStride + warp_n * kWarpN + g;
     for (int tap = 0; tap < K; ++tap) {
+#ifdef CONV_ONE_CHAIN
+      float(&part)[kMTiles][kNTiles][4] = acc;
+#else
+      float part[kMTiles][kNTiles][4] = {};  // this tap's products
+#endif
       uint32_t bb[kNTiles][2], bs[kNTiles][2];
       const float* wt = ws + tap * kSlice * kWStride;
 #pragma unroll
@@ -180,20 +186,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         ldmatrix_x4(ab[i], big_base + row);
         ldmatrix_x4(as[i], small_base + row);
       }
-      // the small products first; 16 independent tiles between two
-      // products into one accumulator
-#pragma unroll
-      for (int i = 0; i < kMTiles; ++i)
-#pragma unroll
-        for (int j = 0; j < kNTiles; ++j) mma_tf32(acc[i][j], as[i], bb[j]);
-#pragma unroll
-      for (int i = 0; i < kMTiles; ++i)
-#pragma unroll
-        for (int j = 0; j < kNTiles; ++j) mma_tf32(acc[i][j], ab[i], bs[j]);
-#pragma unroll
-      for (int i = 0; i < kMTiles; ++i)
-#pragma unroll
-        for (int j = 0; j < kNTiles; ++j) mma_tf32(acc[i][j], ab[i], bb[j]);
+      mma_3xtf32(part, ab, as, bb, bs);
+#ifndef CONV_ONE_CHAIN
+      fold_into(acc, part);
+#endif
     }
   }
 

@@ -25,7 +25,8 @@
 // 384-thread block owns one batch row, 192 samples and 128 output channels;
 // its 12 warps each own 64 x 32 of them as 4 x 4 m16n8k8 tiles
 // (mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, accumulators in
-// registers).  The block walks C in slices of s channels through a ring of
+// registers; each tap's products in their own, folded into the running sum
+// in float32, see mma_tf32.cuh).  The block walks C in slices of s channels through a ring of
 // S shared-memory stages filled by 16-byte cp.async.cg copies, so the next
 // slices load while this one multiplies.  A stage holds
 //   the halo window  [192 + (K-1) d rows][s channels, row stride s + 4] and
@@ -195,6 +196,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float* ws = stage + wf + t * kWStride + warp_n * kWarpN + g;
     for (int tap = 0; tap < K; ++tap) {
       const int shift = tap * dilation;  // the tap's row offset in the window
+#ifdef CONV_ONE_CHAIN
+      float(&part)[kMTiles][kNTiles][4] = acc;
+#else
+      float part[kMTiles][kNTiles][4] = {};  // this tap's products
+#endif
 #pragma unroll
       for (int kk = 0; kk < kSlice / 8; ++kk) {  // one k8 step a pass
         uint32_t bb[kNTiles][2], bs[kNTiles][2];
@@ -212,21 +218,11 @@ __global__ void __launch_bounds__(kThreads, 1)
           ldmatrix_x4(ab[i], big_base + at);
           ldmatrix_x4(as[i], small_base + at);
         }
-        // the small products first; 16 independent tiles between two
-        // products into one accumulator
-#pragma unroll
-        for (int i = 0; i < kMTiles; ++i)
-#pragma unroll
-          for (int j = 0; j < kNTiles; ++j) mma_tf32(acc[i][j], as[i], bb[j]);
-#pragma unroll
-        for (int i = 0; i < kMTiles; ++i)
-#pragma unroll
-          for (int j = 0; j < kNTiles; ++j) mma_tf32(acc[i][j], ab[i], bs[j]);
-#pragma unroll
-        for (int i = 0; i < kMTiles; ++i)
-#pragma unroll
-          for (int j = 0; j < kNTiles; ++j) mma_tf32(acc[i][j], ab[i], bb[j]);
+        mma_3xtf32(part, ab, as, bb, bs);
       }
+#ifndef CONV_ONE_CHAIN
+      fold_into(acc, part);
+#endif
     }
   }
 

@@ -23,6 +23,28 @@ class BaseModelArgs:
         return cls(**{k: v for k, v in params.items() if k in names})
 
 
+def model_device(device, who: str) -> torch.device:
+    """The device a model is built on.  "cuda" raises without a card, and
+    turns TF32 off: float32 matmuls and, by default, cuDNN convolutions
+    would otherwise run in TF32 (about three digits)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{who}: no CUDA device; pass device='cpu' "
+                               "to run on the CPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
+def init_weights(root: torch.nn.Module, generator: torch.Generator) -> None:
+    """Draw every submodule's weights with its ``init_weights``, in module
+    order."""
+    for module in root.modules():
+        if hasattr(module, "init_weights"):
+            module.init_weights(generator)
+
+
 def check_array_shape(arr) -> bool:
     """Heuristic: True if a 3-D conv weight looks like MLX's
     [out_channels, k, in] layout rather than torch's [out, in, k]."""

@@ -26,7 +26,9 @@ from mlx_audio_tpu_torch.models.base import (
     BaseModelArgs,
     GenerationResult,
     check_array_shape,
+    init_weights,
     make_generation_result,
+    model_device,
 )
 from mlx_audio_tpu_torch.models.tts.kokoro.albert import (
     AlbertModelArgs,
@@ -141,15 +143,7 @@ class Model(nn.Module):
     def __init__(self, config: ModelConfig, device: str = "cuda",
                  seed: int = 0):
         super().__init__()
-        device = torch.device(device)
-        if device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError("Model: no CUDA device; pass device='cpu' "
-                                   "to run on the CPU")
-            # f32 means f32: float32 matmuls and, by default, cuDNN
-            # convolutions would otherwise run in TF32 (about three digits)
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        device = model_device(device, "Model")
         self.config = config
         self.vocab = config.vocab
         self.bert = CustomAlbert(AlbertModelArgs.from_dict(
@@ -168,10 +162,7 @@ class Model(nn.Module):
         self.decoder = Decoder(dim_in=config.hidden_dim,
                                style_dim=config.style_dim,
                                dim_out=config.n_mels, **config.istftnet)
-        gen = torch.Generator().manual_seed(seed)
-        for module in self.modules():
-            if module is not self and hasattr(module, "init_weights"):
-                module.init_weights(gen)
+        init_weights(self, torch.Generator().manual_seed(seed))
         self.device = device
         self.to(device)
 

@@ -43,7 +43,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from mlx_audio_tpu_torch.codec.mimi import Mimi, mimi_202407, mimi_from_hf_config
-from mlx_audio_tpu_torch.models.base import GenerationResult, make_generation_result
+from mlx_audio_tpu_torch.models.base import (
+    GenerationResult,
+    init_weights,
+    make_generation_result,
+    model_device,
+)
 from mlx_audio_tpu_torch.models.lm.llama import (
     LLAMA_FLAVORS,
     LlamaConfig,
@@ -90,6 +95,23 @@ def _llama_cfg_from_dict(d: dict, vocab_override: Optional[int] = None) -> Llama
         mlp_bias=d.get("mlp_bias", False),
         rope_theta=d.get("rope_theta", 500000),
         rope_scaling=d.get("rope_scaling"))
+
+
+def check_spec_decode(decoder_cfg: LlamaConfig, num_codebooks: int,
+                      vocab: int, device) -> None:
+    """Raise ValueError, naming the shape, when the ``depth_draft`` kernel
+    does not take this depth decoder on ``device``; on the CPU the plain
+    draft takes every shape."""
+    if torch.device(device).type != "cuda":
+        return
+    c = decoder_cfg
+    shape = dict(n_layers=c.num_hidden_layers, dm=c.hidden_size,
+                 f_inter=c.intermediate_size, hq=c.num_attention_heads,
+                 hkv=c.num_key_value_heads, dh=c.head_dim,
+                 n_steps=num_codebooks - 2, vpad=-(-vocab // 128) * 128)
+    if not kernels.depth_draft_supported(**shape):
+        raise ValueError(f"spec decode: the depth_draft kernel does not take "
+                         f"this depth decoder: {shape}")
 
 
 class SesameModel(nn.Module):
@@ -191,7 +213,10 @@ class SesameModel(nn.Module):
     def enable_spec_decode(self) -> None:
         """Pack the depth decoder for the ``depth_draft`` kernel and switch
         batch-1 frames to draft-and-verify decoding.  A quantized model packs
-        its dequantized weights."""
+        its dequantized weights.  Raises ValueError on a card whose kernel
+        does not take the depth decoder's shape."""
+        check_spec_decode(self.decoder_cfg, self.audio_num_codebooks,
+                          self.audio_vocab_size, self.decoder.rope_cos.device)
         self._spec_packed = pack_depth(
             self.decoder, _dense(self.projection).t(), self.audio_head,
             _dense(self.audio_embeddings), self.audio_vocab_size)
@@ -260,13 +285,7 @@ class Model(nn.Module):
     def __init__(self, config: dict, mimi: Optional[Mimi] = None,
                  text_tokenizer=None, device: str = "cuda", seed: int = 0):
         super().__init__()
-        device = torch.device(device)
-        if device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError("Model: no CUDA device; pass device='cpu' "
-                                   "to run on the CPU")
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        device = model_device(device, "Model")
         self.config = config
         gen = torch.Generator(device).manual_seed(seed)
         with torch.device(device):
@@ -278,9 +297,7 @@ class Model(nn.Module):
                             else mimi_202407(self.model.audio_num_codebooks))
                 own.append(mimi)
         for root in own:
-            for module in root.modules():
-                if hasattr(module, "init_weights"):
-                    module.init_weights(gen)
+            init_weights(root, gen)
         self._mimi = mimi.to(device)
         self.audio_num_codebooks = self.model.audio_num_codebooks
         self._text_tokenizer = text_tokenizer

@@ -1,5 +1,5 @@
 """Shared building blocks: the subset of ``mlx_audio_tpu/nn/layers.py`` that
-Kokoro, Llama and Mimi use, in PyTorch.
+Kokoro, Llama, Mimi, DAC and SNAC use, in PyTorch.
 
 Conventions:
 
@@ -79,6 +79,10 @@ class Embedding(nn.Module):
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         return F.embedding(ids, self.weight)
+
+    def as_linear(self, x: torch.Tensor) -> torch.Tensor:
+        """Tied-embedding output projection: x [..., dim] -> [..., num]."""
+        return x @ self.weight.t()
 
 
 # ---------------------------------------------------------------------------
@@ -176,6 +180,15 @@ class AdaLayerNorm(nn.Module):
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
     return torch.where(x > 0, x, x * negative_slope)
+
+
+def snake(x: torch.Tensor, alpha: torch.Tensor,
+          alpha_logscale: bool = False) -> torch.Tensor:
+    """Snake activation ``x + sin^2(a x) / a``, per channel (last axis)."""
+    if alpha_logscale:
+        alpha = torch.exp(alpha)
+    s = torch.sin(alpha * x)
+    return x + s * s / (alpha + 1e-9)
 
 
 class Identity(nn.Module):

@@ -8,9 +8,10 @@ Quantized modules replace Linear and Embedding in place, with the same call
 signatures and the JAX package's attribute names (``weight`` for the codes,
 ``scales``, ``biases``, ``bias``), so checkpoints cross unchanged.
 
-``QuantizedLinear`` sends a call of at most ``KERNEL_MAX_ROWS`` rows to the
-``quantized_matmul`` kernel, which never forms the dense weight; a larger
-call dequantizes and multiplies.  The JAX package's alignment gate
+``QuantizedLinear`` and ``QuantizedEmbedding.as_linear`` (a tied LM head)
+send a call of at most ``KERNEL_MAX_ROWS`` rows to the ``quantized_matmul``
+kernel, which never forms the dense weight; a larger call dequantizes and
+multiplies.  The JAX package's alignment gate
 (``quant_matmul_supported``: O, I, group size and I/2 multiples of 128) was
 Mosaic's layout rule and is gone: the Hopper kernel takes any group size that
 divides I.  Codes are computed with the same float32 operations as the JAX
@@ -76,6 +77,20 @@ def _unpack4(qp: torch.Tensor) -> torch.Tensor:
     return torch.cat([qp & 0xF, qp >> 4], dim=-1)
 
 
+def _matmul_codes(x, codes, scales, biases, group_size: int, packed: bool):
+    """x [..., I] @ dequant(codes [O, I(/2)])^T -> [..., O]: the kernel for
+    at most ``KERNEL_MAX_ROWS`` rows, else dequantize and multiply."""
+    x2 = x.reshape(-1, scales.shape[1] * group_size)
+    if x2.shape[0] <= KERNEL_MAX_ROWS:
+        y = kernels.quantized_matmul(x2.contiguous(), codes, scales, biases,
+                                     group_size, packed)
+    else:
+        y = kernels.quantized_matmul_plain(x2, codes, scales.to(x.dtype),
+                                           biases.to(x.dtype), group_size,
+                                           packed)
+    return y.reshape(*x.shape[:-1], codes.shape[0])
+
+
 class QuantizedLinear(nn.Module):
     """y = x @ dequant(W)^T + b; drop-in for Linear."""
 
@@ -126,18 +141,8 @@ class QuantizedLinear(nn.Module):
         return lin
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        o = self.weight.shape[0]
-        i = self.in_features
-        x2 = x.reshape(-1, i)
-        if x2.shape[0] <= KERNEL_MAX_ROWS:
-            y = kernels.quantized_matmul(x2.contiguous(), self.weight,
-                                         self.scales, self.biases,
-                                         self.group_size, self.packed)
-        else:
-            y = kernels.quantized_matmul_plain(
-                x2, self.weight, self.scales.to(x.dtype),
-                self.biases.to(x.dtype), self.group_size, self.packed)
-        y = y.reshape(*x.shape[:-1], o)
+        y = _matmul_codes(x, self.weight, self.scales, self.biases,
+                          self.group_size, self.packed)
         if self.bias is not None:
             y = y + self.bias.to(x.dtype)
         return y
@@ -195,9 +200,12 @@ class QuantizedEmbedding(nn.Module):
         return w.reshape(*idx.shape, self.dim)
 
     def as_linear(self, x: torch.Tensor) -> torch.Tensor:
-        w = _affine_dequantize(self._codes(), self.scales.to(x.dtype),
-                               self.biases.to(x.dtype), self.group_size)
-        return x @ w.t()
+        """x [..., dim] @ dequant(codes)^T: a tied LM head.  A call of at
+        most ``KERNEL_MAX_ROWS`` rows takes the ``quantized_matmul`` kernel
+        on the [num, dim] codes as they are; the JAX package dequantizes the
+        whole table on every call."""
+        return _matmul_codes(x, self.weight, self.scales, self.biases,
+                             self.group_size, self.packed)
 
 
 def _walk_replace(obj, fn: Callable[[str, nn.Module], Optional[nn.Module]],

@@ -9,9 +9,6 @@ greedy and at temperature 0.9 / top-k 50.
 Variants, each built by ``nvcc -D...`` into a directory of its own (all
 builds started together) and loaded apart from the port's own build:
 
-* ``baseline``: the kernel as first ported (``csrc/depth_draft_baseline.cu``: every
-  warp streams its columns from device memory, ``cg::grid.sync`` between
-  phases), the baseline;
 * ``ring``: the default build of ``depth_draft.cu`` (a producer warp fills
   a ring of shared-memory stages with bulk copies, the scales through it);
 * ``ring-clocks``: ``-DDRAFT_PHASE_CLOCKS``; after its run the script prints
@@ -36,7 +33,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import math
 import subprocess
 import tempfile
 from pathlib import Path
@@ -49,7 +45,6 @@ from mlx_audio_tpu_torch.scripts.probe_depth import card_line
 
 # name -> (source, -D flags)
 VARIANTS = {
-    "baseline": ("depth_draft_baseline.cu", ()),
     "ring": ("depth_draft.cu", ()),
     "ring-clocks": ("depth_draft.cu", ("-DDRAFT_PHASE_CLOCKS",)),
     "ring-no-stream": ("depth_draft.cu", ("-DDRAFT_NO_STREAM",)),
@@ -58,12 +53,6 @@ VARIANTS = {
 UNCHECKED = ("ring-no-stream",)
 CASES = ((0.0, 0), (0.9, 50))
 KINDS = ("q/k/v", "o", "gate/up", "down", "head")
-
-
-# the baseline's C entry point: 24 pointers (its scratch: q/k/v, y, h,
-# logits), 12 ints, 2 floats, the stream
-BASELINE_ARGTYPES = [ctypes.c_void_p] * 24 + [ctypes.c_int] * 12 + [ctypes.c_float] * 2 \
-    + [ctypes.c_void_p]
 
 
 def build_variants(out: Path) -> dict:
@@ -85,12 +74,9 @@ def build_variants(out: Path) -> dict:
             if "registers" in line or "spill" in line:
                 print(f"built {name}: {line.strip()}", flush=True)
         dll = ctypes.CDLL(str(lib))
-        if name == "baseline":
-            dll.depth_draft_forward.argtypes = BASELINE_ARGTYPES
-            dll.depth_draft_forward.restype = ctypes.c_int
-        else:  # the ring at llama-100M, 30 steps
-            print(f"variant {name}: {dll.depth_draft_stages(1024, 8, 2, 128, 8192, 40)} "
-                  "ring stages", flush=True)
+        # the ring at llama-100M, 30 steps
+        print(f"variant {name}: {dll.depth_draft_stages(1024, 8, 2, 128, 8192, 40)} "
+              "ring stages", flush=True)
         libs[name] = dll
     return libs
 
@@ -108,41 +94,6 @@ def events_ms(fn, reps: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def variant_call(name: str, dll, args):
-    """A function that launches the variant once on ``args`` (those of
-    ``kernels.depth_draft``) and returns its tokens: the ring variants go
-    through the port's wrapper, the baseline gets its own scratch."""
-    if name != "baseline":
-        def call():
-            return kernels._depth_draft(*args, variant=dll)
-
-        return call
-    packed, kc, vc, c1, noise, vocab, temp, top_k = args
-    n_steps, vpad = noise.shape
-    n_layers, hkv, cap, dh = kc.shape
-    cqkv, dm = packed.wqkv.shape[1:]
-    f_inter = packed.wdown.shape[2]
-    f32 = dict(device="cuda", dtype=torch.float32)
-    kc, vc = kc.clone(), vc.clone()
-    c1 = c1.reshape(1).to(device="cuda", dtype=torch.int32)
-    tokens = torch.empty(n_steps, device="cuda", dtype=torch.int32)
-    scratch = [torch.empty(n, **f32) for n in (cqkv, dm, f_inter, vpad)]
-    ptrs = [t.data_ptr() for t in (*packed, kc, vc, noise, c1, tokens, *scratch)]
-    ints = (n_layers, dm, f_inter, cqkv // dh - 2 * hkv, hkv, dh, cap, vocab,
-            vpad, n_steps, top_k, packed.rope_cos.shape[0])
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def call():
-        code = dll.depth_draft_forward(*ptrs, *ints, float(temp),
-                                       1.0 / math.sqrt(dh), stream)
-        if code:
-            raise RuntimeError(f"variant {name}: CUDA error {code}")
-        return tokens
-
-    call.keep = (kc, vc, c1, tokens, scratch)  # the launch's operands
-    return call
 
 
 # csrc/depth_draft.cu's stamps: each names the interval that ends at it
@@ -240,7 +191,10 @@ def main() -> None:
                           f"({1e3 * ms / rounds:.3f} us a round)", flush=True)
                     continue
                 for temp, top_k, a, ref in cases:
-                    call = variant_call(name, libs[name], a)
+                    # one launch of the variant through the port's wrapper
+                    def call(a=a, dll=libs[name]):
+                        return kernels._depth_draft(*a, variant=dll)
+
                     tokens = call()
                     torch.cuda.synchronize()
                     if name not in UNCHECKED and not torch.equal(tokens, ref):

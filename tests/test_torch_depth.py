@@ -40,7 +40,7 @@ def packs():
     jdec = JaxLlama(_cfg(JaxConfig), use_embed_tokens=False)
     tdec = LlamaModel(_cfg(LlamaConfig), use_embed_tokens=False)
     tdec.load_state_dict(params_from_jax(
-        {k: np.asarray(v) for k, v in named_arrays(jdec)}), strict=True)
+        {k: np.asarray(v) for k, v in named_arrays(jdec)}, tdec), strict=True)
     proj = rng.standard_normal((DB, DM)).astype(np.float32) * 0.05
     head = rng.standard_normal((NC - 1, DM, VOCAB)).astype(np.float32) * 0.1
     emb = rng.standard_normal((NC * VOCAB, DB)).astype(np.float32) * 0.1
@@ -186,3 +186,21 @@ def test_draft_exchange_is_zeroed_before_its_tags_wrap(exchanges):
     # 90 + 30 would pass the limit: the fourth launch starts again from 0
     assert bases == [0, 30, 60, 0]
     assert kernels.draft_exchange(cpu, 0, 100, 30, limit=100)[1] == 30
+
+
+def test_spec_decode_gate_names_a_depth_decoder_the_kernel_refuses():
+    """enable_spec_decode's check: on a card a depth decoder that
+    depth_draft_supported refuses (here Dh % 8 != 0) raises ValueError with
+    its shape; llama-100M passes; on the CPU the plain draft takes every
+    shape."""
+    import dataclasses
+
+    from mlx_audio_tpu_torch.models.lm.llama import LLAMA_FLAVORS
+    from mlx_audio_tpu_torch.models.tts.sesame.model import check_spec_decode
+
+    ok = LLAMA_FLAVORS["llama-100M"]
+    check_spec_decode(ok, 32, 2051, "cuda")
+    bad = dataclasses.replace(ok, head_dim=100)
+    with pytest.raises(ValueError, match="'dh': 100"):
+        check_spec_decode(bad, 32, 2051, "cuda")
+    check_spec_decode(bad, 32, 2051, "cpu")

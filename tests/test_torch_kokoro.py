@@ -51,7 +51,7 @@ def models():
     jax_model = JaxModel(tiny_config())
     port = Model(_port_config(), device="cpu")
     port.load_state_dict(params_from_jax(
-        {k: np.asarray(v) for k, v in named_arrays(jax_model)}))
+        {k: np.asarray(v) for k, v in named_arrays(jax_model)}, port))
     return jax_model, port
 
 

@@ -28,13 +28,10 @@ ATOL = 1e-5
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def _carry(jax_layer, port_layer, path="layer"):
-    """Load the JAX layer's weights into the port layer.  ``path`` is the
-    attribute name the layer has inside a model (``pool`` and ``ups`` mark
-    transposed convs for the weight bridge)."""
-    named = {f"{path}.{k}": np.asarray(v) for k, v in named_arrays(jax_layer)}
-    state = {k[len(path) + 1:]: v for k, v in params_from_jax(named).items()}
-    port_layer.load_state_dict(state, strict=True)
+def _carry(jax_layer, port_layer):
+    """Load the JAX layer's weights into the port layer."""
+    named = {k: np.asarray(v) for k, v in named_arrays(jax_layer)}
+    port_layer.load_state_dict(params_from_jax(named, port_layer), strict=True)
     return port_layer
 
 
@@ -96,7 +93,7 @@ def _case_convtranspose(depthwise):
         kw = dict(kernel_size=12, stride=6, padding=3)
         j, t = jnn.WNConvTranspose1d(16, 8, **kw), tnn.WNConvTranspose1d(16, 8, **kw)
     x = _x((2, 13, 16))
-    return j(jnp.asarray(x)), _carry(j, t, "pool")(torch.as_tensor(x))
+    return j(jnp.asarray(x)), _carry(j, t)(torch.as_tensor(x))
 
 
 def _case_lstm_lengths():

@@ -41,7 +41,7 @@ def models():
     jm = JaxLlama(_cfg(JaxConfig))
     port = LlamaModel(_cfg(LlamaConfig))
     port.load_state_dict(params_from_jax(
-        {k: np.asarray(v) for k, v in named_arrays(jm)}), strict=True)
+        {k: np.asarray(v) for k, v in named_arrays(jm)}, port), strict=True)
     return jm, port
 
 

@@ -33,10 +33,9 @@ def port_config(jax_cfg) -> MimiConfig:
                          "transformer": TransformerConfig(**d["transformer"])})
 
 
-def carry(jax_module, port_module, prefix=""):
-    named = {prefix + k: np.asarray(v) for k, v in named_arrays(jax_module)}
-    state = {k[len(prefix):]: v for k, v in params_from_jax(named).items()}
-    port_module.load_state_dict(state, strict=True)
+def carry(jax_module, port_module):
+    named = {k: np.asarray(v) for k, v in named_arrays(jax_module)}
+    port_module.load_state_dict(params_from_jax(named, port_module), strict=True)
     return port_module
 
 
@@ -57,18 +56,14 @@ def test_streamable_convs_match_jax(kind):
     if kind == "conv_edge_strided":
         j, t = (cls(16, 8, 4, stride=2, pad_mode="edge")
                 for cls in (JaxConv, StreamableConv1d))
-        prefix = "downsample."
     elif kind == "conv_dilated":
         j, t = (cls(16, 8, 3, dilation=2) for cls in (JaxConv, StreamableConv1d))
-        prefix = "block."
     elif kind == "convtr":
         j, t = (cls(16, 8, 8, stride=4) for cls in (JaxConvT, StreamableConvTranspose1d))
-        prefix = "upsample."
     else:
         j, t = (cls(16, 16, 4, stride=2, groups=16, bias=False)
                 for cls in (JaxConvT, StreamableConvTranspose1d))
-        prefix = "upsample."
-    carry(j, t, prefix)
+    carry(j, t)
     np.testing.assert_allclose(t(torch.as_tensor(x)).detach().numpy(),
                                np.asarray(j(jnp.asarray(x))), atol=1e-5, rtol=0)
 
@@ -202,20 +197,16 @@ def test_streamable_conv_steps_match_jax(kind):
     x = np.random.default_rng(4).standard_normal((2, 24, 16)).astype(np.float32)
     if kind == "conv_edge_strided":
         j, t = (cls(16, 8, 4, stride=2, pad_mode="edge") for cls in (JaxConv, StreamableConv1d))
-        prefix = "downsample."
     elif kind == "conv_dilated":
         j, t = (cls(16, 8, 3, dilation=2) for cls in (JaxConv, StreamableConv1d))
-        prefix = "block."
     elif kind == "convtr":
         j, t = (cls(16, 8, 8, stride=4) for cls in (JaxConvT, StreamableConvTranspose1d))
-        prefix = "upsample."
     else:
         j, t = (cls(16, 16, 4, stride=2, groups=16, bias=False)
                 for cls in (JaxConvT, StreamableConvTranspose1d))
-        prefix = "upsample."
     if getattr(j, "bias", None) is not None:
         j.bias = jnp.asarray(np.linspace(-1, 1, j.bias.shape[0]), jnp.float32)
-    carry(j, t, prefix)
+    carry(j, t)
     js, ts = j.init_state(2), t.init_state(2)
     for a in range(0, 24, 8):
         ref, js = j.step(js, jnp.asarray(x[:, a:a + 8]))

@@ -29,7 +29,7 @@ def _linear(i, o, seed=0, bias=True):
     rng = np.random.default_rng(seed)
     j.weight = jnp.asarray(rng.standard_normal((o, i)) * 0.2, jnp.float32)
     t = Linear(i, o, bias=bias)
-    t.load_state_dict(params_from_jax({k: np.asarray(v) for k, v in named_arrays(j)}))
+    t.load_state_dict(params_from_jax({k: np.asarray(v) for k, v in named_arrays(j)}, t))
     return j, t
 
 
@@ -60,7 +60,7 @@ def test_quantized_linear_matches_jax(bits, gs):
 def test_quantized_embedding_matches_jax(bits):
     j = jnn.Embedding(10, 64)
     t = Embedding(10, 64)
-    t.load_state_dict(params_from_jax({k: np.asarray(v) for k, v in named_arrays(j)}))
+    t.load_state_dict(params_from_jax({k: np.asarray(v) for k, v in named_arrays(j)}, t))
     qj = jq.QuantizedEmbedding.from_embedding(j, group_size=32, bits=bits)
     qt = tq.QuantizedEmbedding.from_embedding(t, group_size=32, bits=bits)
     _same_arrays(qj, qt)
@@ -100,7 +100,7 @@ class _PortNet(torch.nn.Module):
 @pytest.mark.parametrize("bits", [8, 4])
 def test_quantize_model_matches_jax(bits):
     j, t = _JaxNet(), _PortNet()
-    t.load_state_dict(params_from_jax({k: np.asarray(v) for k, v in named_arrays(j)}))
+    t.load_state_dict(params_from_jax({k: np.asarray(v) for k, v in named_arrays(j)}, t))
     jq.quantize_model(j, group_size=32, bits=bits)
     tq.quantize_model(t, group_size=32, bits=bits)
     assert isinstance(t.embed, tq.QuantizedEmbedding)

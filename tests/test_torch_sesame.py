@@ -48,7 +48,7 @@ def _port_model(jm, quant: bool):
     if quant:
         quantize_model(port.model, group_size=16, bits=8)
     port.load_state_dict(params_from_jax(
-        {k: np.asarray(v) for k, v in named_arrays(jm)}), strict=True)
+        {k: np.asarray(v) for k, v in named_arrays(jm)}, port), strict=True)
     return port
 
 
