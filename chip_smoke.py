@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``mlx_audio_tpu_torch``) on one NVIDIA GPU:
 Kokoro-82M synthesis, CSM-1B speech through int8 decode (whole and
-streamed), Orpheus-3B through int8 decode, the DAC-44kHz codec, the
-depth-draft probes, and check its hand-written CUDA kernels.
+streamed), Orpheus-3B and OuteTTS-1B through int8 decode, Dia-1.6B, the
+DAC-44kHz codec, the depth-draft probes, and check its hand-written CUDA
+kernels.
 
     python3 chip_smoke.py
 
@@ -66,14 +67,34 @@ Phases; the failure of any one ends the script with a non-zero exit:
    the route of every conv printed, ``compress`` and ``decompress`` 3 s,
    and the same 3 s encoded and decoded on the CPU with the same weights:
    codes equal, the encoder's latents and the audio within the tolerance;
-7. print one ``{"kernels": [...]}`` line, then the device line last.
+7. OuteTTS-1B at the published widths (hidden 2048, 16 layers, 32/8
+   heads, vocabulary 134 400, tied head; seeded random weights arranged so
+   that greedy decoding emits c1, c2 code pairs and never stops; int8 in
+   groups of 64; a stub tokenizer; the 24 kHz speech DAC): greedy
+   ``generate`` of 300 tokens, the same streamed (its chunks cover the
+   whole run), ``generate_batch`` of 4 texts, one sampled ``generate`` at
+   the defaults; a one-prompt ``generate_tokens_batch`` must equal the
+   greedy run; ``quantized_matmul`` held against its plain version on the
+   path's operands; tokens/s at batch 1 and 4, the DAC decode, the
+   real-time factor, a profile of 32 steps.  Then Dia-1.6B at the published
+   widths (float32, seeded random weights with channel 0's EOS logit held
+   at 0; DAC-44kHz): greedy ``generate`` of 202 steps (2 s of audio),
+   ``generate_batch`` of 4 texts, a one-text ``generate_batch`` (codes
+   equal to the greedy run's), the encoder bucket against all 1024
+   positions (codes equal), one sampled ``generate`` at the defaults; the
+   encoder time, decode steps/s at batch 1 and 4, the DAC decode, the
+   real-time factor, launches a step, a profile of 32 steps, peak memory;
+   then the greedy codes fed, teacher-forced, through the same weights on
+   the card and on the CPU for 8 steps: logits within the tolerance;
+8. print one ``{"kernels": [...]}`` line, then the device line last.
 
-Phase 2 holds ``quantized_matmul`` at Orpheus-3B's shapes too (int8,
-groups of 64, 1 and 4 rows), and the conv kernels at DAC-44kHz's routed
-resblock shapes (K=7, d = 1, 3, 9).  Launch counters are set to 0 just
-before each run of the probes' entry point and of phases 3 to 6, and read
-just after: each kernel of a run's path must have launched in it (Orpheus:
-``quantized_matmul``; DAC's encode and decode: both conv kernels), and
+Phase 2 holds ``quantized_matmul`` at Orpheus-3B's and OuteTTS-1B's shapes
+too (int8, groups of 64, 1 and 4 rows), and the conv kernels at DAC-44kHz's
+and DAC-24kHz's routed resblock shapes (K=7, d = 1, 3, 9).  Launch counters
+are set to 0 just before each run of the probes' entry point and of phases
+3 to 7, and read just after: each kernel of a run's path must have launched
+in it (Orpheus: ``quantized_matmul``; DAC's encode and decode: both conv
+kernels; OuteTTS: all three; Dia's DAC decode: both conv kernels), and
 Kokoro's ``lstm`` launches only on the cluster route.  Needs
 one CUDA card and the repository checkout around this file; it imports
 nothing of JAX.
@@ -287,6 +308,16 @@ def _lstm_cases(gen):
 # 256 and 512, the decoder's at 768 and 384 (C = 64, 96 and 192 take the
 # library route)
 DAC_RESBLOCKS = ((128, 66304), (256, 16576), (512, 2072), (768, 2072), (384, 16576))
+# (C, L) of the 24 kHz speech DAC's (OuteTTS's) decoder resblocks that a
+# kernel takes in phase 7: C = 384 at 40 samples a frame (C = 768 at 8 a
+# frame is under 2048 rows, C = 192 and 96 are no multiples of 128: the
+# library), 40 samples a frame less one: the greedy generate's 142 frames
+# and its stream's first chunk of 86 (phase 7 also holds the kernels to
+# their plain versions on every operand its decodes give them)
+DAC24_RESBLOCKS = ((384, 5679), (384, 3439))
+# the same of DAC-44kHz in Dia's greedy generate of 202 steps: 172 frames
+# (after the 30-frame drop) at 64 samples a frame, C = 384
+DIA_RESBLOCKS = ((384, 11008),)
 
 
 def _conv_cases(gen):
@@ -301,16 +332,19 @@ def _conv_cases(gen):
     shifted.append(((2, 156001, 128), 3, 1))
     banded = [((2, 26000, 256), 7, 1), ((2, 156001, 128), 11, 1),
               ((2, 26000, 256), 7, 3), ((2, 156001, 128), 11, 3)]
-    cases = [("dilated_conv1d", s, k, d) for s, k, d in shifted]
-    cases += [("banded_conv1d", s, k, d) for s, k, d in banded]
+    cases = [("dilated_conv1d", s, k, d, "") for s, k, d in shifted]
+    cases += [("banded_conv1d", s, k, d, "") for s, k, d in banded]
     # DAC-44kHz's resblock convs (K=7, d = 1, 3, 9) that take a kernel, on a
-    # 3 s clip, each on the kernel its route names
-    for (c, l), d in itertools.product(DAC_RESBLOCKS, (1, 3, 9)):
-        route = conv1d_route(7, c, c, l, d, padding=3 * d)
-        if route != "library":
-            name = "dilated_conv1d" if route == "shifted" else "banded_conv1d"
-            cases.append((name, (1, l, c), 7, d))
-    for name, (b, l, c), k, d in cases:
+    # 3 s clip, and at phase 7's decodes DAC-24kHz's (OuteTTS) and
+    # DAC-44kHz's (Dia), each on the kernel its route names
+    for codec, blocks in (("DAC-44kHz", DAC_RESBLOCKS), ("DAC-24kHz", DAC24_RESBLOCKS),
+                          ("DAC-44kHz, Dia", DIA_RESBLOCKS)):
+        for (c, l), d in itertools.product(blocks, (1, 3, 9)):
+            route = conv1d_route(7, c, c, l, d, padding=3 * d)
+            if route != "library":
+                name = "dilated_conv1d" if route == "shifted" else "banded_conv1d"
+                cases.append((name, (1, l, c), 7, d, f" ({codec})"))
+    for name, (b, l, c), k, d, label in cases:
         x = torch.randn(b, l, c, generator=gen, device="cuda") * 0.3
         w = torch.randn(k, c, c, generator=gen, device="cuda") * 0.05
         x_ncl = x.transpose(1, 2).contiguous()
@@ -339,7 +373,7 @@ def _conv_cases(gen):
             "kernel": name,
             "shape": f"[{b}, {l}, {c}] K={k} d={d}"
                      + (" residue fold" if name == "banded_conv1d" and d > 1 else "")
-                     + (" (DAC-44kHz)" if b == 1 else ""),
+                     + label,
             "kernel_fn": kern, "plain_fn": plain,
             "library_fn": lambda x=x_ncl, w=w_lib, p=pad, d=d:
                 F.conv1d(x, w, None, 1, p, d),
@@ -380,6 +414,12 @@ ORPHEUS_QMM_SHAPES = (((3072, 3072), "Orpheus-3B q, o"), ((3072, 1024), "Orpheus
                       ((3072, 8192), "Orpheus-3B gate, up"), ((8192, 3072), "Orpheus-3B down"),
                       ((3072, 156_940), "Orpheus-3B tied head"))
 ORPHEUS_QMM_ROWS = (1, 4)
+# OuteTTS-1B's (OuteAI/Llama-OuteTTS-1.0-1B), int8 in groups of 64: the
+# projections of its 16 layers and the tied head over 134 400 tokens
+OUTETTS_QMM_SHAPES = (((2048, 2048), "OuteTTS-1B q, o"), ((2048, 512), "OuteTTS-1B k, v"),
+                      ((2048, 8192), "OuteTTS-1B gate, up"),
+                      ((8192, 2048), "OuteTTS-1B down"),
+                      ((2048, 134_400), "OuteTTS-1B tied head"))
 
 
 def _qmm_shapes():
@@ -391,6 +431,8 @@ def _qmm_shapes():
             yield "csm", io, role, 128, 4, QMM_ROWS_INT4
     for io, role in ORPHEUS_QMM_SHAPES:
         yield "orpheus", io, role, 64, 8, ORPHEUS_QMM_ROWS
+    for io, role in OUTETTS_QMM_SHAPES:
+        yield "outetts", io, role, 64, 8, ORPHEUS_QMM_ROWS
 
 
 def _quantized(gen, i, o, gs, bits):
@@ -440,12 +482,13 @@ def _qmm_cases(gen):
 def qmm_row_independence(gen) -> None:
     """Each row of a 2-, 8- and 32-row quantized_matmul equals, bit for bit,
     the 1-row call on that row (the kernel sums in one order whatever the
-    row count), at every int8 shape of CSM-1B (groups of 128) and of
-    Orpheus-3B (groups of 64), and at llama-1B's q, o in int4."""
+    row count), at every int8 shape of CSM-1B (groups of 128), of
+    Orpheus-3B and of OuteTTS-1B (groups of 64), and at llama-1B's q, o in
+    int4."""
     from mlx_audio_tpu_torch.nn import kernels
 
     shapes = [(io, 128, 8) for io, _ in QMM_SHAPES] + [(QMM_SHAPES[0][0], 128, 4)]
-    shapes += [(io, 64, 8) for io, _ in ORPHEUS_QMM_SHAPES]
+    shapes += [(io, 64, 8) for io, _ in ORPHEUS_QMM_SHAPES + OUTETTS_QMM_SHAPES]
     for (i, o), gs, bits in shapes:
         q = _quantized(gen, i, o, gs, bits)
         w = (q.weight, q.scales, q.biases, gs, q.packed)
@@ -1018,6 +1061,67 @@ def check_qmm_path(path_calls: dict, qmm, label: str) -> float:
     return path_err
 
 
+def record_conv_calls(path_calls: dict):
+    """Route kernels.banded_conv1d and kernels.dilated_conv1d through
+    recorders that keep the operands of each wrapper's first call at each
+    (kernel, B, L, C, Cout, K, dilation) in path_calls (a residue-folded
+    dilated conv is recorded at the folded shape banded_conv1d is given);
+    returns the two wrappers, which the caller puts back."""
+    from mlx_audio_tpu_torch.nn import kernels
+
+    banded, dilated = kernels.banded_conv1d, kernels.dilated_conv1d
+
+    def keep(name, x, w, d):
+        key = (name, *x.shape, w.shape[2], w.shape[0], d)
+        if key not in path_calls:
+            path_calls[key] = (x.clone(), w.clone(), d)
+
+    def recording_banded(x, w):
+        keep("banded_conv1d", x, w, 1)
+        return banded(x, w)
+
+    def recording_dilated(x, w, dilation=1):
+        keep("dilated_conv1d", x, w, dilation)
+        return dilated(x, w, dilation)
+
+    kernels.banded_conv1d, kernels.dilated_conv1d = recording_banded, recording_dilated
+    return banded, dilated
+
+
+def _per_kernel(conv_calls: dict) -> dict:
+    return {name: sum(key[0] == name for key in conv_calls)
+            for name in ("banded_conv1d", "dilated_conv1d")}
+
+
+def check_conv_path(path_calls: dict, wrappers, label: str) -> dict:
+    """Each conv kernel against its plain version on the operands a path
+    gave it; fails past TOL, returns each kernel's largest error."""
+    from mlx_audio_tpu_torch.nn import kernels
+
+    banded, dilated = wrappers
+    errs, bad = {"banded_conv1d": 0.0, "dilated_conv1d": 0.0}, []
+    for key, (x, w, d) in sorted(path_calls.items()):
+        name = key[0]
+        if name == "banded_conv1d":
+            got, ref = banded(x, w), kernels.banded_conv1d_plain(x, w)
+        else:
+            got, ref = dilated(x, w, d), kernels.dilated_conv1d_plain(x, w, d)
+        err = float((got - ref).abs().max())
+        errs[name] = max(errs[name], err)
+        if not torch.allclose(got, ref, **TOL):
+            bad.append(f"{name} {list(x.shape)} K={w.shape[0]} d={d}: {err:.3e}")
+        del got, ref
+    if bad:
+        fail(f"the conv kernels disagree with their plain versions at the {label} "
+             "path's shapes: " + "; ".join(bad))
+    print(f"conv kernels at the {len(path_calls)} shapes the {label} path gave them, "
+          f"on the path's own operands: max_abs_err {json.dumps(errs)} (atol "
+          f"{TOL['atol']}, rtol {TOL['rtol']}) ok; " + ", ".join(
+              f"{k[0]} [{k[1]}, {k[2]}, {k[3]}] K={k[5]} d={k[6]}"
+              for k in sorted(path_calls)), flush=True)
+    return errs
+
+
 def csm_runs(model, launches: dict) -> dict:
     """The entry points: greedy generate without and with spec decode (the
     frames must be equal), generate_batch, sampled generate with spec."""
@@ -1274,7 +1378,7 @@ ORPHEUS_TOKENS = 175  # generated: 25 SNAC frames of 7 tokens, 2.13 s of audio
 ORPHEUS_FRAME_SAMPLES = 2048  # a frame: 4 steps of SNAC's 512-sample hop
 ORPHEUS_TEXT = "The port speaks in a voice of its own."
 ORPHEUS_BATCH_TEXTS = CSM_BATCH_TEXTS
-ORPHEUS_PROFILE_STEPS = 32
+PROFILE_STEPS = 32  # decode steps a profile of the LM loops covers
 DAC_SECONDS = 3.0
 
 
@@ -1399,90 +1503,116 @@ def orpheus_runs(model, launches: dict) -> dict:
             "qmm_path_shapes": len(path_calls)}
 
 
-def orpheus_breakdown(model) -> dict:
-    """Batch-1 greedy synthesis through the loop's own steps, synced between
-    them: prompt, prefill and first token, decode loop, SNAC decode; the
-    decode loop at batch 4; then a profile of 32 batch-1 decode steps."""
+def profile_steps(label: str, run_steps):
+    """``run_steps()`` (PROFILE_STEPS batch-1 decode steps) under
+    torch.profiler: prints the device's idle share between the first and
+    the last kernel, device time by kernel group and the top kernels.
+    Returns {profile_idle_share, launches_per_step, device_ms_per_step,
+    groups, device_ms}, or None when no device time was recorded."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_steps()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, window, by_name = device_time(prof)
+    if not by_name:
+        print(f"{label} profile: the profiler recorded no device time (not measured)")
+        return None
+    groups = kernel_groups(by_name, CSM_KERNEL_GROUPS)
+    device_ms = sum(ms for ms, _ in by_name.values())
+    n = sum(n for _, n in by_name.values())
+    print(f"{label} profile of {PROFILE_STEPS} decode steps (batch 1): wall "
+          f"{1e3 * wall:.1f} ms, device busy {busy / 1e3:.1f} ms of a "
+          f"{window / 1e3:.1f} ms kernel window (idle share {1 - busy / window:.4f}), "
+          f"{n} kernels ({n / PROFILE_STEPS:.1f} a step)")
+    for group, (ms, k) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {group:28s} {ms:10.3f} ms  {ms / device_ms:7.2%}  {k:6d} launches")
+    for name, (ms, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"  {ms:10.3f} ms {k:6d}x  {name[:90]}")
+    return {"profile_idle_share": 1 - busy / window, "launches_per_step": n / PROFILE_STEPS,
+            "device_ms_per_step": busy / 1e3 / PROFILE_STEPS, "groups": groups,
+            "device_ms": device_ms}
+
+
+def lm_breakdown(label: str, lm, rows1, rows4, tokens: int, penalty: float,
+                 context: int, synthesize, sample_rate: int) -> dict:
+    """Batch-1 greedy synthesis through the causal loop's own steps, synced
+    between them: prefill and first token, decode loop, the codec's decode
+    (``synthesize(tokens) -> audio``); the decode loop at batch 4 (``rows4``);
+    then a profile of PROFILE_STEPS batch-1 decode steps."""
     from mlx_audio_tpu_torch.models.lm import causal
-    from mlx_audio_tpu_torch.models.tts.llama import decode_audio_from_codes
     from mlx_audio_tpu_torch.nn import kernels
 
-    lm = model.lm
-    tokens = ORPHEUS_TOKENS
     torch.cuda.reset_peak_memory_stats()
 
-    def state(texts):
-        rows = model.prepare_input_ids(texts, "tara")
-        caches, pad_len, prompt, penalty, window = causal._start(
-            lm, rows, tokens, None, 1.3, 20)
+    def state(rows):
+        caches, pad_len, prompt, pen, window = causal._start(
+            lm, rows, tokens, None, penalty, context)
         first = causal._prefill(lm, caches, pad_len, prompt).argmax(-1).to(torch.int32)
         window[:, -1] = first
-        return caches, pad_len, penalty, window, first
+        return caches, pad_len, pen, window, first
 
     def steps(st, n):
-        caches, pad_len, penalty, window, last = st
+        caches, pad_len, pen, window, last = st
         return causal._decode_chunk(lm, caches, pad_len, last, window, n, 0.0, 0,
-                                    1.0, penalty, None)
+                                    1.0, pen, None)
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    st = state([ORPHEUS_TEXT])
+    st = state(rows1)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     toks, _, _ = steps(st, tokens - 1)
     toks = [int(st[-1][0])] + toks[:, 0].tolist()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    code_list = model.parse_output(np.asarray(toks)[None])[0]
-    audio = decode_audio_from_codes(code_list, model._snac)
+    audio = synthesize(toks)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    st4 = state(ORPHEUS_BATCH_TEXTS)
+    st4 = state(rows4)
     torch.cuda.synchronize()
     t4 = time.perf_counter()
     steps(st4, tokens - 1)
     torch.cuda.synchronize()
     t5 = time.perf_counter()
-    audio_s = audio.shape[-1] / model.sample_rate
-    out = {"prefill_s": t1 - t0, "decode_s": t2 - t1, "snac_decode_s": t3 - t2,
+    audio_s = audio.shape[-1] / sample_rate
+    out = {"prefill_s": t1 - t0, "decode_s": t2 - t1, "codec_decode_s": t3 - t2,
            "tokens": tokens, "tokens_per_s": (tokens - 1) / (t2 - t1),
            "tokens_per_s_batch4": 4 * (tokens - 1) / (t5 - t4),
            "audio_s": audio_s, "real_time_factor": (t3 - t0) / audio_s,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
-    print("orpheus breakdown (int8, greedy, penalty 1.3): " + ", ".join(
+    print(f"{label} breakdown (int8, greedy, penalty {penalty}): " + ", ".join(
         f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in out.items())
         + f"; on {gpu_line()}", flush=True)
 
-    st = state([ORPHEUS_TEXT])
+    st = state(rows1)
     steps(st, 2)  # warm
-    torch.cuda.synchronize()
     kernels.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        steps(st, ORPHEUS_PROFILE_STEPS)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    qmm_calls = kernels.LAUNCHES["quantized_matmul"]
-    busy, window, by_name = device_time(prof)
-    if not by_name:
-        print("orpheus profile: the profiler recorded no device time (not measured)")
+    prof = profile_steps(label, lambda: steps(st, PROFILE_STEPS))
+    if prof is None:
         return out
-    groups = kernel_groups(by_name, CSM_KERNEL_GROUPS)
-    device_ms = sum(ms for ms, _ in by_name.values())
+    groups, device_ms = prof.pop("groups"), prof.pop("device_ms")
     qmm_ms = groups.get("quantized_matmul (this repo)", (0.0, 0))[0]
-    print(f"orpheus profile of {ORPHEUS_PROFILE_STEPS} decode steps (batch 1): wall "
-          f"{1e3 * wall:.1f} ms, device busy {busy / 1e3:.1f} ms of a "
-          f"{window / 1e3:.1f} ms kernel window (idle share {1 - busy / window:.4f}), "
-          f"{sum(n for _, n in by_name.values())} kernels; quantized_matmul "
-          f"{qmm_calls} calls, {qmm_ms:.3f} ms, {qmm_ms / device_ms:.2%} of device time")
-    for group, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        print(f"  {group:28s} {ms:10.3f} ms  {ms / device_ms:7.2%}  {n:6d} launches")
-    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
-        print(f"  {ms:10.3f} ms {n:6d}x  {name[:90]}")
-    out.update(profile_idle_share=1 - busy / window, profile_qmm_share=qmm_ms / device_ms)
+    out.update(prof, profile_qmm_share=qmm_ms / device_ms)
+    print(f"{label} profile: quantized_matmul {kernels.LAUNCHES['quantized_matmul']} "
+          f"calls, {qmm_ms:.3f} ms, {out['profile_qmm_share']:.2%} of device time",
+          flush=True)
     return out
+
+
+def orpheus_breakdown(model) -> dict:
+    from mlx_audio_tpu_torch.models.tts.llama import decode_audio_from_codes
+
+    def synthesize(toks):
+        code_list = model.parse_output(np.asarray(toks)[None])[0]
+        return decode_audio_from_codes(code_list, model._snac)
+
+    return lm_breakdown("orpheus", model.lm, model.prepare_input_ids([ORPHEUS_TEXT], "tara"),
+                        model.prepare_input_ids(ORPHEUS_BATCH_TEXTS, "tara"),
+                        ORPHEUS_TOKENS, 1.3, 20, synthesize, model.sample_rate)
 
 
 def dac_runs(launches: dict) -> dict:
@@ -1573,6 +1703,425 @@ def dac_runs(launches: dict) -> dict:
     if not torch.allclose(y, y_ref, **TOL):
         fail(f"dac: decode on the card differs from the CPU's by {y_err:.3e}")
     return {"wall": wall, "audio_err": y_err, "latent_err": latent_err}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: OuteTTS-1B int8 and Dia-1.6B
+# ---------------------------------------------------------------------------
+
+OUTETTS_TOKENS = 300  # 150 frames of a c1 and a c2 code: 2 s of 24 kHz audio
+OUTETTS_TEXT = ORPHEUS_TEXT
+OUTETTS_BATCH_TEXTS = CSM_BATCH_TEXTS
+OUTETTS_STREAM_INTERVAL = 1.0  # a decode every 137 tokens
+# the stub tokenizer's ids: <|c1_n|> at OUTETTS_CODES + 2 n, <|c2_n|> at
+# OUTETTS_CODES + 2 n + 1, <|im_end|> at OUTETTS_EOS
+OUTETTS_CODES, OUTETTS_EOS = 130_000, 133_000
+OUTETTS_OWN = 0.02  # each code row's own part, against the shared part's RMS
+
+DIA_STEPS = 202  # decode steps: 172 frames, 2 s at 86.13 a second, after the 30-frame drop
+DIA_TEXT = "[S1] The port speaks in a voice of its own. [S2] And it answers."
+DIA_BATCH_TEXTS = ["[S1] One short line. [S2] Yes.",
+                   "[S1] A second line, a little longer. [S2] It is.",
+                   "[S1] Three. [S2] Four.",
+                   "[S1] And the fourth line closes the batch. [S2] Done."]
+DIA_BUCKET_STEPS = 64  # steps of the encoder-bucket comparison
+DIA_TIMED_STEPS = 64  # steps a timed decode of the breakdown
+DIA_TF_STEPS = 8  # teacher-forced steps held against the CPU, to TOL
+
+
+class OuteTTSStubTokenizer:
+    """``encode(text)``: the <|c1_n|> and <|c2_n|> codes (n < 1025,
+    interleaved) and <|im_end|> at ids of their own below the vocabulary of
+    134 400, every other character at an id of StubTokenizer's."""
+
+    def encode(self, text: str, add_special_tokens: bool = False) -> list:
+        import re
+
+        def chars(part):
+            return [1_000 + (ord(c) * 7_919) % 120_000 for c in part]
+
+        ids, pos = [], 0
+        for m in re.finditer(r"<\|(c[12])_(\d+)\|>|<\|im_end\|>", text):
+            ids += chars(text[pos:m.start()])
+            if m.group(1) is None:
+                ids.append(OUTETTS_EOS)
+            else:
+                ids.append(OUTETTS_CODES + 2 * int(m.group(2)) + (m.group(1) == "c2"))
+            pos = m.end()
+        return ids + chars(text[pos:])
+
+
+def build_outetts():
+    """OuteTTS-1B at the published widths (ModelConfig's defaults) with
+    seeded random weights on the card, int8 in groups of 64, and the 24 kHz
+    speech DAC (seeded random weights)."""
+    from mlx_audio_tpu_torch.models.lm import causal
+    from mlx_audio_tpu_torch.models.tts.outetts import Model, ModelConfig
+    from mlx_audio_tpu_torch.nn.quantize import quantize_model
+
+    t0 = time.perf_counter()
+    model = Model(ModelConfig(), tokenizer=OuteTTSStubTokenizer(), device="cuda")
+    # A trained OuteTTS speaks in c1, c2 code pairs and ends with
+    # <|im_end|>.  Of the random weights' 134 400 tokens 2 050 are codes, so
+    # every other row of the tied embedding is scaled by 1e-2 (on the input
+    # side the first RMSNorm normalizes the scale away; the head's logits of
+    # those tokens shrink a hundredfold) and the <|im_end|> row is held at 0.
+    # With random code rows greedy decoding then repeats one code (the tied
+    # head favours the token just fed back) and one stream decodes to no
+    # audio, so every code row is a shared vector, the sum of the prompts'
+    # last hidden states, plus a random part of its own at OUTETTS_OWN of
+    # the shared part's RMS (the sum at U(-1, 1)'s RMS): the code logits are
+    # positive from the first step, far above the non-code ones, and close
+    # enough to each other that the repetition penalty (a tenth of a code's
+    # logit) keeps greedy decoding from repeating a code within its window;
+    # which code comes next, c1 or c2, is set by the rows' own parts against
+    # the hidden state the LM computed.  Code 1024 of either stream is past
+    # the DAC's 1024 bins; its rows are held at 0 (logit 0, below the
+    # positive ones), as a trained model does not emit it.
+    with torch.no_grad():
+        w = model.lm.model.embed_tokens.weight
+        codes = torch.zeros(w.shape[0], dtype=torch.bool, device=w.device)
+        codes[OUTETTS_CODES:OUTETTS_CODES + 2 * 1025] = True
+        w[~codes] *= 1e-2
+        w[OUTETTS_EOS] = 0
+        rows = _outetts_rows(model, [OUTETTS_TEXT] + OUTETTS_BATCH_TEXTS)
+        caches, pad_len, prompt, _, _ = causal._start(model.lm, rows, 1, None, 1.0, 1)
+        last = model.lm.model.prefill(caches, prompt, pad_len)[0][:, -1]
+        row = last.sum(0)
+        own = torch.randn(int(codes.sum()), w.shape[1], device=w.device,
+                          generator=torch.Generator(device=w.device).manual_seed(1))
+        w[codes] = (row / row.pow(2).mean().sqrt() + OUTETTS_OWN * own) * 3 ** -0.5
+        w[OUTETTS_CODES + 2 * 1024:OUTETTS_CODES + 2 * 1025] = 0
+        if not bool((last @ w[OUTETTS_CODES] > 0).all()):
+            fail("outetts: a prompt's first code logit is not positive")
+    quantize_model(model.lm, group_size=64, bits=8)
+    dac = model.audio_processor.audio_codec.model
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    nbytes = sum(t.numel() * t.element_size() for t in model.lm.state_dict().values())
+    print(f"OuteTTS-1B built and quantized (int8, groups of 64) in "
+          f"{time.perf_counter() - t0:.1f} s; LM state {nbytes / 1e9:.3f} GB; "
+          f"DAC-24kHz hop {dac.hop_length}, {dac.n_codebooks} codebooks", flush=True)
+    return model
+
+
+def _outetts_rows(model, texts):
+    """The prompt rows the entry points build: each chunk of each text
+    (``chunk_text``) in the completion grammar."""
+    from mlx_audio_tpu_torch.models.tts.outetts import PromptProcessor
+
+    pp = PromptProcessor(model._tokenizer)
+    return [np.asarray(model._tokenizer.encode(pp.get_completion_prompt(c)))
+            for t in texts for c in model.chunk_text(t)]
+
+
+def _check_outetts(name, results, n):
+    if len(results) != n:
+        fail(f"{name}: {len(results)} results for {n} texts")
+    for r in results:
+        if not (r.samples > 0 and np.isfinite(r.audio).all()):
+            fail(f"{name}: {r.samples} samples, or not finite")
+
+
+def outetts_runs(model, launches: dict) -> dict:
+    """The entry points: greedy generate of OUTETTS_TOKENS, the same
+    streamed, generate_batch of 4, one sampled generate at the defaults
+    (temperature 0.4, top-p 0.9, penalty 1.1); then a one-text
+    generate_batch against the greedy generate: tokens equal, audio within
+    TOL."""
+    from mlx_audio_tpu_torch.models.tts.outetts import PromptProcessor
+    from mlx_audio_tpu_torch.models.tts.outetts import outetts as outetts_mod
+    from mlx_audio_tpu_torch.nn import kernels
+
+    tokens, batch_tokens = [], []
+    gen_fn, batch_fn = outetts_mod.generate_tokens, outetts_mod.generate_tokens_batch
+
+    def recording_gen(*a, **k):
+        toks = []
+        tokens.append(toks)
+        for chunk in gen_fn(*a, **k):
+            toks.extend(int(t) for t in chunk)
+            yield chunk
+
+    def recording_batch(*a, **k):
+        outs = batch_fn(*a, **k)
+        batch_tokens.append([o.tolist() for o in outs])
+        return outs
+
+    path_calls, conv_calls = {}, {}
+    qmm = record_qmm_calls(path_calls)
+    convs = record_conv_calls(conv_calls)
+    outetts_mod.generate_tokens = recording_gen
+    outetts_mod.generate_tokens_batch = recording_batch
+    wall = {}
+    run = path_runner(launches, wall)
+    kw = dict(max_tokens=OUTETTS_TOKENS)
+    try:
+        greedy = run("outetts_generate", lambda: list(
+            model.generate(OUTETTS_TEXT, temperature=0.0, **kw)))
+        stream = run("outetts_generate_stream", lambda: list(model.generate(
+            OUTETTS_TEXT, temperature=0.0, stream=True,
+            streaming_interval=OUTETTS_STREAM_INTERVAL, **kw)))
+        batch = run("outetts_generate_batch", lambda: model.generate_batch(
+            OUTETTS_BATCH_TEXTS, temperature=0.0, **kw))
+        sampled = run("outetts_generate_sampled", lambda: list(
+            model.generate(OUTETTS_TEXT, seed=3, **kw)))
+        one = model.generate_batch([OUTETTS_TEXT], temperature=0.0, **kw)
+    finally:
+        kernels.quantized_matmul = qmm
+        kernels.banded_conv1d, kernels.dilated_conv1d = convs
+        outetts_mod.generate_tokens = gen_fn
+        outetts_mod.generate_tokens_batch = batch_fn
+    _check_outetts("outetts generate", greedy, 1)
+    _check_outetts("outetts generate_batch", batch, len(OUTETTS_BATCH_TEXTS))
+    _check_outetts("outetts generate (sampled)", sampled, 1)
+    if len(tokens[0]) != OUTETTS_TOKENS:
+        fail(f"outetts: greedy generate stopped after {len(tokens[0])} tokens")
+    frames = len(PromptProcessor(model._tokenizer).extract_audio_from_tokens(tokens[0])[0])
+    codes = [t for t in tokens[0] if OUTETTS_CODES <= t < OUTETTS_CODES + 2 * 1025]
+    if codes == sorted(codes):
+        fail("outetts: the greedy codes come in id order, as tied code logits give "
+             "them: the tokens do not depend on the LM")
+    hop = model.audio_processor.audio_codec.model.hop_length
+    if abs(greedy[0].samples - hop * frames) >= hop:
+        fail(f"outetts: {greedy[0].samples} samples for {frames} frames")
+    # the streamed run: the same tokens, decoded at chunk boundaries
+    whole = greedy[0].audio
+    if (tokens[1] != tokens[0] or len(stream) < 2
+            or sum(r.samples for r in stream) != whole.shape[0]):
+        fail(f"outetts stream: {len(stream)} chunks of "
+             f"{[r.samples for r in stream]} samples against {whole.shape[0]}")
+    last = torch.as_tensor(stream[-1].audio)
+    tail = torch.as_tensor(whole[whole.shape[0] - last.shape[0]:])
+    if not torch.allclose(last, tail, **TOL):
+        fail(f"outetts stream: the last chunk differs from the whole run's tail by "
+             f"{float((last - tail).abs().max()):.3e}")
+    for name in ("outetts_generate", "outetts_generate_stream", "outetts_generate_batch",
+                 "outetts_generate_sampled"):
+        missing = [k for k in ("quantized_matmul", "banded_conv1d", "dilated_conv1d")
+                   if launches[name][k] == 0]
+        if missing:
+            fail(f"{name}: kernels never launched: {missing}")
+    path_err = check_qmm_path(path_calls, qmm, "OuteTTS")
+    conv_err = check_conv_path(conv_calls, convs, "OuteTTS")
+
+    one_row = batch_tokens[-1][0]
+    if one_row != tokens[0]:
+        fail(f"outetts: a one-text generate_batch differs from generate "
+             f"after {_shared(one_row, tokens[0])} of {len(tokens[0])} tokens")
+    if not (one[0].audio.shape == whole.shape
+            and np.allclose(one[0].audio, whole, **TOL)):
+        fail("outetts: a one-text generate_batch's audio differs from generate's")
+    audio_s = whole.shape[0] / model.sample_rate
+    print(f"outetts: greedy, {frames} frames from {len(tokens[0])} tokens "
+          f"({len(set(codes))} distinct codes of {len(codes)}), "
+          f"{audio_s:.3f} s of audio, real-time factor "
+          f"{wall['outetts_generate'] / audio_s:.4f}; streamed in {len(stream)} chunks "
+          f"of {[r.samples for r in stream]} samples, the same tokens, the last chunk "
+          f"equal to the whole run's tail; a one-text generate_batch equals "
+          f"generate, tokens and audio; wall s: " + ", ".join(f"{k} {v:.3f}" for k, v in wall.items()),
+          flush=True)
+    return {"wall": wall, "qmm_path_err": path_err, "qmm_path_shapes": len(path_calls),
+            "conv_path_err": conv_err, "conv_path_shapes": _per_kernel(conv_calls),
+            "frames": frames}
+
+
+def outetts_breakdown(model) -> dict:
+    from mlx_audio_tpu_torch.models.tts.outetts import PromptProcessor
+
+    pp = PromptProcessor(model._tokenizer)
+    return lm_breakdown("outetts", model.lm, _outetts_rows(model, [OUTETTS_TEXT]),
+                        _outetts_rows(model, OUTETTS_BATCH_TEXTS), OUTETTS_TOKENS,
+                        1.1, 64, lambda t: model._decode(pp.extract_audio_from_tokens(t)),
+                        model.sample_rate)
+
+
+def build_dia():
+    """Dia-1.6B at the published widths (DiaConfig's defaults) with seeded
+    random weights on the card, and DAC-44kHz (seeded random weights)."""
+    from mlx_audio_tpu_torch.codec.dac import DAC, dac_44khz_config
+    from mlx_audio_tpu_torch.models.tts.dia import DiaConfig, Model
+
+    t0 = time.perf_counter()
+    model = Model(DiaConfig(), dac_model=DAC(dac_44khz_config(), device="cuda", seed=0),
+                  device="cuda")
+    # a trained Dia ends a text with EOS (1024) on channel 0; random weights
+    # would emit it at random, so channel 0's EOS column of the logits head
+    # is held at 0: its CFG logit is exactly 0, below the top of 1 024
+    # random ones, and the top-k of 35 masks it
+    with torch.no_grad():
+        model.model.decoder.logits_dense.weight[:, 0, 1024] = 0
+    torch.cuda.synchronize()
+    state = model.model.state_dict()
+    n = sum(t.numel() for t in state.values())
+    dec = sum(t.numel() * t.element_size() for k, t in state.items()
+              if k.startswith("decoder.layers.") or k.startswith("decoder.logits"))
+    print(f"Dia-1.6B built in {time.perf_counter() - t0:.1f} s: {n / 1e9:.3f} B "
+          f"parameters, {4 * n / 1e9:.3f} GB float32, {dec / 1e9:.3f} GB read a "
+          "decode step (decoder layers and logits head)", flush=True)
+    return model
+
+
+def dia_runs(model, launches: dict) -> dict:
+    """The entry points: greedy generate of DIA_STEPS, generate_batch of 4
+    texts, a one-text generate_batch (its codes must equal the single run's),
+    generate_batch of two texts with the encoder bucketed and at all 1024
+    positions (codes equal), one sampled generate at the defaults
+    (temperature 1.3, top-k 35, CFG 3)."""
+    from mlx_audio_tpu_torch.models.tts.dia import model as dia_mod
+    from mlx_audio_tpu_torch.models.tts.dia.audio import TAIL_DROP
+    from mlx_audio_tpu_torch.nn import kernels
+
+    seen = {"single": [], "batch": []}
+    single_fn, batch_fn = dia_mod.codebook_to_audio, dia_mod.codebook_to_audio_batch
+    dia_mod.codebook_to_audio = lambda codes, *a, **k: (
+        seen["single"].append(codes), single_fn(codes, *a, **k))[1]
+    dia_mod.codebook_to_audio_batch = lambda codes, *a, **k: (
+        seen["batch"].append(codes), batch_fn(codes, *a, **k))[1]
+    conv_calls = {}
+    convs = record_conv_calls(conv_calls)
+    wall = {}
+    run = path_runner(launches, wall)
+    greedy = dict(temperature=0.0, max_tokens=DIA_STEPS)
+    two = DIA_BATCH_TEXTS[:2]
+    try:
+        single = run("dia_generate", lambda: list(model.generate(DIA_TEXT, **greedy)))
+        batch = run("dia_generate_batch", lambda: model.generate_batch(DIA_BATCH_TEXTS,
+                                                                       **greedy))
+        one = model.generate_batch([DIA_TEXT], **greedy)
+        model.generate_batch(two, temperature=0.0, max_tokens=DIA_BUCKET_STEPS)
+        model.generate_batch(two, temperature=0.0, max_tokens=DIA_BUCKET_STEPS,
+                             _encoder_bucket=model.config.data.text_length)
+        sampled = run("dia_generate_sampled", lambda: list(
+            model.generate(DIA_TEXT, max_tokens=DIA_STEPS, seed=3)))
+    finally:
+        dia_mod.codebook_to_audio, dia_mod.codebook_to_audio_batch = single_fn, batch_fn
+        kernels.banded_conv1d, kernels.dilated_conv1d = convs
+    samples = (DIA_STEPS - TAIL_DROP) * model._get_dac().hop_length
+    for name, results, n in (("dia generate", single, 1),
+                             ("dia generate_batch", batch, len(DIA_BATCH_TEXTS)),
+                             ("dia one-text generate_batch", one, 1),
+                             ("dia generate (sampled)", sampled, 1)):
+        if len(results) != n:
+            fail(f"{name}: {len(results)} results for {n} texts")
+        for r in results:
+            if not (r.samples == samples and np.isfinite(r.audio).all()):
+                fail(f"{name}: {r.samples} samples (expected {samples}), or not finite")
+    codes = seen["single"][0]
+    if codes.shape != (model.config.data.channels, 1 + DIA_STEPS):
+        fail(f"dia: greedy codes {codes.shape}")
+    if not np.array_equal(seen["batch"][1][0], codes):
+        n = int((seen["batch"][1][0] != codes).any(0).sum())
+        fail(f"dia: a one-text generate_batch differs from generate in {n} frames")
+    bucketed, full = seen["batch"][2], seen["batch"][3]
+    if not all(np.array_equal(a, b) for a, b in zip(bucketed, full)):
+        fail("dia: the encoder bucket changes the codes against all 1024 positions")
+    for name in ("dia_generate", "dia_generate_batch", "dia_generate_sampled"):
+        missing = [k for k in ("banded_conv1d", "dilated_conv1d") if launches[name][k] == 0]
+        if missing:
+            fail(f"{name}: kernels never launched in its DAC decode: {missing}")
+    conv_err = check_conv_path(conv_calls, convs, "Dia")
+    audio_s = samples / model.sample_rate
+    print(f"dia: greedy {DIA_STEPS} steps, codes {codes.shape}, {audio_s:.3f} s of "
+          f"audio, real-time factor {wall['dia_generate'] / audio_s:.4f} (generate's "
+          f"wall time over the audio's length); a one-text "
+          f"generate_batch equals generate; the encoder bucket's codes equal all "
+          f"1024 positions' ({DIA_BUCKET_STEPS} steps, 2 texts); wall s: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in wall.items()), flush=True)
+    return {"wall": wall, "codes": codes, "real_time_factor": wall["dia_generate"] / audio_s,
+            "conv_path_err": conv_err, "conv_path_shapes": _per_kernel(conv_calls)}
+
+
+def dia_breakdown(model, codes) -> dict:
+    """Batch-1 greedy synthesis in its stages, synced between them: text
+    encoder (1024 positions, 2 rows) with the cross keys, DIA_TIMED_STEPS
+    decode steps, the DAC decode of the greedy run's codes; the decode at
+    batch 4 (8 rows); then a profile of PROFILE_STEPS batch-1 steps."""
+    from mlx_audio_tpu_torch.models.tts.dia.audio import codebook_to_audio
+    from mlx_audio_tpu_torch.models.tts.dia.model import _dia_chunk
+
+    data = model.config.data
+    delay = torch.as_tensor(data.delay_pattern, device=model.device)
+
+    def decode(st, step0, n):
+        caches, kv, ca, last = st
+        _, last = _dia_chunk(model.model, caches, kv, ca, last, step0, 0, delay, None,
+                             data.audio_bos_value, chunk=n, temperature=0.0, top_k=35,
+                             cfg_scale=3.0, force_bos=True)
+        return caches, kv, ca, last
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = model._start([DIA_TEXT], DIA_STEPS + 64)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    decode(st, 0, DIA_TIMED_STEPS)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    audio = codebook_to_audio(codes, model._get_dac(), data.delay_pattern, c=data.channels)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    st4 = model._start(DIA_BATCH_TEXTS, DIA_STEPS + 64)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    decode(st4, 0, DIA_TIMED_STEPS)
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    del st4
+    steps_per_s = DIA_TIMED_STEPS / (t2 - t1)
+    audio_s = audio.shape[-1] / model.sample_rate
+    out = {"encoder_s": t1 - t0, "steps_per_s": steps_per_s,
+           "steps_per_s_batch4": DIA_TIMED_STEPS / (t5 - t4), "dac_decode_s": t3 - t2,
+           "audio_s": audio_s,
+           "real_time_factor_from_rate": (t1 - t0 + DIA_STEPS / steps_per_s + t3 - t2)
+           / audio_s,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    print("dia breakdown (f32, greedy, CFG 3, batch 1 = 2 rows; real_time_factor_from_rate "
+          f"is computed, {DIA_STEPS} steps at the timed rate): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in out.items()) + f"; on {gpu_line()}", flush=True)
+    st = decode(model._start([DIA_TEXT], DIA_STEPS + 64), 0, 2)  # warm
+    prof = profile_steps("dia", lambda: decode(st, 2, PROFILE_STEPS))
+    if prof is not None:
+        del prof["groups"], prof["device_ms"]
+        out.update(prof)
+    return out
+
+
+def dia_card_against_cpu(model, codes) -> float:
+    """The greedy run's codes fed back, teacher-forced, for DIA_TF_STEPS
+    steps through the card's weights and through the same weights on the
+    CPU (text encoder included): the logits must agree within TOL.
+    Returns the largest difference."""
+    from mlx_audio_tpu_torch.models.tts.dia import DiaModel
+
+    def logits(dm):
+        dev = dm.decoder.norm.weight.device
+        caches, kv, ca, _ = model._start([DIA_TEXT], DIA_TF_STEPS, model=dm)
+        out = []
+        with torch.no_grad():
+            for t in range(DIA_TF_STEPS):
+                frame = torch.as_tensor(codes[:, t], dtype=torch.long, device=dev)
+                step, _ = dm.decoder.step(frame[None, None].expand(2, 1, -1),
+                                          torch.full((1, 1), t, device=dev), caches, kv,
+                                          None, ca)
+                out.append(step[:, 0].cpu())
+        return torch.stack(out)
+
+    t0 = time.perf_counter()
+    card = logits(model.model)
+    cpu_model = DiaModel(model.config)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.model.state_dict().items()})
+    cpu = logits(cpu_model)
+    err = float((card - cpu).abs().max())
+    print(f"dia card against the CPU: {DIA_TF_STEPS} teacher-forced steps of the greedy "
+          f"codes, logits {tuple(card.shape)} max abs diff {err:.3e} (max |logit| "
+          f"{float(cpu.abs().max()):.3f}; atol {TOL['atol']}, rtol "
+          f"{TOL['rtol']}) in {time.perf_counter() - t0:.1f} s", flush=True)
+    if not torch.allclose(card, cpu, **TOL):
+        fail(f"dia: teacher-forced logits on the card differ from the CPU's by {err:.3e}")
+    return err
 
 
 def main() -> int:
@@ -1674,12 +2223,36 @@ def main() -> int:
           f"decode of {DAC_SECONDS} s {json.dumps(per_dac)}; Orpheus {json.dumps(orpheus_info)}",
           flush=True)
 
+    outetts = build_outetts()
+    outetts_run = outetts_runs(outetts, launches)
+    outetts_info = outetts_breakdown(outetts)
+    del outetts
+    torch.cuda.empty_cache()
+    dia = build_dia()
+    dia_run = dia_runs(dia, launches)
+    dia_info = dia_breakdown(dia, dia_run["codes"])
+    dia_err = dia_card_against_cpu(dia, dia_run["codes"])
+    del dia
+    torch.cuda.empty_cache()
+    per_outetts_token = launches["outetts_generate"]["quantized_matmul"] / OUTETTS_TOKENS
+    per_dac_call = {path: {k: launches[f"{path}_generate"][k]
+                           for k in ("banded_conv1d", "dilated_conv1d")}
+                    for path in ("outetts", "dia")}
+    phase7 = {k: v for k, v in launches.items() if k.startswith(("outetts_", "dia_"))}
+    print(f"phase 7 launches: {json.dumps(phase7)}; quantized_matmul per OuteTTS token "
+          f"{per_outetts_token:.2f}; per DAC decode of a greedy generate "
+          f"{json.dumps(per_dac_call)}; OuteTTS {json.dumps(outetts_info)}; Dia "
+          f"{json.dumps(dia_info)}, generate's real-time factor "
+          f"{dia_run['real_time_factor']:.4f}, teacher-forced logits against the CPU "
+          f"{dia_err:.3e}", flush=True)
+
     kernel_line = []
     for name, (source, replaces) in KERNEL_INFO.items():
         cases = records[name]
         head = max(cases, key=lambda r: r["bound_ms"])
         # each kernel's launches on its first path (Kokoro's, CSM's or the
-        # probes'), as before phase 6; Orpheus's and DAC's apart below
+        # probes'), as before phase 6; Orpheus's, DAC's, OuteTTS's and Dia's
+        # apart below
         main = (("entry_points", "bench") if name in KOKORO_KERNELS
                 else ("probes_int8", "probes_bf16") if name in PROBE_KERNELS
                 else csm_phases)
@@ -1698,17 +2271,27 @@ def main() -> int:
         }
         if name == "quantized_matmul":
             entry["max_abs_err"] = max(entry["max_abs_err"], csm_run["qmm_path_err"],
-                                       orpheus_run["qmm_path_err"])
+                                       orpheus_run["qmm_path_err"],
+                                       outetts_run["qmm_path_err"])
             entry["path_shapes"] = (csm_run["qmm_path_shapes"]
-                                    + orpheus_run["qmm_path_shapes"])
+                                    + orpheus_run["qmm_path_shapes"]
+                                    + outetts_run["qmm_path_shapes"])
             entry["launches_per_orpheus_token"] = per_token
+            entry["launches_per_outetts_token"] = per_outetts_token
         if name in KOKORO_KERNELS:
             entry["launches_per_synthesis"] = per_call[name]
         elif name not in PROBE_KERNELS:
             entry["launches_per_spec_frame"] = (
                 launches["csm_generate_spec"][name] / CSM_FRAMES)
         if name in per_dac:
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       outetts_run["conv_path_err"][name],
+                                       dia_run["conv_path_err"][name])
+            entry["path_shapes"] = (outetts_run["conv_path_shapes"][name]
+                                    + dia_run["conv_path_shapes"][name])
             entry["launches_per_dac_call"] = per_dac[name]
+            entry["launches_per_outetts_dac_call"] = per_dac_call["outetts"][name]
+            entry["launches_per_dia_dac_call"] = per_dac_call["dia"][name]
         kernel_line.append(entry)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

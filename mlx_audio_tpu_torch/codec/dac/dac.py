@@ -204,7 +204,12 @@ class VectorQuantize(nn.Module):
         return self.out_proj(self.codebook(indices)), indices, z_e
 
     def decode_code(self, indices):
-        return self.out_proj(self.codebook(indices))
+        """A code outside the codebook decodes to NaN, as the JAX package's
+        ``jnp.take`` fills it."""
+        emb = self.codebook.weight
+        valid = (indices >= 0) & (indices < emb.shape[0])
+        rows = emb[indices.clamp(0, emb.shape[0] - 1)]
+        return self.out_proj(torch.where(valid[..., None], rows, float("nan")))
 
 
 class ResidualVectorQuantize(nn.Module):

@@ -10,14 +10,16 @@ stores them in torch's layouts, so:
 * WN ``weight_g`` ``[1, 1, Cout]`` (conv, output axis) or ``[1, Cin, 1]``
   (transposed conv, input axis) -> ``[C, 1, 1]`` on the same axis;
 * everything else (linear ``[out, in]``, LSTM, norms, embeddings, snake
-  alphas, CSM's ``audio_head`` [nc-1, Dm, V], RoPE tables, quantized uint8
-  codes with their float32 scales and biases) keeps its layout, dtype and
-  name.
+  alphas, CSM's ``audio_head`` [nc-1, Dm, V], Dia's ``DenseGeneral``
+  weights [in..., out...], RoPE tables, quantized uint8 codes with their
+  float32 scales and biases) keeps its layout, dtype and name.
 
-A key is a transposed conv when the module of the port ``module`` that
-owns it is one (``WNConvTranspose1d``, ``StreamableConvTranspose1d``), not
-by its path: DAC's sits at ``decoder.model.N.block.1`` and SNAC's at
-``decoder.blocks.i.pre.1``.  Tests feed it
+The layout of a 3-d ``weight`` or ``weight_v`` follows the type of the
+module of the port ``module`` that owns it, not its path or its rank: a
+conv (``Conv1d``, ``WNConv1d``, ``StreamableConv1d``) or a transposed
+conv (``WNConvTranspose1d``, ``StreamableConvTranspose1d``; DAC's sits at
+``decoder.model.N.block.1`` and SNAC's at ``decoder.blocks.i.pre.1``).
+Any other owner keeps the array as it is.  Tests feed it
 ``dict(named_arrays(jax_model))`` as numpy arrays, and ``from_pretrained``
 the output of a JAX-layout ``sanitize``; the port never imports JAX to use
 it.
@@ -30,29 +32,39 @@ import torch
 from torch import nn
 
 
-def transposed_convs(module: nn.Module) -> set[str]:
-    """Paths of the transposed convs in a port module."""
-    from mlx_audio_tpu_torch.nn.layers import WNConvTranspose1d
-    from mlx_audio_tpu_torch.nn.streaming import StreamableConvTranspose1d
+def conv_kinds(module: nn.Module) -> dict[str, str]:
+    """{path: "conv" or "convt"} of the convs and transposed convs in a
+    port module."""
+    from mlx_audio_tpu_torch.nn.layers import Conv1d, WNConv1d, WNConvTranspose1d
+    from mlx_audio_tpu_torch.nn.streaming import (
+        StreamableConv1d,
+        StreamableConvTranspose1d,
+    )
 
-    return {name for name, m in module.named_modules()
-            if isinstance(m, (WNConvTranspose1d, StreamableConvTranspose1d))}
+    kinds = {}
+    for name, m in module.named_modules():
+        if isinstance(m, (Conv1d, WNConv1d, StreamableConv1d)):
+            kinds[name] = "conv"
+        elif isinstance(m, (WNConvTranspose1d, StreamableConvTranspose1d)):
+            kinds[name] = "convt"
+    return kinds
 
 
 def params_from_jax(named: dict[str, np.ndarray],
                     module: nn.Module) -> dict[str, torch.Tensor]:
     """JAX ``named_arrays`` paths and arrays -> a state_dict for the port's
     ``module`` of the same architecture."""
-    convt = transposed_convs(module)
+    kinds = conv_kinds(module)
     out = {}
     for key, w in named.items():
         w = np.asarray(w)
+        kind = kinds.get(key.rpartition(".")[0])
         if w.ndim == 3 and key.endswith("weight_g"):
             w = w.reshape(-1, 1, 1)
         elif w.ndim == 3 and key.endswith(("weight_v", "weight")):
-            if key.rpartition(".")[0] in convt:
+            if kind == "convt":
                 w = w.transpose(1, 2, 0)  # [K, Cin, Cout] -> [Cin, Cout, K]
-            else:
+            elif kind == "conv":
                 w = w.transpose(2, 1, 0)  # [K, Cin, Cout] -> [Cout, Cin, K]
         out[key] = torch.tensor(w)
     return out

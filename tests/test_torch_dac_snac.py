@@ -86,6 +86,22 @@ def test_dac_16khz_contract(dacs):
     assert torch.isfinite(y).all()
 
 
+def test_dac_codes_past_the_codebook_decode_to_nan_as_in_jax(dacs):
+    """A code one past the codebook (OuteTTS's streams hold 1025 codes, its
+    DAC's codebooks 1024) decodes to NaN where the JAX package's does; in
+    range, finite as before."""
+    jd, td = dacs
+    n = td.codebook_size
+    codes = np.random.default_rng(6).integers(0, n, size=(1, 4, 6))
+    codes[0, 1, 3] = n
+    got = td.decode_codes(torch.as_tensor(codes)).numpy()
+    ref = np.asarray(jd.decode_codes(jnp.asarray(codes)))
+    assert np.isnan(got).any()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    codes[0, 1, 3] = 5
+    assert np.isfinite(td.decode_codes(torch.as_tensor(codes)).numpy()).all()
+
+
 def test_dac_codes_and_audio_match_jax(dacs):
     jd, td = dacs
     audio = _audio(0, 3200)[None, None]
@@ -416,6 +432,76 @@ def test_params_from_jax_by_module_type_matches_the_name_rule(pair):
         assert torch.equal(state[k], torch.tensor(w)), k
     assert any(named[k].ndim == 3 for k in by_name)
     port.load_state_dict(state, strict=True)
+
+
+def _dac_pair():
+    jd = _seeded(small_dac)
+    return jd, DAC(DACConfig(**vars(jd.config)), device="cpu")
+
+
+def _snac_pair():
+    js = _seeded(small_snac)
+    return js, SNAC(SNACConfig(**vars(js.config)), device="cpu")
+
+
+def _rank_rule(named, port):
+    """The bridge before conv owners were typed: every 3-d ``weight`` and
+    ``weight_v`` moved as a conv's, the transposed convs told by type."""
+    from mlx_audio_tpu_torch.nn.layers import WNConvTranspose1d
+    from mlx_audio_tpu_torch.nn.streaming import StreamableConvTranspose1d
+
+    convt = {n for n, m in port.named_modules()
+             if isinstance(m, (WNConvTranspose1d, StreamableConvTranspose1d))}
+    out = {}
+    for k, w in named.items():
+        if w.ndim == 3 and k.endswith("weight_g"):
+            w = w.reshape(-1, 1, 1)
+        elif w.ndim == 3 and k.endswith(("weight_v", "weight")):
+            w = w.transpose((1, 2, 0) if k.rpartition(".")[0] in convt else (2, 1, 0))
+        out[k] = torch.tensor(w)
+    return out
+
+
+@pytest.mark.parametrize("pair", [_kokoro_pair, _mimi_pair, _csm_pair, _dac_pair,
+                                  _snac_pair],
+                         ids=["kokoro", "mimi", "csm", "dac", "snac"])
+def test_params_from_jax_by_owner_type_leaves_conv_families_unchanged(pair):
+    """Typing the owner of every 3-d weight (conv, transposed conv, or
+    neither) gives the state dicts of Kokoro, Mimi, CSM, DAC and SNAC that
+    moving every 3-d weight as a conv's gave: their 3-d weights are all
+    conv weights."""
+    jax_model, port = pair()
+    named = {k: np.asarray(v) for k, v in named_arrays(jax_model)}
+    state = params_from_jax(named, port)
+    before = _rank_rule(named, port)
+    assert sorted(state) == sorted(before)
+    for k in state:
+        assert torch.equal(state[k], before[k]), k
+    assert any(named[k].ndim == 3 for k in named)
+    port.load_state_dict(state, strict=True)
+
+
+def test_params_from_jax_keeps_dense_general_layout():
+    """A tiny Dia's DenseGeneral weights ([D, H, hd], [H, hd, D], [D, 2,
+    hidden], [D, C, V]; 3-d and named ``weight``) arrive untransposed and
+    load strictly; its DAC's convs move as before."""
+    import dataclasses
+
+    from mlx_audio_tpu_torch.models.tts.dia import DiaConfig, Model as Dia
+    from mlx_audio_tpu_torch.models.tts.dia.layers import DenseGeneral
+    from test_dia import tiny_dia
+
+    jm = _seeded(tiny_dia)
+    port = Dia(DiaConfig.load_dict(dataclasses.asdict(jm.config)),
+               dac_model=port_dac(jm._dac), device="cpu")
+    named = {k: np.asarray(v) for k, v in named_arrays(jm.model)}
+    state = params_from_jax(named, port.model)
+    dense = {n + ".weight" for n, m in port.model.named_modules()
+             if isinstance(m, DenseGeneral)}
+    assert sum(named[k].ndim == 3 for k in dense) >= 5
+    for k in dense:
+        assert torch.equal(state[k], torch.tensor(named[k])), k
+    port.model.load_state_dict(state, strict=True)
 
 
 def test_dac_from_pretrained_hf_layout(dacs, tmp_path):
