@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``mlx_audio_tpu_torch``) on one NVIDIA GPU:
 Kokoro-82M synthesis, CSM-1B speech through int8 decode (whole and
-streamed), Orpheus-3B and OuteTTS-1B through int8 decode, Dia-1.6B, the
-DAC-44kHz codec, the depth-draft probes, and check its hand-written CUDA
-kernels.
+streamed), Orpheus-3B and OuteTTS-1B through int8 decode, Dia-1.6B, Bark,
+the DAC-44kHz and EnCodec-24kHz codecs, the Vocos vocoder, the depth-draft
+probes, and check its hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -15,8 +15,9 @@ Phases; the failure of any one ends the script with a non-zero exit:
 2. hold every kernel against its plain PyTorch version on the card at the
    main paths' shapes (float32, TF32 off): the three Kokoro-82M kernels
    (``lstm`` at Kokoro's H=256 on its cluster route, whose
-   ``cudaOccupancyMaxActiveClusters`` it prints, and at H=100 on its row
-   route; ``dilated_conv1d`` and ``banded_conv1d`` compute in 3xTF32 on the
+   ``cudaOccupancyMaxActiveClusters`` it prints, and on its row route at
+   H=100 and at EnCodec-24kHz's H=512, B=1 with T=150 and 225, B=4 with
+   T=150; ``dilated_conv1d`` and ``banded_conv1d`` compute in 3xTF32 on the
    tensor cores and print that bound beside the float32-FMA one, and their
    error against a float64 run of the plain version),
    ``quantized_matmul`` at every projection of CSM-1B's path (int8, 1 to
@@ -86,16 +87,40 @@ Phases; the failure of any one ends the script with a non-zero exit:
    real-time factor, launches a step, a profile of 32 steps, peak memory;
    then the greedy codes fed, teacher-forced, through the same weights on
    the card and on the CPU for 8 steps: logits within the tolerance;
-8. print one ``{"kernels": [...]}`` line, then the device line last.
+8. EnCodec-24kHz (the published config, seeded random weights, its
+   codebooks and output scale arranged on a seeded clip): encode and decode
+   3 s at 6 kbps, timed, with the route of every conv and ``lstm``'s
+   launches by route printed (4, all on the row route), and the same clip
+   through the same weights on the CPU: codes equal, audio within the
+   tolerance.  Bark at the published widths (three 24-layer GPTs of width
+   1024, 1.09 B parameters, f32; seeded random weights with the early stop's
+   logit held near -10; a stub tokenizer; that EnCodec): a greedy-like
+   ``generate`` (100 semantic tokens, every stage at temperature 1e-6: 2 s
+   of audio), ``generate_batch`` of 4 texts, whose rows' semantic tokens
+   must equal their one-row runs, one sampled ``generate`` at the default
+   temperature, and a repeat of the greedy-like run through
+   ``generate_batch([text])`` (a determinism check: tokens equal, audio
+   within the tolerance); every run must make its whole semantic budget; semantic and coarse steps/s at batch 1 and
+   4, the fine stage, EnCodec's decode, the real-time factor, a profile of
+   32 semantic steps, peak memory; the greedy tokens fed, teacher-forced,
+   through the card's weights and the CPU's: logits within the tolerance.
+   Vocos-mel-24kHz (the published config, seeded random weights):
+   ``Vocos(audio)`` on 3 s and ``decode`` of its mel, timed, with the conv
+   routes, against the CPU within the tolerance.  ``lstm`` must launch on
+   the EnCodec and Bark paths, on the row route only, and is held to its
+   plain version on the operands those paths gave it;
+9. print one ``{"kernels": [...]}`` line, then the device line last.
 
 Phase 2 holds ``quantized_matmul`` at Orpheus-3B's and OuteTTS-1B's shapes
 too (int8, groups of 64, 1 and 4 rows), and the conv kernels at DAC-44kHz's
 and DAC-24kHz's routed resblock shapes (K=7, d = 1, 3, 9).  Launch counters
 are set to 0 just before each run of the probes' entry point and of phases
-3 to 7, and read just after: each kernel of a run's path must have launched
+3 to 8, and read just after: each kernel of a run's path must have launched
 in it (Orpheus: ``quantized_matmul``; DAC's encode and decode: both conv
-kernels; OuteTTS: all three; Dia's DAC decode: both conv kernels), and
-Kokoro's ``lstm`` launches only on the cluster route.  Needs
+kernels; OuteTTS: all three; Dia's DAC decode: both conv kernels; EnCodec's
+encode and decode and Bark's EnCodec decode: ``lstm``), Kokoro's ``lstm``
+launches only on the cluster route, EnCodec's and Bark's only on the row
+route.  Needs
 one CUDA card and the repository checkout around this file; it imports
 nothing of JAX.
 """
@@ -262,17 +287,21 @@ def _lstm_cases(gen):
     from mlx_audio_tpu_torch import build
     from mlx_audio_tpu_torch.nn import kernels
 
-    b = 8
     cs = build.load("lstm").lstm_cluster_size()
     print(f"lstm: H=256 takes the {kernels.lstm_route(256)} route, clusters of "
           f"{cs} CTAs; cudaOccupancyMaxActiveClusters "
-          f"{kernels.lstm_max_active_clusters(256)}", flush=True)
-    # Kokoro's two shapes, both directions, on the cluster route; then one
-    # H that takes the row route, drawn apart so the other kernels' inputs
-    # stay as they were
+          f"{kernels.lstm_max_active_clusters(256)}; H=512 (EnCodec-24kHz) takes "
+          f"the {kernels.lstm_route(512)} route", flush=True)
+    # Kokoro's two shapes, both directions, on the cluster route; then the
+    # row route at one H below Kokoro's and at EnCodec-24kHz's H = 512 (2 s
+    # and 3 s at 75 frames a second; Bark's batch of 4), each drawn from a
+    # generator of its own so the other kernels' inputs stay as they were
     row_gen = torch.Generator(device="cuda").manual_seed(1)
-    shapes = [(t, 256, rev, gen) for t in (512, 1300) for rev in (False, True)]
-    for t, h, reverse, g in shapes + [(64, 100, False, row_gen)]:
+    enc_gen = torch.Generator(device="cuda").manual_seed(2)
+    shapes = [(8, t, 256, rev, gen) for t in (512, 1300) for rev in (False, True)]
+    shapes += [(8, 64, 100, False, row_gen)]
+    shapes += [(b, t, 512, False, enc_gen) for b, t in ENCODEC_LSTM_SHAPES]
+    for b, t, h, reverse, g in shapes:
         route = kernels.lstm_route(h)
         x_proj = torch.randn(b, t, 4 * h, generator=g, device="cuda") * 0.3
         w_h = torch.randn(4 * h, h, generator=g, device="cuda") * 0.1
@@ -301,6 +330,11 @@ def _lstm_cases(gen):
             "bytes": 4.0 * (b * t * 4 * h + 4 * h * h + 2 * b * h
                             + 2 * b * t * h + 2 * b * h),
         }
+
+
+# (B, T) of EnCodec-24kHz's 512-wide LSTMs in phase 8: Bark's 2 s (150
+# frames), its batch of 4, and the 3 s clip's encode and decode (225)
+ENCODEC_LSTM_SHAPES = ((1, 150), (1, 225), (4, 150))
 
 
 # (C, L) of DAC-44kHz's resblocks on a 3 s clip (132 608 samples after the
@@ -1122,6 +1156,79 @@ def check_conv_path(path_calls: dict, wrappers, label: str) -> dict:
     return errs
 
 
+def record_lstm_calls(path_calls: dict):
+    """Route kernels.lstm through a recorder that keeps the operands of its
+    first call at each (B, T, H) in path_calls; returns the wrapper, which
+    the caller puts back."""
+    from mlx_audio_tpu_torch.nn import kernels
+
+    lstm = kernels.lstm
+
+    def recording_lstm(x_proj, wh, h0, c0):
+        key = (x_proj.shape[0], x_proj.shape[1], h0.shape[1])
+        if key not in path_calls:
+            path_calls[key] = tuple(t.clone() for t in (x_proj, wh, h0, c0))
+        return lstm(x_proj, wh, h0, c0)
+
+    kernels.lstm = recording_lstm
+    return lstm
+
+
+def check_lstm_path(path_calls: dict, lstm, label: str) -> float:
+    """The lstm kernel against its plain version on the operands a path gave
+    it; fails past TOL, returns the largest error."""
+    from mlx_audio_tpu_torch.nn import kernels
+
+    path_err, bad = 0.0, []
+    for key, args in sorted(path_calls.items()):
+        got, ref = lstm(*args), kernels.lstm_plain(*args)
+        got, ref = (got[0], got[1], *got[2]), (ref[0], ref[1], *ref[2])
+        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        path_err = max(path_err, err)
+        if not all(torch.allclose(g, r, **TOL) for g, r in zip(got, ref)):
+            bad.append(f"B={key[0]} T={key[1]} H={key[2]}: {err:.3e}")
+    if bad:
+        fail(f"lstm disagrees with its plain version at the {label} path's "
+             "shapes: " + "; ".join(bad))
+    print(f"lstm at the {len(path_calls)} (B, T, H) the {label} path gave it, on the "
+          f"path's own operands ({', '.join(kernels.lstm_route(k[2]) for k in sorted(path_calls))}"
+          f" route): max_abs_err {path_err:.3e} (atol {TOL['atol']}, rtol "
+          f"{TOL['rtol']}) ok; " + ", ".join(f"B={b} T={t} H={h}"
+                                             for b, t, h in sorted(path_calls)), flush=True)
+    return path_err
+
+
+def route_recorder(routes: dict):
+    """Route nn.layers.conv1d_route through a recorder counting each conv's
+    (route, C, Cout, L, K, dilation, stride, groups) in routes; returns the
+    original, which the caller puts back."""
+    from mlx_audio_tpu_torch.nn import layers
+
+    route_fn = layers.conv1d_route
+
+    def recording_route(k, c, c_out, l, dilation=1, stride=1, groups=1,
+                        padding=0, dtype=torch.float32):
+        route = route_fn(k, c, c_out, l, dilation, stride, groups, padding, dtype)
+        key = (route, c, c_out, l, k, dilation, stride, groups)
+        routes[key] = routes.get(key, 0) + 1
+        return route
+
+    layers.conv1d_route = recording_route
+    return route_fn
+
+
+def print_routes(label: str, routes: dict) -> None:
+    by_route = {}
+    for (route, c, c_out, l, k, d, s, g), n in sorted(routes.items()):
+        by_route.setdefault(route, []).append(
+            f"{n}x C={c}->{c_out} L={l} K={k} d={d}" + (f" s={s}" if s > 1 else "")
+            + (f" groups={g}" if g > 1 else ""))
+    for route, convs in by_route.items():
+        calls = sum(int(c.split("x")[0]) for c in convs)
+        print(f"{label} conv route {route}: {len(convs)} shapes, {calls} calls: "
+              + "; ".join(convs), flush=True)
+
+
 def csm_runs(model, launches: dict) -> dict:
     """The entry points: greedy generate without and with spec decode (the
     frames must be equal), generate_batch, sampled generate with spec."""
@@ -1631,14 +1738,6 @@ def dac_runs(launches: dict) -> dict:
     audio = (rng.standard_normal(int(DAC_SECONDS * sr)) * 0.1).astype(np.float32)
     x = torch.as_tensor(audio)[None, None]
     routes = {}
-    route_fn = layers.conv1d_route
-
-    def recording_route(k, c, c_out, l, dilation=1, stride=1, groups=1,
-                        padding=0, dtype=torch.float32):
-        route = route_fn(k, c, c_out, l, dilation, stride, groups, padding, dtype)
-        key = (route, c, c_out, l, k, dilation, stride, groups)
-        routes[key] = routes.get(key, 0) + 1
-        return route
 
     def encode_decode():
         z, codes, latents = dac.encode(x.cuda())
@@ -1650,7 +1749,7 @@ def dac_runs(launches: dict) -> dict:
 
     wall = {}
     run = path_runner(launches, wall)
-    layers.conv1d_route = recording_route
+    route_fn = route_recorder(routes)
     try:
         codes, latents, y = run("dac_encode_decode", encode_decode)
     finally:
@@ -1666,15 +1765,7 @@ def dac_runs(launches: dict) -> dict:
     for need in ("banded_conv1d", "dilated_conv1d"):
         if launches["dac_encode_decode"][need] == 0:
             fail(f"dac_encode_decode: {need} never launched")
-    by_route = {}
-    for (route, c, c_out, l, k, d, s, g), n in sorted(routes.items()):
-        by_route.setdefault(route, []).append(
-            f"{n}x C={c}->{c_out} L={l} K={k} d={d}" + (f" s={s}" if s > 1 else "")
-            + (f" groups={g}" if g > 1 else ""))
-    for route, convs in by_route.items():
-        calls = sum(int(c.split("x")[0]) for c in convs)
-        print(f"dac conv route {route}: {len(convs)} shapes, {calls} calls: "
-              + "; ".join(convs), flush=True)
+    print_routes("dac", routes)
 
     # the same weights and clip on the CPU
     t0 = time.perf_counter()
@@ -2124,6 +2215,489 @@ def dia_card_against_cpu(model, codes) -> float:
     return err
 
 
+# ---------------------------------------------------------------------------
+# phase 8: EnCodec-24kHz, Bark and Vocos-mel-24kHz
+# ---------------------------------------------------------------------------
+
+ENCODEC_SECONDS = 3.0
+ENCODEC_BANDWIDTH = 6.0  # kbps: 8 codebooks, as Bark decodes
+BARK_SEMANTIC_STEPS = 100  # 2.0 s of audio: 300 coarse steps, 150 frames
+BARK_GREEDY = 1e-6  # a temperature at which every stage takes the argmax
+BARK_TEXT = "The port speaks in a voice of its own."
+BARK_BATCH_TEXTS = CSM_BATCH_TEXTS
+BARK_TIMED_STEPS = 64  # semantic and coarse steps a timed decode of the breakdown
+BARK_TF_STEPS = 8  # teacher-forced steps held against the CPU, to TOL
+BARK_STOP_LOGIT = 10.0  # the early stop's logit is about minus this
+VOCOS_SECONDS = 3.0
+
+
+class BarkStubTokenizer:
+    """Stands in for bert-base-multilingual-cased: one id a word, drawn from
+    the word's bytes, below 119 552 (the text embedding's 129 600 rows from
+    offset 10 048)."""
+
+    def encode(self, text: str, add_special_tokens: bool = False) -> list:
+        return [1000 + sum(w.encode()) * 7919 % 110_000 for w in text.split()]
+
+
+def run_counted(run, name: str, fn, lstm_routes: dict):
+    """path_runner's run, with kernels.lstm's launches by route read just
+    after into lstm_routes[name]."""
+    from mlx_audio_tpu_torch.nn import kernels
+
+    out = run(name, fn)
+    lstm_routes[name] = dict(kernels.LSTM_ROUTE_LAUNCHES)
+    return out
+
+
+def _check_row_route(name: str, routes: dict, want=None) -> None:
+    if routes["cluster"] or not routes["row"] or (want is not None and routes["row"] != want):
+        fail(f"{name}: lstm launches by route {routes}"
+             + (f" (expected {want} on the row route)" if want is not None else ""))
+
+
+ENCODEC_AUDIO_STD = 0.1  # the decoded audio's scale, set by the last conv
+
+
+def build_encodec():
+    """EnCodec-24kHz (``facebook/encodec_24khz``'s config) with seeded random
+    weights on the card, arranged on a seeded 1 s clip: each codebook is
+    redrawn at the scale of the encoder's output (a trained codebook sits
+    where the encoder's outputs are; at its init scale every frame would
+    pick one of a few codes), and the decoder's last conv is scaled so the
+    clip decodes at a standard deviation of ENCODEC_AUDIO_STD (at the init
+    scale the audio is about 1e-5, where an atol of 1e-4 would hold
+    nothing)."""
+    from mlx_audio_tpu_torch.codec.encodec import Encodec, encodec_24khz_config
+
+    codec = Encodec(encodec_24khz_config(), device="cuda", seed=0)
+    sr = codec.config.sampling_rate
+    clip = torch.as_tensor(np.random.default_rng(5).standard_normal(sr) * 0.1,
+                           dtype=torch.float32)[None, :, None]
+    with torch.no_grad():
+        scale = float(codec.encoder(clip.cuda()).std())
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        for layer in codec.quantizer.layers:
+            layer.codebook.embed.copy_(torch.randn(
+                layer.codebook.embed.shape, generator=gen, device="cuda") * scale)
+        codes, scales = codec.encode(clip, bandwidth=ENCODEC_BANDWIDTH)
+        gain = ENCODEC_AUDIO_STD / float(codec.decode(codes, scales).std())
+        last = codec.decoder.layers[-1]
+        last.weight.mul_(gain)
+        last.bias.mul_(gain)
+    return codec
+
+
+def _code_flip_report(ref, codes_card, codes_cpu, x_cpu) -> str:
+    """At the first (codebook, frame) where the card's code differs from the
+    CPU's: the CPU's squared distances from its residual to both codes."""
+    diff = (codes_card != codes_cpu).nonzero()
+    _, level, frame = (int(v) for v in diff[0])
+    with torch.no_grad():
+        residual = ref.encoder(x_cpu)[0, frame]
+        for i in range(level):
+            residual = residual - ref.quantizer.layers[i].decode(codes_cpu[0, i, frame])
+        emb = ref.quantizer.layers[level].codebook.embed
+        a, b = int(codes_card[0, level, frame]), int(codes_cpu[0, level, frame])
+        da, db = (float(((residual - emb[c]) ** 2).sum()) for c in (a, b))
+    return (f"first at codebook {level} frame {frame}: card code {a} (CPU distance "
+            f"{da:.6e}), CPU code {b} (distance {db:.6e})")
+
+
+def encodec_runs(codec, launches: dict, lstm_routes: dict) -> dict:
+    """EnCodec-24kHz on ENCODEC_SECONDS of seeded audio at 6 kbps: encode and
+    decode, each timed, the route of every conv printed, and lstm's launches
+    by route (4 on the row route: two encoder and two decoder layers at H =
+    512); then the same clip through the same weights on the CPU: codes
+    equal, audio within TOL; lstm held to its plain version on the path's
+    operands."""
+    from mlx_audio_tpu_torch.codec.encodec import Encodec, preprocess_audio
+    from mlx_audio_tpu_torch.nn import kernels, layers
+
+    sr = codec.config.sampling_rate
+    audio = (np.random.default_rng(0).standard_normal(int(ENCODEC_SECONDS * sr))
+             * 0.1).astype(np.float32)
+    x, mask = preprocess_audio(audio, sr)
+    routes, path_calls, wall = {}, {}, {}
+    run = path_runner(launches, wall)
+
+    def encode_decode():
+        t0 = time.perf_counter()
+        codes, scales = codec.encode(x, mask, bandwidth=ENCODEC_BANDWIDTH)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        y = codec.decode(codes, scales, mask)
+        torch.cuda.synchronize()
+        wall["encodec_encode"], wall["encodec_decode"] = t1 - t0, time.perf_counter() - t1
+        return codes, y
+
+    route_fn = route_recorder(routes)
+    lstm = record_lstm_calls(path_calls)
+    try:
+        codes, y = run_counted(run, "encodec_encode_decode", encode_decode, lstm_routes)
+    finally:
+        layers.conv1d_route, kernels.lstm = route_fn, lstm
+    frames = audio.shape[0] // 320
+    if codes.shape != (1, 1, 8, frames) or y.shape != (1, audio.shape[0], 1):
+        fail(f"encodec: codes {tuple(codes.shape)}, audio {tuple(y.shape)}")
+    if not bool(torch.isfinite(y).all()):
+        fail("encodec: audio not finite")
+    _check_row_route("encodec_encode_decode", lstm_routes["encodec_encode_decode"], 4)
+    print_routes("encodec", routes)
+    path_err = check_lstm_path(path_calls, lstm, "EnCodec")
+
+    t0 = time.perf_counter()
+    ref = Encodec(codec.config, device="cpu")
+    ref.load_state_dict({k: v.cpu() for k, v in codec.state_dict().items()})
+    codes_ref, scales_ref = ref.encode(x, mask, bandwidth=ENCODEC_BANDWIDTH)
+    y_ref = ref.decode(codes_ref, scales_ref, mask)
+    cpu_s = time.perf_counter() - t0
+    codes, y = codes.cpu(), y.cpu()
+    differ = int((codes != codes_ref).sum())
+    y_err = float((y - y_ref).abs().max())
+    print(f"encodec ({ENCODEC_SECONDS} s at {sr} Hz, {ENCODEC_BANDWIDTH} kbps): codes "
+          f"{tuple(codes.shape)} ({len(torch.unique(codes))} distinct), audio "
+          f"{tuple(y.shape)}; wall s: " + ", ".join(f"{k} {v:.4f}" for k, v in wall.items())
+          + f"; lstm by route {json.dumps(lstm_routes['encodec_encode_decode'])}; against "
+          f"the CPU ({cpu_s:.1f} s) on the same clip: codes differing {differ} of "
+          f"{codes.numel()}, audio {y_err:.3e} (max |audio| {float(y_ref.abs().max()):.4f});"
+          f" atol {TOL['atol']}, rtol {TOL['rtol']}", flush=True)
+    if differ:
+        fail(f"encodec: {differ} of {codes.numel()} codes on the card differ from the "
+             f"CPU's; " + _code_flip_report(ref, codes[0], codes_ref[0], x))
+    if not torch.allclose(y, y_ref, **TOL):
+        fail(f"encodec: decode on the card differs from the CPU's by {y_err:.3e}")
+    return {"wall": wall, "audio_err": y_err, "lstm_path_err": path_err,
+            "lstm_path_shapes": len(path_calls)}
+
+
+def build_bark(codec):
+    """Bark (``suno/bark``'s three GPTs, ``bark_config``) with seeded random
+    weights on the card, decoding through ``codec``.  A sampled class 10 000
+    (the pad token) stops the semantic stage, so the semantic GPT's final
+    layer norm gets a bias of BARK_STOP_LOGIT u for a seeded unit vector u
+    and its head's row 10 000 is -u: that logit is -BARK_STOP_LOGIT less the
+    normalised state's component along u (about N(0, 1)), against random
+    logits of about N(0, 0.33), and every run makes its whole budget."""
+    from mlx_audio_tpu_torch.models.tts.bark import Model, bark_config
+    from mlx_audio_tpu_torch.models.tts.bark.bark import SEMANTIC_PAD_TOKEN
+
+    t0 = time.perf_counter()
+    model = Model(bark_config(), codec=codec, tokenizer=BarkStubTokenizer(),
+                  device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    with torch.no_grad():
+        u = torch.randn(model.semantic.lm_head.weight.shape[1], generator=gen,
+                        device="cuda")
+        u = u / u.norm()
+        model.semantic.layernorm_final.bias.copy_(BARK_STOP_LOGIT * u)
+        model.semantic.lm_head.weight[SEMANTIC_PAD_TOKEN] = -u
+    torch.cuda.synchronize()
+    n = sum(p.numel() for k, p in model.state_dict().items() if not k.startswith("_codec"))
+    step_bytes = {s: 4 * sum(p.numel() for k, p in getattr(model, s).state_dict().items()
+                             if k != "input_embeds_layer.weight")
+                  for s in ("semantic", "coarse_acoustics")}
+    print(f"Bark built in {time.perf_counter() - t0:.1f} s: {n / 1e9:.3f} B parameters, "
+          f"{4 * n / 1e9:.3f} GB float32; a semantic / coarse step reads "
+          f"{step_bytes['semantic'] / 1e9:.3f} / {step_bytes['coarse_acoustics'] / 1e9:.3f} "
+          f"GB of weights (bound {1e3 * step_bytes['semantic'] / PEAK_BYTES_PER_S:.3f} / "
+          f"{1e3 * step_bytes['coarse_acoustics'] / PEAK_BYTES_PER_S:.3f} ms)", flush=True)
+    return model
+
+
+def bark_runs(model, launches: dict, lstm_routes: dict) -> dict:
+    """The entry points: a greedy-like generate (semantic BARK_SEMANTIC_STEPS,
+    every stage at BARK_GREEDY), generate_batch of 4 texts, one sampled
+    generate at the default temperatures.  Each row of the 4-batch's
+    semantic tokens must equal its one-row run (the rows share one
+    n_valid).  generate is generate_batch([text])[0], so a repeat of the
+    greedy-like run through generate_batch([text]) is a determinism check:
+    tokens equal, audio within TOL.
+    EnCodec's decode must launch lstm, on the row route; lstm is held to its
+    plain version on the path's operands."""
+    from mlx_audio_tpu_torch.nn import kernels
+
+    seen = {"semantic": [], "codes": []}
+    sem_fn, codec = model.generate_text_semantic_batch, model._codec
+    decode_fn = codec.decode
+
+    def recording_semantic(*a, **k):
+        out = sem_fn(*a, **k)
+        seen["semantic"].append([o.tolist() for o in out])
+        return out
+
+    def recording_decode(codes, *a, **k):
+        seen["codes"].append(torch.as_tensor(codes).cpu().numpy())
+        return decode_fn(codes, *a, **k)
+
+    model.generate_text_semantic_batch = recording_semantic
+    codec.decode = recording_decode
+    path_calls, wall = {}, {}
+    run = path_runner(launches, wall)
+    lstm = record_lstm_calls(path_calls)
+    greedy = dict(temperature=BARK_GREEDY, max_steps=BARK_SEMANTIC_STEPS)
+    try:
+        single = run_counted(run, "bark_generate", lambda: list(
+            model.generate(BARK_TEXT, **greedy)), lstm_routes)
+        batch = run_counted(run, "bark_generate_batch", lambda: model.generate_batch(
+            BARK_BATCH_TEXTS, **greedy), lstm_routes)
+        sampled = run_counted(run, "bark_generate_sampled", lambda: list(model.generate(
+            BARK_TEXT, seed=3, max_steps=BARK_SEMANTIC_STEPS)), lstm_routes)
+        one = model.generate_batch([BARK_TEXT], **greedy)
+    finally:
+        del model.generate_text_semantic_batch, codec.decode
+        kernels.lstm = lstm
+    samples = 3 * BARK_SEMANTIC_STEPS // 2 * 320
+    for name, results, n in (("bark generate", single, 1),
+                             ("bark generate_batch", batch, len(BARK_BATCH_TEXTS)),
+                             ("bark generate (sampled)", sampled, 1),
+                             ("bark repeated generate_batch", one, 1)):
+        if len(results) != n:
+            fail(f"{name}: {len(results)} results for {n} texts")
+        for r in results:
+            if not (r.samples == samples and np.isfinite(r.audio).all()):
+                fail(f"{name}: {r.samples} samples (expected {samples}: a full "
+                     "semantic budget), or not finite")
+    for sems in seen["semantic"]:
+        if any(len(s) != BARK_SEMANTIC_STEPS for s in sems):
+            fail(f"bark: semantic lengths {[len(s) for s in sems]}, not the budget")
+    if seen["semantic"][3] != seen["semantic"][0]:
+        fail(f"bark: a repeat of the greedy-like run differs in its semantic tokens "
+             f"after {_shared(seen['semantic'][3][0], seen['semantic'][0][0])}")
+    if not np.array_equal(seen["codes"][3], seen["codes"][0]):
+        fail("bark: a repeat of the greedy-like run differs in its fine codes")
+    a_err = float(np.abs(one[0].audio - single[0].audio).max())
+    if not np.allclose(one[0].audio, single[0].audio, atol=TOL["atol"], rtol=TOL["rtol"]):
+        fail(f"bark: a repeat of the greedy-like run differs in its audio by {a_err:.3e}")
+    for name in ("bark_generate", "bark_generate_batch", "bark_generate_sampled"):
+        if launches[name]["lstm"] == 0:
+            fail(f"{name}: lstm never launched in its EnCodec decode")
+        _check_row_route(name, lstm_routes[name])
+    path_err = check_lstm_path(path_calls, lstm, "Bark")
+    shared = []
+    for text, row in zip(BARK_BATCH_TEXTS, seen["semantic"][1]):
+        alone = model.generate_text_semantic(text, temperature=BARK_GREEDY,
+                                             max_steps=BARK_SEMANTIC_STEPS).tolist()
+        shared.append(_shared(row, alone))
+    if min(shared) < BARK_SEMANTIC_STEPS:
+        fail(f"bark: the 4-text batch's semantic rows share only {shared} of "
+             f"{BARK_SEMANTIC_STEPS} tokens with their one-row runs")
+    audio_s = samples / model.sample_rate
+    print(f"bark: greedy-like generate of {BARK_SEMANTIC_STEPS} semantic tokens, codes "
+          f"{seen['codes'][0].shape}, {audio_s:.3f} s of audio, real-time factor "
+          f"{wall['bark_generate'] / audio_s:.4f} (generate's wall time over the audio's "
+          f"length); a repeated run repeats it (tokens equal, audio "
+          f"{a_err:.3e}); the 4-text batch's semantic rows share {shared} of "
+          f"{BARK_SEMANTIC_STEPS} tokens with their one-row runs; lstm by route "
+          + json.dumps({k: v for k, v in lstm_routes.items() if k.startswith("bark")})
+          + "; wall s: " + ", ".join(f"{k} {v:.3f}" for k, v in wall.items()), flush=True)
+    return {"wall": wall, "codes": seen["codes"][0], "semantic": seen["semantic"][0][0],
+            "real_time_factor": wall["bark_generate"] / audio_s, "batch_shared": shared,
+            "lstm_path_err": path_err, "lstm_path_shapes": len(path_calls)}
+
+
+def _bark_semantic_state(model, texts, max_steps: int):
+    from mlx_audio_tpu_torch.models.tts.bark.bark import _semantic_prefill
+
+    dev = model.device
+    encoded = torch.as_tensor(model._text_rows(texts), dtype=torch.long, device=dev)
+    hist = torch.as_tensor(model._semantic_history(None), dtype=torch.long, device=dev)
+    _, last, caches = _semantic_prefill(model, encoded, hist, 0, max_steps, BARK_GREEDY)
+    return caches, last
+
+
+def _bark_coarse_state(model, semantic, rows: int, steps: int):
+    """A first coarse window's prefill over ``rows`` copies of ``semantic``'s
+    context, with room for ``steps`` more tokens: (caches, first token)."""
+    from mlx_audio_tpu_torch.models.tts.bark.bark import (
+        COARSE_INFER_TOKEN,
+        COARSE_SEMANTIC_PAD_TOKEN,
+        _cache_bucket,
+        _coarse_window,
+    )
+
+    ctx = np.full(257, COARSE_SEMANTIC_PAD_TOKEN, dtype=np.int64)
+    ctx[:len(semantic)] = semantic
+    ctx[256] = COARSE_INFER_TOKEN
+    x_in = np.full((rows, 384), COARSE_SEMANTIC_PAD_TOKEN, dtype=np.int64)
+    x_in[:, :257] = ctx
+    toks, caches = _coarse_window(model, torch.as_tensor(x_in, device=model.device), 257,
+                                  0, torch.Generator().manual_seed(0), 1,
+                                  _cache_bucket(257 + steps + 1), BARK_GREEDY)
+    return caches, toks[-1]
+
+
+def bark_breakdown(model, run: dict) -> dict:
+    """The stages apart, synced between them: BARK_TIMED_STEPS semantic
+    steps at batch 1 and 4 after a prefill, as many coarse steps at batch 1
+    and 4 after a first window's prefill, the fine stage over the greedy
+    run's coarse codes (at BARK_GREEDY, with its seed), EnCodec's decode of
+    its fine codes; then a profile of PROFILE_STEPS batch-1 semantic steps."""
+    from mlx_audio_tpu_torch.models.tts.bark.bark import _coarse_scan, _semantic_chunk
+
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator().manual_seed(0)
+    out = {}
+    for rows, texts in ((1, [BARK_TEXT]), (4, BARK_BATCH_TEXTS)):
+        caches, last = _bark_semantic_state(model, texts, BARK_TIMED_STEPS + 1)
+        _semantic_chunk(model, caches, last, gen, 1, BARK_GREEDY)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _semantic_chunk(model, caches, last, gen, BARK_TIMED_STEPS, BARK_GREEDY)
+        torch.cuda.synchronize()
+        out[f"semantic_steps_per_s_batch{rows}"] = BARK_TIMED_STEPS / (time.perf_counter() - t0)
+        caches, tok = _bark_coarse_state(model, run["semantic"], rows, BARK_TIMED_STEPS + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _coarse_scan(model, caches, tok, 0, gen, BARK_TIMED_STEPS + 1, BARK_GREEDY)
+        torch.cuda.synchronize()
+        out[f"coarse_steps_per_s_batch{rows}"] = BARK_TIMED_STEPS / (time.perf_counter() - t0)
+        del caches
+    coarse = run["codes"][0, 0, :2]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fine = model.generate_fine(coarse, temperature=BARK_GREEDY)  # generate's seed 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    audio = model.codec_decode(fine)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if not np.array_equal(fine, run["codes"][0, 0]):
+        fail("bark: the breakdown's fine stage differs from the greedy run's")
+    out.update(fine_s=t1 - t0, encodec_decode_s=t2 - t1,
+               audio_s=audio.shape[-1] / model.sample_rate,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print("bark breakdown (f32, temperature 1e-6): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in out.items()) + f"; on {gpu_line()}", flush=True)
+    caches, last = _bark_semantic_state(model, [BARK_TEXT], PROFILE_STEPS + 2)
+    _, caches, last = _semantic_chunk(model, caches, last, gen, 2, BARK_GREEDY)  # warm
+    prof = profile_steps("bark semantic", lambda: _semantic_chunk(
+        model, caches, last, gen, PROFILE_STEPS, BARK_GREEDY))
+    if prof is not None:
+        del prof["groups"], prof["device_ms"]
+        out.update(prof)
+    return out
+
+
+def bark_card_against_cpu(model, run: dict) -> float:
+    """The greedy run's tokens fed back, teacher-forced, through the card's
+    weights and the same weights on the CPU: the semantic prompt's prefill
+    and BARK_TF_STEPS steps, the coarse first window's prefill and as many
+    steps, and one fine forward (codebook 1) over the greedy fine codes; the
+    logits must agree within TOL.  Returns the largest difference."""
+    from mlx_audio_tpu_torch.models.tts.bark import GPT, FineGPT, GPTConfig
+    from mlx_audio_tpu_torch.models.tts.bark.bark import (
+        CODEBOOK_SIZE,
+        COARSE_INFER_TOKEN,
+        COARSE_SEMANTIC_PAD_TOKEN,
+        SEMANTIC_INFER_TOKEN,
+        SEMANTIC_VOCAB_SIZE,
+    )
+
+    cfg = model.config
+    sem = run["semantic"]
+    codes = run["codes"][0, 0]                       # [8, T]
+    coarse = (codes[:2].T + SEMANTIC_VOCAB_SIZE + np.array([0, CODEBOOK_SIZE])).reshape(-1)
+    prompt_rows = model._text_rows([BARK_TEXT])
+    hist = model._semantic_history(None)
+    ctx = np.full(257, COARSE_SEMANTIC_PAD_TOKEN, dtype=np.int64)
+    ctx[:len(sem)] = sem
+    ctx[256] = COARSE_INFER_TOKEN
+    fine_in = np.full((1, 1024, 8), CODEBOOK_SIZE, dtype=np.int64)
+    fine_in[0, :codes.shape[1]] = codes.T
+
+    def logits(semantic, coarse_gpt, fine_gpt):
+        dev = semantic.lm_head.weight.device
+        out = []
+        with torch.no_grad():
+            emb = semantic.input_embeds_layer
+            p = torch.cat([emb(torch.as_tensor(prompt_rows, device=dev))
+                           + emb(torch.as_tensor(hist, device=dev))[None],
+                           emb(torch.tensor([[SEMANTIC_INFER_TOKEN]], device=dev))], 1)
+            caches = semantic.init_cache(1, 257 + BARK_TF_STEPS)
+            lg, caches = semantic.prefill(caches, p, 257)
+            out.append(lg)
+            for t in sem[:BARK_TF_STEPS]:
+                lg, caches = semantic.step(caches, torch.tensor([[t]], device=dev))
+                out.append(lg)
+            x = coarse_gpt.input_embeds_layer(torch.as_tensor(ctx, device=dev)[None])
+            caches = coarse_gpt.init_cache(1, 257 + BARK_TF_STEPS)
+            lg, caches = coarse_gpt.prefill(caches, x, 257)
+            out.append(lg[:, :SEMANTIC_VOCAB_SIZE + 2 * CODEBOOK_SIZE])
+            for t in coarse[:BARK_TF_STEPS]:
+                lg, caches = coarse_gpt.step(caches, torch.tensor([[int(t)]], device=dev))
+                out.append(lg[:, :SEMANTIC_VOCAB_SIZE + 2 * CODEBOOK_SIZE])
+            fl = fine_gpt(1, torch.as_tensor(fine_in, device=dev))
+        return [o.cpu() for o in out] + [fl.cpu()]
+
+    t0 = time.perf_counter()
+    card = logits(model.semantic, model.coarse_acoustics, model.fine_acoustics)
+    cpu_models = []
+    for name, cls, c in (("semantic", GPT, cfg.semantic_config),
+                         ("coarse_acoustics", GPT, cfg.coarse_acoustics_config),
+                         ("fine_acoustics", FineGPT, cfg.fine_acoustics_config)):
+        m = cls(GPTConfig.from_dict(c))
+        m.load_state_dict({k: v.cpu() for k, v in getattr(model, name).state_dict().items()})
+        cpu_models.append(m)
+    cpu = logits(*cpu_models)
+    errs = [float((a - b).abs().max()) for a, b in zip(card, cpu)]
+    names = ["semantic"] * (BARK_TF_STEPS + 1) + ["coarse"] * (BARK_TF_STEPS + 1) + ["fine"]
+    by_stage = {n: max(e for e, m in zip(errs, names) if m == n) for n in set(names)}
+    print(f"bark card against the CPU: teacher-forced logits of the semantic prefill and "
+          f"{BARK_TF_STEPS} steps, the coarse first window and {BARK_TF_STEPS} steps, one "
+          f"fine forward: max abs diff {json.dumps(by_stage)} (max |logit| "
+          f"{max(float(c.abs().max()) for c in cpu):.3f}; atol {TOL['atol']}, rtol "
+          f"{TOL['rtol']}) in {time.perf_counter() - t0:.1f} s", flush=True)
+    bad = [n for a, b, n in zip(card, cpu, names) if not torch.allclose(a, b, **TOL)]
+    if bad:
+        fail(f"bark: teacher-forced logits on the card differ from the CPU's in "
+             f"{sorted(set(bad))}: {json.dumps(by_stage)}")
+    return max(errs)
+
+
+def vocos_runs(launches: dict) -> dict:
+    """Vocos-mel-24kHz (``charactr/vocos-mel-24khz``'s config) with seeded
+    random weights: ``Vocos(audio)`` on VOCOS_SECONDS of seeded audio and
+    ``decode`` of its mel, timed, the route of every conv printed; the same
+    through the same weights on the CPU: audio within TOL."""
+    from mlx_audio_tpu_torch.codec.vocos import Vocos, vocos_mel_24khz_config
+    from mlx_audio_tpu_torch.nn import layers
+
+    config = vocos_mel_24khz_config()
+    vocos = Vocos.from_hparams(config, device="cuda", seed=0)
+    sr = config["feature_extractor"]["init_args"]["sample_rate"]
+    audio = torch.as_tensor(np.random.default_rng(4).standard_normal(
+        (1, int(VOCOS_SECONDS * sr))) * 0.1, dtype=torch.float32)
+    routes, wall = {}, {}
+    run = path_runner(launches, wall)
+    route_fn = route_recorder(routes)
+    try:
+        y = run("vocos_call", lambda: vocos(audio))
+        mel = vocos.feature_extractor(audio.cuda())
+        y2 = run("vocos_decode", lambda: vocos.decode(mel))
+    finally:
+        layers.conv1d_route = route_fn
+    frames = audio.shape[1] // 256
+    if mel.shape != (1, frames, 100) or y.shape != (1, (frames - 1) * 256):
+        fail(f"vocos: mel {tuple(mel.shape)}, audio {tuple(y.shape)}")
+    print_routes("vocos", routes)
+    t0 = time.perf_counter()
+    ref = Vocos.from_hparams(config, device="cpu")
+    ref.load_state_dict({k: v.cpu() for k, v in vocos.state_dict().items()})
+    y_ref, y2_ref = ref(audio), ref.decode(mel.cpu())
+    cpu_s = time.perf_counter() - t0
+    errs = [float((a.cpu() - b).abs().max()) for a, b in ((y, y_ref), (y2, y2_ref))]
+    print(f"vocos ({VOCOS_SECONDS} s at {sr} Hz): mel {tuple(mel.shape)}, audio "
+          f"{tuple(y.shape)}; wall s: " + ", ".join(f"{k} {v:.4f}" for k, v in wall.items())
+          + f"; against the CPU ({cpu_s:.1f} s): Vocos(audio) {errs[0]:.3e}, decode "
+          f"{errs[1]:.3e} (max |audio| {float(y_ref.abs().max()):.4f}; atol "
+          f"{TOL['atol']}, rtol {TOL['rtol']})", flush=True)
+    for (a, b), what in zip(((y, y_ref), (y2, y2_ref)), ("Vocos(audio)", "decode")):
+        if not (bool(torch.isfinite(a).all()) and torch.allclose(a.cpu(), b, **TOL)):
+            fail(f"vocos: {what} on the card differs from the CPU's, or not finite")
+    return {"wall": wall, "audio_err": max(errs)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2246,6 +2820,28 @@ def main() -> int:
           f"{dia_run['real_time_factor']:.4f}, teacher-forced logits against the CPU "
           f"{dia_err:.3e}", flush=True)
 
+    # phase 8: EnCodec-24kHz, Bark (decoding through that EnCodec) and Vocos
+    lstm_routes8 = {}
+    codec = build_encodec()
+    encodec_run = encodec_runs(codec, launches, lstm_routes8)
+    bark = build_bark(codec)
+    bark_run = bark_runs(bark, launches, lstm_routes8)
+    bark_info = bark_breakdown(bark, bark_run)
+    bark_err = bark_card_against_cpu(bark, bark_run)
+    del bark, codec
+    torch.cuda.empty_cache()
+    vocos_run = vocos_runs(launches)
+    phase8 = {k: v for k, v in launches.items() if k.startswith(("encodec_", "bark_", "vocos_"))}
+    per_encodec = launches["encodec_encode_decode"]["lstm"]
+    per_bark = launches["bark_generate"]["lstm"]
+    print(f"phase 8 launches: {json.dumps(phase8)}; lstm by route "
+          f"{json.dumps(lstm_routes8)}; lstm per EnCodec encode and decode of "
+          f"{ENCODEC_SECONDS} s {per_encodec}, per Bark generate {per_bark}; Bark "
+          f"{json.dumps(bark_info)}, generate's real-time factor "
+          f"{bark_run['real_time_factor']:.4f}, teacher-forced logits against the CPU "
+          f"{bark_err:.3e}; EnCodec {json.dumps(encodec_run['wall'])}; Vocos "
+          f"{json.dumps(vocos_run['wall'])}", flush=True)
+
     kernel_line = []
     for name, (source, replaces) in KERNEL_INFO.items():
         cases = records[name]
@@ -2278,6 +2874,17 @@ def main() -> int:
                                     + outetts_run["qmm_path_shapes"])
             entry["launches_per_orpheus_token"] = per_token
             entry["launches_per_outetts_token"] = per_outetts_token
+        if name == "lstm":
+            entry["max_abs_err"] = max(entry["max_abs_err"], encodec_run["lstm_path_err"],
+                                       bark_run["lstm_path_err"])
+            entry["path_shapes"] = (encodec_run["lstm_path_shapes"]
+                                    + bark_run["lstm_path_shapes"])
+            entry["launches_per_encodec_encode_decode"] = per_encodec
+            entry["launches_per_bark_generate"] = per_bark
+            entry["row_route_cases"] = [
+                {k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "max_abs_err")}
+                for r in cases if "route row" in r["shape"]]
         if name in KOKORO_KERNELS:
             entry["launches_per_synthesis"] = per_call[name]
         elif name not in PROBE_KERNELS:

@@ -10,6 +10,9 @@ Ported so far: Kokoro-82M synthesis end to end
 (``mlx_audio_tpu_torch.models.tts.kokoro``); CSM-1B speech through int8
 weight-only decode and the speculative depth decode, whole or streamed
 (``mlx_audio_tpu_torch.models.tts.sesame``, with Llama in ``models.lm``,
-Mimi's batch and stateful paths in ``codec.mimi`` and ``nn.quantize``); and
-the depth-draft probes (``mlx_audio_tpu_torch.scripts.probe_depth``).
+Mimi's batch and stateful paths in ``codec.mimi`` and ``nn.quantize``);
+Orpheus, OuteTTS, Dia and Bark (``models.tts.llama``, ``outetts``, ``dia``,
+``bark``) on the causal-LM loop (``models.lm.causal``) or their own; the
+SNAC, DAC and EnCodec codecs and the Vocos vocoder (``codec``); and the
+depth-draft probes (``mlx_audio_tpu_torch.scripts.probe_depth``).
 """

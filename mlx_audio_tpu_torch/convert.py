@@ -16,8 +16,10 @@ stores them in torch's layouts, so:
 
 The layout of a 3-d ``weight`` or ``weight_v`` follows the type of the
 module of the port ``module`` that owns it, not its path or its rank: a
-conv (``Conv1d``, ``WNConv1d``, ``StreamableConv1d``) or a transposed
-conv (``WNConvTranspose1d``, ``StreamableConvTranspose1d``; DAC's sits at
+conv (``Conv1d``, grouped ones such as Vocos's depthwise ``dwconv`` too,
+``WNConv1d``, ``StreamableConv1d``, EnCodec's ``EncodecConv1d``) or a
+transposed conv (``WNConvTranspose1d``, ``StreamableConvTranspose1d``,
+EnCodec's ``EncodecConvTranspose1d``; DAC's sits at
 ``decoder.model.N.block.1`` and SNAC's at ``decoder.blocks.i.pre.1``).
 Any other owner keeps the array as it is.  Tests feed it
 ``dict(named_arrays(jax_model))`` as numpy arrays, and ``from_pretrained``
@@ -35,6 +37,10 @@ from torch import nn
 def conv_kinds(module: nn.Module) -> dict[str, str]:
     """{path: "conv" or "convt"} of the convs and transposed convs in a
     port module."""
+    from mlx_audio_tpu_torch.codec.encodec.encodec import (
+        EncodecConv1d,
+        EncodecConvTranspose1d,
+    )
     from mlx_audio_tpu_torch.nn.layers import Conv1d, WNConv1d, WNConvTranspose1d
     from mlx_audio_tpu_torch.nn.streaming import (
         StreamableConv1d,
@@ -43,9 +49,10 @@ def conv_kinds(module: nn.Module) -> dict[str, str]:
 
     kinds = {}
     for name, m in module.named_modules():
-        if isinstance(m, (Conv1d, WNConv1d, StreamableConv1d)):
+        if isinstance(m, (Conv1d, WNConv1d, StreamableConv1d, EncodecConv1d)):
             kinds[name] = "conv"
-        elif isinstance(m, (WNConvTranspose1d, StreamableConvTranspose1d)):
+        elif isinstance(m, (WNConvTranspose1d, StreamableConvTranspose1d,
+                            EncodecConvTranspose1d)):
             kinds[name] = "convt"
     return kinds
 

@@ -1,6 +1,8 @@
-"""DSP core for the port: windows, STFT/ISTFT as matmul-DFT, overlap-add.
+"""DSP core for the port: windows, STFT/ISTFT as matmul-DFT, overlap-add, and
+the mel filterbank.
 
-Counterpart of the parts of ``mlx_audio_tpu/dsp.py`` that Kokoro uses.  The
+Counterpart of the parts of ``mlx_audio_tpu/dsp.py`` that Kokoro and Vocos
+use.  The
 STFT is the same matmul against a windowed real-DFT basis (built in float64
 numpy, applied in float32), and the ISTFT the same window-sum normalised
 overlap-add with the same trims, so the port rounds where the reference
@@ -9,6 +11,7 @@ does.
 
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 from typing import Optional, Union
 
@@ -181,3 +184,65 @@ def istft(x: torch.Tensor, hop_length: Optional[int] = None,
     if length is not None:
         recon = recon[..., :length]
     return recon
+
+
+# ---------------------------------------------------------------------------
+# Mel filterbank (host-side, cached)
+# ---------------------------------------------------------------------------
+
+
+def _hz_to_mel(freq: float, mel_scale: str) -> float:
+    if mel_scale == "htk":
+        return 2595.0 * math.log10(1.0 + freq / 700.0)
+    f_min, f_sp = 0.0, 200.0 / 3
+    mels = (freq - f_min) / f_sp
+    min_log_hz = 1000.0
+    min_log_mel = (min_log_hz - f_min) / f_sp
+    logstep = math.log(6.4) / 27.0
+    if freq >= min_log_hz:
+        mels = min_log_mel + math.log(freq / min_log_hz) / logstep
+    return mels
+
+
+def _mel_to_hz(mels: np.ndarray, mel_scale: str) -> np.ndarray:
+    if mel_scale == "htk":
+        return 700.0 * (10.0 ** (mels / 2595.0) - 1.0)
+    f_min, f_sp = 0.0, 200.0 / 3
+    freqs = f_min + f_sp * mels
+    min_log_hz = 1000.0
+    min_log_mel = (min_log_hz - f_min) / f_sp
+    logstep = math.log(6.4) / 27.0
+    return np.where(mels >= min_log_mel,
+                    min_log_hz * np.exp(logstep * (mels - min_log_mel)), freqs)
+
+
+@lru_cache(maxsize=None)
+def _mel_filters_np(sample_rate: int, n_fft: int, n_mels: int, f_min: float,
+                    f_max: Optional[float], norm: Optional[str],
+                    mel_scale: str) -> np.ndarray:
+    f_max = f_max or sample_rate / 2
+    n_freqs = n_fft // 2 + 1
+    # the integer floor of Nyquist, as torchaudio's melscale_fbanks
+    all_freqs = np.linspace(0, sample_rate // 2, n_freqs)
+    m_pts = np.linspace(_hz_to_mel(f_min, mel_scale),
+                        _hz_to_mel(f_max, mel_scale), n_mels + 2)
+    f_pts = _mel_to_hz(m_pts, mel_scale)
+    f_diff = f_pts[1:] - f_pts[:-1]
+    slopes = f_pts[None, :] - all_freqs[:, None]
+    down_slopes = (-slopes[:, :-2]) / f_diff[:-1]
+    up_slopes = slopes[:, 2:] / f_diff[1:]
+    fb = np.maximum(0.0, np.minimum(down_slopes, up_slopes))
+    if norm == "slaney":
+        fb = fb * (2.0 / (f_pts[2:n_mels + 2] - f_pts[:n_mels]))[None, :]
+    return fb.T  # [n_mels, n_freqs]
+
+
+def mel_filters(sample_rate: int, n_fft: int, n_mels: int, f_min: float = 0,
+                f_max: Optional[float] = None, norm: Optional[str] = None,
+                mel_scale: str = "htk", dtype=torch.float32,
+                device=None) -> torch.Tensor:
+    """[n_mels, n_fft//2+1] triangular filterbank (HTK or Slaney scale),
+    built in float64 numpy and cast to ``dtype``."""
+    fb = _mel_filters_np(sample_rate, n_fft, n_mels, float(f_min), f_max,
+                         norm, mel_scale)
+    return torch.as_tensor(fb, dtype=dtype, device=device)

@@ -78,6 +78,24 @@ def test_lstm_kernel_is_deterministic(cuda, b, t, h):
         assert torch.equal(one[2][1][0], first[2][1][row])
 
 
+# EnCodec-24kHz's LSTMs: H = 512 at 75 frames a second, one clip (B = 1,
+# 2 s and 3 s) or Bark's batch of 4 decoded together
+@pytest.mark.parametrize("b,t", [(1, 150), (1, 225), (4, 150)])
+def test_lstm_row_route_at_encodec_width(cuda, b, t):
+    """H = 512 takes the row route: a CUDA tensor launches lstm_row_kernel,
+    counted under the row route, and matches the plain version."""
+    assert kernels.lstm_route(512) == "row"
+    xp, wh, h0, c0 = _lstm_inputs(b, t, 512, cuda, seed=2)
+    before = dict(kernels.LSTM_ROUTE_LAUNCHES)
+    got = kernels.lstm(xp, wh, h0, c0)
+    torch.cuda.synchronize()
+    assert kernels.LSTM_ROUTE_LAUNCHES["row"] == before["row"] + 1
+    assert kernels.LSTM_ROUTE_LAUNCHES["cluster"] == before["cluster"]
+    ref = kernels.lstm_plain(xp, wh, h0, c0)
+    for g, r in zip((got[0], got[1], *got[2]), (ref[0], ref[1], *ref[2])):
+        torch.testing.assert_close(g, r, **TOL)
+
+
 def test_lstm_route_agrees_with_the_kernel(cuda):
     lib = build.load("lstm")
     assert lib.lstm_cluster_size() == kernels.LSTM_CLUSTER_SIZE

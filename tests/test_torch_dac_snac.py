@@ -470,7 +470,11 @@ def test_params_from_jax_by_owner_type_leaves_conv_families_unchanged(pair):
     neither) gives the state dicts of Kokoro, Mimi, CSM, DAC and SNAC that
     moving every 3-d weight as a conv's gave: their 3-d weights are all
     conv weights."""
+    from mlx_audio_tpu_torch.convert import conv_kinds
+
     jax_model, port = pair()
+    # EnCodec's conv types leave these families' conv kinds as they were
+    assert conv_kinds(port) == _earlier_conv_kinds(port)
     named = {k: np.asarray(v) for k, v in named_arrays(jax_model)}
     state = params_from_jax(named, port)
     before = _rank_rule(named, port)
@@ -481,12 +485,69 @@ def test_params_from_jax_by_owner_type_leaves_conv_families_unchanged(pair):
     port.load_state_dict(state, strict=True)
 
 
+def _earlier_conv_kinds(port):
+    """conv_kinds as it was before EnCodec's conv types: the state dicts of
+    the families before EnCodec follow from it alone."""
+    from mlx_audio_tpu_torch.nn.layers import Conv1d, WNConv1d, WNConvTranspose1d
+    from mlx_audio_tpu_torch.nn.streaming import (
+        StreamableConv1d,
+        StreamableConvTranspose1d,
+    )
+
+    kinds = {}
+    for name, m in port.named_modules():
+        if isinstance(m, (Conv1d, WNConv1d, StreamableConv1d)):
+            kinds[name] = "conv"
+        elif isinstance(m, (WNConvTranspose1d, StreamableConvTranspose1d)):
+            kinds[name] = "convt"
+    return kinds
+
+
+def _encodec_pair():
+    from test_torch_encodec import build_jax
+    from mlx_audio_tpu_torch.codec.encodec import Encodec, EncodecConfig
+
+    jm = build_jax()
+    return jm, Encodec(EncodecConfig(**vars(jm.config)), device="cpu")
+
+
+def _vocos_pair():
+    from test_torch_vocos import port_small_vocos
+    from test_vocos_bigvgan import small_vocos
+
+    return _seeded(small_vocos), port_small_vocos()
+
+
+@pytest.mark.parametrize("pair", [_encodec_pair, _vocos_pair], ids=["encodec", "vocos"])
+def test_params_from_jax_by_owner_type_moves_encodec_and_vocos_convs(pair):
+    """EnCodec's convs and transposed convs and Vocos's convs (the
+    depthwise ``dwconv`` a grouped ``Conv1d``) arrive in torch's layouts;
+    every other weight as it is."""
+    jax_model, port = pair()
+    named = {k: np.asarray(v) for k, v in named_arrays(jax_model)}
+    state = params_from_jax(named, port)
+    kinds = {"conv": 0, "convt": 0}
+    from mlx_audio_tpu_torch.convert import conv_kinds
+
+    owner = conv_kinds(port)
+    for k, w in named.items():
+        kind = owner.get(k.rpartition(".")[0])
+        if w.ndim == 3 and kind:
+            kinds[kind] += 1
+            w = w.transpose((1, 2, 0) if kind == "convt" else (2, 1, 0))
+        assert torch.equal(state[k], torch.tensor(w)), k
+    assert kinds["conv"] > 0
+    assert (kinds["convt"] > 0) == (pair is _encodec_pair)
+    port.load_state_dict(state, strict=True)
+
+
 def test_params_from_jax_keeps_dense_general_layout():
     """A tiny Dia's DenseGeneral weights ([D, H, hd], [H, hd, D], [D, 2,
     hidden], [D, C, V]; 3-d and named ``weight``) arrive untransposed and
     load strictly; its DAC's convs move as before."""
     import dataclasses
 
+    from mlx_audio_tpu_torch.convert import conv_kinds
     from mlx_audio_tpu_torch.models.tts.dia import DiaConfig, Model as Dia
     from mlx_audio_tpu_torch.models.tts.dia.layers import DenseGeneral
     from test_dia import tiny_dia
@@ -494,6 +555,8 @@ def test_params_from_jax_keeps_dense_general_layout():
     jm = _seeded(tiny_dia)
     port = Dia(DiaConfig.load_dict(dataclasses.asdict(jm.config)),
                dac_model=port_dac(jm._dac), device="cpu")
+    assert conv_kinds(port.model) == _earlier_conv_kinds(port.model)
+    assert conv_kinds(port._dac) == _earlier_conv_kinds(port._dac)
     named = {k: np.asarray(v) for k, v in named_arrays(jm.model)}
     state = params_from_jax(named, port.model)
     dense = {n + ".weight" for n, m in port.model.named_modules()
