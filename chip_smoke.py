@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``mlx_audio_tpu_torch``) on one NVIDIA GPU:
 Kokoro-82M synthesis, CSM-1B speech through int8 decode (whole and
-streamed), Orpheus-3B and OuteTTS-1B through int8 decode, Dia-1.6B, Bark,
-the DAC-44kHz and EnCodec-24kHz codecs, the Vocos vocoder, the depth-draft
-probes, and check its hand-written CUDA kernels.
+streamed), Orpheus-3B, OuteTTS-1B and Spark-TTS-0.5B through int8 decode,
+Dia-1.6B, Bark, the DAC-44kHz and EnCodec-24kHz codecs, the Vocos vocoder,
+the depth-draft probes, and check its hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -109,18 +109,42 @@ Phases; the failure of any one ends the script with a non-zero exit:
    routes, against the CPU within the tolerance.  ``lstm`` must launch on
    the EnCodec and Bark paths, on the row route only, and is held to its
    plain version on the operands those paths gave it;
-9. print one ``{"kernels": [...]}`` line, then the device line last.
+9. Spark-TTS-0.5B at the published widths (the Qwen2-0.5B LM: hidden 896,
+   24 layers, 14/2 heads, vocabulary 166 000, tied head, qkv bias; seeded
+   random weights, the embedding at a twentieth of the init's scale and
+   its two stop rows at 0; int8 in
+   groups of 64; BiCodec at ``DEFAULT_BICODEC_CONFIG``; wav2vec2 at
+   wav2vec2-large-xlsr-53's widths; a stub tokenizer whose ``decode`` reads
+   a run as 32 global and 150 semantic tokens): greedy control-mode
+   ``generate`` (150 semantic tokens, 3 s at 16 kHz), ``generate_batch`` of
+   4 texts (each row's tokens shared with its one-row run printed), one
+   sampled ``generate`` at the defaults, a greedy voice-clone ``generate``
+   from a seeded 6 s clip; a one-prompt ``generate_tokens_batch`` must
+   equal the greedy run; the route of every conv printed;
+   ``quantized_matmul`` and both conv kernels must launch in every run (the
+   wave generator's second block, C = 384 at 6 000 rows: banded at d = 1,
+   dilated at d = 3 and 9), ``lstm`` and ``depth_draft`` never, and the
+   three are held to their plain versions on the path's operands; then, on
+   the card and through the same weights on the CPU, ``tokenize`` of the
+   clip (features within the tolerance, tokens equal wherever the CPU's
+   winner beats its runner-up by more than 1e-5, the near-ties counted),
+   ``detokenize`` of the greedy tokens (audio within the tolerance) and the
+   int8 LM's teacher-forced logits over 8 steps (within the tolerance);
+   tokens/s at batch 1 and 4, the time of ``tokenize`` and ``detokenize``,
+   the real-time factor, peak memory, a profile of 32 decode steps;
+10. print one ``{"kernels": [...]}`` line, then the device line last.
 
-Phase 2 holds ``quantized_matmul`` at Orpheus-3B's and OuteTTS-1B's shapes
-too (int8, groups of 64, 1 and 4 rows), and the conv kernels at DAC-44kHz's
-and DAC-24kHz's routed resblock shapes (K=7, d = 1, 3, 9).  Launch counters
-are set to 0 just before each run of the probes' entry point and of phases
-3 to 8, and read just after: each kernel of a run's path must have launched
-in it (Orpheus: ``quantized_matmul``; DAC's encode and decode: both conv
-kernels; OuteTTS: all three; Dia's DAC decode: both conv kernels; EnCodec's
-encode and decode and Bark's EnCodec decode: ``lstm``), Kokoro's ``lstm``
-launches only on the cluster route, EnCodec's and Bark's only on the row
-route.  Needs
+Phase 2 holds ``quantized_matmul`` at Orpheus-3B's, OuteTTS-1B's and
+Spark-TTS-0.5B's shapes too (int8, groups of 64, 1 and 4 rows), and the
+conv kernels at DAC-44kHz's, DAC-24kHz's and BiCodec's routed resblock
+shapes (K=7, d = 1, 3, 9).  Launch counters are set to 0 just before each
+run of the probes' entry point and of phases 3 to 9, and read just after:
+each kernel of a run's path must have launched in it (Orpheus:
+``quantized_matmul``; DAC's encode and decode: both conv kernels; OuteTTS
+and Spark: all three; Dia's DAC decode: both conv kernels; EnCodec's encode
+and decode and Bark's EnCodec decode: ``lstm``), Kokoro's ``lstm`` launches
+only on the cluster route, EnCodec's and Bark's only on the row route.
+Needs
 one CUDA card and the repository checkout around this file; it imports
 nothing of JAX.
 """
@@ -352,6 +376,11 @@ DAC24_RESBLOCKS = ((384, 5679), (384, 3439))
 # the same of DAC-44kHz in Dia's greedy generate of 202 steps: 172 frames
 # (after the 30-frame drop) at 64 samples a frame, C = 384
 DIA_RESBLOCKS = ((384, 11008),)
+# (C, L) of Spark's BiCodec wave generator that a kernel takes in phase 9:
+# its second block, C = 384 at 40 samples a semantic token, 150 tokens (C =
+# 768 at 8 a token is under 2048 rows, C = 192 and 96 are no multiples of
+# 128: the library)
+SPARK_RESBLOCKS = ((384, 6000),)
 
 
 def _conv_cases(gen):
@@ -372,7 +401,8 @@ def _conv_cases(gen):
     # 3 s clip, and at phase 7's decodes DAC-24kHz's (OuteTTS) and
     # DAC-44kHz's (Dia), each on the kernel its route names
     for codec, blocks in (("DAC-44kHz", DAC_RESBLOCKS), ("DAC-24kHz", DAC24_RESBLOCKS),
-                          ("DAC-44kHz, Dia", DIA_RESBLOCKS)):
+                          ("DAC-44kHz, Dia", DIA_RESBLOCKS),
+                          ("Spark BiCodec", SPARK_RESBLOCKS)):
         for (c, l), d in itertools.product(blocks, (1, 3, 9)):
             route = conv1d_route(7, c, c, l, d, padding=3 * d)
             if route != "library":
@@ -454,6 +484,11 @@ OUTETTS_QMM_SHAPES = (((2048, 2048), "OuteTTS-1B q, o"), ((2048, 512), "OuteTTS-
                       ((2048, 8192), "OuteTTS-1B gate, up"),
                       ((8192, 2048), "OuteTTS-1B down"),
                       ((2048, 134_400), "OuteTTS-1B tied head"))
+# Spark-TTS-0.5B's LM (Qwen2-0.5B), int8 in groups of 64: the projections of
+# its 24 layers (down in 3 parts) and the tied head over 166 000 tokens
+SPARK_QMM_SHAPES = (((896, 896), "Spark q, o"), ((896, 128), "Spark k, v"),
+                    ((896, 4864), "Spark gate, up"), ((4864, 896), "Spark down"),
+                    ((896, 166_000), "Spark tied head"))
 
 
 def _qmm_shapes():
@@ -467,6 +502,8 @@ def _qmm_shapes():
         yield "orpheus", io, role, 64, 8, ORPHEUS_QMM_ROWS
     for io, role in OUTETTS_QMM_SHAPES:
         yield "outetts", io, role, 64, 8, ORPHEUS_QMM_ROWS
+    for io, role in SPARK_QMM_SHAPES:
+        yield "spark", io, role, 64, 8, ORPHEUS_QMM_ROWS
 
 
 def _quantized(gen, i, o, gs, bits):
@@ -517,12 +554,13 @@ def qmm_row_independence(gen) -> None:
     """Each row of a 2-, 8- and 32-row quantized_matmul equals, bit for bit,
     the 1-row call on that row (the kernel sums in one order whatever the
     row count), at every int8 shape of CSM-1B (groups of 128), of
-    Orpheus-3B and of OuteTTS-1B (groups of 64), and at llama-1B's q, o in
-    int4."""
+    Orpheus-3B, OuteTTS-1B and Spark-TTS-0.5B (groups of 64), and at
+    llama-1B's q, o in int4."""
     from mlx_audio_tpu_torch.nn import kernels
 
     shapes = [(io, 128, 8) for io, _ in QMM_SHAPES] + [(QMM_SHAPES[0][0], 128, 4)]
-    shapes += [(io, 64, 8) for io, _ in ORPHEUS_QMM_SHAPES + OUTETTS_QMM_SHAPES]
+    shapes += [(io, 64, 8) for io, _ in ORPHEUS_QMM_SHAPES + OUTETTS_QMM_SHAPES
+               + SPARK_QMM_SHAPES]
     for (i, o), gs, bits in shapes:
         q = _quantized(gen, i, o, gs, bits)
         w = (q.weight, q.scales, q.biases, gs, q.packed)
@@ -2698,6 +2736,348 @@ def vocos_runs(launches: dict) -> dict:
     return {"wall": wall, "audio_err": max(errs)}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: Spark-TTS-0.5B int8 with BiCodec and wav2vec2-large-xlsr-53
+# ---------------------------------------------------------------------------
+
+SPARK_SEMANTIC = 150  # semantic tokens a run: 3 s at 50 a second
+SPARK_GLOBAL = 32  # the global tokens BiCodec's speaker encoder speaks
+SPARK_TOKENS = SPARK_GLOBAL + SPARK_SEMANTIC  # generated a run
+SPARK_TEXT = ORPHEUS_TEXT
+SPARK_BATCH_TEXTS = CSM_BATCH_TEXTS
+SPARK_REF_SECONDS = 6.0  # the voice-clone reference clip
+SPARK_REF_TEXT = CSM_REF_TEXT
+SPARK_STOPS = (151_645, 128_258)  # <|im_end|> and the end-of-speech token
+SPARK_TIE = 1e-5  # a token may differ from the CPU's where its margin is this or less
+SPARK_TF_STEPS = 8  # teacher-forced steps held against the CPU, to TOL
+SPARK_EMBED_SCALE = 0.05  # the tied embedding's scale (build_spark)
+# the fewest distinct tokens a greedy run must have: at the init's scale the
+# LM repeats one token; with the penalty's window of 20 a run cycles through
+# a few dozen
+SPARK_DISTINCT = 16
+
+
+class SparkStubTokenizer:
+    """``tokenizer(text, return_tensors="np").input_ids``: each ``<|...|>``
+    token of Spark's vocabulary one id, every other character one, below
+    Qwen2's 151 643 text ids; ``decode``: a run's first 32 ids as
+    ``<|bicodec_global_i|>``, the rest as ``<|bicodec_semantic_j|>``, so
+    that a run of SPARK_TOKENS parses to 32 global and SPARK_SEMANTIC
+    semantic tokens."""
+
+    def __call__(self, text: str, return_tensors=None):
+        import re
+        import zlib
+        from types import SimpleNamespace
+
+        ids = [1_000 + zlib.crc32(m.group(0).encode()) % 120_000
+               for m in re.finditer(r"<\|[^|]*\|>|.", text, re.S)]
+        return SimpleNamespace(input_ids=np.asarray([ids], dtype=np.int64))
+
+    def decode(self, ids, skip_special_tokens: bool = False) -> str:
+        return ("".join(f"<|bicodec_global_{i % 4096}|>" for i in ids[:SPARK_GLOBAL])
+                + "".join(f"<|bicodec_semantic_{i % 8192}|>" for i in ids[SPARK_GLOBAL:]))
+
+
+def build_spark():
+    """Spark-TTS-0.5B at the published widths (ModelConfig's defaults) with
+    seeded random weights on the card: the Qwen2-0.5B LM, its tied
+    embedding scaled and its stop rows at 0, int8 in groups of 64; BiCodec
+    at DEFAULT_BICODEC_CONFIG; wav2vec2 at wav2vec2-large-xlsr-53's
+    widths."""
+    from mlx_audio_tpu_torch.models.tts.spark import Model, ModelConfig
+    from mlx_audio_tpu_torch.nn.quantize import quantize_model
+
+    t0 = time.perf_counter()
+    model = Model(ModelConfig(), tokenizer=SparkStubTokenizer(), device="cuda")
+    # At the init's scale the embedding of the token just fed back dominates
+    # the last hidden state, and the tied head gives it the top logit even
+    # after the repetition penalty: greedy decoding repeats one token.  At a
+    # twentieth of it the layers' outputs set the next token (the twins
+    # scale the tiny LM's embedding so too).  A trained Spark ends its
+    # speech with one of the stop tokens; random weights would emit them at
+    # random, so their rows are held at 0: logit 0, below the top of 166 000
+    # random ones.
+    with torch.no_grad():
+        model.lm.model.embed_tokens.weight.mul_(SPARK_EMBED_SCALE)
+        model.lm.model.embed_tokens.weight[list(SPARK_STOPS)] = 0
+    quantize_model(model.lm, group_size=64, bits=8)
+    w2v = model._audio_tokenizer.feature_extractor
+    nbytes = {name: sum(t.numel() * t.element_size() for t in m.state_dict().values())
+              for name, m in (("LM", model.lm), ("BiCodec", model.bicodec), ("wav2vec2", w2v))}
+    print(f"Spark-TTS-0.5B built (LM int8, groups of 64) in "
+          f"{time.perf_counter() - t0:.1f} s; state GB: "
+          + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in nbytes.items()), flush=True)
+    return model
+
+
+def _spark_rows(model, texts):
+    """The prompt ids the control-mode entry points build (male, moderate)."""
+    return [model._ids(model.process_prompt_control("male", "moderate", "moderate", t))
+            for t in texts]
+
+
+def _spark_clip():
+    rng = np.random.default_rng(5)
+    return (rng.standard_normal(int(SPARK_REF_SECONDS * 16_000)) * 0.1).astype(np.float32)
+
+
+def _check_spark(name, results, n):
+    if len(results) != n:
+        fail(f"{name}: {len(results)} results for {n} texts")
+    for r in results:
+        if not (r.token_count == SPARK_SEMANTIC and r.samples == 320 * SPARK_SEMANTIC
+                and np.isfinite(r.audio).all()):
+            fail(f"{name}: {r.token_count} semantic tokens, {r.samples} samples, or "
+                 "not finite")
+
+
+def spark_runs(model, launches: dict) -> dict:
+    """The entry points: greedy control-mode generate of SPARK_TOKENS,
+    generate_batch of 4 texts, one sampled generate at the defaults
+    (temperature 0.8, top-k 50, top-p 0.95, penalty 1.3), a greedy
+    voice-clone generate from a seeded SPARK_REF_SECONDS clip; then a
+    one-prompt generate_tokens_batch against the greedy run, and each batch
+    row against its one-row run.  Every conv's route is printed; the
+    kernels are held to their plain versions on the path's operands."""
+    from mlx_audio_tpu_torch.models.lm import causal
+    from mlx_audio_tpu_torch.models.tts.spark import spark as spark_mod
+    from mlx_audio_tpu_torch.nn import kernels, layers
+
+    tokens, batch_tokens, detok = [], [], []
+    gen_fn, batch_fn = spark_mod.generate_tokens, spark_mod.generate_tokens_batch
+    detok_fn = model.bicodec.detokenize
+
+    def recording_gen(*a, **k):
+        toks = []
+        tokens.append(toks)
+        for chunk in gen_fn(*a, **k):
+            toks.extend(int(t) for t in chunk)
+            yield chunk
+
+    def recording_batch(*a, **k):
+        outs = batch_fn(*a, **k)
+        batch_tokens.append([o.tolist() for o in outs])
+        return outs
+
+    def recording_detok(semantic, global_):
+        detok.append((np.asarray(semantic), np.asarray(global_)))
+        return detok_fn(semantic, global_)
+
+    path_calls, conv_calls, routes = {}, {}, {}
+    qmm = record_qmm_calls(path_calls)
+    convs = record_conv_calls(conv_calls)
+    route_fn = route_recorder(routes)
+    spark_mod.generate_tokens, spark_mod.generate_tokens_batch = recording_gen, recording_batch
+    model.bicodec.detokenize = recording_detok
+    wall = {}
+    run = path_runner(launches, wall)
+    kw = dict(max_tokens=SPARK_TOKENS)
+    clip = _spark_clip()
+    try:
+        greedy = run("spark_generate", lambda: list(
+            model.generate(SPARK_TEXT, temperature=0.0, **kw)))
+        batch = run("spark_generate_batch", lambda: model.generate_batch(
+            SPARK_BATCH_TEXTS, temperature=0.0, **kw))
+        sampled = run("spark_generate_sampled", lambda: list(
+            model.generate(SPARK_TEXT, seed=3, **kw)))
+        clone = run("spark_generate_clone", lambda: list(model.generate(
+            SPARK_TEXT, ref_audio=clip, ref_text=SPARK_REF_TEXT, temperature=0.0, **kw)))
+    finally:
+        kernels.quantized_matmul = qmm
+        kernels.banded_conv1d, kernels.dilated_conv1d = convs
+        layers.conv1d_route = route_fn
+        spark_mod.generate_tokens, spark_mod.generate_tokens_batch = gen_fn, batch_fn
+        model.bicodec.detokenize = detok_fn
+    _check_spark("spark generate", greedy, 1)
+    _check_spark("spark generate_batch", batch, len(SPARK_BATCH_TEXTS))
+    _check_spark("spark generate (sampled)", sampled, 1)
+    _check_spark("spark generate (clone)", clone, 1)
+    names = ("spark_generate", "spark_generate_batch", "spark_generate_sampled",
+             "spark_generate_clone")
+    for name in names:
+        missing = [k for k in ("quantized_matmul", "banded_conv1d", "dilated_conv1d")
+                   if launches[name][k] == 0]
+        if missing:
+            fail(f"{name}: kernels never launched: {missing}")
+        stray = [k for k in ("lstm", "depth_draft") if launches[name][k]]
+        if stray:
+            fail(f"{name}: kernels off Spark's path launched: {stray}")
+    if any(len(t) != SPARK_TOKENS for t in tokens):
+        fail(f"spark: runs of {[len(t) for t in tokens]} tokens, not {SPARK_TOKENS}")
+    distinct = [len(set(t)) for t in tokens]
+    if min(distinct[0], distinct[-1]) < SPARK_DISTINCT:
+        fail(f"spark: the greedy runs have {distinct[0]} and {distinct[-1]} distinct "
+             f"tokens of {SPARK_TOKENS}: the LM repeats itself")
+    print_routes("spark", routes)
+    path_err = check_qmm_path(path_calls, qmm, "Spark")
+    conv_err = check_conv_path(conv_calls, convs, "Spark")
+
+    gkw = dict(max_tokens=SPARK_TOKENS, temperature=0.0, repetition_penalty=1.3,
+               stop_tokens=SPARK_STOPS)
+    rows = _spark_rows(model, [SPARK_TEXT] + SPARK_BATCH_TEXTS)
+    one_row = causal.generate_tokens_batch(model.lm, rows[:1], **gkw)[0].tolist()
+    if one_row != tokens[0]:
+        fail(f"spark: a one-prompt generate_tokens_batch differs from generate_tokens "
+             f"after {_shared(one_row, tokens[0])} of {len(tokens[0])} tokens")
+    shared = []
+    for prompt, row in zip(rows[1:], batch_tokens[0]):
+        alone = [t for c in causal.generate_tokens(model.lm, prompt, **gkw) for t in c]
+        shared.append(_shared(row, alone))
+    clone_global = detok[-1][1]
+    audio_s = greedy[0].samples / model.sample_rate
+    print(f"spark: greedy {len(tokens[0])} tokens, distinct tokens of the greedy, "
+          f"sampled and clone runs {distinct}, "
+          f"{SPARK_SEMANTIC} semantic, {audio_s:.3f} s of audio, real-time factor "
+          f"{wall['spark_generate'] / audio_s:.4f} (generate's wall time over the audio's "
+          f"length); a one-prompt generate_tokens_batch equals generate_tokens; the 4-row "
+          f"batch's rows share {shared} of {SPARK_TOKENS} tokens with their one-row runs; "
+          f"the clone run decoded with the reference's {clone_global.shape[-1]} global "
+          f"tokens; wall s: " + ", ".join(f"{k} {v:.3f}" for k, v in wall.items()),
+          flush=True)
+    return {"wall": wall, "qmm_path_err": path_err, "qmm_path_shapes": len(path_calls),
+            "conv_path_err": conv_err, "conv_path_shapes": _per_kernel(conv_calls),
+            "batch_shared": shared, "greedy_tokens": tokens[0], "greedy_detok": detok[0],
+            "greedy_audio": greedy[0].audio, "clip": clip,
+            "real_time_factor": wall["spark_generate"] / audio_s}
+
+
+def spark_tokenize_against_cpu(model, run: dict) -> dict:
+    """BiCodecTokenizer.tokenize of the clone run's clip, and detokenize of
+    the greedy run's tokens, on the card and through the same weights on
+    the CPU.  The mixed wav2vec2 features and the audio must agree within
+    TOL; a semantic or global token may differ only where the CPU's
+    winner beats its runner-up by SPARK_TIE or less (the near-ties are
+    counted and printed)."""
+    from mlx_audio_tpu_torch.models.stt.wav2vec import Wav2Vec2Model
+    from mlx_audio_tpu_torch.models.tts.spark import BiCodec
+    from mlx_audio_tpu_torch.models.tts.spark.audio_tokenizer import BiCodecTokenizer
+
+    tok = model._audio_tokenizer
+    w2v = tok.feature_extractor
+    t0 = time.perf_counter()
+    cpu_codec = BiCodec(model.bicodec.config, device="cpu")
+    cpu_codec.load_state_dict({k: v.cpu() for k, v in model.bicodec.state_dict().items()})
+    cpu_w2v = Wav2Vec2Model(w2v.config, device="cpu")
+    cpu_w2v.load_state_dict({k: v.cpu() for k, v in w2v.state_dict().items()})
+    cpu_tok = BiCodecTokenizer(cpu_codec, cpu_w2v, config=tok.config)
+
+    def tokens(t):
+        wav, ref = t.process_audio(run["clip"])
+        feat = t.extract_wav2vec2_features(wav[None])
+        semantic, global_ = t.model.tokenize(feat, ref)
+        return feat.cpu(), semantic.cpu(), global_.cpu(), ref
+
+    feat, sem, glo, ref = tokens(tok)
+    feat_c, sem_c, glo_c, _ = tokens(cpu_tok)
+    with torch.no_grad():
+        # the CPU's margins: cosine distances to the codebook, and each
+        # global token's FSQ dimensions against their rounding boundary
+        q = cpu_codec.quantizer
+        dist = q.distances(q._in(cpu_codec.encoder(feat_c)))
+        two = torch.topk(dist, 2, dim=-1, largest=False).values
+        sem_margin = two[..., 1] - two[..., 0]
+        se = cpu_codec.speaker_encoder
+        _, latent = se.speaker_encoder(cpu_codec.get_mel_spectrogram(ref), return_latent=True)
+        fsq = se.quantizer
+        bound = fsq.layers[0].bound(fsq.project_in(se.perceiver_sampler(latent))
+                                    / fsq.scales[0])
+        frac = (bound - torch.round(bound)).abs()
+        glo_margin = (1 - 2 * frac).min(-1).values
+        y_c = cpu_codec.detokenize(*run["greedy_detok"])[0].numpy()
+    cpu_s = time.perf_counter() - t0
+    out = {}
+    for name, a, b, margin in (("semantic", sem, sem_c, sem_margin),
+                               ("global", glo, glo_c, glo_margin)):
+        differ = a != b
+        ties = margin <= SPARK_TIE
+        if bool((differ & ~ties).any()):
+            i = int((differ & ~ties).nonzero()[0][-1])
+            fail(f"spark tokenize: {name} token {i} differs from the CPU's ({int(a[0, i])} "
+                 f"against {int(b[0, i])}) with a margin of {float(margin[0, i]):.3e}")
+        out[name] = {"tokens": a.numel(), "differ": int(differ.sum()),
+                     "near_ties": int(ties.sum()), "min_margin": float(margin.min())}
+    feat_err = float((feat - feat_c).abs().max())
+    audio = run["greedy_audio"]
+    audio_err = float(np.abs(audio - y_c).max())
+    print(f"spark card against the CPU ({cpu_s:.1f} s): tokenize of the "
+          f"{SPARK_REF_SECONDS} s clip: features {tuple(feat.shape)} max abs diff "
+          f"{feat_err:.3e} (max |feature| {float(feat_c.abs().max()):.3f}); tokens "
+          f"{json.dumps(out)} (a token may differ where its margin is {SPARK_TIE} or "
+          f"less); detokenize of the greedy run's {SPARK_SEMANTIC} tokens: audio max abs "
+          f"diff {audio_err:.3e} (max |audio| {float(np.abs(y_c).max()):.4f}); atol "
+          f"{TOL['atol']}, rtol {TOL['rtol']}", flush=True)
+    if not torch.allclose(feat, feat_c, **TOL):
+        fail(f"spark: the wav2vec2 features on the card differ from the CPU's by {feat_err:.3e}")
+    if not np.allclose(audio, y_c, **TOL):
+        fail(f"spark: detokenize on the card differs from the CPU's by {audio_err:.3e}")
+    return {"feature_err": feat_err, "audio_err": audio_err, "tokens": out}
+
+
+def spark_breakdown(model, run: dict) -> dict:
+    """The LM loop's breakdown (lm_breakdown, with the BiCodec decode as its
+    codec), the profile of PROFILE_STEPS decode steps, and the time of
+    tokenize (wav2vec2, BiCodec's encoder and speaker encoder) of the clip
+    and of detokenize of the greedy run's tokens."""
+    from mlx_audio_tpu_torch.models.tts.spark.token_parser import parse_generated_tokens
+
+    def synthesize(toks):
+        sem, glo = parse_generated_tokens(model.tokenizer.decode(toks))
+        return model._audio_tokenizer.detokenize(np.asarray([glo]), np.asarray([sem]))
+
+    out = lm_breakdown("spark", model.lm, _spark_rows(model, [SPARK_TEXT]),
+                       _spark_rows(model, SPARK_BATCH_TEXTS), SPARK_TOKENS, 1.3, 20,
+                       synthesize, model.sample_rate)
+    tok = model._audio_tokenizer
+    for name, fn in (("tokenize_s", lambda: tok.tokenize(run["clip"])),
+                     ("detokenize_s", lambda: tok.model.detokenize(*run["greedy_detok"]))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out[name] = time.perf_counter() - t0
+    print(f"spark: tokenize of the {SPARK_REF_SECONDS} s clip {out['tokenize_s']:.4f} s, "
+          f"detokenize of {SPARK_SEMANTIC} tokens {out['detokenize_s']:.4f} s (warm, "
+          f"synced); on {gpu_line()}", flush=True)
+    return out
+
+
+def spark_card_against_cpu(model, run: dict) -> float:
+    """The greedy run's prompt and tokens fed, teacher-forced, through the
+    card's int8 LM and a copy on the CPU (the kernel's plain version):
+    the prefill's logits and SPARK_TF_STEPS steps' must agree within TOL.
+    Returns the largest difference."""
+    import copy
+
+    from mlx_audio_tpu_torch.models.lm import causal
+
+    prompt = _spark_rows(model, [SPARK_TEXT])[0]
+    toks = run["greedy_tokens"][:SPARK_TF_STEPS]
+
+    def logits(lm):
+        dev = lm.model.rope_cos.device
+        caches, pad_len, ids, _, _ = causal._start(lm, [prompt], SPARK_TF_STEPS, None, 1.0, 1)
+        out = [causal._prefill(lm, caches, pad_len, ids)]
+        with torch.no_grad():
+            for t in toks:
+                h, _ = lm.model.step(caches, torch.tensor([[t]], device=dev), pad_len)
+                out.append(lm.logits(h[:, -1]).float())
+        return torch.cat([o.cpu() for o in out])
+
+    t0 = time.perf_counter()
+    card = logits(model.lm)
+    cpu = logits(copy.deepcopy(model.lm).cpu())
+    err = float((card - cpu).abs().max())
+    print(f"spark card against the CPU: the int8 LM's prefill and {SPARK_TF_STEPS} "
+          f"teacher-forced steps of the greedy tokens, logits {tuple(card.shape)} max abs "
+          f"diff {err:.3e} (max |logit| {float(cpu.abs().max()):.3f}; atol {TOL['atol']}, "
+          f"rtol {TOL['rtol']}) in {time.perf_counter() - t0:.1f} s", flush=True)
+    if not torch.allclose(card, cpu, **TOL):
+        fail(f"spark: teacher-forced logits on the card differ from the CPU's by {err:.3e}")
+    return err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2842,13 +3222,32 @@ def main() -> int:
           f"{bark_err:.3e}; EnCodec {json.dumps(encodec_run['wall'])}; Vocos "
           f"{json.dumps(vocos_run['wall'])}", flush=True)
 
+    # phase 9: Spark-TTS-0.5B (int8 LM, BiCodec, wav2vec2-large-xlsr-53)
+    spark = build_spark()
+    spark_run = spark_runs(spark, launches)
+    spark_tok = spark_tokenize_against_cpu(spark, spark_run)
+    spark_info = spark_breakdown(spark, spark_run)
+    spark_err = spark_card_against_cpu(spark, spark_run)
+    del spark
+    torch.cuda.empty_cache()
+    phase9 = {k: v for k, v in launches.items() if k.startswith("spark_")}
+    per_spark_token = launches["spark_generate"]["quantized_matmul"] / SPARK_TOKENS
+    per_spark_detok = {k: launches["spark_generate"][k]
+                       for k in ("banded_conv1d", "dilated_conv1d")}
+    print(f"phase 9 launches: {json.dumps(phase9)}; quantized_matmul per Spark token "
+          f"{per_spark_token:.2f}; per BiCodec detokenize of a greedy generate "
+          f"{json.dumps(per_spark_detok)}; Spark {json.dumps(spark_info)}, generate's "
+          f"real-time factor {spark_run['real_time_factor']:.4f}, tokenize against the CPU "
+          f"{json.dumps(spark_tok)}, teacher-forced logits against the CPU "
+          f"{spark_err:.3e}", flush=True)
+
     kernel_line = []
     for name, (source, replaces) in KERNEL_INFO.items():
         cases = records[name]
         head = max(cases, key=lambda r: r["bound_ms"])
         # each kernel's launches on its first path (Kokoro's, CSM's or the
-        # probes'), as before phase 6; Orpheus's, DAC's, OuteTTS's and Dia's
-        # apart below
+        # probes'), as before phase 6; Orpheus's, DAC's, OuteTTS's, Dia's,
+        # EnCodec's, Bark's and Spark's apart below
         main = (("entry_points", "bench") if name in KOKORO_KERNELS
                 else ("probes_int8", "probes_bf16") if name in PROBE_KERNELS
                 else csm_phases)
@@ -2872,8 +3271,11 @@ def main() -> int:
             entry["path_shapes"] = (csm_run["qmm_path_shapes"]
                                     + orpheus_run["qmm_path_shapes"]
                                     + outetts_run["qmm_path_shapes"])
+            entry["max_abs_err"] = max(entry["max_abs_err"], spark_run["qmm_path_err"])
+            entry["path_shapes"] += spark_run["qmm_path_shapes"]
             entry["launches_per_orpheus_token"] = per_token
             entry["launches_per_outetts_token"] = per_outetts_token
+            entry["launches_per_spark_token"] = per_spark_token
         if name == "lstm":
             entry["max_abs_err"] = max(entry["max_abs_err"], encodec_run["lstm_path_err"],
                                        bark_run["lstm_path_err"])
@@ -2899,6 +3301,9 @@ def main() -> int:
             entry["launches_per_dac_call"] = per_dac[name]
             entry["launches_per_outetts_dac_call"] = per_dac_call["outetts"][name]
             entry["launches_per_dia_dac_call"] = per_dac_call["dia"][name]
+            entry["max_abs_err"] = max(entry["max_abs_err"], spark_run["conv_path_err"][name])
+            entry["path_shapes"] += spark_run["conv_path_shapes"][name]
+            entry["launches_per_spark_detokenize"] = per_spark_detok[name]
         kernel_line.append(entry)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

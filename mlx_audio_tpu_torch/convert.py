@@ -8,19 +8,24 @@ stores them in torch's layouts, so:
 * transposed conv ``[K, Cin, Cout]`` -> ``[Cin, Cout, K]``, and depthwise
   transposed conv ``[K, C, 1]`` -> ``[C, 1, K]``;
 * WN ``weight_g`` ``[1, 1, Cout]`` (conv, output axis) or ``[1, Cin, 1]``
-  (transposed conv, input axis) -> ``[C, 1, 1]`` on the same axis;
+  (transposed conv, input axis) -> ``[C, 1, 1]`` on the same axis; the
+  wav2vec2 positional conv's per-tap ``weight_g`` ``[K, 1, 1]`` -> torch's
+  ``weight_norm(dim=2)`` layout ``[1, 1, K]``;
 * everything else (linear ``[out, in]``, LSTM, norms, embeddings, snake
   alphas, CSM's ``audio_head`` [nc-1, Dm, V], Dia's ``DenseGeneral``
   weights [in..., out...], RoPE tables, quantized uint8 codes with their
-  float32 scales and biases) keeps its layout, dtype and name.
+  float32 scales and biases, batch-norm running statistics, FSQ tables)
+  keeps its layout, dtype and name.
 
 The layout of a 3-d ``weight`` or ``weight_v`` follows the type of the
 module of the port ``module`` that owns it, not its path or its rank: a
 conv (``Conv1d``, grouped ones such as Vocos's depthwise ``dwconv`` too,
-``WNConv1d``, ``StreamableConv1d``, EnCodec's ``EncodecConv1d``) or a
-transposed conv (``WNConvTranspose1d``, ``StreamableConvTranspose1d``,
-EnCodec's ``EncodecConvTranspose1d``; DAC's sits at
-``decoder.model.N.block.1`` and SNAC's at ``decoder.blocks.i.pre.1``).
+``WNConv1d``, ``StreamableConv1d``, EnCodec's ``EncodecConv1d``, and
+wav2vec2's ``PositionalConvEmbedding``, whose ``g`` is per tap) or a
+transposed conv (``WNConvTranspose1d``, the depthwise one of Spark's
+``SamplingBlock`` too, ``StreamableConvTranspose1d``, EnCodec's
+``EncodecConvTranspose1d``; DAC's sits at ``decoder.model.N.block.1`` and
+SNAC's at ``decoder.blocks.i.pre.1``).
 Any other owner keeps the array as it is.  Tests feed it
 ``dict(named_arrays(jax_model))`` as numpy arrays, and ``from_pretrained``
 the output of a JAX-layout ``sanitize``; the port never imports JAX to use
@@ -35,12 +40,14 @@ from torch import nn
 
 
 def conv_kinds(module: nn.Module) -> dict[str, str]:
-    """{path: "conv" or "convt"} of the convs and transposed convs in a
-    port module."""
+    """{path: "conv", "conv_tap" or "convt"} of the convs, the per-tap
+    weight-normed positional convs and the transposed convs in a port
+    module."""
     from mlx_audio_tpu_torch.codec.encodec.encodec import (
         EncodecConv1d,
         EncodecConvTranspose1d,
     )
+    from mlx_audio_tpu_torch.models.stt.wav2vec.wav2vec import PositionalConvEmbedding
     from mlx_audio_tpu_torch.nn.layers import Conv1d, WNConv1d, WNConvTranspose1d
     from mlx_audio_tpu_torch.nn.streaming import (
         StreamableConv1d,
@@ -51,6 +58,8 @@ def conv_kinds(module: nn.Module) -> dict[str, str]:
     for name, m in module.named_modules():
         if isinstance(m, (Conv1d, WNConv1d, StreamableConv1d, EncodecConv1d)):
             kinds[name] = "conv"
+        elif isinstance(m, PositionalConvEmbedding):
+            kinds[name] = "conv_tap"
         elif isinstance(m, (WNConvTranspose1d, StreamableConvTranspose1d,
                             EncodecConvTranspose1d)):
             kinds[name] = "convt"
@@ -67,11 +76,11 @@ def params_from_jax(named: dict[str, np.ndarray],
         w = np.asarray(w)
         kind = kinds.get(key.rpartition(".")[0])
         if w.ndim == 3 and key.endswith("weight_g"):
-            w = w.reshape(-1, 1, 1)
+            w = w.reshape((1, 1, -1) if kind == "conv_tap" else (-1, 1, 1))
         elif w.ndim == 3 and key.endswith(("weight_v", "weight")):
             if kind == "convt":
                 w = w.transpose(1, 2, 0)  # [K, Cin, Cout] -> [Cin, Cout, K]
-            elif kind == "conv":
+            elif kind in ("conv", "conv_tap"):
                 w = w.transpose(2, 1, 0)  # [K, Cin, Cout] -> [Cout, Cin, K]
         out[key] = torch.tensor(w)
     return out

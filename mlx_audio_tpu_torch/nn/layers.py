@@ -1,5 +1,5 @@
 """Shared building blocks: the subset of ``mlx_audio_tpu/nn/layers.py`` that
-Kokoro, Llama, Mimi, DAC and SNAC use, in PyTorch.
+the ported families use, in PyTorch.
 
 Conventions:
 
@@ -124,6 +124,30 @@ class RMSNorm(nn.Module):
         xf = x.float()
         y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + self.eps)
         return (y * self.weight).to(x.dtype)
+
+
+class BatchNorm(nn.Module):
+    """Inference batch norm over the channel (last) axis of NLC input, with
+    the running statistics as buffers (``running_mean``, ``running_var``)."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = _param(num_features)
+        self.bias = _param(num_features)
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+        return y * self.weight + self.bias
 
 
 class InstanceNorm1d(nn.Module):

@@ -541,6 +541,86 @@ def test_params_from_jax_by_owner_type_moves_encodec_and_vocos_convs(pair):
     port.load_state_dict(state, strict=True)
 
 
+def _before_tap_rule(named, port):
+    """The bridge before the wav2vec2 positional conv's per-tap rule: the
+    conv and transposed-conv owner types of EnCodec and earlier, every 3-d
+    ``weight_g`` on one channel axis."""
+    from mlx_audio_tpu_torch.codec.encodec.encodec import (
+        EncodecConv1d,
+        EncodecConvTranspose1d,
+    )
+    from mlx_audio_tpu_torch.nn.layers import Conv1d, WNConv1d, WNConvTranspose1d
+    from mlx_audio_tpu_torch.nn.streaming import (
+        StreamableConv1d,
+        StreamableConvTranspose1d,
+    )
+
+    kinds = {}
+    for name, m in port.named_modules():
+        if isinstance(m, (Conv1d, WNConv1d, StreamableConv1d, EncodecConv1d)):
+            kinds[name] = "conv"
+        elif isinstance(m, (WNConvTranspose1d, StreamableConvTranspose1d,
+                            EncodecConvTranspose1d)):
+            kinds[name] = "convt"
+    out = {}
+    for k, w in named.items():
+        kind = kinds.get(k.rpartition(".")[0])
+        if w.ndim == 3 and k.endswith("weight_g"):
+            w = w.reshape(-1, 1, 1)
+        elif w.ndim == 3 and k.endswith(("weight_v", "weight")) and kind:
+            w = w.transpose((1, 2, 0) if kind == "convt" else (2, 1, 0))
+        out[k] = torch.tensor(w)
+    return out
+
+
+def _bark_pair():
+    from test_torch_bark import _configs
+    from mlx_audio_tpu.models.tts.bark import Model as JaxBark
+    from mlx_audio_tpu.models.tts.bark import ModelConfig as JaxBarkConfig
+    from mlx_audio_tpu_torch.models.tts.bark import Model as Bark
+    from mlx_audio_tpu_torch.models.tts.bark import ModelConfig as BarkConfig
+    from test_torch_encodec import build_jax as build_jax_encodec
+    from test_torch_encodec import port_of as port_encodec
+
+    je = build_jax_encodec()
+    jm = _seeded(lambda: JaxBark(JaxBarkConfig(**_configs()), codec=je))
+    return jm, Bark(BarkConfig(**_configs()), codec=port_encodec(je), device="cpu")
+
+
+def _dia_pair():
+    import dataclasses
+
+    from mlx_audio_tpu_torch.models.tts.dia import DiaConfig, Model as Dia
+    from test_dia import tiny_dia
+
+    jm = _seeded(tiny_dia)
+    port = Dia(DiaConfig.load_dict(dataclasses.asdict(jm.config)),
+               dac_model=port_dac(jm._dac), device="cpu")
+    return jm.model, port.model
+
+
+@pytest.mark.parametrize("pair", [_kokoro_pair, _mimi_pair, _csm_pair, _dac_pair,
+                                  _snac_pair, _encodec_pair, _vocos_pair, _bark_pair,
+                                  _dia_pair],
+                         ids=["kokoro", "mimi", "csm", "dac", "snac", "encodec", "vocos",
+                              "bark", "dia"])
+def test_params_from_jax_per_tap_rule_leaves_ported_families_unchanged(pair):
+    """The per-tap owner rule (wav2vec2's positional conv) leaves the state
+    dict of every family ported before it as it was: none of them has a
+    per-tap conv."""
+    from mlx_audio_tpu_torch.convert import conv_kinds
+
+    jax_model, port = pair()
+    assert "conv_tap" not in conv_kinds(port).values()
+    named = {k: np.asarray(v) for k, v in named_arrays(jax_model)}
+    state = params_from_jax(named, port)
+    before = _before_tap_rule(named, port)
+    assert sorted(state) == sorted(before)
+    for k in state:
+        assert torch.equal(state[k], before[k]), k
+    port.load_state_dict(state, strict=True)
+
+
 def test_params_from_jax_keeps_dense_general_layout():
     """A tiny Dia's DenseGeneral weights ([D, H, hd], [H, hd, D], [D, 2,
     hidden], [D, C, V]; 3-d and named ``weight``) arrive untransposed and
