@@ -3,7 +3,8 @@
 Kokoro-82M synthesis, CSM-1B speech through int8 decode (whole and
 streamed), Orpheus-3B, OuteTTS-1B and Spark-TTS-0.5B through int8 decode,
 Dia-1.6B, Bark, the DAC-44kHz and EnCodec-24kHz codecs, the Vocos vocoder,
-the depth-draft probes, and check its hand-written CUDA kernels.
+Whisper-large-v3-turbo and Voxtral-Mini-3B speech to text, the
+depth-draft probes, and check its hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -132,18 +133,46 @@ Phases; the failure of any one ends the script with a non-zero exit:
    int8 LM's teacher-forced logits over 8 steps (within the tolerance);
    tokens/s at batch 1 and 4, the time of ``tokenize`` and ``detokenize``,
    the real-time factor, peak memory, a profile of 32 decode steps;
-10. print one ``{"kernels": [...]}`` line, then the device line last.
+10. Whisper-large-v3-turbo at the published dims (128 mels, a 32-layer
+   1280-wide encoder, a 4-layer decoder, vocabulary 51 866; f32, seeded
+   random weights arranged so that every decode runs its 224 tokens and
+   ends its window on a lone timestamp; a stub encoding with the
+   multilingual vocabulary's ids): ``generate`` of a seeded 60 s clip
+   (greedy, word timestamps: two seek windows), ``decode`` of a batch of 4
+   windows, a beam search (beam 5) on one window; ``dilated_conv1d`` (its
+   conv1, K = 3, [B, 3000, 128] -> 1280) must launch once in every encode
+   and ``banded_conv1d``, ``lstm``, ``depth_draft`` and ``quantized_matmul``
+   never, and it is held to its plain version on the path's operands; the
+   log-mel, the encoder output and 8 teacher-forced decoder steps held to
+   the same weights on the CPU, and the first window's tokens to the
+   CPU's greedy choice (equal where its margin exceeds 1e-5, the
+   near-ties counted); encoder ms a window at batch 1 and 4, tokens/s at
+   batch 1 and 4, beam steps/s, the real-time factor, peak memory, a
+   profile of 32 decode steps.  Then Voxtral-Mini-3B (the audio tower at
+   ``AudioConfig``'s defaults, f32; the published Llama text config with
+   head_dim 128, int8 in groups of 64, the head's end-of-speech row at 0):
+   greedy ``generate`` of a 30 s clip (64 tokens) and of a 60 s clip (two
+   windows as one batch); ``dilated_conv1d`` once an encode,
+   ``quantized_matmul`` 211 times a decode step (and once for the prompt's
+   head), both held to their plain versions on the path's operands; the
+   audio embeddings, the logits of the prompt and of 8 teacher-forced
+   steps held to the CPU's, the tokens to its argmax; tokens/s, the
+   real-time factor, peak memory, a profile of 32 decode steps;
+11. print one ``{"kernels": [...]}`` line, then the device line last.
 
-Phase 2 holds ``quantized_matmul`` at Orpheus-3B's, OuteTTS-1B's and
-Spark-TTS-0.5B's shapes too (int8, groups of 64, 1 and 4 rows), and the
-conv kernels at DAC-44kHz's, DAC-24kHz's and BiCodec's routed resblock
-shapes (K=7, d = 1, 3, 9).  Launch counters are set to 0 just before each
-run of the probes' entry point and of phases 3 to 9, and read just after:
+Phase 2 holds ``quantized_matmul`` at Orpheus-3B's, OuteTTS-1B's,
+Spark-TTS-0.5B's and Voxtral-Mini-3B's shapes too (int8, groups of 64, 1
+and 4 rows), and the conv kernels at DAC-44kHz's, DAC-24kHz's and
+BiCodec's routed resblock shapes (K=7, d = 1, 3, 9) and at Whisper's conv1
+(batch 1 and 4).  Launch counters are set to 0 just before each run of
+the probes' entry point and of phases 3 to 10, and read just after:
 each kernel of a run's path must have launched in it (Orpheus:
 ``quantized_matmul``; DAC's encode and decode: both conv kernels; OuteTTS
 and Spark: all three; Dia's DAC decode: both conv kernels; EnCodec's encode
-and decode and Bark's EnCodec decode: ``lstm``), Kokoro's ``lstm`` launches
-only on the cluster route, EnCodec's and Bark's only on the row route.
+and decode and Bark's EnCodec decode: ``lstm``; Whisper's and Voxtral's
+encodes: ``dilated_conv1d``; Voxtral's decode steps: ``quantized_matmul``),
+Kokoro's ``lstm`` launches only on the cluster route, EnCodec's and Bark's
+only on the row route.
 Needs
 one CUDA card and the repository checkout around this file; it imports
 nothing of JAX.
@@ -381,6 +410,9 @@ DIA_RESBLOCKS = ((384, 11008),)
 # 768 at 8 a token is under 2048 rows, C = 192 and 96 are no multiples of
 # 128: the library)
 SPARK_RESBLOCKS = ((384, 6000),)
+# (B, L, C, Cout) of Whisper-large-v3-turbo's and Voxtral's conv1 (K = 3,
+# 'same'; 128 mels into 1280) in phase 10: one 30 s window, and a batch of 4
+WHISPER_STEMS = ((1, 3000, 128, 1280), (4, 3000, 128, 1280))
 
 
 def _conv_cases(gen):
@@ -395,8 +427,8 @@ def _conv_cases(gen):
     shifted.append(((2, 156001, 128), 3, 1))
     banded = [((2, 26000, 256), 7, 1), ((2, 156001, 128), 11, 1),
               ((2, 26000, 256), 7, 3), ((2, 156001, 128), 11, 3)]
-    cases = [("dilated_conv1d", s, k, d, "") for s, k, d in shifted]
-    cases += [("banded_conv1d", s, k, d, "") for s, k, d in banded]
+    cases = [("dilated_conv1d", s + (s[2],), k, d, "") for s, k, d in shifted]
+    cases += [("banded_conv1d", s + (s[2],), k, d, "") for s, k, d in banded]
     # DAC-44kHz's resblock convs (K=7, d = 1, 3, 9) that take a kernel, on a
     # 3 s clip, and at phase 7's decodes DAC-24kHz's (OuteTTS) and
     # DAC-44kHz's (Dia), each on the kernel its route names
@@ -407,10 +439,14 @@ def _conv_cases(gen):
             route = conv1d_route(7, c, c, l, d, padding=3 * d)
             if route != "library":
                 name = "dilated_conv1d" if route == "shifted" else "banded_conv1d"
-                cases.append((name, (1, l, c), 7, d, f" ({codec})"))
-    for name, (b, l, c), k, d, label in cases:
+                cases.append((name, (1, l, c, c), 7, d, f" ({codec})"))
+    for b, l, c, c_out in WHISPER_STEMS:
+        if conv1d_route(3, c, c_out, l, padding=1) != "shifted":
+            fail(f"Whisper's conv1 [{b}, {l}, {c}] -> {c_out} does not take dilated_conv1d")
+        cases.append(("dilated_conv1d", (b, l, c, c_out), 3, 1, " (Whisper, Voxtral conv1)"))
+    for name, (b, l, c, c_out), k, d, label in cases:
         x = torch.randn(b, l, c, generator=gen, device="cuda") * 0.3
-        w = torch.randn(k, c, c, generator=gen, device="cuda") * 0.05
+        w = torch.randn(k, c, c_out, generator=gen, device="cuda") * 0.05
         x_ncl = x.transpose(1, 2).contiguous()
         w_lib = w.permute(2, 1, 0).contiguous()
         pad = (k - 1) * d // 2
@@ -435,14 +471,15 @@ def _conv_cases(gen):
                                                kernels.banded_conv1d_plain)
         yield {
             "kernel": name,
-            "shape": f"[{b}, {l}, {c}] K={k} d={d}"
+            "shape": f"[{b}, {l}, {c}]" + (f" -> {c_out}" if c_out != c else "")
+                     + f" K={k} d={d}"
                      + (" residue fold" if name == "banded_conv1d" and d > 1 else "")
                      + label,
             "kernel_fn": kern, "plain_fn": plain,
             "library_fn": lambda x=x_ncl, w=w_lib, p=pad, d=d:
                 F.conv1d(x, w, None, 1, p, d),
-            "flops": 2.0 * b * l * c * c * k,
-            "bytes": 4.0 * (2 * b * l * c + k * c * c),
+            "flops": 2.0 * b * l * c * c_out * k,
+            "bytes": 4.0 * (b * l * (c + c_out) + k * c * c_out),
             # both conv kernels run 3xTF32 on the tensor cores: the
             # float32-FMA bound is printed beside that one, and the kernel's
             # error and the plain version's against the plain version in
@@ -491,6 +528,14 @@ SPARK_QMM_SHAPES = (((896, 896), "Spark q, o"), ((896, 128), "Spark k, v"),
                     ((896, 166_000), "Spark tied head"))
 
 
+# Voxtral-Mini-3B's LM (mistralai/Voxtral-Mini-3B-2507: hidden 3072, 32/8
+# heads of 128, intermediate 8192), int8 in groups of 64: the projections
+# of its 30 layers and the untied head over 131 072 tokens
+VOXTRAL_QMM_SHAPES = (((3072, 4096), "Voxtral q"), ((3072, 1024), "Voxtral k, v"),
+                      ((4096, 3072), "Voxtral o"), ((3072, 8192), "Voxtral gate, up"),
+                      ((8192, 3072), "Voxtral down"), ((3072, 131_072), "Voxtral head"))
+
+
 def _qmm_shapes():
     """(family, (I, O), role, group size, bits, row counts) of every
     quantized_matmul case."""
@@ -504,6 +549,8 @@ def _qmm_shapes():
         yield "outetts", io, role, 64, 8, ORPHEUS_QMM_ROWS
     for io, role in SPARK_QMM_SHAPES:
         yield "spark", io, role, 64, 8, ORPHEUS_QMM_ROWS
+    for io, role in VOXTRAL_QMM_SHAPES:
+        yield "voxtral", io, role, 64, 8, ORPHEUS_QMM_ROWS
 
 
 def _quantized(gen, i, o, gs, bits):
@@ -554,13 +601,13 @@ def qmm_row_independence(gen) -> None:
     """Each row of a 2-, 8- and 32-row quantized_matmul equals, bit for bit,
     the 1-row call on that row (the kernel sums in one order whatever the
     row count), at every int8 shape of CSM-1B (groups of 128), of
-    Orpheus-3B, OuteTTS-1B and Spark-TTS-0.5B (groups of 64), and at
-    llama-1B's q, o in int4."""
+    Orpheus-3B, OuteTTS-1B, Spark-TTS-0.5B and Voxtral-Mini-3B (groups of
+    64), and at llama-1B's q, o in int4."""
     from mlx_audio_tpu_torch.nn import kernels
 
     shapes = [(io, 128, 8) for io, _ in QMM_SHAPES] + [(QMM_SHAPES[0][0], 128, 4)]
     shapes += [(io, 64, 8) for io, _ in ORPHEUS_QMM_SHAPES + OUTETTS_QMM_SHAPES
-               + SPARK_QMM_SHAPES]
+               + SPARK_QMM_SHAPES + VOXTRAL_QMM_SHAPES]
     for (i, o), gs, bits in shapes:
         q = _quantized(gen, i, o, gs, bits)
         w = (q.weight, q.scales, q.biases, gs, q.packed)
@@ -1025,7 +1072,7 @@ CSM_BATCH_TEXTS = ["One short line.", "A second line, a little longer.",
 CSM_REF_TEXT = "This is the reference voice."
 CSM_KERNEL_GROUPS = (("qmm_kernel", "quantized_matmul (this repo)"),
                      ("depth_draft_kernel", "depth_draft (this repo)"),
-                     ("gemm", "cuBLAS"), ("xmma", "cuBLAS"),
+                     ("gemm", "cuBLAS"), ("xmma", "cuBLAS"), ("gemv", "cuBLAS"),
                      ("elementwise", "elementwise"), ("reduce", "reduction"),
                      ("index", "gather / scatter"), ("softmax", "softmax"))
 
@@ -3078,6 +3125,617 @@ def spark_card_against_cpu(model, run: dict) -> float:
     return err
 
 
+# ---------------------------------------------------------------------------
+# phase 10: Whisper-large-v3-turbo and Voxtral-Mini-3B
+# ---------------------------------------------------------------------------
+
+# mlx-community/whisper-large-v3-turbo's dims
+WHISPER_DIMS = dict(n_mels=128, n_audio_ctx=1500, n_audio_state=1280, n_audio_head=20,
+                    n_audio_layer=32, n_vocab=51_866, n_text_ctx=448, n_text_state=1280,
+                    n_text_head=20, n_text_layer=4)
+WHISPER_SECONDS = 60.0  # the generate clip: two 30 s seek windows
+WHISPER_BATCH = 4  # windows a batched decode
+WHISPER_BEAM = 5
+WHISPER_SAMPLE_LEN = 224  # tokens a window decodes (n_text_ctx // 2)
+WHISPER_TF_STEPS = 8  # teacher-forced steps held against the CPU, to TOL
+WHISPER_TIE = 1e-5  # a token may differ from the CPU's where its margin is this or less
+# build_whisper's arrangement of the random weights (see there)
+WHISPER_EMBED_SCALE = 0.05
+WHISPER_LN_SHIFT = 0.05
+WHISPER_TS_STEP = 1e-3
+WHISPER_END_POS_SCALE = 200.0
+WHISPER_END_ROW_SCALE = 5.0
+# Voxtral-Mini-3B (mistralai/Voxtral-Mini-3B-2507): AudioConfig's defaults,
+# the published text config with its head_dim of 128 given (TextConfig
+# leaves it unset and would derive 3072 / 32 = 96)
+VOXTRAL_TEXT = {"head_dim": 128}
+VOXTRAL_EOS = 2
+VOXTRAL_EMBED_SCALE = 10.0  # the LM embedding's scale against the init's (build_voxtral)
+VOXTRAL_TOKENS = 64  # generated a window
+VOXTRAL_SECONDS = 30.0  # one window; the two-window clip is twice as long
+VOXTRAL_TF_STEPS = 8
+VOXTRAL_QMM_PER_STEP = 30 * 7 + 1  # 7 projections a layer and the head
+WHISPER_KERNEL_STRAYS = ("banded_conv1d", "lstm", "depth_draft")
+
+
+class WhisperStubEncoding:
+    """The multilingual Whisper vocabulary's layout without its BPE table (no
+    tokenizer files, nor tiktoken, need be on the card's machine): ids below
+    256 are bytes, every other id below 50 257 decodes to a word of its own
+    (" w<id>"), and the special tokens follow at their published ids
+    (<|endoftext|> 50 257, <|startoftranscript|> 50 258, 100 languages,
+    <|0.00|> 50 365 to <|30.00|> 51 865)."""
+
+    n_base = 50_257
+
+    def __init__(self, num_languages: int = 100):
+        from mlx_audio_tpu_torch.models.stt.whisper.tokenizer import whisper_special_tokens
+
+        self._ids = {t: self.n_base + i
+                     for i, t in enumerate(whisper_special_tokens(num_languages))}
+        self._names = {i: t for t, i in self._ids.items()}
+        self.special_tokens_set = set(self._ids)
+        self.n_vocab = self.n_base + len(self._ids)
+        self.eot_token = self._ids["<|endoftext|>"]
+
+    def encode_single_token(self, token: str) -> int:
+        return self._ids[token]
+
+    def encode(self, text: str, **kwargs) -> list:
+        return list(text.encode("utf-8"))
+
+    def decode(self, ids, **kwargs) -> str:
+        out, run = [], bytearray()
+        for i in ids:
+            if i < 256:
+                run.append(i)
+                continue
+            out.append(run.decode("utf-8", "replace"))
+            run = bytearray()
+            out.append(self._names.get(i, f" w{i}"))
+        return "".join(out) + run.decode("utf-8", "replace")
+
+
+def _clip(seed: int, seconds: float) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(int(seconds * 16_000)) * 0.1).astype(np.float32)
+
+
+def _timed(fn) -> float:
+    """Wall seconds of a warm, synced call of ``fn``."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def build_whisper():
+    """Whisper-large-v3-turbo at the published dims with seeded random
+    weights on the card, f32, and the stub tokenizer.  The weights are
+    arranged so that every decode runs its whole budget of 224 tokens and
+    ends a window with a lone timestamp, Whisper's sign that the window was
+    consumed (a 60 s clip is then two seek windows):
+
+    * the tied embedding's rows at a twentieth of the init's scale, so the
+      layers, not the token fed back, set the next token;
+    * the rows of <|endoftext|> and of every timestamp but <|30.00|> are
+      -(1 + 1e-3 i) times the ones vector, and the final layer norm's bias
+      0.05 times it: their logits are -64 - 0.064 i (the normed hidden
+      state sums to 0), far below the text tokens', so no decode ends
+      early and no timestamp pair cuts a window; the first token, where
+      the rules allow timestamps only, is <|0.00|>;
+    * <|30.00|>'s row is that of i = 0 plus 5 u, u a unit vector that sums
+      to 0, and the positional embedding at the last step's position (the
+      sot sequence's 3 tokens plus 222) is 200 u: there its logit is about
+      +115, elsewhere about -64 +- 5;
+    * the positional embedding (0 at the JAX package's init) elsewhere
+      drawn from N(0, 1), so that the text tokens change from position to
+      position."""
+    from mlx_audio_tpu_torch.models.stt.whisper import Model, ModelDimensions
+    from mlx_audio_tpu_torch.models.stt.whisper.tokenizer import Tokenizer
+
+    t0 = time.perf_counter()
+    model = Model(ModelDimensions(**WHISPER_DIMS), device="cuda", seed=0)
+    tok = Tokenizer(encoding=WhisperStubEncoding(model.num_languages),
+                    num_languages=model.num_languages, language="en", task="transcribe")
+    model._tokenizer = lambda language=None, task=None: tok
+    dec = model.decoder
+    d = WHISPER_DIMS["n_text_state"]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    u = torch.randn(d, generator=g, device="cuda")
+    u = (u - u.mean()) / (u - u.mean()).norm()
+    ones = torch.ones(d, device="cuda")
+    ts0, last = tok.timestamp_begin, WHISPER_DIMS["n_vocab"] - 1
+    end_pos = len(tok.sot_sequence) + WHISPER_SAMPLE_LEN - 2
+    with torch.no_grad():
+        emb = dec.token_embedding.weight
+        emb.mul_(WHISPER_EMBED_SCALE)
+        steps = torch.arange(last + 1 - ts0, device="cuda", dtype=torch.float32)
+        emb[ts0:] = -(1.0 + WHISPER_TS_STEP * steps)[:, None] * ones
+        emb[tok.eot] = -2.0 * ones
+        emb[last] = -ones + WHISPER_END_ROW_SCALE * u
+        dec.ln.bias.fill_(WHISPER_LN_SHIFT)
+        dec.positional_embedding.normal_(generator=g)
+        dec.positional_embedding[end_pos] = WHISPER_END_POS_SCALE * u
+    nbytes = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+    print(f"Whisper-large-v3-turbo built (f32, {nbytes / 1e9:.3f} GB) in "
+          f"{time.perf_counter() - t0:.1f} s; conv1 route "
+          f"{_route_of(model.encoder.conv1, 3000)}", flush=True)
+    return model, tok
+
+
+def _route_of(conv, length: int) -> str:
+    from mlx_audio_tpu_torch.nn.layers import conv1d_route
+
+    c_out, c, k = conv.weight.shape
+    return conv1d_route(k, c, c_out, length, conv.dilation, conv.stride, conv.groups,
+                        conv.padding)
+
+
+def _count_calls(module, counter: dict):
+    """Count the calls of ``module``; returns the undo."""
+    fwd = module.forward
+
+    def counting(*a, **k):
+        counter["n"] += 1
+        return fwd(*a, **k)
+
+    module.forward = counting
+    return lambda: delattr(module, "forward")
+
+
+def _check_window_tokens(name: str, tokens, tok) -> None:
+    end = WHISPER_DIMS["n_vocab"] - 1
+    inner = tokens[1:-1]
+    if not (len(tokens) == WHISPER_SAMPLE_LEN and tokens[0] == tok.timestamp_begin
+            and tokens[-1] == end and tok.eot not in inner
+            and all(t < tok.timestamp_begin for t in inner)):
+        fail(f"{name}: a window decoded {len(tokens)} tokens "
+             f"({tokens[:2]} ... {tokens[-2:]}; {tok.eot in inner} EOT inside, "
+             f"timestamps inside {[t for t in inner if t >= tok.timestamp_begin][:4]}), "
+             f"not <|0.00|>, {WHISPER_SAMPLE_LEN - 2} tokens without EOT or "
+             "timestamps, and <|30.00|>")
+
+
+def whisper_runs(model, tok, launches: dict) -> dict:
+    """The entry points: generate of a seeded 60 s clip (greedy, word
+    timestamps, two seek windows), decode of a batch of 4 windows, a beam
+    search (beam 5) on one window.  dilated_conv1d must launch once in
+    every encode (conv1), no kernel off Whisper's path ever; the conv
+    kernel is held to its plain version on the path's operands."""
+    from mlx_audio_tpu_torch.models.stt.whisper import DecodingOptions
+    from mlx_audio_tpu_torch.models.stt.whisper.audio import log_mel_spectrogram
+    from mlx_audio_tpu_torch.nn import kernels, layers
+
+    clip = _clip(6, WHISPER_SECONDS)
+    long_mel = log_mel_spectrogram(_clip(7, 30.0 * WHISPER_BATCH), n_mels=128, device="cuda")
+    mel4 = long_mel[:3000 * WHISPER_BATCH].reshape(WHISPER_BATCH, 3000, 128).contiguous()
+    encodes, counts, wall, conv_calls, routes = {"n": 0}, {}, {}, {}, {}
+    undo = _count_calls(model.encoder, encodes)
+    convs = record_conv_calls(conv_calls)
+    route_fn = route_recorder(routes)
+    run = path_runner(launches, wall)
+
+    def counted(name, fn):
+        encodes["n"] = 0
+        out = run(name, fn)
+        counts[name] = encodes["n"]
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with torch.no_grad():
+            out = counted("whisper_generate", lambda: model.generate(
+                clip, temperature=0.0, word_timestamps=True, language="en",
+                condition_on_previous_text=False))
+            batch = counted("whisper_decode_batch", lambda: model.decode(
+                mel4, DecodingOptions(language="en")))
+            beam = counted("whisper_beam", lambda: model.decode(
+                mel4[0], DecodingOptions(language="en", beam_size=WHISPER_BEAM)))
+    finally:
+        undo()
+        kernels.banded_conv1d, kernels.dilated_conv1d = convs
+        layers.conv1d_route = route_fn
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    segs = out.segments
+    if [s["seek"] for s in segs] != [0, 3000]:
+        fail(f"whisper generate: seek windows at {[s['seek'] for s in segs]}, not [0, 3000]")
+    for s in segs:
+        _check_window_tokens("whisper generate", s["tokens"], tok)
+        if len(s["words"]) < 2 or not all(
+                0.0 <= w["start"] <= w["end"] <= WHISPER_SECONDS for w in s["words"]):
+            fail(f"whisper generate: the window at {s['seek'] / 100} s has words "
+                 f"{s['words'][:2]}")
+    for i, r in enumerate(batch):
+        _check_window_tokens(f"whisper decode, window {i}", r.tokens, tok)
+    _check_window_tokens("whisper beam search", beam.tokens, tok)
+    for name in counts:
+        lc = launches[name]
+        if counts[name] < 1 or lc["dilated_conv1d"] != counts[name]:
+            fail(f"{name}: {lc['dilated_conv1d']} dilated_conv1d launches in "
+                 f"{counts[name]} encodes")
+        stray = [k for k in WHISPER_KERNEL_STRAYS + ("quantized_matmul",) if lc[k]]
+        if stray:
+            fail(f"{name}: kernels off Whisper's path launched: {stray}")
+    print_routes("whisper", routes)
+    conv_err = check_conv_path(conv_calls, convs, "Whisper")
+    rtf = wall["whisper_generate"] / WHISPER_SECONDS
+    words = sum(len(s["words"]) for s in segs)
+    distinct = len(set(segs[0]["tokens"]))
+    print(f"whisper: generate of {WHISPER_SECONDS} s: {len(segs)} seek windows of "
+          f"{WHISPER_SAMPLE_LEN} tokens ({distinct} distinct in the first), {words} "
+          f"timed words, real-time factor {rtf:.4f} (generate's wall time over the "
+          f"audio's length); decode of {WHISPER_BATCH} windows and a beam-{WHISPER_BEAM} "
+          f"search, each {WHISPER_SAMPLE_LEN} tokens; encodes {json.dumps(counts)}; "
+          f"peak memory {peak:.2f} GB; wall s: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in wall.items()), flush=True)
+    return {"wall": wall, "conv_path_err": conv_err, "conv_path_shapes": _per_kernel(conv_calls),
+            "clip": clip, "mel4": mel4, "tokens": segs[0]["tokens"], "encodes": counts,
+            "real_time_factor": rtf, "peak_memory_gb": peak, "words": words}
+
+
+def _whisper_filters(model, tok, dev):
+    """The greedy decode's logit filters as api.decode builds them for
+    DecodingOptions(language="en")."""
+    from mlx_audio_tpu_torch.models.stt.whisper import DecodingOptions, api
+    from mlx_audio_tpu_torch.models.stt.whisper.decoding import FilterConfig
+
+    v = WHISPER_DIMS["n_vocab"]
+    sup = torch.zeros(v)
+    sup[list(api._suppress_token_list(tok, DecodingOptions(language="en")))] = float("-inf")
+    blank = torch.zeros(v)
+    blank[tok.encode(" ") + [tok.eot]] = float("-inf")
+    cfg = FilterConfig(eot=tok.eot, timestamp_begin=tok.timestamp_begin,
+                       no_timestamps=tok.no_timestamps,
+                       max_initial_timestamp_index=round(1.0 / (30 / model.dims.n_audio_ctx)),
+                       apply_timestamp_rules=True)
+    return cfg, sup.to(dev), blank.to(dev)
+
+
+def _whisper_tf(model, tok, feats, tokens, n_steps, filtered=False):
+    """Teacher-forced decode of one window: the sot sequence prefilled, then
+    ``tokens`` fed a step at a time; each step's logits (raw, or through
+    the greedy loop's filters) on the CPU."""
+    from mlx_audio_tpu_torch.models.stt.whisper.decoding import apply_filters
+
+    dec = model.decoder
+    dev = feats.device
+    sot = list(tok.sot_sequence)
+    buf = torch.tensor([sot + list(tokens)], device=dev)
+    cfg, sup, blank = _whisper_filters(model, tok, dev)
+    out = []
+    with torch.no_grad():
+        ckv = dec.compute_cross_kv(feats)
+        caches = dec.init_cache(1, buf.shape[1] + 1)
+        dec.prefill(caches, buf[:, :len(sot)], len(sot), ckv)
+        for t in range(len(sot), len(sot) + n_steps):
+            logits, caches = dec.step(caches, buf[:, t - 1:t], ckv)
+            if filtered:
+                logits = apply_filters(logits.float(), buf, t, len(sot), cfg, sup, blank)
+            out.append(logits.float().cpu())
+    return torch.cat(out)
+
+
+def _tie_check(name: str, card_tokens, cpu_logits, tie: float) -> dict:
+    """The card's tokens against the CPU's argmax over the same steps: equal
+    wherever the CPU's winner beats its runner-up by more than ``tie``."""
+    two = torch.topk(cpu_logits, 2, dim=-1).values
+    margin = two[:, 0] - two[:, 1]
+    cpu_tok = cpu_logits.argmax(-1)
+    card = torch.as_tensor(card_tokens)
+    differ = cpu_tok != card
+    ties = margin <= tie
+    if bool((differ & ~ties).any()):
+        i = int((differ & ~ties).nonzero()[0][0])
+        fail(f"{name}: token {i} is {int(card[i])} on the card and {int(cpu_tok[i])} on "
+             f"the CPU, whose margin is {float(margin[i]):.3e}")
+    return {"tokens": len(card), "differ": int(differ.sum()), "near_ties": int(ties.sum()),
+            "min_margin": float(margin.min())}
+
+
+def whisper_card_against_cpu(model, tok, run: dict) -> dict:
+    """Through the same weights on the card and the CPU: the log-mel of the
+    60 s clip, the encoder's output on its first window, the decoder's
+    logits over WHISPER_TF_STEPS teacher-forced steps of the generate's
+    first-window tokens (within TOL), and those 224 tokens against the
+    CPU's greedy choice at each step (through the same filters; equal where
+    the CPU's margin exceeds WHISPER_TIE, the near-ties counted)."""
+    from mlx_audio_tpu_torch.models.stt.whisper import Model, ModelDimensions
+    from mlx_audio_tpu_torch.models.stt.whisper.audio import log_mel_spectrogram
+
+    t0 = time.perf_counter()
+    cpu = Model(ModelDimensions(**WHISPER_DIMS), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    pad = 3000 * 160
+    with torch.no_grad():
+        mel = log_mel_spectrogram(run["clip"], n_mels=128, padding=pad, device="cuda")
+        mel_c = log_mel_spectrogram(run["clip"], n_mels=128, padding=pad)
+        win = mel[:3000][None]
+        feats = model.encoder(win)
+        feats_c = cpu.encoder(win.cpu())
+    card_tf = _whisper_tf(model, tok, feats, run["tokens"], WHISPER_TF_STEPS)
+    cpu_all = _whisper_tf(cpu, tok, feats_c, run["tokens"], WHISPER_SAMPLE_LEN, filtered=True)
+    cpu_tf = _whisper_tf(cpu, tok, feats_c, run["tokens"], WHISPER_TF_STEPS)
+    ties = _tie_check("whisper greedy tokens", run["tokens"], cpu_all, WHISPER_TIE)
+    errs = {"log_mel": float((mel.cpu() - mel_c).abs().max()),
+            "encoder": float((feats.cpu() - feats_c).abs().max()),
+            "logits": float((card_tf - cpu_tf).abs().max())}
+    print(f"whisper card against the CPU ({time.perf_counter() - t0:.1f} s): log-mel "
+          f"{tuple(mel.shape)}, encoder output {tuple(feats.shape)} (max |x| "
+          f"{float(feats_c.abs().max()):.3f}), {WHISPER_TF_STEPS} teacher-forced steps' "
+          f"logits {tuple(card_tf.shape)} (max |logit| {float(cpu_tf.abs().max()):.3f}): "
+          f"max abs diff {json.dumps(errs)} (atol {TOL['atol']}, rtol {TOL['rtol']}); "
+          f"the generate's first window against the CPU's greedy choice {json.dumps(ties)} "
+          f"(a token may differ where its margin is {WHISPER_TIE} or less)", flush=True)
+    for name, a, b in (("log-mel", mel.cpu(), mel_c), ("encoder output", feats.cpu(), feats_c),
+                       ("teacher-forced logits", card_tf, cpu_tf)):
+        if not torch.allclose(a, b, **TOL):
+            fail(f"whisper: the {name} on the card differs from the CPU's by "
+                 f"{float((a - b).abs().max()):.3e}")
+    return {"errors": errs, "tokens": ties}
+
+
+def whisper_breakdown(model, run: dict) -> dict:
+    """Encoder ms a window at batch 1 and 4 (CUDA events); greedy tokens/s
+    at batch 1 and 4 and beam steps/s, each decode of 224 tokens from
+    precomputed audio features (cross keys and values and the prefill
+    included; warm, synced); a profile of 32 decode steps (with their
+    prefill) at batch 1."""
+    from mlx_audio_tpu_torch.models.stt.whisper import DecodingOptions
+
+    mel4 = run["mel4"]
+    out = {}
+    with torch.no_grad():
+        out["encoder_ms_batch1"] = median_ms(lambda: model.encoder(mel4[:1]), 3)
+        out["encoder_ms_batch4"] = median_ms(lambda: model.encoder(mel4), 3)
+        out["encoder_ms_per_window_batch4"] = out["encoder_ms_batch4"] / WHISPER_BATCH
+        feats = model.encoder(mel4)
+        opts = DecodingOptions(language="en")
+        g1 = _timed(lambda: model.decode(feats[0], opts))
+        g4 = _timed(lambda: model.decode(feats, opts))
+        b1 = _timed(lambda: model.decode(feats[0], DecodingOptions(
+            language="en", beam_size=WHISPER_BEAM)))
+        out.update(tokens_per_s=WHISPER_SAMPLE_LEN / g1,
+                   tokens_per_s_batch4=WHISPER_BATCH * WHISPER_SAMPLE_LEN / g4,
+                   beam_steps_per_s=WHISPER_SAMPLE_LEN / b1)
+        print(f"whisper breakdown (f32): " + ", ".join(f"{k} {v:.4f}" for k, v in out.items())
+              + f"; on {gpu_line()}", flush=True)
+        prof = profile_steps("whisper", lambda: model.decode(
+            feats[0], DecodingOptions(language="en", sample_len=PROFILE_STEPS)))
+    if prof is not None:
+        prof.pop("groups")
+        prof.pop("device_ms")
+        out.update(prof)
+    return out
+
+
+class VoxtralStubTokenizer:
+    """``decode``: ids as words (no tokenizer files ship)."""
+
+    def decode(self, ids) -> str:
+        return " ".join(f"w{i}" for i in ids)
+
+
+def build_voxtral():
+    """Voxtral-Mini-3B at the published widths with seeded random weights on
+    the card: the audio tower and projector f32, the Llama LM and its
+    untied head int8 in groups of 64; the head's row of the end-of-speech
+    token (2) at 0, so that no decode stops early (its logit 0 is below
+    the top of 131 072 random ones); the LM's embedding at ten times the
+    init's scale, so that the token fed back, more than the prompt's
+    average, sets the next one (at the init's scale a decode settles into a
+    cycle of a few tokens)."""
+    from mlx_audio_tpu_torch.models.stt.voxtral import Model, ModelConfig
+    from mlx_audio_tpu_torch.nn.quantize import quantize_model
+
+    t0 = time.perf_counter()
+    model = Model(ModelConfig(text_config=dict(VOXTRAL_TEXT)),
+                  tokenizer=VoxtralStubTokenizer(), device="cuda", seed=0)
+    with torch.no_grad():
+        model.lm_head.weight[VOXTRAL_EOS] = 0
+        model.language_model.embed_tokens.weight.mul_(VOXTRAL_EMBED_SCALE)
+    quantize_model(model, group_size=64, bits=8,
+                   quant_predicate=lambda p, m, c: p.startswith(("language_model", "lm_head")))
+    torch.cuda.empty_cache()
+    cfg = model.language_model.cfg
+    nbytes = {name: sum(t.numel() * t.element_size() for t in m.state_dict().values())
+              for name, m in (("audio tower", model.audio_tower),
+                              ("projector", model.multi_modal_projector),
+                              ("LM", model.language_model), ("head", model.lm_head))}
+    print(f"Voxtral-Mini-3B built (LM int8, groups of 64) in {time.perf_counter() - t0:.1f} s: "
+          f"hidden {cfg.hidden_size}, {cfg.num_hidden_layers} layers, "
+          f"{cfg.num_attention_heads}/{cfg.num_key_value_heads} heads, head_dim "
+          f"{cfg.head_dim}, intermediate {cfg.intermediate_size}, vocabulary "
+          f"{cfg.vocab_size}, rope theta {cfg.rope_theta:g}; audio {model.audio_cfg.num_mel_bins} "
+          f"mels, width {model.audio_cfg.d_model}, {model.audio_cfg.encoder_layers} layers; "
+          f"conv1 route {_route_of(model.audio_tower.conv1, 3000)}; state GB: "
+          + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in nbytes.items()), flush=True)
+    return model
+
+
+def voxtral_runs(model, launches: dict) -> dict:
+    """The entry point: greedy generate of a seeded 30 s clip (one window,
+    64 tokens) and of a 60 s clip (two windows decoded as one batch through
+    _decode_window_rows).  dilated_conv1d must launch once in every encode,
+    quantized_matmul 211 times in every decode step (and once for the
+    prompt's head); both are held to their plain versions on the path's
+    operands."""
+    from mlx_audio_tpu_torch.nn import kernels, layers
+
+    clip = _clip(8, VOXTRAL_SECONDS)
+    clip2 = _clip(9, 2 * VOXTRAL_SECONDS)
+    encodes, counts, wall = {"n": 0}, {}, {}
+    path_calls, conv_calls, routes = {}, {}, {}
+    undo = _count_calls(model.audio_tower, encodes)
+    qmm = record_qmm_calls(path_calls)
+    convs = record_conv_calls(conv_calls)
+    route_fn = route_recorder(routes)
+    run = path_runner(launches, wall)
+
+    def counted(name, fn):
+        encodes["n"] = 0
+        out = run(name, fn)
+        counts[name] = encodes["n"]
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        one = counted("voxtral_generate", lambda: model.generate(
+            clip, max_tokens=VOXTRAL_TOKENS))
+        two = counted("voxtral_generate_windows", lambda: model.generate(
+            clip2, max_tokens=VOXTRAL_TOKENS))
+    finally:
+        undo()
+        kernels.quantized_matmul = qmm
+        kernels.banded_conv1d, kernels.dilated_conv1d = convs
+        layers.conv1d_route = route_fn
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rows = [s["tokens"] for s in one.segments + two.segments]
+    if len(one.segments) != 1 or len(two.segments) != 2 or any(
+            len(r) != VOXTRAL_TOKENS for r in rows):
+        fail(f"voxtral: windows of {[len(r) for r in rows]} tokens, not 1 and 2 of "
+             f"{VOXTRAL_TOKENS}")
+    want_qmm = 1 + (VOXTRAL_TOKENS - 1) * VOXTRAL_QMM_PER_STEP
+    for name in counts:
+        lc = launches[name]
+        if counts[name] != 1 or lc["dilated_conv1d"] != 1:
+            fail(f"{name}: {lc['dilated_conv1d']} dilated_conv1d launches in "
+                 f"{counts[name]} encodes")
+        if lc["quantized_matmul"] != want_qmm:
+            fail(f"{name}: {lc['quantized_matmul']} quantized_matmul launches, not "
+                 f"{want_qmm} (the prompt's head, then {VOXTRAL_QMM_PER_STEP} a step)")
+        stray = [k for k in WHISPER_KERNEL_STRAYS if lc[k]]
+        if stray:
+            fail(f"{name}: kernels off Voxtral's path launched: {stray}")
+    print_routes("voxtral", routes)
+    path_err = check_qmm_path(path_calls, qmm, "Voxtral")
+    conv_err = check_conv_path(conv_calls, convs, "Voxtral")
+    rtf = wall["voxtral_generate"] / VOXTRAL_SECONDS
+    rtf2 = wall["voxtral_generate_windows"] / (2 * VOXTRAL_SECONDS)
+    print(f"voxtral: generate of {VOXTRAL_SECONDS} s: {VOXTRAL_TOKENS} tokens "
+          f"({len(set(rows[0]))} distinct), real-time factor {rtf:.4f}; of "
+          f"{2 * VOXTRAL_SECONDS} s: 2 windows of {VOXTRAL_TOKENS} tokens "
+          f"({[len(set(r)) for r in rows[1:]]} distinct), real-time factor "
+          f"{rtf2:.4f}; quantized_matmul "
+          f"{VOXTRAL_QMM_PER_STEP} a decode step; peak memory {peak:.2f} GB; wall s: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in wall.items()), flush=True)
+    return {"wall": wall, "qmm_path_err": path_err, "qmm_path_shapes": len(path_calls),
+            "conv_path_err": conv_err, "conv_path_shapes": _per_kernel(conv_calls),
+            "clip": clip, "tokens": rows[0], "real_time_factor": rtf,
+            "real_time_factor_windows": rtf2, "peak_memory_gb": peak}
+
+
+def _voxtral_state(model, mel, ids, extra: int):
+    """The greedy loop's state after the prompt (as _decode_window_rows
+    builds it): caches, pad_len, the spliced embeddings and the prompt's
+    last logits."""
+    import torch.nn.functional as F
+
+    lm = model.language_model
+    dev = model.device
+    t = len(ids)
+    bucket = max(64, -(-t // 64) * 64)
+    padded = F.pad(torch.as_tensor(np.asarray(ids), dtype=torch.int64, device=dev),
+                   (bucket - t, 0))[None]
+    pad_len = torch.full((1,), bucket - t, dtype=torch.int64, device=dev)
+    caches = lm.init_cache(1, max_len=bucket + extra, dtype=model._dtype())
+    embeds = model.merge_input_embeddings(padded, mel[None].to(dev))
+    h, caches = lm.prefill(caches, embeds, pad_len)
+    return caches, pad_len, embeds, model.lm_logits(h[:, -1]).float()
+
+
+def _voxtral_steps(model, caches, pad_len, tokens):
+    """Logits [len(tokens), V] of teacher-forced steps feeding ``tokens``."""
+    lm = model.language_model
+    out = []
+    for t in tokens:
+        emb = lm.embed_tokens(torch.tensor([[int(t)]], device=model.device))
+        h, caches = lm.step(caches, emb, pad_len)
+        out.append(model.lm_logits(h[:, -1]).float())
+    return torch.cat(out) if out else torch.zeros(0)
+
+
+def voxtral_breakdown(model, run: dict) -> dict:
+    """The audio tower and projector's ms a window (CUDA events), decode
+    tokens/s at batch 1 (the greedy loop's steps after the prompt; warm,
+    synced), and a profile of 32 decode steps."""
+    from mlx_audio_tpu_torch.nn import kernels
+
+    mel, ids = model._prepare_inputs(run["clip"])
+    out = {}
+    with torch.no_grad():
+        out["audio_embeds_ms"] = median_ms(lambda: model.get_audio_embeds(mel[None]), 3)
+        kw = dict(temperature=0.0, top_p=0.95, top_k=0, eos_token_ids=(VOXTRAL_EOS,), seed=0)
+        prompt_s = _timed(lambda: model._decode_window_rows(mel[None], ids, max_tokens=1, **kw))
+        full_s = _timed(lambda: model._decode_window_rows(
+            mel[None], ids, max_tokens=VOXTRAL_TOKENS, **kw))
+        out.update(prompt_s=prompt_s, decode_s=full_s - prompt_s,
+                   tokens_per_s=(VOXTRAL_TOKENS - 1) / (full_s - prompt_s))
+        print(f"voxtral breakdown (int8 LM): " + ", ".join(f"{k} {v:.4f}" for k, v in out.items())
+              + f"; on {gpu_line()}", flush=True)
+        caches, pad_len, _, _ = _voxtral_state(model, mel, ids, PROFILE_STEPS + 4)
+        toks = run["tokens"][:PROFILE_STEPS + 2]
+        _voxtral_steps(model, caches, pad_len, toks[:2])  # warm
+        kernels.reset_launches()
+        prof = profile_steps("voxtral", lambda: _voxtral_steps(model, caches, pad_len,
+                                                               toks[2:]))
+    if prof is not None:
+        groups, device_ms = prof.pop("groups"), prof.pop("device_ms")
+        qmm_ms = groups.get("quantized_matmul (this repo)", (0.0, 0))[0]
+        out.update(prof, profile_qmm_share=qmm_ms / device_ms)
+        print(f"voxtral profile: quantized_matmul {kernels.LAUNCHES['quantized_matmul']} "
+              f"calls, {qmm_ms:.3f} ms, {out['profile_qmm_share']:.2%} of device time",
+              flush=True)
+    return out
+
+
+def voxtral_card_against_cpu(model, run: dict) -> dict:
+    """The 30 s clip's window through the card's model and a copy on the
+    CPU, whose int8 LM is dequantized once (the weights quantized_matmul's
+    plain version forms at every call): the audio embeddings spliced into
+    the prompt, and the logits of the prompt and of VOXTRAL_TF_STEPS
+    teacher-forced steps of the greedy tokens, within TOL; the greedy
+    tokens against the CPU's argmax there (equal where its margin exceeds
+    WHISPER_TIE, the near-ties counted)."""
+    import copy
+
+    from mlx_audio_tpu_torch.nn.quantize import dequantize_model
+
+    t0 = time.perf_counter()
+    mel, ids = model._prepare_inputs(run["clip"])
+    toks = run["tokens"][:VOXTRAL_TF_STEPS + 1]
+    cpu = dequantize_model(copy.deepcopy(model).cpu())
+    cpu.device = torch.device("cpu")
+    n_audio = int((np.asarray(ids) == model.audio_token_id).sum())
+    res = {}
+    with torch.no_grad():
+        for name, m in (("card", model), ("cpu", cpu)):
+            caches, pad_len, embeds, first = _voxtral_state(m, mel, ids, len(toks) + 1)
+            pad = int(pad_len[0])
+            res[name] = (embeds[0, pad + 1:pad + 1 + n_audio].cpu(),
+                         torch.cat([first.cpu(), _voxtral_steps(m, caches, pad_len,
+                                                                toks[:-1]).cpu()]))
+    ae, logits = res["card"]
+    ae_c, logits_c = res["cpu"]
+    ties = _tie_check("voxtral greedy tokens", toks, logits_c, WHISPER_TIE)
+    errs = {"audio_embeds": float((ae - ae_c).abs().max()),
+            "logits": float((logits - logits_c).abs().max())}
+    print(f"voxtral card against the CPU ({time.perf_counter() - t0:.1f} s): audio "
+          f"embeddings {tuple(ae.shape)} (max |x| {float(ae_c.abs().max()):.3f}), the "
+          f"prompt's and {VOXTRAL_TF_STEPS} teacher-forced steps' logits "
+          f"{tuple(logits.shape)} (max |logit| {float(logits_c.abs().max()):.3f}): max abs "
+          f"diff {json.dumps(errs)} (atol {TOL['atol']}, rtol {TOL['rtol']}); greedy "
+          f"tokens against the CPU's argmax {json.dumps(ties)}", flush=True)
+    for name, a, b in (("audio embeddings", ae, ae_c), ("logits", logits, logits_c)):
+        if not torch.allclose(a, b, **TOL):
+            fail(f"voxtral: the {name} on the card differ from the CPU's by "
+                 f"{float((a - b).abs().max()):.3e}")
+    del cpu
+    return {"errors": errs, "tokens": ties}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3241,6 +3899,31 @@ def main() -> int:
           f"{json.dumps(spark_tok)}, teacher-forced logits against the CPU "
           f"{spark_err:.3e}", flush=True)
 
+    # phase 10: Whisper-large-v3-turbo (f32) and Voxtral-Mini-3B (int8 LM)
+    whisper, wtok = build_whisper()
+    whisper_run = whisper_runs(whisper, wtok, launches)
+    whisper_cpu = whisper_card_against_cpu(whisper, wtok, whisper_run)
+    whisper_info = whisper_breakdown(whisper, whisper_run)
+    del whisper
+    torch.cuda.empty_cache()
+    voxtral = build_voxtral()
+    voxtral_run = voxtral_runs(voxtral, launches)
+    voxtral_info = voxtral_breakdown(voxtral, voxtral_run)
+    voxtral_cpu = voxtral_card_against_cpu(voxtral, voxtral_run)
+    del voxtral
+    torch.cuda.empty_cache()
+    phase10 = {k: v for k, v in launches.items() if k.startswith(("whisper_", "voxtral_"))}
+    per_voxtral_token = ((launches["voxtral_generate"]["quantized_matmul"] - 1)
+                         / (VOXTRAL_TOKENS - 1))
+    print(f"phase 10 launches: {json.dumps(phase10)}; encodes {json.dumps(whisper_run['encodes'])}"
+          f"; quantized_matmul per Voxtral decode step {per_voxtral_token:.2f}; Whisper "
+          f"{json.dumps(whisper_info)}, generate's real-time factor "
+          f"{whisper_run['real_time_factor']:.4f}, peak {whisper_run['peak_memory_gb']:.2f} GB, "
+          f"against the CPU {json.dumps(whisper_cpu)}; Voxtral {json.dumps(voxtral_info)}, "
+          f"generate's real-time factor {voxtral_run['real_time_factor']:.4f}, peak "
+          f"{voxtral_run['peak_memory_gb']:.2f} GB, against the CPU {json.dumps(voxtral_cpu)}",
+          flush=True)
+
     kernel_line = []
     for name, (source, replaces) in KERNEL_INFO.items():
         cases = records[name]
@@ -3276,6 +3959,9 @@ def main() -> int:
             entry["launches_per_orpheus_token"] = per_token
             entry["launches_per_outetts_token"] = per_outetts_token
             entry["launches_per_spark_token"] = per_spark_token
+            entry["max_abs_err"] = max(entry["max_abs_err"], voxtral_run["qmm_path_err"])
+            entry["path_shapes"] += voxtral_run["qmm_path_shapes"]
+            entry["launches_per_voxtral_token"] = per_voxtral_token
         if name == "lstm":
             entry["max_abs_err"] = max(entry["max_abs_err"], encodec_run["lstm_path_err"],
                                        bark_run["lstm_path_err"])
@@ -3304,6 +3990,16 @@ def main() -> int:
             entry["max_abs_err"] = max(entry["max_abs_err"], spark_run["conv_path_err"][name])
             entry["path_shapes"] += spark_run["conv_path_shapes"][name]
             entry["launches_per_spark_detokenize"] = per_spark_detok[name]
+            if name == "dilated_conv1d":
+                entry["max_abs_err"] = max(entry["max_abs_err"],
+                                           whisper_run["conv_path_err"][name],
+                                           voxtral_run["conv_path_err"][name])
+                entry["path_shapes"] += (whisper_run["conv_path_shapes"][name]
+                                         + voxtral_run["conv_path_shapes"][name])
+                entry["launches_per_whisper_encode"] = (
+                    launches["whisper_decode_batch"][name]
+                    / whisper_run["encodes"]["whisper_decode_batch"])
+                entry["launches_per_voxtral_encode"] = launches["voxtral_generate"][name]
         kernel_line.append(entry)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

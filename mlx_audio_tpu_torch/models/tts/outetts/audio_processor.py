@@ -7,9 +7,11 @@ by default the 24 kHz speech codec at 2 codebooks of 1024, built on the
 model's device.  Loudness normalization uses RMS-based gain toward the
 target (ITU-R BS.1770 gating is approximated by energy-weighted RMS).
 
-Not ported yet, and raising ``NotImplementedError`` instead: a speaker from
-Whisper word timestamps (the port has no Whisper yet) and reading audio
-from a file path (the port has no ``utils/audio_io`` yet).
+A speaker from reference audio takes the word timestamps of a Whisper
+model the caller passes (``create_speaker_from_whisper``).  Not ported yet,
+and raising ``NotImplementedError`` instead: loading the default Whisper
+when none is passed, and reading audio from a file path (the port has no
+``utils/loader`` or ``utils/audio_io`` yet).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from mlx_audio_tpu_torch.codec.dac import DAC, DACConfig
+from mlx_audio_tpu_torch.models.tts.outetts.prompt_processor import normalize_text
 
 
 def calculate_pitch(audio: np.ndarray, sr: int, min_freq: float = 75.0,
@@ -63,6 +66,17 @@ def extract_single_pitch_value(audio: np.ndarray, sr: int, min_freq=75.0,
     pitch = calculate_pitch(audio, sr, min_freq, max_freq, **kw)
     avg = float(pitch.mean()) if pitch.size else 0.0
     return min(max((avg - min_freq) / (max_freq - min_freq), 0.0), 1.0)
+
+
+def resample_audio(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
+    """Polyphase resampling (a copy of ``mlx_audio_tpu/utils/audio_io.py``'s)."""
+    from scipy.signal import resample_poly
+
+    if orig_sr == target_sr:
+        return audio
+    gcd = np.gcd(int(orig_sr), int(target_sr))
+    return resample_poly(audio, target_sr // gcd, orig_sr // gcd,
+                         padtype="edge").astype(np.float32)
 
 
 def process_audio_array(audio: np.ndarray, sample_rate: int = 24000,
@@ -152,11 +166,33 @@ class AudioProcessor:
         self.audio_codec = DacInterface(dac_model, device, seed)
 
     def create_speaker_from_whisper(self, audio, whisper_model=None):
-        raise NotImplementedError(
-            "a speaker from reference audio needs Whisper's word timestamps, "
-            "which the port does not have yet (ROADMAP queue 1 item 5); pass "
-            "a speaker file as voice=, or build one with "
-            "create_speaker_from_dict")
+        """A speaker profile from ``whisper_model``'s word timestamps on
+        ``audio`` (24 kHz samples); ``whisper_model`` is a
+        ``models.stt.whisper.Model``, or anything whose
+        ``generate(audio_16khz, word_timestamps=True)`` returns text and
+        segments with words."""
+        if isinstance(audio, str):
+            audio = self.audio_codec.load_audio(audio)
+        if whisper_model is None:
+            raise NotImplementedError(
+                "a speaker from reference audio needs a Whisper model: pass "
+                "whisper_model= (models.stt.whisper.Model, built or loaded from "
+                "a local directory); loading the default whisper-large-v3-turbo "
+                "needs utils/loader, which the port does not have yet (ROADMAP "
+                "queue 1 item 11)")
+        audio = process_audio_array(np.asarray(audio), self.audio_codec.sr)
+        wav16 = resample_audio(audio.reshape(-1), self.audio_codec.sr, 16000)
+        data = whisper_model.generate(wav16, word_timestamps=True)
+        words = []
+        for s in data.segments or []:
+            words.extend(
+                {"word": w["word"].strip(), "start": float(w["start"]),
+                 "end": float(w["end"])}
+                for w in s.get("words", [])
+            )
+        return self.create_speaker_from_dict(
+            {"audio": {"bytes": audio}, "text": normalize_text(data.text),
+             "words": words})
 
     def create_speaker_from_dict(self, data: dict) -> dict:
         audio = np.asarray(data["audio"]["bytes"])

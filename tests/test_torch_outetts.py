@@ -319,12 +319,55 @@ def test_sampled_batch_of_one_equals_single_and_seed_repeats(pair, monkeypatch):
     np.testing.assert_array_equal(one[0].audio, a[0].audio)
 
 
-def test_whisper_speaker_and_audio_path_raise(pair):
+class _GreedyWhisper:
+    """A Whisper model whose generate decodes greedily over ASCII letters and
+    spaces (a sampled fallback draws from each package's own PRNG, and the
+    tiny vocabulary's other bytes decode to no words)."""
+
+    SUPPRESS = [i for i in range(256) if not ((i < 128 and chr(i).isalpha()) or i == 32)]
+
+    def __init__(self, model):
+        self.model = model
+
+    def generate(self, audio, **kw):
+        return self.model.generate(audio, temperature=0.0, suppress_tokens=self.SUPPRESS, **kw)
+
+
+def test_whisper_speaker_matches_jax(pair, monkeypatch):
+    """create_speaker_from_whisper with a given tiny Whisper (the twins' of
+    tests/test_torch_whisper.py): the words, their timings and codes, and
+    the whole speaker dict equal the JAX package's."""
+    import test_torch_whisper as tw
+    from test_whisper import tiny_dims, tiny_encoding
+
+    from mlx_audio_tpu.models.stt.whisper.tokenizer import Tokenizer as JaxTokenizer
+    from mlx_audio_tpu_torch.models.stt.whisper.tokenizer import Tokenizer
+
+    enc = tiny_encoding()
+    kw = dict(num_languages=4, language="en", task="transcribe")
+    jt, pt = JaxTokenizer(encoding=enc, **kw), Tokenizer(encoding=enc, **kw)
+    monkeypatch.setattr(tw.jtr.Model, "_tokenizer", lambda self, language=None, task=None: jt)
+    monkeypatch.setattr(tw.transcribe.Model, "_tokenizer",
+                        lambda self, language=None, task=None: pt)
+    jw, pw = tw.pair_of(tiny_dims(jt), tw.jtr.Model, tw.transcribe.Model)
+    jm, tm = pair
+    audio = (np.random.default_rng(7).standard_normal(24000) * 0.1).astype(np.float32)
+    want = jm.audio_processor.create_speaker_from_whisper(audio, _GreedyWhisper(jw))
+    got = tm.audio_processor.create_speaker_from_whisper(audio, _GreedyWhisper(pw))
+    assert got == want
+    assert [w["word"] for w in got["words"]] and all(w["c1"] for w in got["words"])
+
+
+def test_speaker_from_audio_path_or_without_whisper_raises(pair):
+    """Reading a file and loading the default Whisper need utils/audio_io and
+    utils/loader, which the port does not have yet."""
     tm = pair[1]
-    with pytest.raises(NotImplementedError, match="Whisper"):
+    with pytest.raises(NotImplementedError, match="Whisper model.*queue 1 item 11"):
         next(tm.generate("hi", ref_audio=np.zeros(24000, np.float32)))
     with pytest.raises(NotImplementedError, match="audio_io"):
         tm.audio_processor.audio_codec.load_audio("speech.wav")
+    with pytest.raises(NotImplementedError, match="audio_io"):
+        tm.audio_processor.create_speaker_from_whisper("speech.wav", object())
 
 
 def test_speaker_file_round_trip(pair, tmp_path):
