@@ -3,8 +3,9 @@
 Kokoro-82M synthesis, CSM-1B speech through int8 decode (whole and
 streamed), Orpheus-3B, OuteTTS-1B and Spark-TTS-0.5B through int8 decode,
 Dia-1.6B, Bark, the DAC-44kHz and EnCodec-24kHz codecs, the Vocos vocoder,
-Whisper-large-v3-turbo and Voxtral-Mini-3B speech to text, the
-depth-draft probes, and check its hand-written CUDA kernels.
+Whisper-large-v3-turbo, Voxtral-Mini-3B and Parakeet-TDT-0.6B-v2 speech
+to text, the BigVGAN-v2 vocoder, the depth-draft probes, and check its
+hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -158,19 +159,44 @@ Phases; the failure of any one ends the script with a non-zero exit:
    audio embeddings, the logits of the prompt and of 8 teacher-forced
    steps held to the CPU's, the tokens to its argmax; tokens/s, the
    real-time factor, peak memory, a profile of 32 decode steps;
-11. print one ``{"kernels": [...]}`` line, then the device line last.
+11. Parakeet-TDT-0.6B-v2 at the published widths (128 mels; a 24-layer
+   FastConformer, d_model 1024, 8 heads, ff 4096, conv kernel 9,
+   subsampling by 8 with 256 channels; a 2-layer 640-wide prediction net
+   over 1024 pieces and the blank; a 640-wide joint with 5 TDT durations;
+   f32, seeded random weights, the joint's blank row at 0 so that every
+   label step emits): ``generate`` of a seeded 60 s clip read from a wav
+   file the phase writes with the port's ``save_audio`` (30 s chunks, 15 s
+   overlap: three full chunks in one batched encoder pass, the tail alone),
+   ``decode`` of one 30 s window at batch 1 and 4, and a CTC head on the
+   same encoder (``decode`` of one window); none of this repository's
+   kernels may launch and every conv must take the library route; the
+   log-mel, encoder output, 8 teacher-forced joint steps and the CTC
+   log-probs held to the same weights on the CPU, every label and
+   duration of the window's decode to the CPU's choice (equal where its
+   margin exceeds 1e-5); encoder ms a window, the label loop's steps/s,
+   the real-time factor, peak memory, a profile of one decode.  Then
+   BigVGAN-v2-24kHz-100band (the published config, f32, seeded random
+   weights): a 10 s mel (938 frames) at batch 1 and 2; ``dilated_conv1d``
+   must launch 26 times and ``banded_conv1d`` 10 times a forward (the
+   768- and 384-channel resblocks), no other kernel ever, each held to its
+   plain version on the path's operands; the audio held to the CPU's; ms a
+   forward, the real-time factor, peak memory, a profile of one forward;
+12. print one ``{"kernels": [...]}`` line, then the device line last.
 
 Phase 2 holds ``quantized_matmul`` at Orpheus-3B's, OuteTTS-1B's,
 Spark-TTS-0.5B's and Voxtral-Mini-3B's shapes too (int8, groups of 64, 1
 and 4 rows), and the conv kernels at DAC-44kHz's, DAC-24kHz's and
-BiCodec's routed resblock shapes (K=7, d = 1, 3, 9) and at Whisper's conv1
-(batch 1 and 4).  Launch counters are set to 0 just before each run of
-the probes' entry point and of phases 3 to 10, and read just after:
+BiCodec's routed resblock shapes (K=7, d = 1, 3, 9), at Whisper's conv1
+(batch 1 and 4), and at BigVGAN-v2's resblocks ([1, 3752, 768] and [1,
+15008, 384], K = 3, 7, 11 at d = 1, 3, 5).  Launch counters are set to 0
+just before each run of the probes' entry point and of phases 3 to 11, and
+read just after:
 each kernel of a run's path must have launched in it (Orpheus:
 ``quantized_matmul``; DAC's encode and decode: both conv kernels; OuteTTS
 and Spark: all three; Dia's DAC decode: both conv kernels; EnCodec's encode
 and decode and Bark's EnCodec decode: ``lstm``; Whisper's and Voxtral's
-encodes: ``dilated_conv1d``; Voxtral's decode steps: ``quantized_matmul``),
+encodes: ``dilated_conv1d``; Voxtral's decode steps: ``quantized_matmul``;
+BigVGAN's forwards: both conv kernels; Parakeet's runs: none),
 Kokoro's ``lstm`` launches only on the cluster route, EnCodec's and Bark's
 only on the row route.
 Needs
@@ -410,6 +436,11 @@ DIA_RESBLOCKS = ((384, 11008),)
 # 768 at 8 a token is under 2048 rows, C = 192 and 96 are no multiples of
 # 128: the library)
 SPARK_RESBLOCKS = ((384, 6000),)
+# (C, L) of BigVGAN-v2-24kHz's resblocks on a 10 s mel (938 frames) whose
+# width is a multiple of 128: 768 channels at 4 samples a frame, 384 at 16
+# (its K = 3, 7, 11 at d = 1, 3, 5 each; phase 11 holds the kernels to their
+# plain versions on every operand its forwards give them)
+BIGVGAN_RESBLOCKS = ((768, 3752), (384, 15008))
 # (B, L, C, Cout) of Whisper-large-v3-turbo's and Voxtral's conv1 (K = 3,
 # 'same'; 128 mels into 1280) in phase 10: one 30 s window, and a batch of 4
 WHISPER_STEMS = ((1, 3000, 128, 1280), (4, 3000, 128, 1280))
@@ -440,6 +471,12 @@ def _conv_cases(gen):
             if route != "library":
                 name = "dilated_conv1d" if route == "shifted" else "banded_conv1d"
                 cases.append((name, (1, l, c, c), 7, d, f" ({codec})"))
+    for (c, l), k, d in itertools.product(BIGVGAN_RESBLOCKS, (3, 7, 11), (1, 3, 5)):
+        route = conv1d_route(k, c, c, l, d, padding=(k - 1) * d // 2)
+        if route == "library":
+            fail(f"BigVGAN's resblock conv [1, {l}, {c}] K={k} d={d} takes no kernel")
+        name = "dilated_conv1d" if route == "shifted" else "banded_conv1d"
+        cases.append((name, (1, l, c, c), k, d, " (BigVGAN-v2)"))
     for b, l, c, c_out in WHISPER_STEMS:
         if conv1d_route(3, c, c_out, l, padding=1) != "shifted":
             fail(f"Whisper's conv1 [{b}, {l}, {c}] -> {c_out} does not take dilated_conv1d")
@@ -3736,6 +3773,420 @@ def voxtral_card_against_cpu(model, run: dict) -> dict:
     return {"errors": errs, "tokens": ties}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: Parakeet-TDT-0.6B-v2 and BigVGAN-v2-24kHz-100band
+# ---------------------------------------------------------------------------
+
+PARAKEET_VOCAB = 1024  # SentencePiece pieces; the blank follows at 1024
+PARAKEET_DURATIONS = [0, 1, 2, 3, 4]
+PARAKEET_SECONDS = 60.0  # the generate clip: 3 full 30 s chunks in one batch, the tail alone
+PARAKEET_CHUNK = 30.0
+PARAKEET_OVERLAP = 15.0
+PARAKEET_BATCH = 4  # windows a batched decode
+PARAKEET_TF_LABELS = 8  # teacher-forced labels held against the CPU, to TOL
+PARAKEET_KERNEL_STRAYS = ("lstm", "dilated_conv1d", "banded_conv1d", "quantized_matmul",
+                          "depth_draft")
+BIGVGAN_FRAMES = 938  # a 10 s mel at 24 kHz, hop 256
+BIGVGAN_SECONDS = BIGVGAN_FRAMES * 256 / 24_000
+# launches of each conv kernel a BigVGAN-v2 forward at 938 frames, by
+# conv1d_route: 18 + 8 dilated, 10 banded (stages of 768 and 384 channels)
+BIGVGAN_ROUTED = {"dilated_conv1d": 26, "banded_conv1d": 10}
+BIGVGAN_KERNEL_STRAYS = ("lstm", "quantized_matmul", "depth_draft")
+BIGVGAN_POST_SCALE = 100.0  # build_bigvgan's scale of the last conv
+
+
+def parakeet_config() -> dict:
+    """nvidia/parakeet-tdt-0.6b-v2's NeMo config at its published widths:
+    the 128-mel frontend, a 24-layer FastConformer (d_model 1024, 8 heads,
+    ff 4096, conv kernel 9, relative positions, depthwise-striding
+    subsampling by 8 with 256 channels), a 2-layer 640-wide prediction net
+    over 1024 pieces and the blank, a 640-wide ReLU joint with 5 TDT
+    durations.  Other fields take ConformerArgs's defaults; the pieces are
+    stubs ("▁w<id>")."""
+    vocab = [f"▁w{i}" for i in range(PARAKEET_VOCAB)]
+    return {
+        "target": "nemo.collections.asr.models.rnnt_bpe_models.EncDecRNNTBPEModel",
+        "model_defaults": {"tdt_durations": PARAKEET_DURATIONS},
+        "preprocessor": {"sample_rate": 16000, "normalize": "per_feature",
+                         "window_size": 0.025, "window_stride": 0.01, "window": "hann",
+                         "features": 128, "n_fft": 512, "dither": 0.0},
+        "encoder": {"feat_in": 128, "n_layers": 24, "d_model": 1024, "n_heads": 8,
+                    "ff_expansion_factor": 4, "subsampling_factor": 8,
+                    "self_attention_model": "rel_pos", "subsampling": "dw_striding",
+                    "conv_kernel_size": 9, "subsampling_conv_channels": 256,
+                    "pos_emb_max_len": 5000},
+        "decoder": {"blank_as_pad": True, "vocab_size": PARAKEET_VOCAB,
+                    "prednet": {"pred_hidden": 640, "pred_rnn_layers": 2}},
+        "joint": {"num_classes": PARAKEET_VOCAB, "vocabulary": vocab,
+                  "jointnet": {"joint_hidden": 640, "activation": "relu",
+                               "encoder_hidden": 1024, "pred_hidden": 640},
+                  "num_extra_outputs": len(PARAKEET_DURATIONS)},
+        "decoding": {"model_type": "tdt", "durations": PARAKEET_DURATIONS},
+    }
+
+
+def bigvgan_config() -> dict:
+    """nvidia/bigvgan_v2_24khz_100band_256x's config.json (its model fields)."""
+    return dict(num_mels=100, upsample_rates=[4, 4, 2, 2, 2, 2],
+                upsample_kernel_sizes=[8, 8, 4, 4, 4, 4], upsample_initial_channel=1536,
+                resblock="1", resblock_kernel_sizes=[3, 7, 11],
+                resblock_dilation_sizes=[[1, 3, 5], [1, 3, 5], [1, 3, 5]],
+                activation="snakebeta", snake_logscale=True, use_tanh_at_final=False,
+                use_bias_at_final=False)
+
+
+def build_parakeet():
+    """Parakeet-TDT-0.6B-v2 with seeded random weights on the card, f32,
+    and a CTC head on the same encoder widths and weights.  The joint's row
+    of the blank is 0, so the blank's logit is 0 while the largest of the
+    1024 labels' random logits is above it: every label-loop step emits a
+    label, and every chunk emits labels.  (At random weights the encoder's
+    output barely changes from frame to frame, and a few labels win every
+    step.)"""
+    from mlx_audio_tpu_torch.models.stt.parakeet import Model, ParakeetCTC
+    from mlx_audio_tpu_torch.models.stt.parakeet.ctc import ConvASRDecoderArgs
+
+    t0 = time.perf_counter()
+    cfg = parakeet_config()
+    model = Model(cfg, device="cuda", seed=0)
+    with torch.no_grad():
+        model.joint.joint.weight[PARAKEET_VOCAB] = 0
+        model.joint.joint.bias[PARAKEET_VOCAB] = 0
+    ctc = ParakeetCTC(model.preprocessor_config, model.encoder_config,
+                      ConvASRDecoderArgs(feat_in=model.encoder_config.d_model, num_classes=-1,
+                                         vocabulary=model.vocabulary),
+                      device="cuda", seed=1)
+    ctc.encoder = model.encoder
+    torch.cuda.empty_cache()
+    nbytes = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+    shown = {k: v for k, v in cfg.items() if k != "joint"}
+    shown["joint"] = {k: v for k, v in cfg["joint"].items() if k != "vocabulary"}
+    print(f"Parakeet-TDT-0.6B-v2 built (f32, {nbytes / 1e9:.3f} GB, with a CTC head "
+          f"sharing its encoder) in {time.perf_counter() - t0:.1f} s; config "
+          f"{json.dumps(shown)}; encoder {model.encoder_config}; max_symbols "
+          f"{model.max_symbols}", flush=True)
+    return model, ctc
+
+
+def _record_loops(stats: list):
+    """Route parakeet's transducer_greedy_loop through a recorder appending
+    (rows, steps, labels emitted) of each call to stats; returns the undo."""
+    from mlx_audio_tpu_torch.models.stt.parakeet import parakeet as pk
+
+    loop = pk.transducer_greedy_loop
+
+    def recording(model, features, *a, **k):
+        out = loop(model, features, *a, **k)
+        stats.append((features.shape[0], out[4], int(out[3].sum())))
+        return out
+
+    pk.transducer_greedy_loop = recording
+    return lambda: setattr(pk, "transducer_greedy_loop", loop)
+
+
+def _labels(result) -> list:
+    return [(t.id, t.start, t.duration) for s in result.sentences for t in s.tokens]
+
+
+def parakeet_runs(model, ctc, launches: dict) -> dict:
+    """The entry points: generate of a seeded 60 s clip read from a wav file
+    the phase writes with the port's save_audio (30 s chunks with 15 s of
+    overlap: three full chunks in one batched encoder pass and label loop,
+    the 15 s tail alone), decode of one 30 s window at batch 1 and of 4
+    windows, and the CTC head's decode of one window.  None of this
+    repository's kernels may launch (the convs are pointwise and
+    depthwise; the prediction net steps by matmuls)."""
+    from mlx_audio_tpu_torch.models.stt.parakeet.audio import log_mel_spectrogram
+    from mlx_audio_tpu_torch.nn import layers
+    from mlx_audio_tpu_torch.utils.audio_io import load_audio, save_audio
+
+    pre = model.preprocessor_config
+    wall, routes, loops = {}, {}, []
+    run = path_runner(launches, wall)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "clip.wav")
+        save_audio(path, _clip(10, PARAKEET_SECONDS), pre.sample_rate)
+        clip = load_audio(path, pre.sample_rate)
+        windows = _clip(11, PARAKEET_CHUNK * PARAKEET_BATCH)
+        n = int(PARAKEET_CHUNK * pre.sample_rate)
+        mel4 = torch.cat([log_mel_spectrogram(windows[i * n:(i + 1) * n], pre, device="cuda")
+                          for i in range(PARAKEET_BATCH)])
+        undo = _record_loops(loops)
+        route_fn = route_recorder(routes)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            out = run("parakeet_generate", lambda: model.generate(
+                path, chunk_duration=PARAKEET_CHUNK, overlap_duration=PARAKEET_OVERLAP))
+            one = run("parakeet_decode", lambda: model.decode(mel4[:1]))
+            four = run("parakeet_decode_batch", lambda: model.decode(mel4))
+            ctc_one = run("parakeet_ctc_decode", lambda: ctc.decode(mel4[:1]))
+        finally:
+            undo()
+            layers.conv1d_route = route_fn
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if [b for b, _, _ in loops] != [3, 1, 1, PARAKEET_BATCH]:
+        fail(f"parakeet: label loops of {[b for b, _, _ in loops]} rows, not 3 full chunks "
+             f"and the tail, then 1 and {PARAKEET_BATCH} windows")
+    if any(labels < rows for rows, _, labels in loops):
+        fail(f"parakeet: a chunk emitted no labels: (rows, steps, labels) {loops}")
+    if _labels(four[0]) != _labels(one[0]):
+        fail("parakeet: window 0 of the batch of 4 decodes other labels than alone")
+    words = len(_labels(out))
+    for name in ("parakeet_generate", "parakeet_decode", "parakeet_decode_batch",
+                 "parakeet_ctc_decode"):
+        stray = [k for k in PARAKEET_KERNEL_STRAYS if launches[name][k]]
+        if stray:
+            fail(f"{name}: kernels launched on Parakeet's path, which takes none: {stray}")
+    if any(r != "library" for r, *_ in routes):
+        fail(f"parakeet: a conv took a kernel's route: {sorted(routes)}")
+    print_routes("parakeet", routes)
+    rtf = wall["parakeet_generate"] / PARAKEET_SECONDS
+    print(f"parakeet: generate of {PARAKEET_SECONDS} s from a wav file ({len(clip)} samples): "
+          f"{words} labels after the merges ({len({t for t, _, _ in _labels(out)})} "
+          f"distinct), text {out.text[:60]!r}...; label loops "
+          f"(rows, steps, labels) {loops}; decode of one window {len(_labels(one[0]))} "
+          f"labels, of {PARAKEET_BATCH} {[len(_labels(r)) for r in four]}; CTC decode "
+          f"{len(_labels(ctc_one[0]))} labels; real-time factor {rtf:.4f} (generate's wall "
+          f"time over the audio's length); peak memory {peak:.2f} GB; wall s: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in wall.items()) + f"; on {gpu_line()}",
+          flush=True)
+    return {"wall": wall, "mel4": mel4, "labels": _labels(one[0]), "loops": loops,
+            "real_time_factor": rtf, "peak_memory_gb": peak}
+
+
+def _parakeet_tf(model, feats, labels, scale: float, n=None):
+    """Teacher-forced joint logits [n, classes] (on the CPU) of one row:
+    label i's step at the frame of its start time, the prediction net fed
+    the labels before it (every step of the phase's loop emits)."""
+    dev = feats.device
+    state = model.decoder.init_state(1, feats.dtype, dev)
+    last, out = PARAKEET_VOCAB, []  # the blank start feeds the zero vector
+    with torch.no_grad():
+        for tok, start, _ in labels[:n]:
+            frame = int(round(start / scale))
+            dec, state2 = model.decoder.step(torch.tensor([last], device=dev), state,
+                                             torch.tensor([last != PARAKEET_VOCAB], device=dev))
+            out.append(model.joint(feats[:, frame], dec).float().cpu())
+            last, state = tok, state2
+    return torch.cat(out)
+
+
+def parakeet_card_against_cpu(model, ctc, run: dict) -> dict:
+    """Through the same weights on the card and the CPU, on the first 30 s
+    window: the log-mel, the encoder output, the joint's logits over
+    PARAKEET_TF_LABELS teacher-forced labels and the CTC log-probs (within
+    TOL); then every label of the card's decode of that window against the
+    CPU's choice at its step, label and duration (equal where the CPU's
+    winner beats its runner-up by more than WHISPER_TIE)."""
+    from mlx_audio_tpu_torch.models.stt.parakeet import Model
+    from mlx_audio_tpu_torch.models.stt.parakeet.audio import log_mel_spectrogram
+
+    t0 = time.perf_counter()
+    cpu = Model(parakeet_config(), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    w_ctc = ctc.decoder.decoder_layers[0]
+    pre = model.preprocessor_config
+    audio = _clip(11, PARAKEET_CHUNK)
+    scale = model._time_scale()
+    labels = run["labels"]
+    with torch.no_grad():
+        mel = log_mel_spectrogram(audio, pre, device="cuda")
+        mel_c = log_mel_spectrogram(audio, pre)
+        feats, _ = model.encoder(mel)
+        feats_c, _ = cpu.encoder(mel.cpu())
+        logp = ctc.decoder(feats).cpu()
+        logp_c = torch.log_softmax(torch.nn.functional.conv1d(
+            feats_c.transpose(1, 2), w_ctc.weight.cpu(), w_ctc.bias.cpu()).transpose(1, 2), -1)
+    card_tf = _parakeet_tf(model, feats, labels, scale, PARAKEET_TF_LABELS)
+    cpu_all = _parakeet_tf(cpu, feats_c, labels, scale)
+    v = PARAKEET_VOCAB
+    tok_ties = _tie_check("parakeet labels", [t for t, _, _ in labels], cpu_all[:, :v + 1],
+                          WHISPER_TIE)
+    durs = [PARAKEET_DURATIONS.index(int(round(d / scale))) for _, _, d in labels]
+    dur_ties = _tie_check("parakeet durations", durs, cpu_all[:, v + 1:], WHISPER_TIE)
+    errs = {"log_mel": float((mel.cpu() - mel_c).abs().max()),
+            "encoder": float((feats.cpu() - feats_c).abs().max()),
+            "joint_logits": float((card_tf - cpu_all[:PARAKEET_TF_LABELS]).abs().max()),
+            "ctc_log_probs": float((logp - logp_c).abs().max())}
+    print(f"parakeet card against the CPU ({time.perf_counter() - t0:.1f} s): log-mel "
+          f"{tuple(mel.shape)}, encoder output {tuple(feats.shape)} (max |x| "
+          f"{float(feats_c.abs().max()):.3f}), joint logits of {PARAKEET_TF_LABELS} "
+          f"teacher-forced labels (max |logit| {float(cpu_all.abs().max()):.3f}), CTC "
+          f"log-probs {tuple(logp.shape)}: max abs diff {json.dumps(errs)} (atol "
+          f"{TOL['atol']}, rtol {TOL['rtol']}); the window's {len(labels)} labels against "
+          f"the CPU's choice {json.dumps(tok_ties)}, their durations {json.dumps(dur_ties)}",
+          flush=True)
+    for name, a, b in (("log-mel", mel.cpu(), mel_c), ("encoder output", feats.cpu(), feats_c),
+                       ("joint logits", card_tf, cpu_all[:PARAKEET_TF_LABELS]),
+                       ("CTC log-probs", logp, logp_c)):
+        if not torch.allclose(a, b, **TOL):
+            fail(f"parakeet: the {name} on the card differ from the CPU's by "
+                 f"{float((a - b).abs().max()):.3e}")
+    del cpu
+    return {"errors": errs, "labels": tok_ties, "durations": dur_ties}
+
+
+def profile_call(label: str, fn) -> dict:
+    """One call of ``fn`` under torch.profiler: device time by KERNEL_GROUPS
+    group, the top kernels, and the device's idle share between the first
+    and the last kernel.  {} when no device time was recorded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, window, by_name = device_time(prof)
+    if not by_name:
+        print(f"{label} profile: the profiler recorded no device time (not measured)")
+        return {}
+    groups = kernel_groups(by_name, KERNEL_GROUPS)
+    device_ms = sum(ms for ms, _ in by_name.values())
+    n = sum(k for _, k in by_name.values())
+    print(f"{label} profile: wall {1e3 * wall:.1f} ms, device busy {busy / 1e3:.1f} ms of a "
+          f"{window / 1e3:.1f} ms kernel window (idle share {1 - busy / window:.4f}), {n} "
+          f"kernels; on {gpu_line()}")
+    for group, (ms, k) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {group:28s} {ms:10.3f} ms  {ms / device_ms:7.2%}  {k:6d} launches")
+    for name, (ms, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"  {ms:10.3f} ms {k:6d}x  {name[:90]}")
+    return {"profile_idle_share": 1 - busy / window, "profile_wall_ms": 1e3 * wall,
+            "profile_device_busy_ms": busy / 1e3, "profile_kernels": n,
+            "profile_groups_ms": {g: round(ms, 3) for g, (ms, _) in groups.items()}}
+
+
+def parakeet_breakdown(model, run: dict) -> dict:
+    """Encoder ms a 30 s window at batch 1 and 4 (CUDA events); the label
+    loop's steps/s at batch 1 from precomputed encoder features (warm,
+    synced); a profile of one decode of a window."""
+    from mlx_audio_tpu_torch.models.stt.parakeet import transducer_greedy_loop
+
+    mel4 = run["mel4"]
+    out = {}
+    with torch.no_grad():
+        out["encoder_ms_batch1"] = median_ms(lambda: model.encoder(mel4[:1]), 3)
+        out["encoder_ms_batch4"] = median_ms(lambda: model.encoder(mel4), 3)
+        feats, lengths = model.encoder(mel4[:1])
+        kw = dict(vocab_size=PARAKEET_VOCAB, max_symbols=int(model.max_symbols),
+                  max_out=(int(model.max_symbols) + 1) * int(lengths.max()), tdt=True)
+        steps = {}
+
+        def loop():
+            steps["n"] = transducer_greedy_loop(model, feats, lengths, PARAKEET_DURATIONS,
+                                                **kw)[4]
+
+        loop_s = _timed(loop)
+        out.update(loop_steps=steps["n"], loop_s=loop_s, loop_steps_per_s=steps["n"] / loop_s)
+        print(f"parakeet breakdown (f32): " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in out.items())
+            + f"; on {gpu_line()}", flush=True)
+        out.update(profile_call("parakeet decode of one window", lambda: model.decode(mel4[:1])))
+    return out
+
+
+def build_bigvgan():
+    """BigVGAN-v2-24kHz-100band at the published config with seeded random
+    weights on the card, f32; conv_post's weight_g at BIGVGAN_POST_SCALE
+    times the init's (the audio is otherwise about 5e-3 at most, under the
+    tolerance it is held to)."""
+    from mlx_audio_tpu_torch.codec.bigvgan import BigVGAN
+
+    t0 = time.perf_counter()
+    model = BigVGAN(bigvgan_config(), device="cuda", seed=0)
+    with torch.no_grad():
+        model.conv_post.weight_g.mul_(BIGVGAN_POST_SCALE)
+    nbytes = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+    print(f"BigVGAN-v2-24kHz-100band built (f32, {nbytes / 1e9:.3f} GB) in "
+          f"{time.perf_counter() - t0:.1f} s; config {json.dumps(bigvgan_config())} "
+          f"(use_tanh_at_final {model.config.use_tanh_at_final}, use_bias_at_final "
+          f"{model.config.use_bias_at_final})", flush=True)
+    return model
+
+
+def bigvgan_runs(model, launches: dict) -> dict:
+    """Forwards of a seeded 10 s mel (938 frames) at batch 1 and 2: each must
+    launch dilated_conv1d 26 times and banded_conv1d 10 times (the route
+    recorder confirms the routes) and no other kernel; each launched conv
+    is held to its plain version on the path's own operands; the audio is
+    finite, in [-1, 1], and row 0 of the batch equals the batch-1 run."""
+    from mlx_audio_tpu_torch.nn import kernels, layers
+
+    mel = torch.as_tensor(np.random.default_rng(12).standard_normal(
+        (2, 100, BIGVGAN_FRAMES)), dtype=torch.float32)
+    wall, routes, conv_calls = {}, {}, {}
+    run = path_runner(launches, wall)
+    convs = record_conv_calls(conv_calls)
+    route_fn = route_recorder(routes)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        one = run("bigvgan_forward", lambda: model(mel[:1]))
+        two = run("bigvgan_forward_batch2", lambda: model(mel))
+    finally:
+        kernels.banded_conv1d, kernels.dilated_conv1d = convs
+        layers.conv1d_route = route_fn
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    samples = BIGVGAN_FRAMES * int(np.prod(model.config.upsample_rates))
+    for y, b in ((one, 1), (two, 2)):
+        if y.shape != (b, samples, 1) or not bool(torch.isfinite(y).all()) or float(
+                y.abs().max()) > 1.0:
+            fail(f"bigvgan: audio {tuple(y.shape)}, max |y| {float(y.abs().max())}")
+    row_err = float((two[:1] - one).abs().max())
+    if not torch.allclose(two[:1], one, **TOL):
+        fail(f"bigvgan: row 0 of the batch of 2 differs from the batch-1 run by {row_err:.3e}")
+    for name in ("bigvgan_forward", "bigvgan_forward_batch2"):
+        lc = launches[name]
+        got = {k: lc[k] for k in BIGVGAN_ROUTED}
+        if got != BIGVGAN_ROUTED:
+            fail(f"{name}: conv kernel launches {got}, not {BIGVGAN_ROUTED}")
+        stray = [k for k in BIGVGAN_KERNEL_STRAYS if lc[k]]
+        if stray:
+            fail(f"{name}: kernels off BigVGAN's path launched: {stray}")
+    print_routes("bigvgan", routes)
+    conv_err = check_conv_path(conv_calls, convs, "BigVGAN")
+    print(f"bigvgan: forward of {BIGVGAN_FRAMES} mel frames ({BIGVGAN_SECONDS:.4f} s of "
+          f"24 kHz audio) at batch 1 and 2: audio {tuple(two.shape)}, max |y| "
+          f"{float(two.abs().max()):.4f}, row 0 against batch 1 {row_err:.3e}; peak memory "
+          f"{peak:.2f} GB; wall s: " + ", ".join(f"{k} {v:.4f}" for k, v in wall.items())
+          + f"; on {gpu_line()}", flush=True)
+    return {"wall": wall, "mel": mel, "audio": one, "conv_path_err": conv_err,
+            "conv_path_shapes": _per_kernel(conv_calls), "peak_memory_gb": peak}
+
+
+def bigvgan_breakdown(model, run: dict) -> dict:
+    """ms a forward at batch 1 and 2 (CUDA events), the real-time factor, a
+    profile of one batch-1 forward."""
+    mel = run["mel"].cuda()
+    out = {}
+    with torch.no_grad():
+        out["forward_ms_batch1"] = median_ms(lambda: model(mel[:1]), 3)
+        out["forward_ms_batch2"] = median_ms(lambda: model(mel), 3)
+        out["real_time_factor"] = out["forward_ms_batch1"] / 1e3 / BIGVGAN_SECONDS
+        print(f"bigvgan breakdown (f32): " + ", ".join(f"{k} {v:.4f}" for k, v in out.items())
+              + f"; on {gpu_line()}", flush=True)
+        out.update(profile_call("bigvgan forward (batch 1)", lambda: model(mel[:1])))
+    return out
+
+
+def bigvgan_card_against_cpu(model, run: dict) -> float:
+    """The batch-1 forward through the same weights on the CPU (the conv
+    kernels' plain versions and the library's convs): audio within TOL."""
+    from mlx_audio_tpu_torch.codec.bigvgan import BigVGAN
+
+    t0 = time.perf_counter()
+    cpu = BigVGAN(bigvgan_config(), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    ref = cpu(run["mel"][:1])
+    err = float((run["audio"].cpu() - ref).abs().max())
+    print(f"bigvgan card against the CPU ({time.perf_counter() - t0:.1f} s): audio "
+          f"{tuple(ref.shape)} (max |y| {float(ref.abs().max()):.4f}): max abs diff "
+          f"{err:.3e} (atol {TOL['atol']}, rtol {TOL['rtol']})", flush=True)
+    if not torch.allclose(run["audio"].cpu(), ref, **TOL):
+        fail(f"bigvgan: the audio on the card differs from the CPU's by {err:.3e}")
+    return err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3924,6 +4375,26 @@ def main() -> int:
           f"{voxtral_run['peak_memory_gb']:.2f} GB, against the CPU {json.dumps(voxtral_cpu)}",
           flush=True)
 
+    # phase 11: Parakeet-TDT-0.6B-v2 and BigVGAN-v2-24kHz-100band (f32)
+    parakeet, parakeet_ctc = build_parakeet()
+    parakeet_run = parakeet_runs(parakeet, parakeet_ctc, launches)
+    parakeet_cpu = parakeet_card_against_cpu(parakeet, parakeet_ctc, parakeet_run)
+    parakeet_info = parakeet_breakdown(parakeet, parakeet_run)
+    del parakeet, parakeet_ctc
+    torch.cuda.empty_cache()
+    bigvgan = build_bigvgan()
+    bigvgan_run = bigvgan_runs(bigvgan, launches)
+    bigvgan_info = bigvgan_breakdown(bigvgan, bigvgan_run)
+    bigvgan_err = bigvgan_card_against_cpu(bigvgan, bigvgan_run)
+    del bigvgan
+    torch.cuda.empty_cache()
+    phase11 = {k: v for k, v in launches.items() if k.startswith(("parakeet_", "bigvgan_"))}
+    print(f"phase 11 launches: {json.dumps(phase11)}; Parakeet {json.dumps(parakeet_info)}, "
+          f"generate's real-time factor {parakeet_run['real_time_factor']:.4f}, peak "
+          f"{parakeet_run['peak_memory_gb']:.2f} GB, against the CPU {json.dumps(parakeet_cpu)}; "
+          f"BigVGAN {json.dumps(bigvgan_info)}, peak {bigvgan_run['peak_memory_gb']:.2f} GB, "
+          f"audio against the CPU {bigvgan_err:.3e}; on {card}", flush=True)
+
     kernel_line = []
     for name, (source, replaces) in KERNEL_INFO.items():
         cases = records[name]
@@ -4000,6 +4471,9 @@ def main() -> int:
                     launches["whisper_decode_batch"][name]
                     / whisper_run["encodes"]["whisper_decode_batch"])
                 entry["launches_per_voxtral_encode"] = launches["voxtral_generate"][name]
+            entry["max_abs_err"] = max(entry["max_abs_err"], bigvgan_run["conv_path_err"][name])
+            entry["path_shapes"] += bigvgan_run["conv_path_shapes"][name]
+            entry["launches_per_bigvgan_forward"] = launches["bigvgan_forward"][name]
         kernel_line.append(entry)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -12,7 +12,9 @@ weight-only decode and the speculative depth decode, whole or streamed
 (``mlx_audio_tpu_torch.models.tts.sesame``, with Llama in ``models.lm``,
 Mimi's batch and stateful paths in ``codec.mimi`` and ``nn.quantize``);
 Orpheus, OuteTTS, Dia and Bark (``models.tts.llama``, ``outetts``, ``dia``,
-``bark``) on the causal-LM loop (``models.lm.causal``) or their own; the
-SNAC, DAC and EnCodec codecs and the Vocos vocoder (``codec``); and the
-depth-draft probes (``mlx_audio_tpu_torch.scripts.probe_depth``).
+``bark``) on the causal-LM loop (``models.lm.causal``) or their own;
+Spark-TTS; Wav2Vec2, Whisper, Voxtral and Parakeet speech to text
+(``models.stt``); the SNAC, DAC and EnCodec codecs and the Vocos and
+BigVGAN vocoders (``codec``); audio file I/O (``utils.audio_io``); and
+the depth-draft probes (``mlx_audio_tpu_torch.scripts.probe_depth``).
 """

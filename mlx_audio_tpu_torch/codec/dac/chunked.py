@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from mlx_audio_tpu_torch.nn.layers import WNConv1d, WNConvTranspose1d
+from mlx_audio_tpu_torch.utils.audio_io import load_audio
 
 SUPPORTED_VERSIONS = ["1.0.0"]
 
@@ -122,13 +123,11 @@ def unpadded_twin(dac):
 def compress(dac, audio, win_duration: float = 1.0,
              normalize_db: Optional[float] = -16,
              n_quantizers: Optional[int] = None) -> DACFile:
-    """Audio (a 1-D array) -> DACFile.  A clip of at most ``win_duration``
-    takes one padded encode; longer audio is delay-padded, windowed, and
-    every window encodes in one batch."""
+    """Audio (a 1-D array or a file path) -> DACFile.  A clip of at most
+    ``win_duration`` takes one padded encode; longer audio is delay-padded,
+    windowed, and every window encodes in one batch."""
     if isinstance(audio, (str, Path)):
-        raise NotImplementedError(
-            "compress: reading an audio file needs utils/audio_io, which the "
-            "port does not have yet; pass the samples as an array")
+        audio = load_audio(str(audio), dac.sample_rate)
     audio = np.asarray(audio, dtype=np.float32).reshape(-1)
     nt = audio.shape[-1]
     rms = float(np.sqrt(np.mean(audio ** 2) + 1e-12))

@@ -11,6 +11,8 @@ stores them in torch's layouts, so:
   (transposed conv, input axis) -> ``[C, 1, 1]`` on the same axis; the
   wav2vec2 positional conv's per-tap ``weight_g`` ``[K, 1, 1]`` -> torch's
   ``weight_norm(dim=2)`` layout ``[1, 1, K]``;
+* 2-d conv weight HWIO ``[kh, kw, Cin/groups, Cout]`` -> OIHW ``[Cout,
+  Cin/groups, kh, kw]`` (Parakeet's ``Conv2dLayer``);
 * everything else (linear ``[out, in]``, LSTM, norms, embeddings, snake
   alphas, CSM's ``audio_head`` [nc-1, Dm, V], Dia's ``DenseGeneral``
   weights [in..., out...], RoPE tables, quantized uint8 codes with their
@@ -26,6 +28,7 @@ transposed conv (``WNConvTranspose1d``, the depthwise one of Spark's
 ``SamplingBlock`` too, ``StreamableConvTranspose1d``, EnCodec's
 ``EncodecConvTranspose1d``; DAC's sits at ``decoder.model.N.block.1`` and
 SNAC's at ``decoder.blocks.i.pre.1``).
+A 4-d ``weight`` moves when its owner is Parakeet's ``Conv2dLayer``.
 Any other owner keeps the array as it is.  Tests feed it
 ``dict(named_arrays(jax_model))`` as numpy arrays, and ``from_pretrained``
 the output of a JAX-layout ``sanitize``; the port never imports JAX to use
@@ -40,13 +43,14 @@ from torch import nn
 
 
 def conv_kinds(module: nn.Module) -> dict[str, str]:
-    """{path: "conv", "conv_tap" or "convt"} of the convs, the per-tap
-    weight-normed positional convs and the transposed convs in a port
-    module."""
+    """{path: "conv", "conv_tap", "convt" or "conv2d"} of the convs, the
+    per-tap weight-normed positional convs, the transposed convs and the 2-d
+    convs in a port module."""
     from mlx_audio_tpu_torch.codec.encodec.encodec import (
         EncodecConv1d,
         EncodecConvTranspose1d,
     )
+    from mlx_audio_tpu_torch.models.stt.parakeet.conformer import Conv2dLayer
     from mlx_audio_tpu_torch.models.stt.wav2vec.wav2vec import PositionalConvEmbedding
     from mlx_audio_tpu_torch.nn.layers import Conv1d, WNConv1d, WNConvTranspose1d
     from mlx_audio_tpu_torch.nn.streaming import (
@@ -63,6 +67,8 @@ def conv_kinds(module: nn.Module) -> dict[str, str]:
         elif isinstance(m, (WNConvTranspose1d, StreamableConvTranspose1d,
                             EncodecConvTranspose1d)):
             kinds[name] = "convt"
+        elif isinstance(m, Conv2dLayer):
+            kinds[name] = "conv2d"
     return kinds
 
 
@@ -82,5 +88,7 @@ def params_from_jax(named: dict[str, np.ndarray],
                 w = w.transpose(1, 2, 0)  # [K, Cin, Cout] -> [Cin, Cout, K]
             elif kind in ("conv", "conv_tap"):
                 w = w.transpose(2, 1, 0)  # [K, Cin, Cout] -> [Cout, Cin, K]
+        elif w.ndim == 4 and key.endswith("weight") and kind == "conv2d":
+            w = w.transpose(3, 2, 0, 1)  # HWIO -> OIHW
         out[key] = torch.tensor(w)
     return out

@@ -13,8 +13,9 @@ the audio tokens in place of the audio placeholders.
 * Sampling: a call's seed comes from a host generator seeded ``seed``, and
   row i samples with its own generator (``models.sampling``); the JAX PRNG
   cannot be reproduced, so only greedy tokens are compared with it.
+* An audio file path is read through ``utils.audio_io`` at 16 kHz.
 * Left for later: the mesh's tensor- and data-parallel branches of
-  ``_decode_window_rows``; reading audio from a file path raises.
+  ``_decode_window_rows``.
 """
 
 from __future__ import annotations
@@ -35,8 +36,9 @@ from mlx_audio_tpu_torch.models.sampling import (
     sample_top_p_rows,
 )
 from mlx_audio_tpu_torch.models.stt.whisper.audio import log_mel_spectrogram
-from mlx_audio_tpu_torch.models.stt.whisper.transcribe import STTOutput, audio_path_error
+from mlx_audio_tpu_torch.models.stt.whisper.transcribe import STTOutput
 from mlx_audio_tpu_torch.nn.layers import Conv1d, Embedding, LayerNorm, Linear
+from mlx_audio_tpu_torch.utils.audio_io import load_audio
 
 _CHUNK = 32  # decode steps between the host's looks at the end-of-speech tokens
 
@@ -228,7 +230,7 @@ class Model(nn.Module):
         Audio longer than one encoder window decodes as one batch of
         windows that share a prompt."""
         if isinstance(audio, str):
-            raise audio_path_error(audio)
+            audio = load_audio(audio, 16000)
         if mel is None and input_ids is None and audio is not None:
             full_mel = log_mel_spectrogram(np.asarray(audio),
                                            n_mels=self.audio_cfg.num_mel_bins,

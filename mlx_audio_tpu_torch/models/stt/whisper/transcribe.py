@@ -9,8 +9,8 @@ hallucination heuristics with their constants.  One decoded window is a
 cursor, a method a rule.  The log-mel and each window's decode run on the
 model's device (api.py, decoding.py).
 
-Checkpoints load from a local directory only (``Model.from_pretrained``),
-and an audio path raises: reading audio files is not ported yet.  Whisper
+Checkpoints load from a local directory only (``Model.from_pretrained``);
+an audio path is read through ``utils.audio_io`` at 16 kHz.  Whisper
 runs in float32 (a checkpoint's "quantization" entry is dropped, as in the
 JAX package).
 """
@@ -37,6 +37,7 @@ from mlx_audio_tpu_torch.models.stt.whisper.decoding import DecodingOptions, Dec
 from mlx_audio_tpu_torch.models.stt.whisper.model import ModelDimensions, WhisperModel
 from mlx_audio_tpu_torch.models.stt.whisper.timing import add_word_timestamps
 from mlx_audio_tpu_torch.models.stt.whisper.tokenizer import LANGUAGES, get_tokenizer
+from mlx_audio_tpu_torch.utils.audio_io import load_audio
 
 # Word-anomaly scoring constants (openai-whisper's hallucination spec).
 _ANOMALY_LOW_PROB = 0.15
@@ -419,13 +420,6 @@ class _SeekLoop:
 # ---------------------------------------------------------------------------
 
 
-def audio_path_error(path: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{path}: reading audio from a file needs utils/audio_io, which the "
-        "port does not have yet (ROADMAP queue 1 item 11); pass the audio as "
-        "an array")
-
-
 def _load_weight_files(model_path: Path) -> dict:
     """Weights of a checkpoint directory: ``*.safetensors`` (MLX-community
     ``weights.safetensors`` or HF ``model.safetensors``, shards too) or
@@ -537,11 +531,12 @@ class Model(WhisperModel):
         hallucination_silence_threshold: Optional[float] = None,
         **decode_options,
     ) -> STTOutput:
-        """Transcribe audio of any length (16 kHz samples)."""
+        """Transcribe audio of any length (16 kHz samples, or a file path
+        read and resampled to 16 kHz)."""
         decode_options.pop("max_tokens", None)
         decode_options.pop("generation_stream", None)
         if isinstance(audio, str):
-            raise audio_path_error(audio)
+            audio = load_audio(audio, SAMPLE_RATE)
 
         # the window follows the model's audio context (3000 mel frames, 30
         # s, for the published Whispers; 2 mel frames an audio token)

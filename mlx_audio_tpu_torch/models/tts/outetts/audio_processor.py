@@ -7,11 +7,11 @@ by default the 24 kHz speech codec at 2 codebooks of 1024, built on the
 model's device.  Loudness normalization uses RMS-based gain toward the
 target (ITU-R BS.1770 gating is approximated by energy-weighted RMS).
 
-A speaker from reference audio takes the word timestamps of a Whisper
-model the caller passes (``create_speaker_from_whisper``).  Not ported yet,
-and raising ``NotImplementedError`` instead: loading the default Whisper
-when none is passed, and reading audio from a file path (the port has no
-``utils/loader`` or ``utils/audio_io`` yet).
+A speaker from reference audio, given as samples or as a file path read
+through ``utils.audio_io``, takes the word timestamps of a Whisper model
+the caller passes (``create_speaker_from_whisper``).  Not ported yet, and
+raising ``NotImplementedError`` instead: loading the default Whisper when
+none is passed (the port has no ``utils/loader`` yet).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch
 
 from mlx_audio_tpu_torch.codec.dac import DAC, DACConfig
 from mlx_audio_tpu_torch.models.tts.outetts.prompt_processor import normalize_text
+from mlx_audio_tpu_torch.utils.audio_io import load_audio, resample_audio
 
 
 def calculate_pitch(audio: np.ndarray, sr: int, min_freq: float = 75.0,
@@ -66,17 +67,6 @@ def extract_single_pitch_value(audio: np.ndarray, sr: int, min_freq=75.0,
     pitch = calculate_pitch(audio, sr, min_freq, max_freq, **kw)
     avg = float(pitch.mean()) if pitch.size else 0.0
     return min(max((avg - min_freq) / (max_freq - min_freq), 0.0), 1.0)
-
-
-def resample_audio(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
-    """Polyphase resampling (a copy of ``mlx_audio_tpu/utils/audio_io.py``'s)."""
-    from scipy.signal import resample_poly
-
-    if orig_sr == target_sr:
-        return audio
-    gcd = np.gcd(int(orig_sr), int(target_sr))
-    return resample_poly(audio, target_sr // gcd, orig_sr // gcd,
-                         padtype="edge").astype(np.float32)
 
 
 def process_audio_array(audio: np.ndarray, sample_rate: int = 24000,
@@ -141,10 +131,8 @@ class DacInterface:
         self.sr = 24000
 
     def load_audio(self, path) -> np.ndarray:
-        raise NotImplementedError(
-            f"{path}: reading audio from a file needs utils/audio_io, which "
-            "the port does not have yet (ROADMAP queue 1 item 11); pass the "
-            "audio as an array")
+        """A file at the codec's rate, loudness-normalised: [1, 1, T]."""
+        return process_audio_array(load_audio(path, self.sr), self.sr)
 
     def encode(self, audio: np.ndarray) -> np.ndarray:
         """[1, 1, T] -> codes [1, 2, T']."""
@@ -173,6 +161,8 @@ class AudioProcessor:
         segments with words."""
         if isinstance(audio, str):
             audio = self.audio_codec.load_audio(audio)
+        else:
+            audio = process_audio_array(np.asarray(audio), self.audio_codec.sr)
         if whisper_model is None:
             raise NotImplementedError(
                 "a speaker from reference audio needs a Whisper model: pass "
@@ -180,7 +170,6 @@ class AudioProcessor:
                 "a local directory); loading the default whisper-large-v3-turbo "
                 "needs utils/loader, which the port does not have yet (ROADMAP "
                 "queue 1 item 11)")
-        audio = process_audio_array(np.asarray(audio), self.audio_codec.sr)
         wav16 = resample_audio(audio.reshape(-1), self.audio_codec.sr, 16000)
         data = whisper_model.generate(wav16, word_timestamps=True)
         words = []

@@ -14,7 +14,8 @@ from __future__ import annotations
 from typing import List, Optional
 
 import numpy as np
-from scipy.signal import resample_poly
+
+from mlx_audio_tpu_torch.utils.audio_io import resample_audio
 
 # This watermark key is public; it is not secure.
 CSM_1B_GH_WATERMARK = [212, 211, 146, 56, 201]
@@ -23,15 +24,6 @@ _WM_SR = 44_100
 _FRAME = 1024
 _PN_SEED = 0x5EED
 _ALPHA = 10 ** (-30 / 20)
-
-
-def resample_audio(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
-    """Polyphase resampling, edge-padded."""
-    if orig_sr == target_sr:
-        return audio
-    gcd = np.gcd(int(orig_sr), int(target_sr))
-    return resample_poly(audio, target_sr // gcd, orig_sr // gcd,
-                         padtype="edge").astype(np.float32)
 
 
 class Watermarker:

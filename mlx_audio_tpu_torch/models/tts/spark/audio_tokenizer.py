@@ -5,8 +5,8 @@ The semantic features come from a frozen wav2vec2-large-xlsr-53, whose
 hidden states 11, 14 and 16 are averaged; the speaker reference clip is
 tiled or cut to ``ref_segment_duration`` seconds.  The default wav2vec2 is
 built, at those widths with weights drawn from ``seed``, the first time
-features are asked for.  Audio comes in as samples: reading a file needs
-``utils/audio_io``, which the port does not have yet.
+features are asked for.  Audio comes in as samples or as a file path,
+read through ``utils.audio_io`` at the tokenizer's sample rate.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import torch
 from mlx_audio_tpu_torch.models.stt.wav2vec.wav2vec import ModelConfig as W2VConfig
 from mlx_audio_tpu_torch.models.stt.wav2vec.wav2vec import Wav2Vec2Model
 from mlx_audio_tpu_torch.models.tts.spark.bicodec import BiCodec
+from mlx_audio_tpu_torch.utils.audio_io import load_audio
 
 DEFAULT_TOKENIZER_CONFIG: Dict[str, Any] = {
     # Spark-TTS-0.5B audio_tokenizer_config.yaml
@@ -96,12 +97,10 @@ class BiCodecTokenizer:
         return wav[:ref_segment_length]
 
     def process_audio(self, wav) -> Tuple[np.ndarray, np.ndarray]:
-        """samples -> (the volume-normalized wav [T], the reference clip
-        [1, S])."""
+        """samples or a file path -> (the volume-normalized wav [T], the
+        reference clip [1, S])."""
         if isinstance(wav, (str, Path)):
-            raise NotImplementedError(
-                "BiCodecTokenizer: reading an audio file needs utils/audio_io, "
-                "which the port does not have yet; pass the samples as an array")
+            wav = load_audio(wav, sample_rate=self.config["sample_rate"])
         wav = np.asarray(wav, dtype=np.float32).reshape(-1)
         if self.config["volume_normalize"]:
             wav = audio_volume_normalize(wav)

@@ -22,6 +22,7 @@ from mlx_audio_tpu_torch.nn.layers import (
     get_padding,
     leaky_relu,
     snake,
+    snake_beta,
     weight_norm,
 )
 from mlx_audio_tpu_torch.nn.recurrent import LSTM, lstm_scan, masked_flip
@@ -31,7 +32,7 @@ __all__ = [
     "AdaLayerNorm", "BatchNorm", "Conv1d", "WNConv1d", "WNConvTranspose1d", "Identity",
     "conv1d", "conv1d_route", "conv_transpose1d",
     "depthwise_conv_transpose1d", "weight_norm", "get_padding", "leaky_relu",
-    "snake",
+    "snake", "snake_beta",
     "LSTM", "lstm_scan", "masked_flip", "scaled_dot_product_attention",
     "interpolate", "interpolate1d",
 ]

@@ -215,6 +215,16 @@ def snake(x: torch.Tensor, alpha: torch.Tensor,
     return x + s * s / (alpha + 1e-9)
 
 
+def snake_beta(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
+               alpha_logscale: bool = True) -> torch.Tensor:
+    """SnakeBeta ``x + sin^2(a x) / b``, per channel (last axis); with
+    ``alpha_logscale`` both a and b are given as logs."""
+    if alpha_logscale:
+        alpha, beta = torch.exp(alpha), torch.exp(beta)
+    s = torch.sin(alpha * x)
+    return x + s * s / (beta + 1e-9)
+
+
 class Identity(nn.Module):
     def forward(self, x, *args, **kwargs):
         return x

@@ -10,6 +10,7 @@ package's ``PRNGKey(0)`` draws.  The JAX init RNG is reset for each model
 built here, so the weights do not depend on which tests ran first.
 """
 
+import functools
 import json
 
 import jax
@@ -163,17 +164,23 @@ def test_snac_noise_fed_from_jax(snacs):
     np.testing.assert_array_equal(ts.decode(codes_t).numpy(), ts.decode(codes_t).numpy())
 
 
-@pytest.mark.parametrize("frames", [3, 5])
-def test_snac_with_attention_matches_jax(frames):
-    """The windowed attention variant (window 8), dense convs, no noise; 5
-    frames of LM-made codes (20 steps) are not a window multiple: decode
-    pads and trims them."""
+@pytest.fixture(scope="module")
+def attention_snacs():
+    """The windowed attention variant (window 8), dense convs, no noise."""
     cfg = dict(sampling_rate=24000, encoder_dim=16, encoder_rates=[2, 4, 8, 8],
                decoder_dim=128, decoder_rates=[8, 8, 4, 2], attn_window_size=8,
                codebook_size=64, codebook_dim=8, vq_strides=[4, 2, 1],
                noise=False, depthwise=False)
     js = _seeded(lambda: JaxSNAC(JaxSNACConfig(**cfg)))
-    ts = port_snac(js)
+    return js, port_snac(js)
+
+
+@pytest.mark.parametrize("frames", [3, 5])
+def test_snac_with_attention_matches_jax(attention_snacs, frames):
+    """The windowed attention variant (window 8), dense convs, no noise; 5
+    frames of LM-made codes (20 steps) are not a window multiple: decode
+    pads and trims them."""
+    js, ts = attention_snacs
     if frames == 3:
         audio = _audio(2, 24_000)[None, None]
         codes_j = js.encode(jnp.asarray(audio))
@@ -270,16 +277,25 @@ def test_dac_compress_roundtrip_long_matches_jax(dacs, tmp_path):
                                atol=AUDIO_ATOL, rtol=0)
 
 
-def test_dac_compress_short_clip(dacs):
-    """A clip of at most win_duration takes the one padded encode."""
+def test_dac_compress_short_clip_and_its_wav_file(dacs, tmp_path):
+    """A clip of at most win_duration takes the one padded encode; the same
+    clip written to a wav file compresses from its path to the JAX
+    package's codes; a non-wav path raises the reference's gated error."""
+    from mlx_audio_tpu_torch.utils.audio_io import save_audio
+
     jd, td = dacs
     audio = _audio(1, int(0.3 * td.sample_rate), 0.3)
     f = td.compress(audio, win_duration=1.0)
     assert f.padding is True
     np.testing.assert_array_equal(f.codes, np.asarray(jd.compress(audio).codes))
     assert td.decompress(f).shape == (1, audio.shape[-1])
-    with pytest.raises(NotImplementedError, match="audio_io"):
-        td.compress("clip.wav")
+    wav = str(tmp_path / "clip.wav")
+    save_audio(wav, audio, td.sample_rate)
+    g = td.compress(wav, win_duration=1.0)
+    np.testing.assert_array_equal(g.codes, np.asarray(jd.compress(wav).codes))
+    assert g.original_length == audio.shape[-1]
+    with pytest.raises(RuntimeError, match="soundfile"):
+        td.compress(str(tmp_path / "clip.flac"))
 
 
 def test_dac_chunked_matches_serial_windows(dacs):
@@ -382,6 +398,7 @@ def test_sanitize_hf_dac_synthetic_keys(dacs):
     assert torch.isfinite(td.decode(torch.zeros(1, 4, jd.latent_dim))).all()
 
 
+@functools.lru_cache(maxsize=None)
 def _kokoro_pair():
     from mlx_audio_tpu.models.tts.kokoro import Model as JaxKokoro
     from mlx_audio_tpu_torch.models.tts.kokoro import Model as Kokoro
@@ -390,6 +407,7 @@ def _kokoro_pair():
     return JaxKokoro(tiny_config()), Kokoro(_port_config(), device="cpu")
 
 
+@functools.lru_cache(maxsize=None)
 def _mimi_pair():
     from mlx_audio_tpu_torch.codec.mimi import Mimi
     from test_mimi import tiny_mimi
@@ -399,6 +417,7 @@ def _mimi_pair():
     return jm, Mimi(port_config(jm.cfg))
 
 
+@functools.lru_cache(maxsize=None)
 def _csm_pair():
     from mlx_audio_tpu.models.tts.sesame.model import Model as JaxCSM
     from mlx_audio_tpu_torch.codec.mimi import Mimi
@@ -434,11 +453,13 @@ def test_params_from_jax_by_module_type_matches_the_name_rule(pair):
     port.load_state_dict(state, strict=True)
 
 
+@functools.lru_cache(maxsize=None)
 def _dac_pair():
     jd = _seeded(small_dac)
     return jd, DAC(DACConfig(**vars(jd.config)), device="cpu")
 
 
+@functools.lru_cache(maxsize=None)
 def _snac_pair():
     js = _seeded(small_snac)
     return js, SNAC(SNACConfig(**vars(js.config)), device="cpu")
@@ -503,6 +524,7 @@ def _earlier_conv_kinds(port):
     return kinds
 
 
+@functools.lru_cache(maxsize=None)
 def _encodec_pair():
     from test_torch_encodec import build_jax
     from mlx_audio_tpu_torch.codec.encodec import Encodec, EncodecConfig
@@ -511,6 +533,7 @@ def _encodec_pair():
     return jm, Encodec(EncodecConfig(**vars(jm.config)), device="cpu")
 
 
+@functools.lru_cache(maxsize=None)
 def _vocos_pair():
     from test_torch_vocos import port_small_vocos
     from test_vocos_bigvgan import small_vocos
@@ -573,6 +596,7 @@ def _before_tap_rule(named, port):
     return out
 
 
+@functools.lru_cache(maxsize=None)
 def _bark_pair():
     from test_torch_bark import _configs
     from mlx_audio_tpu.models.tts.bark import Model as JaxBark
@@ -587,15 +611,20 @@ def _bark_pair():
     return jm, Bark(BarkConfig(**_configs()), codec=port_encodec(je), device="cpu")
 
 
-def _dia_pair():
+@functools.lru_cache(maxsize=None)
+def _dia_models():
     import dataclasses
 
     from mlx_audio_tpu_torch.models.tts.dia import DiaConfig, Model as Dia
     from test_dia import tiny_dia
 
     jm = _seeded(tiny_dia)
-    port = Dia(DiaConfig.load_dict(dataclasses.asdict(jm.config)),
-               dac_model=port_dac(jm._dac), device="cpu")
+    return jm, Dia(DiaConfig.load_dict(dataclasses.asdict(jm.config)),
+                   dac_model=port_dac(jm._dac), device="cpu")
+
+
+def _dia_pair():
+    jm, port = _dia_models()
     return jm.model, port.model
 
 
@@ -625,16 +654,10 @@ def test_params_from_jax_keeps_dense_general_layout():
     """A tiny Dia's DenseGeneral weights ([D, H, hd], [H, hd, D], [D, 2,
     hidden], [D, C, V]; 3-d and named ``weight``) arrive untransposed and
     load strictly; its DAC's convs move as before."""
-    import dataclasses
-
     from mlx_audio_tpu_torch.convert import conv_kinds
-    from mlx_audio_tpu_torch.models.tts.dia import DiaConfig, Model as Dia
     from mlx_audio_tpu_torch.models.tts.dia.layers import DenseGeneral
-    from test_dia import tiny_dia
 
-    jm = _seeded(tiny_dia)
-    port = Dia(DiaConfig.load_dict(dataclasses.asdict(jm.config)),
-               dac_model=port_dac(jm._dac), device="cpu")
+    jm, port = _dia_models()
     assert conv_kinds(port.model) == _earlier_conv_kinds(port.model)
     assert conv_kinds(port._dac) == _earlier_conv_kinds(port._dac)
     named = {k: np.asarray(v) for k, v in named_arrays(jm.model)}

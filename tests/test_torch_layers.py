@@ -27,6 +27,14 @@ from mlx_audio_tpu_torch.nn import kernels as tnn_kernels
 ATOL = 1e-5
 ROOT = Path(__file__).resolve().parent.parent
 
+# One cap on torch's intra-op threads for the whole suite.  pytest-xdist
+# has every worker collect every test file, so this module-level call runs
+# in each worker during collection, before any test: the port's twins then
+# run 2 threads a worker instead of a full pool each (6 workers on 8 cores
+# oversubscribe the cores several times over).
+TORCH_THREADS = 2
+torch.set_num_threads(TORCH_THREADS)
+
 
 def _carry(jax_layer, port_layer):
     """Load the JAX layer's weights into the port layer."""
@@ -227,11 +235,34 @@ def test_dilated_kernel_shared_memory_and_route(k, d, channels, stages):
     assert tnn.conv1d_route(k, 128, 128, 8192, d, 1, 1, (k - 1) * d // 2) == "shifted"
 
 
+@pytest.mark.parametrize("logscale", [True, False], ids=["log", "linear"])
+def test_snake_beta_matches_jax(logscale):
+    """SnakeBeta x + sin^2(a x) / b per channel, with a and b given as logs
+    or as they are (positive then, as a checkpoint's are)."""
+    rng = np.random.default_rng(3)
+    x = _x((2, 17, 8), seed=4, scale=2.0)
+    alpha = rng.standard_normal(8).astype(np.float32) * 0.5
+    beta = rng.standard_normal(8).astype(np.float32) * 0.5
+    if not logscale:
+        alpha, beta = np.exp(alpha), np.exp(beta)
+    want = np.asarray(jnn.snake_beta(jnp.asarray(x), jnp.asarray(alpha), jnp.asarray(beta),
+                                     alpha_logscale=logscale))
+    got = tnn.snake_beta(torch.as_tensor(x), torch.as_tensor(alpha), torch.as_tensor(beta),
+                         alpha_logscale=logscale)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=1e-5)
+
+
 def test_port_imports_no_jax():
-    """Neither the port nor chip_smoke.py imports JAX or the JAX package."""
+    """Neither the port nor chip_smoke.py imports JAX or the JAX package;
+    the files it parses include utils/audio_io, Parakeet's and BigVGAN's."""
     files = sorted((ROOT / "mlx_audio_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
+    names = {p.relative_to(ROOT).as_posix() for p in files}
+    port = "mlx_audio_tpu_torch/"
+    assert {port + "utils/audio_io.py", port + "codec/bigvgan/bigvgan.py"} <= names
+    assert {f"{port}models/stt/parakeet/{m}.py" for m in (
+        "audio", "alignment", "conformer", "ctc", "rnnt", "parakeet")} <= names
 
     def banned(name):
         return (name in ("jax", "mlx_audio_tpu") or name.startswith("jax.")

@@ -155,8 +155,14 @@ def test_streaming_roundtrip_state_reuse(mimis):
 
 def test_streaming_decode_matches_batch_past_window(mimis):
     """A stream longer than the transformer's rotating window still matches
-    the batch path."""
-    tm = mimis[1]
+    the batch path.  The tiny model's weights at a window of 8 frames (the
+    reference config's 250 would make the stream 507 frames long): 23
+    frames, one at a time, wrap the ring twice."""
+    jm = mimis[0]
+    cfg = port_config(jm.cfg)
+    cfg = dataclasses.replace(cfg, transformer=dataclasses.replace(cfg.transformer,
+                                                                   context=8))
+    tm = carry(jm, Mimi(cfg))
     n = tm.cfg.transformer.context * 2 + 7
     codes = torch.as_tensor(np.random.default_rng(7).integers(0, 64, size=(1, 4, n)))
     np.testing.assert_allclose(tm.decode_frames(codes).numpy(), tm.decode(codes).numpy(),

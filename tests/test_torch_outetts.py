@@ -358,16 +358,43 @@ def test_whisper_speaker_matches_jax(pair, monkeypatch):
     assert [w["word"] for w in got["words"]] and all(w["c1"] for w in got["words"])
 
 
-def test_speaker_from_audio_path_or_without_whisper_raises(pair):
-    """Reading a file and loading the default Whisper need utils/audio_io and
-    utils/loader, which the port does not have yet."""
-    tm = pair[1]
+class _FixedWhisper:
+    """A Whisper stand-in whose generate returns the same two timed words
+    for any audio, and keeps the 16 kHz audio it was given."""
+
+    def __init__(self):
+        self.heard = []
+
+    def generate(self, audio, **kw):
+        import types
+
+        self.heard.append(np.asarray(audio))
+        words = [{"word": " hello", "start": 0.1, "end": 0.4},
+                 {"word": " there", "start": 0.5, "end": 0.9}]
+        return types.SimpleNamespace(text=" Hello there.", segments=[{"words": words}])
+
+
+def test_speaker_from_audio_path_reads_it_and_without_whisper_raises(pair, tmp_path):
+    """A reference wav path is read at 24 kHz and loudness-normalised as the
+    JAX package reads it, and the speaker built from it equals the JAX
+    package's; loading the default Whisper needs utils/loader, which the
+    port does not have yet."""
+    from mlx_audio_tpu_torch.utils.audio_io import save_audio
+
+    jm, tm = pair
     with pytest.raises(NotImplementedError, match="Whisper model.*queue 1 item 11"):
         next(tm.generate("hi", ref_audio=np.zeros(24000, np.float32)))
-    with pytest.raises(NotImplementedError, match="audio_io"):
-        tm.audio_processor.audio_codec.load_audio("speech.wav")
-    with pytest.raises(NotImplementedError, match="audio_io"):
-        tm.audio_processor.create_speaker_from_whisper("speech.wav", object())
+    wav = str(tmp_path / "speech.wav")
+    save_audio(wav, np.random.default_rng(8).standard_normal(24000) * 0.2, 22050)
+    got = tm.audio_processor.audio_codec.load_audio(wav)
+    assert got.shape == (1, 1, 26123)
+    np.testing.assert_array_equal(got, jm.audio_processor.audio_codec.load_audio(wav))
+    jw, tw = _FixedWhisper(), _FixedWhisper()
+    want = jm.audio_processor.create_speaker_from_whisper(wav, jw)
+    assert tm.audio_processor.create_speaker_from_whisper(wav, tw) == want
+    np.testing.assert_array_equal(tw.heard[0], jw.heard[0])
+    with pytest.raises(NotImplementedError, match="Whisper model.*queue 1 item 11"):
+        tm.audio_processor.create_speaker_from_whisper(wav)
 
 
 def test_speaker_file_round_trip(pair, tmp_path):

@@ -380,13 +380,29 @@ def test_bicodec_tokenizer_matches_jax(models, jax_features):
     close(torch.as_tensor(pt.detokenize(glo, sem)), jt.detokenize(j_glo, j_sem))
 
 
-def test_tokenizer_reads_no_path(models, tmp_path):
-    _, pm = models
-    with pytest.raises(NotImplementedError, match="utils/audio_io"):
-        pm._audio_tokenizer.tokenize(str(tmp_path / "ref.wav"))
-    with pytest.raises(NotImplementedError, match="utils/audio_io"):
-        list(pm.generate("hello", ref_audio=tmp_path / "ref.wav", temperature=0.0,
-                         max_tokens=4))
+def test_tokenizer_reads_a_wav_path_as_jax_does(models, monkeypatch, jax_features,
+                                                tmp_path):
+    """A reference wav path is read at 16 kHz: its global and semantic tokens
+    equal the JAX package's on the same file, and so do a voice-clone
+    generate's greedy tokens and audio.  (Both models generate the same
+    text: the fake tokenizers give ids to characters as they meet them.)"""
+    from mlx_audio_tpu_torch.utils.audio_io import save_audio
+
+    jm, pm = models
+    path = tmp_path / "ref.wav"
+    save_audio(path, _ref_audio(), 16000)
+    glo, sem = pm._audio_tokenizer.tokenize(str(path))
+    j_glo, j_sem = jm._audio_tokenizer.tokenize(str(path))
+    equal(glo, j_glo)
+    equal(sem, j_sem)
+    seen = _record(monkeypatch, "generate_tokens")
+    kw = dict(ref_text="a reference", temperature=0.0, max_tokens=8)
+    ours = list(pm.generate("hello", ref_audio=path, **kw))
+    ref = list(jm.generate("hello", ref_audio=path, **kw))
+    assert seen["port"] == seen["jax"] and len(ours) == len(ref) == 1
+    np.testing.assert_allclose(ours[0].audio, np.asarray(ref[0].audio), **TOL)
+    with pytest.raises(RuntimeError, match="soundfile"):
+        pm._audio_tokenizer.tokenize(str(tmp_path / "ref.ogg"))
 
 
 def _record(monkeypatch, name):

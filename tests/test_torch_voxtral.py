@@ -11,8 +11,7 @@ do (at the init's scale a tied tiny LM echoes the token it was fed).
 Greedy tokens are held equal to the JAX package's, audio embeddings and spliced input
 embeddings to atol and rtol 1e-5 (JAX's matmuls at "highest" precision).
 The JAX PRNG cannot be reproduced, so sampled rows are held to the port's
-own properties.  A file path raises in the port (reading audio files is not
-ported), where the JAX package loads it.
+own properties.  A file path is read as the JAX package reads it.
 """
 
 import os
@@ -169,17 +168,19 @@ def test_sampled_rows_do_not_depend_on_the_batch(pair):
     assert other[0] != one[0]
 
 
-def test_file_path_raises_where_jax_loads_it(pair, tmp_path):
-    """The JAX package reads a file path through utils/audio_io, which the
-    port does not have yet: the port raises and names it."""
-    from mlx_audio_tpu.utils.audio_io import save_audio
+def test_file_path_reads_as_jax_loads_it(pair, tmp_path):
+    """A 24 kHz wav path is read through utils/audio_io and resampled to
+    16 kHz, in the port as in the JAX package: the greedy tokens and text
+    equal; a non-wav path raises the reference's gated error."""
+    from mlx_audio_tpu_torch.utils.audio_io import save_audio
 
     wav = tmp_path / "x.wav"
-    save_audio(str(wav), _audio(0, 1.0), 16000)
+    save_audio(str(wav), _audio(0, 1.5), 24000)
     jm, pm = pair
-    assert isinstance(_hi(jm.generate, str(wav), max_tokens=2, temperature=0.0).text, str)
-    with pytest.raises(NotImplementedError, match="audio_io"):
-        pm.generate(str(wav), max_tokens=2)
+    _, op = _generate_both(jm, pm, str(wav), max_tokens=4)
+    assert len(op.segments[0]["tokens"]) == 4
+    with pytest.raises(RuntimeError, match="soundfile"):
+        pm.generate(str(tmp_path / "x.flac"), max_tokens=2)
 
 
 def test_weights_cross_strict_and_configs_match_jax(pair, monkeypatch):

@@ -96,8 +96,15 @@ def toks():
 
 
 @pytest.fixture(scope="module")
-def pair(toks):
-    return pair_of(tiny_dims(toks[0]))
+def models(toks):
+    return pair_of(tiny_dims(toks[0]), jtr.Model, transcribe.Model)
+
+
+@pytest.fixture(scope="module")
+def pair(models):
+    """The encoder, decoder and decode twins run on the transcription
+    pair: the same weights, built once for the file."""
+    return models
 
 
 def _mel(seed, shape, scale=0.1):
@@ -241,11 +248,6 @@ def _patch_tokenizer(monkeypatch, toks):
     monkeypatch.setattr(jtr.Model, "_tokenizer", lambda self, language=None, task=None: toks[0])
     monkeypatch.setattr(transcribe.Model, "_tokenizer",
                         lambda self, language=None, task=None: toks[1])
-
-
-@pytest.fixture(scope="module")
-def models(toks):
-    return pair_of(tiny_dims(toks[0]), jtr.Model, transcribe.Model)
 
 
 def _same_segments(sj, sp):
@@ -561,9 +563,24 @@ def test_default_device_is_cuda_and_local_loading(monkeypatch, tmp_path, toks):
         transcribe.Model.from_pretrained(missing)
 
 
-def test_audio_path_raises(models):
-    with pytest.raises(NotImplementedError, match="audio_io"):
-        models[1].generate("speech.wav")
+def test_generate_reads_an_audio_path_as_jax_does(models, toks, monkeypatch, tmp_path):
+    """A 24 kHz wav path is read and resampled to 16 kHz: the transcript and
+    segments equal the JAX package's on the same file; a non-wav path
+    raises the reference's gated error."""
+    from mlx_audio_tpu_torch.utils.audio_io import save_audio
+
+    _patch_tokenizer(monkeypatch, toks)
+    jm, pm = models
+    path = str(tmp_path / "speech.wav")
+    save_audio(path, _mel(6, (2 * 24000,), 0.05), 24000)
+    kw = dict(temperature=0.0, language="en", no_speech_threshold=None,
+              logprob_threshold=None, compression_ratio_threshold=None)
+    oj = _hi(jm.generate, path, **kw)
+    op = pm.generate(path, **kw)
+    assert op.text == oj.text
+    _same_segments(oj.segments, op.segments)
+    with pytest.raises(RuntimeError, match="soundfile"):
+        pm.generate(str(tmp_path / "speech.flac"))
 
 
 def test_from_pretrained_loads_a_local_hf_directory(tmp_path):
