@@ -1058,12 +1058,18 @@ def device_time(prof):
     return busy, spans[-1][1] - spans[0][0], by_name
 
 
+def group_of(name: str, table) -> str:
+    """The group of the first key in ``table`` that kernel ``name`` contains,
+    else "other"."""
+    return next((g for key, g in table if key in name), "other")
+
+
 def kernel_groups(by_name: dict, table) -> dict:
     """{group: (ms, launches)} of a profile's kernels, each in the group of
     the first key in ``table`` its name contains, else "other"."""
     groups = {}
     for name, (ms, n) in by_name.items():
-        group = next((g for key, g in table if key in name), "other")
+        group = group_of(name, table)
         g_ms, g_n = groups.get(group, (0.0, 0))
         groups[group] = (g_ms + ms, g_n + n)
     return groups
@@ -1732,37 +1738,64 @@ def orpheus_runs(model, launches: dict) -> dict:
             "qmm_path_shapes": len(path_calls)}
 
 
-def profile_steps(label: str, run_steps):
-    """``run_steps()`` (PROFILE_STEPS batch-1 decode steps) under
-    torch.profiler: prints the device's idle share between the first and
-    the last kernel, device time by kernel group and the top kernels.
-    Returns {profile_idle_share, launches_per_step, device_ms_per_step,
-    groups, device_ms}, or None when no device time was recorded."""
+def profile_steps(label: str, run_steps, steps: int = PROFILE_STEPS,
+                  table=CSM_KERNEL_GROUPS):
+    """``run_steps()`` (``steps`` batch-1 decode steps, or one call with
+    ``steps`` 1) under torch.profiler: prints the device's idle share
+    between the first and the last kernel, device time by ``table`` group
+    and the top kernels, and, for each of this repository's kernels with
+    fewer events in the trace than its wrapper counted launches, both
+    counts and the trace's events in order.  Returns
+    {profile_idle_share, launches_per_step, device_ms_per_step, groups,
+    device_ms}, or None when no device time was recorded."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from mlx_audio_tpu_torch.nn import kernels
+
     torch.cuda.synchronize()
+    counted = dict(kernels.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run_steps()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    counted = {k: n - counted[k] for k, n in kernels.LAUNCHES.items()}
     busy, window, by_name = device_time(prof)
     if not by_name:
         print(f"{label} profile: the profiler recorded no device time (not measured)")
         return None
-    groups = kernel_groups(by_name, CSM_KERNEL_GROUPS)
+    groups = kernel_groups(by_name, table)
     device_ms = sum(ms for ms, _ in by_name.values())
     n = sum(n for _, n in by_name.values())
-    print(f"{label} profile of {PROFILE_STEPS} decode steps (batch 1): wall "
-          f"{1e3 * wall:.1f} ms, device busy {busy / 1e3:.1f} ms of a "
-          f"{window / 1e3:.1f} ms kernel window (idle share {1 - busy / window:.4f}), "
-          f"{n} kernels ({n / PROFILE_STEPS:.1f} a step)")
+    what = f" of {steps} decode steps (batch 1)" if steps > 1 else ""
+    print(f"{label} profile{what}: wall {1e3 * wall:.1f} ms, device busy {busy / 1e3:.1f} ms "
+          f"of a {window / 1e3:.1f} ms kernel window (idle share {1 - busy / window:.4f}), "
+          f"{n} kernels ({n / steps:.1f} a step); on {gpu_line()}")
     for group, (ms, k) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"  {group:28s} {ms:10.3f} ms  {ms / device_ms:7.2%}  {k:6d} launches")
     for name, (ms, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"  {ms:10.3f} ms {k:6d}x  {name[:90]}")
-    return {"profile_idle_share": 1 - busy / window, "launches_per_step": n / PROFILE_STEPS,
-            "device_ms_per_step": busy / 1e3 / PROFILE_STEPS, "groups": groups,
+    for group in {g for _, g in table if g.endswith(" (this repo)")}:
+        kernel = group.removesuffix(" (this repo)")
+        traced = groups.get(group, (0.0, 0))[1]
+        if traced >= counted[kernel]:  # a launch may run more than one kernel
+            continue
+        keys = [key for key, g in table if g == group]
+        runs = []
+        for e in sorted(prof.events(), key=lambda e: e.time_range.start):
+            key = next((k for k in keys if k in e.name), None)
+            if e.device_type != DeviceType.CUDA or key is None:
+                continue
+            variant = e.name[e.name.index(key):].split("(")[0]  # the template arguments
+            if runs and runs[-1][0] == variant:
+                runs[-1][1] += 1
+            else:
+                runs.append([variant, 1])
+        print(f"  {kernel}: {counted[kernel]} launches counted, {traced} in the trace; "
+              f"the trace in launch order: " + ", ".join(f"{v} x{k}" for v, k in runs))
+    return {"profile_idle_share": 1 - busy / window, "launches_per_step": n / steps,
+            "device_ms_per_step": busy / 1e3 / steps, "groups": groups,
             "device_ms": device_ms}
 
 
@@ -3892,7 +3925,7 @@ def parakeet_runs(model, ctc, launches: dict) -> dict:
     """The entry points: generate of a seeded 60 s clip read from a wav file
     the phase writes with the port's save_audio (30 s chunks with 15 s of
     overlap: three full chunks in one batched encoder pass and label loop,
-    the 15 s tail alone), decode of one 30 s window at batch 1 and of 4
+    the 15 s tail alone; timed after one untimed generate), decode of one 30 s window at batch 1 and of 4
     windows, and the CTC head's decode of one window.  None of this
     repository's kernels may launch (the convs are pointwise and
     depthwise; the prediction net steps by matmuls)."""
@@ -3911,6 +3944,8 @@ def parakeet_runs(model, ctc, launches: dict) -> dict:
         n = int(PARAKEET_CHUNK * pre.sample_rate)
         mel4 = torch.cat([log_mel_spectrogram(windows[i * n:(i + 1) * n], pre, device="cuda")
                           for i in range(PARAKEET_BATCH)])
+        # warm: the timed generate is not the path's first call
+        model.generate(path, chunk_duration=PARAKEET_CHUNK, overlap_duration=PARAKEET_OVERLAP)
         undo = _record_loops(loops)
         route_fn = route_recorder(routes)
         torch.cuda.reset_peak_memory_stats()
@@ -4026,37 +4061,6 @@ def parakeet_card_against_cpu(model, ctc, run: dict) -> dict:
     return {"errors": errs, "labels": tok_ties, "durations": dur_ties}
 
 
-def profile_call(label: str, fn) -> dict:
-    """One call of ``fn`` under torch.profiler: device time by KERNEL_GROUPS
-    group, the top kernels, and the device's idle share between the first
-    and the last kernel.  {} when no device time was recorded."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy, window, by_name = device_time(prof)
-    if not by_name:
-        print(f"{label} profile: the profiler recorded no device time (not measured)")
-        return {}
-    groups = kernel_groups(by_name, KERNEL_GROUPS)
-    device_ms = sum(ms for ms, _ in by_name.values())
-    n = sum(k for _, k in by_name.values())
-    print(f"{label} profile: wall {1e3 * wall:.1f} ms, device busy {busy / 1e3:.1f} ms of a "
-          f"{window / 1e3:.1f} ms kernel window (idle share {1 - busy / window:.4f}), {n} "
-          f"kernels; on {gpu_line()}")
-    for group, (ms, k) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        print(f"  {group:28s} {ms:10.3f} ms  {ms / device_ms:7.2%}  {k:6d} launches")
-    for name, (ms, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
-        print(f"  {ms:10.3f} ms {k:6d}x  {name[:90]}")
-    return {"profile_idle_share": 1 - busy / window, "profile_wall_ms": 1e3 * wall,
-            "profile_device_busy_ms": busy / 1e3, "profile_kernels": n,
-            "profile_groups_ms": {g: round(ms, 3) for g, (ms, _) in groups.items()}}
-
-
 def parakeet_breakdown(model, run: dict) -> dict:
     """Encoder ms a 30 s window at batch 1 and 4 (CUDA events); the label
     loop's steps/s at batch 1 from precomputed encoder features (warm,
@@ -4082,7 +4086,11 @@ def parakeet_breakdown(model, run: dict) -> dict:
         print(f"parakeet breakdown (f32): " + ", ".join(
             f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in out.items())
             + f"; on {gpu_line()}", flush=True)
-        out.update(profile_call("parakeet decode of one window", lambda: model.decode(mel4[:1])))
+        prof = profile_steps("parakeet decode of one window", lambda: model.decode(mel4[:1]),
+                             1, KERNEL_GROUPS)
+    if prof is not None:
+        del prof["groups"], prof["device_ms"]
+        out.update(prof)
     return out
 
 
@@ -4165,7 +4173,11 @@ def bigvgan_breakdown(model, run: dict) -> dict:
         out["real_time_factor"] = out["forward_ms_batch1"] / 1e3 / BIGVGAN_SECONDS
         print(f"bigvgan breakdown (f32): " + ", ".join(f"{k} {v:.4f}" for k, v in out.items())
               + f"; on {gpu_line()}", flush=True)
-        out.update(profile_call("bigvgan forward (batch 1)", lambda: model(mel[:1])))
+        prof = profile_steps("bigvgan forward (batch 1)", lambda: model(mel[:1]), 1,
+                             KERNEL_GROUPS)
+    if prof is not None:
+        del prof["groups"], prof["device_ms"]
+        out.update(prof)
     return out
 
 

@@ -7,7 +7,7 @@ The JAX package runs the TDT and RNN-T greedy label loops as one jitted
 device over the same batched step: every row keeps its own time cursor,
 prediction state and symbol count, and a finished row freezes (its further
 steps change nothing).  The host reads whether any row is still active
-every ``check_every`` steps, not every step.  Long audio is cut into
+every ``_CHECK_EVERY`` steps, not every step.  Long audio is cut into
 overlapping chunks: the full-length ones go through one batched encoder
 pass and one batched label loop, the shorter tail alone, and the host
 merges the chunks' tokens (``alignment``).
@@ -66,17 +66,18 @@ def _joint_args(d: dict) -> JointArgs:
 # Greedy label loop
 # ---------------------------------------------------------------------------
 
+_CHECK_EVERY = 8  # loop steps between the host's looks at the active rows
+
 
 @torch.no_grad()
 def transducer_greedy_loop(model, features, max_length, durations, vocab_size: int,
-                           max_symbols: int, max_out: int, tdt: bool,
-                           check_every: int = 8):
+                           max_symbols: int, max_out: int, tdt: bool):
     """Greedy TDT or RNN-T decoding of a batch, all rows in lockstep.
 
     features [B, T, D]; max_length [B]; durations [n_dur] (TDT; unused by
     RNN-T).  Returns (tokens, times, durations [B, max_out], counts [B],
     steps): row b's first counts[b] slots hold its labels.  ``steps`` is the
-    number of loop steps taken, a multiple of ``check_every``."""
+    number of loop steps taken, a multiple of ``_CHECK_EVERY``."""
     b, t_len, _ = features.shape
     dev = features.device
     h, c = model.decoder.init_state(b, features.dtype, dev)
@@ -92,7 +93,7 @@ def transducer_greedy_loop(model, features, max_length, durations, vocab_size: i
                          for _ in range(3))
     steps = 0
     while True:
-        for _ in range(check_every):
+        for _ in range(_CHECK_EVERY):
             active = (time < max_length) & (count < max_out)
             feature = features[rows, time.clamp(0, t_len - 1)]
             dec_out, (h2, c2) = model.decoder.step(last_tok, (h, c), use_emb)
