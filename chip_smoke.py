@@ -4,8 +4,8 @@ Kokoro-82M synthesis, CSM-1B speech through int8 decode (whole and
 streamed), Orpheus-3B, OuteTTS-1B and Spark-TTS-0.5B through int8 decode,
 Dia-1.6B, Bark, the DAC-44kHz and EnCodec-24kHz codecs, the Vocos vocoder,
 Whisper-large-v3-turbo, Voxtral-Mini-3B and Parakeet-TDT-0.6B-v2 speech
-to text, the BigVGAN-v2 vocoder, the depth-draft probes, and check its
-hand-written CUDA kernels.
+to text, the BigVGAN-v2 vocoder, IndexTTS-1.5, the depth-draft probes,
+and check its hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -181,22 +181,44 @@ Phases; the failure of any one ends the script with a non-zero exit:
    768- and 384-channel resblocks), no other kernel ever, each held to its
    plain version on the path's operands; the audio held to the CPU's; ms a
    forward, the real-time factor, peak memory, a profile of one forward;
-12. print one ``{"kernels": [...]}`` line, then the device line last.
+12. IndexTTS-1.5-class widths (``scripts/bench_indextts.py``: a 1280 x 24
+   GPT-2 over 8 194 mel codes, a 512 x 6 conformer and a 32-latent
+   perceiver, the speaker-conditioned BigVGAN from 1536 channels at 1024x;
+   f32, seeded random weights, the mel head's stop row at 0 so that every
+   run makes its budget, a stub tokenizer), from a seeded 3 s clip as
+   ``ref_audio``: greedy ``generate`` of 300 codes (301 latents, 12.84 s),
+   ``generate_batch`` of 4 prompts of different lengths (one vocoder call
+   at batch 4) and each prompt's single run (codes equal, audio within the
+   tolerance), a sampled ``generate`` twice with one seed (it repeats);
+   every vocoder call launches ``dilated_conv1d`` 26 times and
+   ``banded_conv1d`` 10 times (the 768- and 384-channel resblocks) and no
+   other kernel of ours, each held to its plain version on the path's
+   operands; the log-mel, conditioning latents, speaker embedding, the
+   teacher-forced latents and logits of the prompt and all 300 steps and
+   the vocoder's audio held to the same weights on the CPU, the codes to
+   the CPU's argmax (equal where its margin exceeds 1e-5); log-mel,
+   conditioning and prefill ms, decode steps/s at batch 1 and 4, vocoder
+   ms a call, ``generate``'s real-time factor, peak memory, profiles of 32
+   decode steps and of one vocoder call (where the trace holds fewer
+   ``dilated_conv1d`` events than launches, of two calls in one window);
+13. print one ``{"kernels": [...]}`` line, then the device line last.
 
 Phase 2 holds ``quantized_matmul`` at Orpheus-3B's, OuteTTS-1B's,
 Spark-TTS-0.5B's and Voxtral-Mini-3B's shapes too (int8, groups of 64, 1
 and 4 rows), and the conv kernels at DAC-44kHz's, DAC-24kHz's and
 BiCodec's routed resblock shapes (K=7, d = 1, 3, 9), at Whisper's conv1
 (batch 1 and 4), and at BigVGAN-v2's resblocks ([1, 3752, 768] and [1,
-15008, 384], K = 3, 7, 11 at d = 1, 3, 5).  Launch counters are set to 0
-just before each run of the probes' entry point and of phases 3 to 11, and
+15008, 384], K = 3, 7, 11 at d = 1, 3, 5) and IndexTTS-1.5's ([1, 2408,
+768] and [1, 19264, 384], the same K and d).  Launch counters are set to 0
+just before each run of the probes' entry point and of phases 3 to 12, and
 read just after:
 each kernel of a run's path must have launched in it (Orpheus:
 ``quantized_matmul``; DAC's encode and decode: both conv kernels; OuteTTS
 and Spark: all three; Dia's DAC decode: both conv kernels; EnCodec's encode
 and decode and Bark's EnCodec decode: ``lstm``; Whisper's and Voxtral's
 encodes: ``dilated_conv1d``; Voxtral's decode steps: ``quantized_matmul``;
-BigVGAN's forwards: both conv kernels; Parakeet's runs: none),
+BigVGAN's forwards and IndexTTS's runs: both conv kernels; Parakeet's
+runs: none),
 Kokoro's ``lstm`` launches only on the cluster route, EnCodec's and Bark's
 only on the row route.
 Needs
@@ -441,6 +463,10 @@ SPARK_RESBLOCKS = ((384, 6000),)
 # (its K = 3, 7, 11 at d = 1, 3, 5 each; phase 11 holds the kernels to their
 # plain versions on every operand its forwards give them)
 BIGVGAN_RESBLOCKS = ((768, 3752), (384, 15008))
+# the same of IndexTTS-1.5's conditioned BigVGAN on 301 latents (300 mel
+# codes, phase 12): 768 channels at 8 samples a latent, 384 at 64; K = 3, 7,
+# 11 at d = 1, 3, 5 each, every one routed to a kernel
+INDEXTTS_RESBLOCKS = ((768, 2408), (384, 19264))
 # (B, L, C, Cout) of Whisper-large-v3-turbo's and Voxtral's conv1 (K = 3,
 # 'same'; 128 mels into 1280) in phase 10: one 30 s window, and a batch of 4
 WHISPER_STEMS = ((1, 3000, 128, 1280), (4, 3000, 128, 1280))
@@ -471,12 +497,14 @@ def _conv_cases(gen):
             if route != "library":
                 name = "dilated_conv1d" if route == "shifted" else "banded_conv1d"
                 cases.append((name, (1, l, c, c), 7, d, f" ({codec})"))
-    for (c, l), k, d in itertools.product(BIGVGAN_RESBLOCKS, (3, 7, 11), (1, 3, 5)):
-        route = conv1d_route(k, c, c, l, d, padding=(k - 1) * d // 2)
-        if route == "library":
-            fail(f"BigVGAN's resblock conv [1, {l}, {c}] K={k} d={d} takes no kernel")
-        name = "dilated_conv1d" if route == "shifted" else "banded_conv1d"
-        cases.append((name, (1, l, c, c), k, d, " (BigVGAN-v2)"))
+    for family, blocks in (("BigVGAN-v2", BIGVGAN_RESBLOCKS),
+                           ("IndexTTS-1.5", INDEXTTS_RESBLOCKS)):
+        for (c, l), k, d in itertools.product(blocks, (3, 7, 11), (1, 3, 5)):
+            route = conv1d_route(k, c, c, l, d, padding=(k - 1) * d // 2)
+            if route == "library":
+                fail(f"{family}'s resblock conv [1, {l}, {c}] K={k} d={d} takes no kernel")
+            name = "dilated_conv1d" if route == "shifted" else "banded_conv1d"
+            cases.append((name, (1, l, c, c), k, d, f" ({family})"))
     for b, l, c, c_out in WHISPER_STEMS:
         if conv1d_route(3, c, c_out, l, padding=1) != "shifted":
             fail(f"Whisper's conv1 [{b}, {l}, {c}] -> {c_out} does not take dilated_conv1d")
@@ -4162,9 +4190,40 @@ def bigvgan_runs(model, launches: dict) -> dict:
             "conv_path_shapes": _per_kernel(conv_calls), "peak_memory_gb": peak}
 
 
+def vocoder_profile(label: str, call) -> dict:
+    """profile_steps of one ``call`` (a vocoder forward).  Where the trace
+    holds fewer dilated_conv1d events than the wrapper counted launches, a
+    profile of two calls in one window tells a loss at the window's start
+    (one event short of 2n) from one in every call (two short).  Returns
+    the one call's profile figures and ``dilated_events`` {calls: [in the
+    trace, counted]}; {} where no device time was recorded."""
+    from mlx_audio_tpu_torch.nn import kernels
+
+    out, events = {}, {}
+    for calls in (1, 2):
+        before = kernels.LAUNCHES["dilated_conv1d"]
+        prof = profile_steps(f"{label}, {calls} call{'s' * (calls > 1)}",
+                             lambda: [call() for _ in range(calls)], 1, KERNEL_GROUPS)
+        if prof is None:
+            break
+        traced = prof["groups"].get("dilated_conv1d (this repo)", (0.0, 0))[1]
+        events[calls] = [traced, kernels.LAUNCHES["dilated_conv1d"] - before]
+        if calls == 1:
+            del prof["groups"], prof["device_ms"]
+            out.update(prof)
+            if traced >= events[1][1]:
+                break
+    if events:
+        out["dilated_events"] = events
+        print(f"{label} profile: dilated_conv1d events in the trace against launches "
+              "counted: " + "; ".join(f"{k} call{'s' * (k > 1)} {t} of {c}"
+                                      for k, (t, c) in events.items()), flush=True)
+    return out
+
+
 def bigvgan_breakdown(model, run: dict) -> dict:
     """ms a forward at batch 1 and 2 (CUDA events), the real-time factor, a
-    profile of one batch-1 forward."""
+    profile of one batch-1 forward (``vocoder_profile``)."""
     mel = run["mel"].cuda()
     out = {}
     with torch.no_grad():
@@ -4173,11 +4232,7 @@ def bigvgan_breakdown(model, run: dict) -> dict:
         out["real_time_factor"] = out["forward_ms_batch1"] / 1e3 / BIGVGAN_SECONDS
         print(f"bigvgan breakdown (f32): " + ", ".join(f"{k} {v:.4f}" for k, v in out.items())
               + f"; on {gpu_line()}", flush=True)
-        prof = profile_steps("bigvgan forward (batch 1)", lambda: model(mel[:1]), 1,
-                             KERNEL_GROUPS)
-    if prof is not None:
-        del prof["groups"], prof["device_ms"]
-        out.update(prof)
+        out.update(vocoder_profile("bigvgan forward (batch 1)", lambda: model(mel[:1])))
     return out
 
 
@@ -4197,6 +4252,342 @@ def bigvgan_card_against_cpu(model, run: dict) -> float:
     if not torch.allclose(run["audio"].cpu(), ref, **TOL):
         fail(f"bigvgan: the audio on the card differs from the CPU's by {err:.3e}")
     return err
+
+
+# ---------------------------------------------------------------------------
+# phase 12: IndexTTS-1.5
+# ---------------------------------------------------------------------------
+
+INDEXTTS_TOKENS = 300  # mel codes a run past the first: 301 latents
+INDEXTTS_SECONDS = (INDEXTTS_TOKENS + 1) * 1024 / 24_000  # 12.84 s of 24 kHz audio
+INDEXTTS_REF_SECONDS = 3.0  # the reference clip
+INDEXTTS_TEXT = ORPHEUS_TEXT
+# four prompts of different lengths; the last crosses into the next 64-slot
+# bucket, so the other rows sit behind more left padding than in their
+# single runs
+INDEXTTS_BATCH_TEXTS = [
+    INDEXTTS_TEXT, "One short line.", "A second line, a little longer than the first.",
+    "And the fourth line of the batch is the longest of the four, so long that its "
+    "prompt needs one more bucket."]
+INDEXTTS_SAMPLED = {"temperature": 0.8, "top_k": 30, "seed": 7}
+INDEXTTS_TIE = 1e-5  # a code may differ from the CPU's where its margin is this or less
+INDEXTTS_AUDIO_STD = 0.05  # build_indextts scales the last conv to this audio std
+# launches of each conv kernel a vocoder call at 301 latents, by conv1d_route:
+# 18 + 8 dilated, 10 banded (the stages of 768 and 384 channels)
+INDEXTTS_ROUTED = {"dilated_conv1d": 26, "banded_conv1d": 10}
+
+
+def indextts_config() -> dict:
+    """IndexTTS-1.5-class widths (scripts/bench_indextts.py): a 1280 x 24
+    GPT-2 with 20 heads over 8 194 mel codes and 12 001 text rows; a 512 x 6
+    conformer with 8 heads and conv2d2 subsampling, a perceiver of 32
+    latents; the conditioned BigVGAN from 1536 channels, 8 x 8 x 4 x 2 x 2
+    upsampling, K 3/7/11 at d 1/3/5, a 512-wide speaker embedding from 100
+    mels."""
+    conformer = {"input_size": 100, "output_size": 512, "num_blocks": 6,
+                 "linear_units": 2048, "attention_heads": 8, "input_layer": "conv2d2",
+                 "cnn_module_kernel": 15, "pos_emb_max_len": 5000, "perceiver_mult": 4}
+    return {
+        "bigvgan": {"num_mels": 100, "upsample_rates": [8, 8, 4, 2, 2],
+                    "upsample_kernel_sizes": [16, 16, 8, 4, 4],
+                    "upsample_initial_channel": 1536, "resblock": "1",
+                    "resblock_kernel_sizes": [3, 7, 11],
+                    "resblock_dilation_sizes": [[1, 3, 5]] * 3, "activation": "snakebeta",
+                    "snake_logscale": True, "use_tanh_at_final": False, "gpt_dim": 1280,
+                    "speaker_embedding_dim": 512},
+        "gpt": {"model_dim": 1280, "heads": 20, "layers": 24, "max_mel_tokens": 605,
+                "max_text_tokens": 402, "number_text_tokens": 12000,
+                "number_mel_codes": 8194, "start_mel_token": 8192, "stop_mel_token": 8193,
+                "start_text_token": 0, "stop_text_token": 1,
+                "condition_module": conformer, "condition_num_latent": 32},
+        "sample_rate": 24000,
+    }
+
+
+class IndexTTSStubTokenizer:
+    """One id a character, in [2, 12 000) (0 and 1 are start_text and
+    stop_text): no SentencePiece model ships."""
+
+    def encode(self, text):
+        return [2 + (ord(c) * 7919) % 11998 for c in text]
+
+
+def _indextts_clip() -> np.ndarray:
+    rng = np.random.default_rng(17)
+    return (rng.standard_normal(int(INDEXTTS_REF_SECONDS * 24_000)) * 0.1).astype(np.float32)
+
+
+def build_indextts():
+    """IndexTTS at indextts_config() with seeded random weights on the card,
+    f32.  The mel head's stop row is 0 (weight and bias): its logit stays
+    below the winners', so every run makes its whole budget.  The
+    vocoder's last conv is scaled so that the audio's std on a seeded latent
+    stream is INDEXTTS_AUDIO_STD (at the init it is far smaller)."""
+    from mlx_audio_tpu_torch.models.tts.indextts import Model
+    from mlx_audio_tpu_torch.models.tts.indextts.vocoder import log_mel_spectrogram
+
+    t0 = time.perf_counter()
+    model = Model(indextts_config(), tokenizer=IndexTTSStubTokenizer(), device="cuda", seed=0)
+    stop = model.args.gpt.stop_mel_token
+    with torch.no_grad():
+        model.mel_head.weight[stop] = 0.0
+        model.mel_head.bias[stop] = 0.0
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        lat = torch.randn(1, 64, 1280, generator=gen, device="cuda")
+        mel = log_mel_spectrogram(torch.as_tensor(_indextts_clip(), device="cuda"))
+        std = float(model.bigvgan(lat, mel).std())
+        model.bigvgan.conv_post.weight_g.mul_(INDEXTTS_AUDIO_STD / std)
+    params = sum(t.numel() for t in model.parameters())
+    print(f"IndexTTS built (f32, {params / 1e6:.1f} M parameters, {4 * params / 1e9:.3f} GB) "
+          f"in {time.perf_counter() - t0:.1f} s; the vocoder's last conv scaled by "
+          f"{INDEXTTS_AUDIO_STD / std:.2f}; config {json.dumps(indextts_config())}", flush=True)
+    return model
+
+
+def _check_indextts(name: str, result, hop: int) -> None:
+    samples = (INDEXTTS_TOKENS + 1) * hop
+    a = np.asarray(result.audio)
+    if result.token_count != INDEXTTS_TOKENS + 1 or a.shape != (samples,) or \
+            not np.isfinite(a).all() or np.abs(a).max() > 1.0:
+        fail(f"{name}: {result.token_count} latents, audio {a.shape}, max |y| "
+             f"{np.abs(a).max():.4f}")
+
+
+def indextts_runs(model, launches: dict) -> dict:
+    """Greedy generate of one text, generate_batch of 4 texts and each text's
+    single run, a sampled generate twice with one seed, all from a seeded
+    3 s clip as ref_audio, INDEXTTS_TOKENS codes each.  Every vocoder call
+    must launch dilated_conv1d 26 times and banded_conv1d 10 times and no
+    other kernel of ours launch; each launched conv is held to its plain
+    version on the path's own operands; each batch row's codes equal its
+    single run's and its audio within TOL; the sampled runs repeat."""
+    from mlx_audio_tpu_torch.nn import kernels, layers
+
+    clip = _indextts_clip()
+    budget = {"ref_audio": clip, "max_tokens": INDEXTTS_TOKENS}
+    wall, routes, conv_calls, calls, rec, per_run = {}, {}, {}, [], [], {}
+    run = path_runner(launches, wall)
+
+    def counted(name, fn):
+        n_calls, n_rec = len(calls), len(rec)
+        out = run(name, fn)
+        per_run[name] = (calls[n_calls:], rec[n_rec:])
+        return out
+
+    latents_fn = model.generate_latents
+
+    def recording(*a, **k):
+        rec.append(latents_fn(*a, **k))
+        return rec[-1]
+
+    model.generate_latents = recording
+    hook = model.bigvgan.register_forward_pre_hook(lambda m, a: calls.append(a[0].shape[0]))
+    convs = record_conv_calls(conv_calls)
+    route_fn = route_recorder(routes)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        greedy = counted("indextts_generate", lambda: list(model.generate(
+            INDEXTTS_TEXT, temperature=0, **budget))[0])
+        batch = counted("indextts_generate_batch", lambda: model.generate_batch(
+            INDEXTTS_BATCH_TEXTS, temperature=0, **budget))
+        singles = [greedy] + [
+            counted(f"indextts_single_{i}", lambda t=t: model.generate_batch(
+                [t], temperature=0, **budget)[0])
+            for i, t in enumerate(INDEXTTS_BATCH_TEXTS[1:], 1)]
+        sampled = [counted(f"indextts_sampled_{i}", lambda: list(model.generate(
+            INDEXTTS_TEXT, **INDEXTTS_SAMPLED, **budget))[0]) for i in range(2)]
+    finally:
+        kernels.banded_conv1d, kernels.dilated_conv1d = convs
+        layers.conv1d_route = route_fn
+        hook.remove()
+        del model.generate_latents
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    hop = int(np.prod(model.args.bigvgan.upsample_rates))
+    for name, r in [("generate", greedy), *[(f"batch row {i}", r) for i, r in enumerate(batch)],
+                    *[(f"single {i}", r) for i, r in enumerate(singles)],
+                    *[(f"sampled {i}", r) for i, r in enumerate(sampled)]]:
+        _check_indextts(f"indextts {name}", r, hop)
+    for name, (sizes, _) in per_run.items():
+        want_sizes = [4] if name == "indextts_generate_batch" else [1]
+        if sizes != want_sizes:
+            fail(f"{name}: vocoder calls of {sizes} rows, not {want_sizes}")
+        lc = launches[name]
+        got = {k: lc[k] for k in INDEXTTS_ROUTED}
+        if got != INDEXTTS_ROUTED:
+            fail(f"{name}: conv kernel launches {got}, not {INDEXTTS_ROUTED} a vocoder call")
+        stray = [k for k in lc if k not in INDEXTTS_ROUTED and lc[k]]
+        if stray:
+            fail(f"{name}: kernels off IndexTTS's path launched: {stray}")
+
+    def codes(name):  # the run's codes, by row
+        return per_run[name][1][0][1]
+
+    batch_codes = codes("indextts_generate_batch")
+    single_codes = [codes("indextts_generate")[0]] + [
+        codes(f"indextts_single_{i}")[0] for i in range(1, len(INDEXTTS_BATCH_TEXTS))]
+    stop = model.args.gpt.stop_mel_token
+    if any(stop in c for c in batch_codes + single_codes):
+        fail("indextts: a run sampled the stop code")
+    row_err = []
+    for i, (r, s) in enumerate(zip(batch, singles)):
+        if batch_codes[i] != single_codes[i]:
+            k = next(j for j, (a, b) in enumerate(zip(batch_codes[i], single_codes[i]))
+                     if a != b)
+            fail(f"indextts: batch row {i}'s code {k} is {batch_codes[i][k]}, its single "
+                 f"run's {single_codes[i][k]}")
+        row_err.append(float(np.abs(r.audio - s.audio).max()))
+        if not np.allclose(r.audio, s.audio, **TOL):
+            fail(f"indextts: batch row {i}'s audio differs from its single run by "
+                 f"{row_err[-1]:.3e}")
+    sampled_codes = [codes(f"indextts_sampled_{i}")[0] for i in range(2)]
+    sampled_err = float(np.abs(sampled[0].audio - sampled[1].audio).max())
+    if sampled_codes[0] != sampled_codes[1] or not np.allclose(
+            sampled[0].audio, sampled[1].audio, **TOL):
+        fail(f"indextts: the sampled run does not repeat (audio {sampled_err:.3e})")
+    if sampled_codes[0] == single_codes[0]:
+        fail("indextts: the sampled run's codes equal the greedy run's")
+    print_routes("indextts", routes)
+    conv_err = check_conv_path(conv_calls, convs, "IndexTTS")
+    print(f"indextts: generate, generate_batch of {len(INDEXTTS_BATCH_TEXTS)} (prompts of "
+          f"{[len(t) for t in INDEXTTS_BATCH_TEXTS]} characters), 3 more single runs and a "
+          f"sampled generate twice, {INDEXTTS_TOKENS + 1} latents each ({INDEXTTS_SECONDS:.4f} s "
+          f"of 24 kHz audio): batch rows against single runs: codes equal, audio "
+          f"{', '.join(f'{e:.3e}' for e in row_err)}; sampled repeat: codes equal, audio "
+          f"{sampled_err:.3e}, {sum(a != b for a, b in zip(sampled_codes[0], single_codes[0]))} "
+          f"of {INDEXTTS_TOKENS + 1} codes differ from greedy; max |y| "
+          f"{float(np.abs(greedy.audio).max()):.4f}, std {float(greedy.audio.std()):.4f}; peak "
+          f"memory {peak:.2f} GB; wall s: " + ", ".join(f"{k} {v:.4f}" for k, v in wall.items())
+          + f"; on {gpu_line()}", flush=True)
+    greedy_stream = per_run["indextts_generate"][1][0][0][0]
+    return {"wall": wall, "clip": clip, "audio": greedy.audio, "stream": greedy_stream,
+            "codes": single_codes[0], "conv_path_err": conv_err,
+            "conv_path_shapes": _per_kernel(conv_calls), "peak_memory_gb": peak}
+
+
+def _wall(fn) -> float:
+    """Wall seconds of one synced call of ``fn`` (its shapes already run)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _indextts_decode_steps(model, state, n: int):
+    """n greedy decode steps through the model's own step from ``state``
+    (``Model._start``'s)."""
+    caches, pad_len, prompt_len, latent = state
+    last = model.mel_head(latent).argmax(-1)
+    for s in range(n):
+        last = model.mel_head(model._step(caches, last, s, pad_len, prompt_len)).argmax(-1)
+    return last
+
+
+def indextts_breakdown(model, run: dict) -> dict:
+    """The log-mel, conditioning and prefill ms (CUDA events), decode steps/s
+    of generate_latents at batch 1 and 4 (its wall time less the prompt's),
+    the vocoder ms a call at batch 1 and 4, generate's real-time factor
+    (warm: the runs before it were its untimed calls), then profiles of 32
+    decode steps and of one vocoder call (``vocoder_profile``)."""
+    from mlx_audio_tpu_torch.models.tts.indextts import indextts as it
+    from mlx_audio_tpu_torch.models.tts.indextts.vocoder import log_mel_spectrogram
+
+    n = INDEXTTS_TOKENS
+    clip = torch.as_tensor(run["clip"], device="cuda")
+    out = {}
+    with torch.no_grad():
+        mel = log_mel_spectrogram(clip)
+        out["log_mel_ms"] = median_ms(lambda: log_mel_spectrogram(clip), 5)
+        out["conditioning_ms"] = median_ms(lambda: model.get_conditioning(mel), 5)
+        out["speaker_embedding_ms"] = median_ms(
+            lambda: model.bigvgan.speaker_encoder(mel), 5)
+        row = model.prepare_input_embedding([INDEXTTS_TEXT], mel)
+        bucket = it._bucket(row.shape[1])
+        padded = torch.zeros(1, bucket, row.shape[2], device="cuda")
+        padded[:, bucket - row.shape[1]:] = row
+        pad_len = torch.tensor([bucket - row.shape[1]], device="cuda")
+        out["prefill_ms"] = median_ms(lambda: model.gpt.prefill_left(
+            model.gpt.init_cache(1, bucket + n), padded, pad_len), 5)
+        for b, texts in ((1, [INDEXTTS_TEXT]), (4, INDEXTTS_BATCH_TEXTS)):
+            start = _wall(lambda: model._start(texts, mel, n))
+            total = _wall(lambda: model.generate_latents(texts, mel, n, temperature=0))
+            out[f"decode_steps_per_s_batch{b}"] = n / (total - start)
+        stream = run["stream"][None]
+        out["vocoder_ms_batch1"] = median_ms(lambda: model.bigvgan(stream, mel), 3)
+        out["vocoder_ms_batch4"] = median_ms(
+            lambda: model.bigvgan(stream.expand(4, -1, -1), mel), 3)
+        out["generate_s"] = _wall(lambda: list(model.generate(
+            INDEXTTS_TEXT, ref_audio=run["clip"], max_tokens=n, temperature=0)))
+        out["real_time_factor"] = out["generate_s"] / INDEXTTS_SECONDS
+        print(f"indextts breakdown (f32, greedy, {n + 1} latents): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in out.items()) + f"; on {gpu_line()}", flush=True)
+        state = model._start([INDEXTTS_TEXT], mel, PROFILE_STEPS + 2)
+        _indextts_decode_steps(model, state, 2)  # warm
+        prof = profile_steps("indextts gpt", lambda: _indextts_decode_steps(
+            model, state, PROFILE_STEPS))
+        if prof is not None:
+            del prof["groups"], prof["device_ms"]
+            out.update({f"gpt_{k}": v for k, v in prof.items()})
+        prof = vocoder_profile("indextts vocoder (batch 1)", lambda: model.bigvgan(stream, mel))
+        out.update({f"vocoder_{k}": v for k, v in prof.items()})
+    return out
+
+
+def indextts_card_against_cpu(model, run: dict) -> dict:
+    """The same weights on the CPU: the clip's log-mel, the conditioning
+    latents and the speaker embedding (each from its own log-mel), the
+    latents and logits of the greedy run's prompt and all its steps
+    teacher-forced in one causal pass (its codes fed back), the card's
+    codes against the CPU's argmax (equal where the margin exceeds
+    INDEXTTS_TIE), and the vocoder's audio on the card's latents and
+    log-mel."""
+    from mlx_audio_tpu_torch.models.tts.indextts import Model
+    from mlx_audio_tpu_torch.models.tts.indextts.vocoder import log_mel_spectrogram
+
+    t0 = time.perf_counter()
+    cpu = Model(indextts_config(), tokenizer=IndexTTSStubTokenizer(), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    out, errs = {}, {}
+
+    def hold(name, card, ref):
+        card = card.cpu()
+        errs[name] = float((card - ref).abs().max())
+        if not torch.allclose(card, ref, **TOL):
+            fail(f"indextts: the card's {name} differs from the CPU's by {errs[name]:.3e}")
+
+    with torch.no_grad():
+        clip = torch.as_tensor(run["clip"])
+        mel_card, mel_cpu = log_mel_spectrogram(clip.cuda()), log_mel_spectrogram(clip)
+        hold("log-mel", mel_card, mel_cpu)
+        hold("conditioning latents", model.get_conditioning(mel_card),
+             cpu.get_conditioning(mel_cpu))
+        hold("speaker embedding", model.bigvgan.speaker_encoder(mel_card),
+             cpu.bigvgan.speaker_encoder(mel_cpu))
+        g = cpu.args.gpt
+        prompt = cpu.prepare_input_embedding([INDEXTTS_TEXT], mel_cpu)  # [1, L, D]
+        n_prompt = prompt.shape[1]
+        codes = torch.tensor(run["codes"][:-1])
+        pos = torch.clamp(n_prompt + torch.arange(len(codes)),
+                          max=cpu.mel_pos_embedding.emb.weight.shape[0] - 1)
+        steps = cpu.mel_embedding(codes) + cpu.mel_pos_embedding.emb(pos)
+        x = torch.cat([prompt, steps[None]], dim=1)
+        i = torch.arange(x.shape[1])
+        mask = torch.where(i[None, :] <= i[:, None], 0.0, -1e9)
+        hidden = cpu.gpt._run(cpu.gpt.init_cache(1, x.shape[1]), x, mask)
+        latents = cpu.final_norm(hidden[0, n_prompt - 1:])  # [301, D]
+        logits = cpu.mel_head(latents)
+        hold("latents (teacher-forced)", run["stream"], latents)
+        hold("logits (teacher-forced)", model.mel_head(run["stream"]), logits)
+        out["codes"] = _tie_check("indextts", run["codes"], logits, INDEXTTS_TIE)
+        audio = cpu.bigvgan(run["stream"].cpu()[None], mel_card.cpu())[0]
+        hold("vocoder audio", torch.as_tensor(run["audio"]), audio)
+    out["max_abs_err"] = errs
+    print(f"indextts card against the CPU ({time.perf_counter() - t0:.1f} s; prompt of "
+          f"{n_prompt} positions, {g.stop_mel_token} the stop code): " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items()) + f" (atol {TOL['atol']}, rtol "
+          f"{TOL['rtol']}); codes against the CPU's argmax {json.dumps(out['codes'])}",
+          flush=True)
+    return out
 
 
 def main() -> int:
@@ -4407,6 +4798,20 @@ def main() -> int:
           f"BigVGAN {json.dumps(bigvgan_info)}, peak {bigvgan_run['peak_memory_gb']:.2f} GB, "
           f"audio against the CPU {bigvgan_err:.3e}; on {card}", flush=True)
 
+    # phase 12: IndexTTS-1.5 (f32)
+    t12 = time.perf_counter()
+    indextts = build_indextts()
+    indextts_run = indextts_runs(indextts, launches)
+    indextts_info = indextts_breakdown(indextts, indextts_run)
+    indextts_cpu = indextts_card_against_cpu(indextts, indextts_run)
+    del indextts
+    torch.cuda.empty_cache()
+    phase12 = {k: v for k, v in launches.items() if k.startswith("indextts_")}
+    print(f"phase 12 launches: {json.dumps(phase12)}; IndexTTS {json.dumps(indextts_info)}, "
+          f"peak {indextts_run['peak_memory_gb']:.2f} GB, against the CPU "
+          f"{json.dumps(indextts_cpu)}; phase 12 took {time.perf_counter() - t12:.1f} s; "
+          f"on {card}", flush=True)
+
     kernel_line = []
     for name, (source, replaces) in KERNEL_INFO.items():
         cases = records[name]
@@ -4486,6 +4891,10 @@ def main() -> int:
             entry["max_abs_err"] = max(entry["max_abs_err"], bigvgan_run["conv_path_err"][name])
             entry["path_shapes"] += bigvgan_run["conv_path_shapes"][name]
             entry["launches_per_bigvgan_forward"] = launches["bigvgan_forward"][name]
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       indextts_run["conv_path_err"][name])
+            entry["path_shapes"] += indextts_run["conv_path_shapes"][name]
+            entry["launches_per_indextts_vocoder_call"] = launches["indextts_generate"][name]
         kernel_line.append(entry)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -28,8 +28,12 @@ transposed conv (``WNConvTranspose1d``, the depthwise one of Spark's
 ``SamplingBlock`` too, ``StreamableConvTranspose1d``, EnCodec's
 ``EncodecConvTranspose1d``; DAC's sits at ``decoder.model.N.block.1`` and
 SNAC's at ``decoder.blocks.i.pre.1``).
-A 4-d ``weight`` moves when its owner is Parakeet's ``Conv2dLayer``.
-Any other owner keeps the array as it is.  Tests feed it
+A 4-d ``weight`` moves when its owner is Parakeet's ``Conv2dLayer`` (IndexTTS's
+conformer subsampling reuses it).  The sinusoid table ``pe`` that IndexTTS's
+``RelPositionalEncoding`` keeps among the JAX model's arrays is computed, not
+learned: the port's module computes its own and the array is dropped.  Any
+other owner keeps the array as it is (IndexTTS's 2-d perceiver ``latents``
+and attention ``pos_bias_u``/``pos_bias_v`` too).  Tests feed it
 ``dict(named_arrays(jax_model))`` as numpy arrays, and ``from_pretrained``
 the output of a JAX-layout ``sanitize``; the port never imports JAX to use
 it.
@@ -43,15 +47,16 @@ from torch import nn
 
 
 def conv_kinds(module: nn.Module) -> dict[str, str]:
-    """{path: "conv", "conv_tap", "convt" or "conv2d"} of the convs, the
-    per-tap weight-normed positional convs, the transposed convs and the 2-d
-    convs in a port module."""
+    """{path: "conv", "conv_tap", "convt", "conv2d" or "table"} of the
+    convs, the per-tap weight-normed positional convs, the transposed convs,
+    the 2-d convs and the computed position tables in a port module."""
     from mlx_audio_tpu_torch.codec.encodec.encodec import (
         EncodecConv1d,
         EncodecConvTranspose1d,
     )
     from mlx_audio_tpu_torch.models.stt.parakeet.conformer import Conv2dLayer
     from mlx_audio_tpu_torch.models.stt.wav2vec.wav2vec import PositionalConvEmbedding
+    from mlx_audio_tpu_torch.models.tts.indextts.attention import RelPositionalEncoding
     from mlx_audio_tpu_torch.nn.layers import Conv1d, WNConv1d, WNConvTranspose1d
     from mlx_audio_tpu_torch.nn.streaming import (
         StreamableConv1d,
@@ -69,6 +74,8 @@ def conv_kinds(module: nn.Module) -> dict[str, str]:
             kinds[name] = "convt"
         elif isinstance(m, Conv2dLayer):
             kinds[name] = "conv2d"
+        elif isinstance(m, RelPositionalEncoding):
+            kinds[name] = "table"
     return kinds
 
 
@@ -81,6 +88,8 @@ def params_from_jax(named: dict[str, np.ndarray],
     for key, w in named.items():
         w = np.asarray(w)
         kind = kinds.get(key.rpartition(".")[0])
+        if kind == "table":
+            continue
         if w.ndim == 3 and key.endswith("weight_g"):
             w = w.reshape((1, 1, -1) if kind == "conv_tap" else (-1, 1, 1))
         elif w.ndim == 3 and key.endswith(("weight_v", "weight")):

@@ -254,7 +254,8 @@ def test_snake_beta_matches_jax(logscale):
 
 def test_port_imports_no_jax():
     """Neither the port nor chip_smoke.py imports JAX or the JAX package;
-    the files it parses include utils/audio_io, Parakeet's and BigVGAN's."""
+    the files it parses include utils/audio_io, Parakeet's, BigVGAN's and
+    IndexTTS's."""
     files = sorted((ROOT / "mlx_audio_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
@@ -263,6 +264,9 @@ def test_port_imports_no_jax():
     assert {port + "utils/audio_io.py", port + "codec/bigvgan/bigvgan.py"} <= names
     assert {f"{port}models/stt/parakeet/{m}.py" for m in (
         "audio", "alignment", "conformer", "ctc", "rnnt", "parakeet")} <= names
+    assert {f"{port}models/tts/indextts/{m}.py" for m in (
+        "__init__", "attention", "conformer", "ecapa", "gpt", "indextts", "normalize",
+        "perceiver", "vocoder")} <= names
 
     def banned(name):
         return (name in ("jax", "mlx_audio_tpu") or name.startswith("jax.")
