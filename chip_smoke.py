@@ -5,7 +5,8 @@ streamed), Orpheus-3B, OuteTTS-1B and Spark-TTS-0.5B through int8 decode,
 Dia-1.6B, Bark, the DAC-44kHz and EnCodec-24kHz codecs, the Vocos vocoder,
 Whisper-large-v3-turbo, Voxtral-Mini-3B and Parakeet-TDT-0.6B-v2 speech
 to text, the BigVGAN-v2 vocoder, IndexTTS-1.5, the depth-draft probes,
-and check its hand-written CUDA kernels.
+Kokoro-82M, EnCodec and BigVGAN in bf16, and check its hand-written CUDA
+kernels and their bf16 variants.
 
     python3 chip_smoke.py
 
@@ -36,7 +37,14 @@ Phases; the failure of any one ends the script with a non-zero exit:
    launch that passes as many grid-wide synchronisations and does no work,
    three ways);
    then run the probes' entry point (``scripts/probe_depth.py``, every
-   mode, int8 and bf16);
+   mode, int8 and bf16); the bf16 variants of ``lstm``, ``dilated_conv1d``
+   and ``banded_conv1d`` (counted as ``<name>_bf16``) at Kokoro's bench
+   shapes (``lstm`` at B=32, T=512 and 1300, H=256, both directions, and
+   the conv shapes above), BigVGAN-v2's resblocks and EnCodec's H=512 row
+   route: each output within one bf16 step of a float64 run of the plain
+   version (``kernels.bf16_steps``), timed beside cuDNN's conv or
+   ``torch.nn.LSTM`` on the same bf16 operands, bound at 989 TFLOP/s dense
+   bf16 or 2-byte traffic;
 3. run Kokoro-82M's ``Model.generate``, ``Model.generate_batch`` and
    ``Model.synthesize_batch`` at full width with seeded random weights;
 4. run the Kokoro bench-shaped pass (batch 8, phoneme bucket 512, frame
@@ -94,7 +102,11 @@ Phases; the failure of any one ends the script with a non-zero exit:
    3 s at 6 kbps, timed, with the route of every conv and ``lstm``'s
    launches by route printed (4, all on the row route), and the same clip
    through the same weights on the CPU: codes equal, audio within the
-   tolerance.  Bark at the published widths (three 24-layer GPTs of width
+   tolerance; after Bark, the same EnCodec cast to bf16 on the clip in
+   bf16: 4 ``lstm_bf16`` launches on the row route and nothing else, held
+   to its plain version, and against the CPU in bf16 (codes equal away
+   from a one-step near-tie, the card's codes decoded on both within a
+   relative RMS).  Bark at the published widths (three 24-layer GPTs of width
    1024, 1.09 B parameters, f32; seeded random weights with the early stop's
    logit held near -10; a stub tokenizer; that EnCodec): a greedy-like
    ``generate`` (100 semantic tokens, every stage at temperature 1e-6: 2 s
@@ -181,6 +193,10 @@ Phases; the failure of any one ends the script with a non-zero exit:
    768- and 384-channel resblocks), no other kernel ever, each held to its
    plain version on the path's operands; the audio held to the CPU's; ms a
    forward, the real-time factor, peak memory, a profile of one forward;
+   then the same model cast to bf16 on the mel in bf16: 26
+   ``dilated_conv1d_bf16`` and 10 ``banded_conv1d_bf16`` launches and
+   nothing else, each held to its plain version (one bf16 step of
+   float64), the audio against the CPU's bf16 forward (relative RMS);
 12. IndexTTS-1.5-class widths (``scripts/bench_indextts.py``: a 1280 x 24
    GPT-2 over 8 194 mel codes, a 512 x 6 conformer and a 32-latent
    perceiver, the speaker-conditioned BigVGAN from 1536 channels at 1024x;
@@ -201,7 +217,19 @@ Phases; the failure of any one ends the script with a non-zero exit:
    ms a call, ``generate``'s real-time factor, peak memory, profiles of 32
    decode steps and of one vocoder call (where the trace holds fewer
    ``dilated_conv1d`` events than launches, of two calls in one window);
-13. print one ``{"kernels": [...]}`` line, then the device line last.
+13. Kokoro-82M cast with ``.to(torch.bfloat16)`` at ``bench.py``'s own
+   shape and dtype (batch 32, 512 phonemes, 1300 frames, durations capped
+   at alternating 2/3, reference and speed in bf16): one iteration with
+   every conv and ``lstm`` launch held to its plain version on the path's
+   operands (one bf16 step of float64), then the median of 5 synced
+   iterations, audio-s/s beside phase 4's float32 figure, peak memory, one
+   profiled iteration; ``dilated_conv1d_bf16`` 21, ``banded_conv1d_bf16``
+   36 and ``lstm_bf16`` 12 launches a synthesis and no other kernel; then
+   one bf16 ``generate`` (and ``synthesize_batch``) on the card against
+   the same bf16 weights on the CPU, the source's draws made on the CPU
+   for both: durations equal, audio within a relative RMS past sample
+   2400;
+14. print one ``{"kernels": [...]}`` line, then the device line last.
 
 Phase 2 holds ``quantized_matmul`` at Orpheus-3B's, OuteTTS-1B's,
 Spark-TTS-0.5B's and Voxtral-Mini-3B's shapes too (int8, groups of 64, 1
@@ -210,7 +238,7 @@ BiCodec's routed resblock shapes (K=7, d = 1, 3, 9), at Whisper's conv1
 (batch 1 and 4), and at BigVGAN-v2's resblocks ([1, 3752, 768] and [1,
 15008, 384], K = 3, 7, 11 at d = 1, 3, 5) and IndexTTS-1.5's ([1, 2408,
 768] and [1, 19264, 384], the same K and d).  Launch counters are set to 0
-just before each run of the probes' entry point and of phases 3 to 12, and
+just before each run of the probes' entry point and of phases 3 to 13, and
 read just after:
 each kernel of a run's path must have launched in it (Orpheus:
 ``quantized_matmul``; DAC's encode and decode: both conv kernels; OuteTTS
@@ -218,7 +246,8 @@ and Spark: all three; Dia's DAC decode: both conv kernels; EnCodec's encode
 and decode and Bark's EnCodec decode: ``lstm``; Whisper's and Voxtral's
 encodes: ``dilated_conv1d``; Voxtral's decode steps: ``quantized_matmul``;
 BigVGAN's forwards and IndexTTS's runs: both conv kernels; Parakeet's
-runs: none),
+runs: none; the bf16 runs of Kokoro, BigVGAN and EnCodec: their bf16
+variants only),
 Kokoro's ``lstm`` launches only on the cluster route, EnCodec's and Bark's
 only on the row route.
 Needs
@@ -250,6 +279,9 @@ ROOT = Path(__file__).resolve().parent
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
+# dense bf16 tensor-core operations: the bound of the bf16 variants, whose
+# operands move as 2-byte values
+PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
 
@@ -273,8 +305,13 @@ KERNEL_INFO = {
     "probe_auto": ("mlx_audio_tpu_torch/csrc/probe_auto.cu",
                    "scripts/probe_depth.py:177"),
 }
+# the bf16 variants: each built from its float32 kernel's source, standing
+# in for the same TPU kernel (which the JAX package runs in bf16 too)
+for _name in ("lstm", "dilated_conv1d", "banded_conv1d"):
+    KERNEL_INFO[f"{_name}_bf16"] = KERNEL_INFO[_name]
 # the kernels each main-path run must launch
 KOKORO_KERNELS = ("lstm", "dilated_conv1d", "banded_conv1d")
+KOKORO_BF16_KERNELS = tuple(f"{k}_bf16" for k in KOKORO_KERNELS)
 PROBE_KERNELS = ("probe_depth", "probe_vpu", "probe_auto")
 
 # Kokoro phoneme alphabet text: the pipeline's fallback G2P passes it
@@ -473,19 +510,10 @@ WHISPER_STEMS = ((1, 3000, 128, 1280), (4, 3000, 128, 1280))
 
 
 def _conv_cases(gen):
-    import torch.nn.functional as F
-
-    from mlx_audio_tpu_torch.nn import kernels
-    from mlx_audio_tpu_torch.nn.layers import _dilated_conv1d_residue
-
     from mlx_audio_tpu_torch.nn.layers import conv1d_route
 
-    shifted = [((2, 26000, 256), 3, d) for d in (1, 3, 5)]
-    shifted.append(((2, 156001, 128), 3, 1))
-    banded = [((2, 26000, 256), 7, 1), ((2, 156001, 128), 11, 1),
-              ((2, 26000, 256), 7, 3), ((2, 156001, 128), 11, 3)]
-    cases = [("dilated_conv1d", s + (s[2],), k, d, "") for s, k, d in shifted]
-    cases += [("banded_conv1d", s + (s[2],), k, d, "") for s, k, d in banded]
+    cases = [("dilated_conv1d", s + (s[2],), k, d, "") for s, k, d in KOKORO_SHIFTED]
+    cases += [("banded_conv1d", s + (s[2],), k, d, "") for s, k, d in KOKORO_BANDED]
     # DAC-44kHz's resblock convs (K=7, d = 1, 3, 9) that take a kernel, on a
     # 3 s clip, and at phase 7's decodes DAC-24kHz's (OuteTTS) and
     # DAC-44kHz's (Dia), each on the kernel its route names
@@ -509,9 +537,34 @@ def _conv_cases(gen):
         if conv1d_route(3, c, c_out, l, padding=1) != "shifted":
             fail(f"Whisper's conv1 [{b}, {l}, {c}] -> {c_out} does not take dilated_conv1d")
         cases.append(("dilated_conv1d", (b, l, c, c_out), 3, 1, " (Whisper, Voxtral conv1)"))
+    yield from _conv_case_dicts(gen, cases, torch.float32)
+
+
+# Kokoro-82M's conv shapes as phase 2 holds its kernels (batch 2 of bench.py's
+# frame bucket: [2, 26000, 256] after the first upsampling, [2, 156001, 128]
+# after the second): K = 3 on the dilated kernel, K = 7 and 11 on the banded
+KOKORO_SHIFTED = tuple([((2, 26000, 256), 3, d) for d in (1, 3, 5)]
+                       + [((2, 156001, 128), 3, 1)])
+KOKORO_BANDED = (((2, 26000, 256), 7, 1), ((2, 156001, 128), 11, 1),
+                 ((2, 26000, 256), 7, 3), ((2, 156001, 128), 11, 3))
+
+
+def _conv_case_dicts(gen, cases, dtype):
+    """Phase 2's case of each (kernel, (B, L, C, Cout), K, d, label): seeded
+    operands in ``dtype``; the kernel (the banded one with d > 1 through the
+    residue fold), its plain version, cuDNN's conv on the same operands, and
+    the plain version in float64.  float32 runs 3xTF32 (its float32-FMA
+    bound printed beside), bf16 one bf16 product a multiply-add."""
+    import torch.nn.functional as F
+
+    from mlx_audio_tpu_torch.nn import kernels
+    from mlx_audio_tpu_torch.nn.layers import _dilated_conv1d_residue
+
+    bf16 = dtype == torch.bfloat16
+    size = 2 if bf16 else 4
     for name, (b, l, c, c_out), k, d, label in cases:
-        x = torch.randn(b, l, c, generator=gen, device="cuda") * 0.3
-        w = torch.randn(k, c, c_out, generator=gen, device="cuda") * 0.05
+        x = (torch.randn(b, l, c, generator=gen, device="cuda") * 0.3).to(dtype)
+        w = (torch.randn(k, c, c_out, generator=gen, device="cuda") * 0.05).to(dtype)
         x_ncl = x.transpose(1, 2).contiguous()
         w_lib = w.permute(2, 1, 0).contiguous()
         pad = (k - 1) * d // 2
@@ -535,21 +588,21 @@ def _conv_cases(gen):
                 return _dilated_conv1d_residue(x, w, d,
                                                kernels.banded_conv1d_plain)
         yield {
-            "kernel": name,
+            "kernel": f"{name}_bf16" if bf16 else name,
             "shape": f"[{b}, {l}, {c}]" + (f" -> {c_out}" if c_out != c else "")
                      + f" K={k} d={d}"
                      + (" residue fold" if name == "banded_conv1d" and d > 1 else "")
-                     + label,
+                     + label + (" bf16" if bf16 else ""),
             "kernel_fn": kern, "plain_fn": plain,
             "library_fn": lambda x=x_ncl, w=w_lib, p=pad, d=d:
                 F.conv1d(x, w, None, 1, p, d),
             "flops": 2.0 * b * l * c * c_out * k,
-            "bytes": 4.0 * (b * l * (c + c_out) + k * c * c_out),
-            # both conv kernels run 3xTF32 on the tensor cores: the
-            # float32-FMA bound is printed beside that one, and the kernel's
-            # error and the plain version's against the plain version in
-            # float64
-            "peak_ops": PEAK_3XTF32_FLOPS, "f32_fma_bound": True,
+            "bytes": size * (b * l * (c + c_out) + k * c * c_out),
+            # the float32 kernels run 3xTF32 on the tensor cores: the
+            # float32-FMA bound is printed beside that one; the kernel's error
+            # and the plain version's against the plain version in float64
+            "peak_ops": PEAK_BF16_FLOPS if bf16 else PEAK_3XTF32_FLOPS,
+            "f32_fma_bound": not bf16, "bf16": bf16,
             "float64_fn": (
                 (lambda x=x, w=w, d=d: kernels.dilated_conv1d_plain(
                     x.double(), w.double(), d))
@@ -557,6 +610,62 @@ def _conv_cases(gen):
                 (lambda x=x, w=w, d=d: _dilated_conv1d_residue(
                     x.double(), w.double(), d, kernels.banded_conv1d_plain))),
         }
+
+
+# (B, T) of Kokoro-82M's LSTMs at bench.py's batch 32: its phoneme bucket
+# (the text and duration encoders) and its frame bucket (F0/N's shared LSTM)
+KOKORO_BF16_LSTM_SHAPES = ((32, 512), (32, 1300))
+
+
+def _bf16_cases(gen):
+    """The bf16 variants at the main paths' shapes: lstm at Kokoro-82M's
+    bench shapes (H = 256, the cluster route, both directions) and at
+    EnCodec-24kHz's H = 512 (the row route), the conv kernels at Kokoro's
+    shapes and BigVGAN-v2's resblocks.  Each output must lie within one bf16
+    step of a float64 run of the plain version (``kernels.bf16_steps``);
+    the library calls are cuDNN's on the same bf16 operands."""
+    from mlx_audio_tpu_torch.nn import kernels
+    from mlx_audio_tpu_torch.nn.layers import conv1d_route
+
+    bf16 = torch.bfloat16
+    shapes = [(b, t, 256, rev) for b, t in KOKORO_BF16_LSTM_SHAPES for rev in (False, True)]
+    shapes += [(b, t, 512, False) for b, t in ENCODEC_LSTM_SHAPES]
+    for b, t, h, reverse in shapes:
+        route = kernels.lstm_route(h)
+        x_proj = (torch.randn(b, t, 4 * h, generator=gen, device="cuda") * 0.3).to(bf16)
+        w_h = (torch.randn(4 * h, h, generator=gen, device="cuda") * 0.1).to(bf16)
+        xp = (x_proj.flip(1) if reverse else x_proj).contiguous()
+        wh = w_h.t().contiguous()
+        h0 = torch.zeros(b, h, device="cuda", dtype=bf16)
+        lib = torch.nn.LSTM(4 * h, h, batch_first=True).cuda().to(bf16)
+        with torch.no_grad():
+            lib.weight_ih_l0.copy_(torch.eye(4 * h))
+            lib.weight_hh_l0.copy_(w_h)
+            lib.bias_ih_l0.zero_()
+            lib.bias_hh_l0.zero_()
+        yield {
+            "kernel": "lstm_bf16",
+            "shape": f"B={b} T={t} H={h} {'reverse' if reverse else 'forward'} route "
+                     f"{route} bf16",
+            "kernel_fn": lambda xp=xp, wh=wh, h0=h0: kernels.lstm(xp, wh, h0, h0),
+            "plain_fn": lambda xp=xp, wh=wh, h0=h0: kernels.lstm_plain(xp, wh, h0, h0),
+            "library_fn": lambda lib=lib, xp=xp: lib(xp),
+            "flops": 2.0 * b * t * h * 4 * h,
+            "bytes": 2.0 * (b * t * 4 * h + 4 * h * h + 2 * b * h
+                            + 2 * b * t * h + 2 * b * h),
+            "peak_ops": PEAK_BF16_FLOPS, "bf16": True,
+            "float64_fn": lambda xp=xp, wh=wh, h0=h0: kernels.lstm_plain(
+                xp.double(), wh.double(), h0.double(), h0.double()),
+        }
+    cases = [("dilated_conv1d", s + (s[2],), k, d, " (Kokoro)") for s, k, d in KOKORO_SHIFTED]
+    cases += [("banded_conv1d", s + (s[2],), k, d, " (Kokoro)") for s, k, d in KOKORO_BANDED]
+    for (c, l), k, d in itertools.product(BIGVGAN_RESBLOCKS, (3, 7, 11), (1, 3, 5)):
+        route = conv1d_route(k, c, c, l, d, padding=(k - 1) * d // 2, dtype=bf16)
+        if route == "library":
+            fail(f"BigVGAN-v2's resblock conv [1, {l}, {c}] K={k} d={d} takes no bf16 kernel")
+        name = "dilated_conv1d" if route == "shifted" else "banded_conv1d"
+        cases.append((name, (1, l, c, c), k, d, " (BigVGAN-v2)"))
+    yield from _conv_case_dicts(gen, cases, bf16)
 
 
 # (I, O) of every QuantizedLinear on CSM-1B's path (int8 and int4 in groups
@@ -845,10 +954,11 @@ def check_kernels() -> dict:
     from mlx_audio_tpu_torch.nn import kernels
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    bf16_gen = torch.Generator(device="cuda").manual_seed(3)
     records = {name: [] for name in KERNEL_INFO}
     bad = []
     cases = itertools.chain(_lstm_cases(gen), _conv_cases(gen), _qmm_cases(gen),
-                            _draft_cases(gen), _probe_cases(gen))
+                            _draft_cases(gen), _probe_cases(gen), _bf16_cases(bf16_gen))
     for case in cases:
         name = case["kernel"]
         before = kernels.LAUNCHES[name]
@@ -857,8 +967,18 @@ def check_kernels() -> dict:
         if kernels.LAUNCHES[name] == before:
             bad.append(f"{name} {case['shape']}: kernel not launched")
         ref = _outputs(case["plain_fn"]())
-        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-        if case.get("exact"):
+        if case.get("bf16"):
+            err = max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref))
+        else:
+            err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        if case.get("bf16"):
+            # every output within one bf16 step of the plain version in float64
+            exact = _outputs(case["float64_fn"]())
+            steps = max(kernels.bf16_steps(g, e) for g, e in zip(got, exact))
+            ok = all(g.dtype == torch.bfloat16 for g in got) and steps <= 1.0
+            f64_err = max(float((g.double() - e).abs().max()) for g, e in zip(got, exact))
+            del exact
+        elif case.get("exact"):
             ok = all(torch.equal(g, r) for g, r in zip(got, ref))
         else:
             ok = all(torch.allclose(g, r, **TOL) for g, r in zip(got, ref))
@@ -886,7 +1006,11 @@ def check_kernels() -> dict:
             rec["bound_f32_fma_ms"] = bound_ms(case["flops"], case["bytes"])[0]
             bound = (f"bound 3xTF32 {bms:.4f} ms ({by}), float32 FMA "
                      f"{rec['bound_f32_fma_ms']:.4f} ms")
-        if "float64_fn" in case:
+        if case.get("bf16"):
+            rec["bf16_steps"], rec["max_abs_err_f64"] = steps, f64_err
+            bound += (f"; against float64: {f64_err:.3e}, {steps:.3f} bf16 steps "
+                      f"(kernel against its bf16 plain version {err:.3e})")
+        elif "float64_fn" in case:
             exact = case["float64_fn"]()
             rec["max_abs_err_f64"] = float((got[0].double() - exact).abs().max())
             rec["plain_max_abs_err_f64"] = float((ref[0].double() - exact).abs().max())
@@ -895,8 +1019,9 @@ def check_kernels() -> dict:
             del exact
         records[name].append(rec)
         lib = "—" if library_ms is None else f"{library_ms:.3f} ms"
-        rule = case.get("rule", "tokens equal") if case.get("exact") else \
-            f"atol {TOL['atol']}, rtol {TOL['rtol']}"
+        rule = ("within one bf16 step of float64" if case.get("bf16") else
+                case.get("rule", "tokens equal") if case.get("exact") else
+                f"atol {TOL['atol']}, rtol {TOL['rtol']}")
         print(f"{name:16s} {case['shape']:52s} max_abs_err {err:.3e} "
               f"({rule}) {'ok' if ok else 'DISAGREES'}  kernel {ms:.3f} ms  "
               f"plain {plain_ms:.3f} ms  library {lib}  {bound}", flush=True)
@@ -991,9 +1116,11 @@ def drive_entry_points(model, voice_path: str) -> None:
           + ", ".join(f"{r.samples} samples" for r in batch), flush=True)
 
 
-def bench_runner(model):
-    """The shape bench.py measures, in float32: returns run_once(seed) ->
-    (audio, total, duration-stage seconds, synthesis-stage seconds)."""
+def bench_runner(model, batch: int = BENCH_BATCH, dtype=torch.float32):
+    """The shape bench.py measures, at ``batch`` with the reference and
+    speed in ``dtype`` (bench.py feeds them in the model's dtype): returns
+    run_once(seed) -> (audio, total, duration-stage seconds,
+    synthesis-stage seconds)."""
     from mlx_audio_tpu_torch.models.tts.kokoro.model import (
         duration_stage,
         synthesis_stage,
@@ -1002,12 +1129,12 @@ def bench_runner(model):
     rng = np.random.default_rng(0)
     dev = model.device
     input_ids = torch.as_tensor(
-        rng.integers(1, model.config.n_token, size=(BENCH_BATCH, N_BUCKET)),
+        rng.integers(1, model.config.n_token, size=(batch, N_BUCKET)),
         dtype=torch.long, device=dev)
-    lengths = torch.full((BENCH_BATCH,), N_BUCKET, dtype=torch.long, device=dev)
-    ref_s = torch.as_tensor(rng.standard_normal((BENCH_BATCH, 256)) * 0.1,
-                            dtype=torch.float32, device=dev)
-    speed = torch.ones(BENCH_BATCH, device=dev)
+    lengths = torch.full((batch,), N_BUCKET, dtype=torch.long, device=dev)
+    ref_s = torch.as_tensor(rng.standard_normal((batch, 256)) * 0.1,
+                            dtype=torch.float32, device=dev).to(dtype)
+    speed = torch.ones(batch, device=dev, dtype=dtype)
     # alternating 2/3 frames per phoneme: 1280 frames in the 1300 bucket
     caps = 2 + (torch.arange(N_BUCKET, device=dev) % 2)[None, :]
 
@@ -1027,12 +1154,12 @@ def bench_runner(model):
     return run_once
 
 
-def bench_pass(run_once, iters: int = 5) -> dict:
-    """Phase 4: one warm-up call, then the median of ``iters`` synced
-    iterations."""
+def bench_pass(run_once, iters: int = 5, batch: int = BENCH_BATCH) -> dict:
+    """Phase 4 (and 13): one warm-up call, then the median of ``iters``
+    synced iterations."""
     audio, total, _, _ = run_once(1_000_001)
-    if not (audio.shape == (BENCH_BATCH, F_BUCKET * 600)
-            and bool(torch.isfinite(audio).all())):
+    if not (audio.shape == (batch, F_BUCKET * 600)
+            and bool(torch.isfinite(audio.float()).all())):
         fail(f"bench pass: audio {tuple(audio.shape)} not finite or misshaped")
     per_iter, stages = [], []
     for i in range(iters):
@@ -1050,7 +1177,11 @@ def bench_pass(run_once, iters: int = 5) -> dict:
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
-KERNEL_GROUPS = (("lstm_cluster_kernel", "lstm (this repo)"),
+KERNEL_GROUPS = (("lstm_cluster_kernel<__nv_bfloat16>", "lstm_bf16 (this repo)"),
+                 ("lstm_row_kernel<__nv_bfloat16>", "lstm_bf16 (this repo)"),
+                 ("dilated_conv1d_kernel<__nv_bfloat16", "dilated_conv1d_bf16 (this repo)"),
+                 ("banded_conv1d_kernel<__nv_bfloat16>", "banded_conv1d_bf16 (this repo)"),
+                 ("lstm_cluster_kernel", "lstm (this repo)"),
                  ("lstm_row_kernel", "lstm (this repo)"),
                  ("dilated_conv1d_kernel", "dilated_conv1d (this repo)"),
                  ("banded_conv1d_kernel", "banded_conv1d (this repo)"),
@@ -1255,13 +1386,16 @@ def record_conv_calls(path_calls: dict):
     """Route kernels.banded_conv1d and kernels.dilated_conv1d through
     recorders that keep the operands of each wrapper's first call at each
     (kernel, B, L, C, Cout, K, dilation) in path_calls (a residue-folded
-    dilated conv is recorded at the folded shape banded_conv1d is given);
-    returns the two wrappers, which the caller puts back."""
+    dilated conv is recorded at the folded shape banded_conv1d is given; a
+    bf16 call under the bf16 variant's name); returns the two wrappers,
+    which the caller puts back."""
     from mlx_audio_tpu_torch.nn import kernels
 
     banded, dilated = kernels.banded_conv1d, kernels.dilated_conv1d
 
     def keep(name, x, w, d):
+        if x.dtype == torch.bfloat16:
+            name = f"{name}_bf16"
         key = (name, *x.shape, w.shape[2], w.shape[0], d)
         if key not in path_calls:
             path_calls[key] = (x.clone(), w.clone(), d)
@@ -1279,34 +1413,54 @@ def record_conv_calls(path_calls: dict):
 
 
 def _per_kernel(conv_calls: dict) -> dict:
-    return {name: sum(key[0] == name for key in conv_calls)
-            for name in ("banded_conv1d", "dilated_conv1d")}
+    names = sorted({key[0] for key in conv_calls} | {"banded_conv1d", "dilated_conv1d"})
+    return {name: sum(key[0] == name for key in conv_calls) for name in names}
 
 
 def check_conv_path(path_calls: dict, wrappers, label: str) -> dict:
     """Each conv kernel against its plain version on the operands a path
-    gave it; fails past TOL, returns each kernel's largest error."""
+    gave it: float32 within TOL; a bf16 variant within one bf16 step of the
+    plain version in float64 (``kernels.bf16_steps``).  Fails past them,
+    returns each kernel's largest error against its plain version (and a
+    bf16 variant's largest in bf16 steps, under "<name> steps")."""
     from mlx_audio_tpu_torch.nn import kernels
 
     banded, dilated = wrappers
     errs, bad = {"banded_conv1d": 0.0, "dilated_conv1d": 0.0}, []
     for key, (x, w, d) in sorted(path_calls.items()):
         name = key[0]
-        if name == "banded_conv1d":
-            got, ref = banded(x, w), kernels.banded_conv1d_plain(x, w)
+        if name.startswith("banded_conv1d"):
+            got = banded(x, w)
+
+            def plain(a, b):
+                return kernels.banded_conv1d_plain(a, b)
         else:
-            got, ref = dilated(x, w, d), kernels.dilated_conv1d_plain(x, w, d)
-        err = float((got - ref).abs().max())
-        errs[name] = max(errs[name], err)
-        if not torch.allclose(got, ref, **TOL):
+            got = dilated(x, w, d)
+
+            def plain(a, b, d=d):
+                return kernels.dilated_conv1d_plain(a, b, d)
+        ref = plain(x, w)
+        err = float((got.float() - ref.float()).abs().max())
+        errs[name] = max(errs.get(name, 0.0), err)
+        if x.dtype == torch.bfloat16:
+            exact = plain(x.double(), w.double())
+            steps = kernels.bf16_steps(got, exact)
+            errs[f"{name} steps"] = max(errs.get(f"{name} steps", 0.0), steps)
+            ok = steps <= 1.0
+            del exact
+        else:
+            ok = torch.allclose(got, ref, **TOL)
+        if not ok:
             bad.append(f"{name} {list(x.shape)} K={w.shape[0]} d={d}: {err:.3e}")
         del got, ref
+        torch.cuda.empty_cache()
     if bad:
         fail(f"the conv kernels disagree with their plain versions at the {label} "
              "path's shapes: " + "; ".join(bad))
     print(f"conv kernels at the {len(path_calls)} shapes the {label} path gave them, "
-          f"on the path's own operands: max_abs_err {json.dumps(errs)} (atol "
-          f"{TOL['atol']}, rtol {TOL['rtol']}) ok; " + ", ".join(
+          f"on the path's own operands: max_abs_err {json.dumps(errs)} (float32: atol "
+          f"{TOL['atol']}, rtol {TOL['rtol']}; bf16: one bf16 step of float64) ok; "
+          + ", ".join(
               f"{k[0]} [{k[1]}, {k[2]}, {k[3]}] K={k[5]} d={k[6]}"
               for k in sorted(path_calls)), flush=True)
     return errs
@@ -1332,24 +1486,35 @@ def record_lstm_calls(path_calls: dict):
 
 def check_lstm_path(path_calls: dict, lstm, label: str) -> float:
     """The lstm kernel against its plain version on the operands a path gave
-    it; fails past TOL, returns the largest error."""
+    it: float32 within TOL, bf16 within one bf16 step of the plain version
+    in float64; fails past them, returns the largest error against the
+    plain version."""
     from mlx_audio_tpu_torch.nn import kernels
 
     path_err, bad = 0.0, []
     for key, args in sorted(path_calls.items()):
         got, ref = lstm(*args), kernels.lstm_plain(*args)
         got, ref = (got[0], got[1], *got[2]), (ref[0], ref[1], *ref[2])
-        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        err = max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref))
         path_err = max(path_err, err)
-        if not all(torch.allclose(g, r, **TOL) for g, r in zip(got, ref)):
+        if args[0].dtype == torch.bfloat16:
+            exact = kernels.lstm_plain(*(a.double() for a in args))
+            exact = (exact[0], exact[1], *exact[2])
+            steps = max(kernels.bf16_steps(g, e) for g, e in zip(got, exact))
+            ok = steps <= 1.0
+            print(f"lstm_bf16 B={key[0]} T={key[1]} H={key[2]} ({label}): {steps:.3f} "
+                  "bf16 steps from the plain version in float64", flush=True)
+        else:
+            ok = all(torch.allclose(g, r, **TOL) for g, r in zip(got, ref))
+        if not ok:
             bad.append(f"B={key[0]} T={key[1]} H={key[2]}: {err:.3e}")
     if bad:
         fail(f"lstm disagrees with its plain version at the {label} path's "
              "shapes: " + "; ".join(bad))
     print(f"lstm at the {len(path_calls)} (B, T, H) the {label} path gave it, on the "
           f"path's own operands ({', '.join(kernels.lstm_route(k[2]) for k in sorted(path_calls))}"
-          f" route): max_abs_err {path_err:.3e} (atol {TOL['atol']}, rtol "
-          f"{TOL['rtol']}) ok; " + ", ".join(f"B={b} T={t} H={h}"
+          f" route): max_abs_err {path_err:.3e} (float32: atol {TOL['atol']}, rtol "
+          f"{TOL['rtol']}; bf16: one bf16 step of float64) ok; " + ", ".join(f"B={b} T={t} H={h}"
                                              for b, t, h in sorted(path_calls)), flush=True)
     return path_err
 
@@ -4590,6 +4755,317 @@ def indextts_card_against_cpu(model, run: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: Kokoro-82M in bf16, and the bf16 runs of phases 8 and 11
+# ---------------------------------------------------------------------------
+
+BF16_BENCH_BATCH = 32  # bench.py's default batch, at which it runs bf16
+# the bf16 variants' launches a bench iteration (duration and synthesis
+# stages): phase 4's float32 counts
+KOKORO_BF16_PER_SYNTHESIS = {"dilated_conv1d_bf16": 21, "banded_conv1d_bf16": 36,
+                             "lstm_bf16": 12}
+# bf16 audio on the card against the same weights and inputs in bf16 on the
+# CPU (relative RMS): both round to bf16 at the same places, but cuBLAS,
+# cuDNN and the kernels sum in other orders than the CPU, a last-bit
+# difference that random weights amplify.  Measured on one H100: Kokoro's
+# generate 1.7e-4 (its float32 reference promotes most of the graph to
+# float32), BigVGAN-v2 1.25e-2, EnCodec 7.1e-3 (and its encoder output)
+KOKORO_BF16_CPU_REL_RMS = 2e-3
+BIGVGAN_BF16_CPU_REL_RMS = 5e-2
+ENCODEC_BF16_CPU_REL_RMS = 3e-2
+# Kokoro audio is compared from this sample on: the source's first STFT
+# frame is symmetric and its phase +-pi by rounding (tests/test_torch_kokoro.py)
+KOKORO_HEAD = 2400
+# a card's code that differs from the CPU's must be, on the card's own
+# encoder output x, the nearest or within one bf16 step (2^-7) of
+# |x|^2 + |e|^2 of the nearest: the bf16 quantizer forms each distance as
+# |x|^2 - 2 x.e + |e|^2, each term rounded to bf16
+CODE_TIE_SHARE = 2.0 ** -7
+
+
+def rel_rms(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).pow(2).mean().sqrt() / (want.pow(2).mean().sqrt() + 1e-12))
+
+
+def _check_only(name: str, lc: dict, want: dict) -> None:
+    """The launches of run ``name``: exactly ``want``, and none of any other
+    kernel (the float32 variants included)."""
+    from mlx_audio_tpu_torch.nn import kernels
+
+    got = {k: v for k, v in lc.items() if v}
+    if got != {k: v for k, v in want.items() if v}:
+        fail(f"{name}: launches {got}, expected {want} and no other kernel "
+             f"(of {sorted(kernels.LAUNCHES)})")
+
+
+def kokoro_bf16_runs(launches: dict, f32_bench: dict, voice_path: str) -> dict:
+    """Phase 13: Kokoro-82M cast with .to(torch.bfloat16) at bench.py's own
+    shape (batch 32, phoneme bucket 512, frame bucket 1300, durations capped
+    at alternating 2/3, the reference and speed in bf16): one iteration
+    with every conv and lstm launch recorded and held to its plain version
+    on the path's operands, then the median of 5 synced iterations, peak
+    memory and one profiled iteration; every launch must be of a bf16
+    variant, KOKORO_BF16_PER_SYNTHESIS a synthesis.  Then ``generate`` on the
+    card against the same bf16 weights on the CPU."""
+    from mlx_audio_tpu_torch.models.tts.kokoro import Model
+    from mlx_audio_tpu_torch.models.tts.kokoro.presets import kokoro_82m_config
+    from mlx_audio_tpu_torch.nn import kernels
+
+    t0 = time.perf_counter()
+    model = Model(kokoro_82m_config(), device="cuda").to(torch.bfloat16)
+    run_once = bench_runner(model, BF16_BENCH_BATCH, torch.bfloat16)
+    conv_calls, lstm_calls, wall = {}, {}, {}
+    run = path_runner(launches, wall)
+    convs = record_conv_calls(conv_calls)
+    lstm = record_lstm_calls(lstm_calls)
+    try:
+        with torch.no_grad():
+            audio, total, _, _ = run("kokoro_bf16_path", lambda: run_once(1_000_001))
+    finally:
+        kernels.banded_conv1d, kernels.dilated_conv1d = convs
+        kernels.lstm = lstm
+    # the ISTFT is a float32 island (as in the JAX package): the audio is float32
+    if audio.dtype != torch.float32 or not bool(torch.isfinite(audio).all()):
+        fail(f"kokoro bf16: audio {audio.dtype}, finite {bool(torch.isfinite(audio).all())}")
+    _check_only("kokoro_bf16_path", launches["kokoro_bf16_path"], KOKORO_BF16_PER_SYNTHESIS)
+    conv_err = check_conv_path(conv_calls, convs, "Kokoro bf16 bench")
+    lstm_err = check_lstm_path(lstm_calls, lstm, "Kokoro bf16 bench")
+    path_shapes = {**_per_kernel(conv_calls), "lstm_bf16": len(lstm_calls)}
+    del conv_calls, lstm_calls, audio, total
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    bench = bench_pass(run_once, batch=BF16_BENCH_BATCH)
+    launches["kokoro_bf16_bench"] = dict(kernels.LAUNCHES)
+    routes = dict(kernels.LSTM_ROUTE_LAUNCHES)
+    _check_only("kokoro_bf16_bench", launches["kokoro_bf16_bench"],
+                {k: v * bench["calls"] for k, v in KOKORO_BF16_PER_SYNTHESIS.items()})
+    if routes["row"]:
+        fail(f"kokoro bf16: lstm launches by route {routes}")
+    card = gpu_line()
+    print(f"bench pass (batch {BF16_BENCH_BATCH}, {N_BUCKET} phonemes, {F_BUCKET} frames, "
+          f"bf16, bench.py's shape and dtype): {bench['audio_seconds_per_second']:.2f} "
+          f"audio-s/s, median {bench['median_s']:.4f} s per iteration, "
+          f"{bench['audio_seconds_per_iter']:.1f} audio-s per iteration (duration stage "
+          f"{bench['duration_stage_s']:.4f} s, synthesis stage {bench['synthesis_stage_s']:.4f} "
+          f"s; iterations {', '.join(f'{t:.4f}' for t in bench['iter_s'])} s), peak "
+          f"{bench['peak_memory_gb']:.2f} GB; beside phase 4's float32 (batch {BENCH_BATCH}) "
+          f"{f32_bench['audio_seconds_per_second']:.2f} audio-s/s; launches a synthesis "
+          f"{json.dumps({k: v // bench['calls'] for k, v in launches['kokoro_bf16_bench'].items() if v})}"
+          f", lstm by route {json.dumps(routes)}; built and checked in "
+          f"{time.perf_counter() - t0:.1f} s; on {card}", flush=True)
+    profile_pass(run_once)
+    del run_once
+    torch.cuda.empty_cache()
+    cpu = kokoro_bf16_card_against_cpu(model, voice_path, launches)
+    return {"bench": bench, "conv_path_err": conv_err, "lstm_path_err": lstm_err,
+            "path_shapes": path_shapes, "against_cpu": cpu}
+
+
+def kokoro_bf16_card_against_cpu(model, voice_path: str, launches: dict) -> dict:
+    """One bf16 ``generate`` (and ``synthesize_batch`` for its durations) on
+    the card and through the same bf16 weights on the CPU, both fed the
+    source's draws made on the CPU: durations equal, audio within
+    KOKORO_BF16_CPU_REL_RMS from sample KOKORO_HEAD on.  The entry points
+    take the reference and speed in float32, so promotion runs most of the
+    graph in float32, as in the JAX package."""
+    from mlx_audio_tpu_torch.models.tts.kokoro import Model, istftnet
+    from mlx_audio_tpu_torch.models.tts.kokoro.presets import kokoro_82m_config
+    from mlx_audio_tpu_torch.nn import kernels
+
+    text = BATCH_TEXTS[2]
+    ref = np.load(voice_path)[len(text) - 1].reshape(1, -1)
+    draw = istftnet.source_noise
+
+    def cpu_draws(b, length, harmonics, device, seed=0):
+        return tuple(t.to(device) for t in draw(b, length, harmonics, "cpu", seed))
+
+    istftnet.source_noise = cpu_draws
+    try:
+        kernels.reset_launches()
+        card = list(model.generate(text, voice=voice_path, speed=SPEED))
+        (_, dur_card), = model.synthesize_batch([text], ref, speeds=SPEED)
+        launches["kokoro_bf16_generate"] = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        cpu_model = Model(kokoro_82m_config(), device="cpu").to(torch.bfloat16)
+        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        cpu = list(cpu_model.generate(text, voice=voice_path, speed=SPEED))
+        (_, dur_cpu), = cpu_model.synthesize_batch([text], ref, speeds=SPEED)
+        cpu_s = time.perf_counter() - t0
+    finally:
+        istftnet.source_noise = draw
+    a_card = torch.as_tensor(np.concatenate([r.audio for r in card]))
+    a_cpu = torch.as_tensor(np.concatenate([r.audio for r in cpu]))
+    if not np.array_equal(dur_card, dur_cpu):
+        fail(f"kokoro bf16 generate: durations on the card {dur_card.tolist()} differ from "
+             f"the CPU's {dur_cpu.tolist()}")
+    if a_card.shape != a_cpu.shape or not bool(torch.isfinite(a_card).all()):
+        fail(f"kokoro bf16 generate: audio {tuple(a_card.shape)} against the CPU's "
+             f"{tuple(a_cpu.shape)}, finite {bool(torch.isfinite(a_card).all())}")
+    err = rel_rms(a_card[KOKORO_HEAD:], a_cpu[KOKORO_HEAD:])
+    used = {k: v for k, v in launches["kokoro_bf16_generate"].items() if v}
+    print(f"kokoro bf16 generate on the card against the CPU ({cpu_s:.1f} s): "
+          f"{len(dur_card)} phonemes, {int(dur_card.sum())} frames, durations equal; "
+          f"audio {tuple(a_card.shape)}, relative RMS past sample {KOKORO_HEAD} "
+          f"{err:.3e} (bound {KOKORO_BF16_CPU_REL_RMS}), max abs "
+          f"{float((a_card - a_cpu)[KOKORO_HEAD:].abs().max()):.3e}; launches of the "
+          f"card's generate and synthesize_batch {json.dumps(used)}", flush=True)
+    if err > KOKORO_BF16_CPU_REL_RMS:
+        fail(f"kokoro bf16 generate: audio on the card {err:.3e} (relative RMS) from the CPU's")
+    return {"rel_rms": err, "frames": int(dur_card.sum()), "cpu_s": cpu_s}
+
+
+def bigvgan_bf16_runs(model, launches: dict, run: dict, f32_ms: float) -> dict:
+    """Phase 11's BigVGAN-v2 cast to bf16 (``model.to(torch.bfloat16)``) on
+    the phase's 10 s mel in bf16 at batch 1: 26 dilated_conv1d_bf16 and 10
+    banded_conv1d_bf16 launches and nothing else, each held to its plain
+    version on the path's operands; the audio against the same bf16 weights
+    and mel on the CPU (relative RMS)."""
+    from mlx_audio_tpu_torch.codec.bigvgan import BigVGAN
+    from mlx_audio_tpu_torch.nn import kernels
+
+    model.to(torch.bfloat16)
+    mel = run["mel"][:1].to(torch.bfloat16)
+    conv_calls, wall = {}, {}
+    runner = path_runner(launches, wall)
+    convs = record_conv_calls(conv_calls)
+    try:
+        y = runner("bigvgan_bf16_forward", lambda: model(mel))
+    finally:
+        kernels.banded_conv1d, kernels.dilated_conv1d = convs
+    _check_only("bigvgan_bf16_forward", launches["bigvgan_bf16_forward"],
+                {f"{k}_bf16": v for k, v in BIGVGAN_ROUTED.items()})
+    samples = BIGVGAN_FRAMES * int(np.prod(model.config.upsample_rates))
+    if (y.shape != (1, samples, 1) or y.dtype != torch.bfloat16
+            or not bool(torch.isfinite(y.float()).all())):
+        fail(f"bigvgan bf16: audio {tuple(y.shape)} {y.dtype}")
+    conv_err = check_conv_path(conv_calls, convs, "BigVGAN bf16")
+    path_shapes = _per_kernel(conv_calls)
+    del conv_calls
+    with torch.no_grad():
+        ms = median_ms(lambda: model(mel), 3)
+    t0 = time.perf_counter()
+    cpu = BigVGAN(bigvgan_config(), device="cpu").to(torch.bfloat16)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    ref = cpu(mel.cpu())
+    err = rel_rms(y, ref)
+    print(f"bigvgan bf16: forward of {BIGVGAN_FRAMES} mel frames at batch 1, launches "
+          f"{json.dumps({k: v for k, v in launches['bigvgan_bf16_forward'].items() if v})}; "
+          f"{ms:.4f} ms a forward (real-time factor {ms / 1e3 / BIGVGAN_SECONDS:.5f}; float32 "
+          f"{f32_ms:.4f} ms); against the CPU in bf16 "
+          f"({time.perf_counter() - t0:.1f} s): relative RMS {err:.3e} (bound "
+          f"{BIGVGAN_BF16_CPU_REL_RMS}), max abs {float((y.cpu().float() - ref.float()).abs().max()):.3e}"
+          f"; on {gpu_line()}", flush=True)
+    if err > BIGVGAN_BF16_CPU_REL_RMS:
+        fail(f"bigvgan bf16: the audio on the card is {err:.3e} (relative RMS) from the CPU's")
+    return {"forward_ms": ms, "rel_rms": err, "conv_path_err": conv_err,
+            "conv_path_shapes": path_shapes}
+
+
+def _code_flips(ref, codes_card, codes_cpu, latent_card, latent_cpu) -> list:
+    """At each frame whose codes differ between the card and the CPU, the
+    first differing codebook's squared distances (float32) to the card's
+    code and to the CPU's, from the card's residual and from the CPU's
+    (the codes before it agree), and the scale of the card's bf16
+    distances, |residual|^2 + the larger |code|^2: [(level, frame, card a,
+    card b, CPU a, CPU b, scale)], a the card's code, b the CPU's."""
+    flips = []
+    with torch.no_grad():
+        for frame in sorted({int(f) for f in (codes_card != codes_cpu).nonzero()[:, 1]}):
+            level = int((codes_card[:, frame] != codes_cpu[:, frame]).nonzero()[0])
+            emb = ref.quantizer.layers[level].codebook.embed.float()
+            pair = [emb[int(c[level, frame])] for c in (codes_card, codes_cpu)]
+            dist = []
+            for latent in (latent_card, latent_cpu):
+                residual = latent[frame].float()
+                for i in range(level):
+                    residual = residual - ref.quantizer.layers[i].decode(
+                        codes_cpu[i, frame]).float()
+                dist += [float(((residual - e) ** 2).sum()) for e in pair]
+                if latent is latent_card:
+                    scale = float((residual ** 2).sum()) + max(
+                        float((e ** 2).sum()) for e in pair)
+            flips.append((level, frame, *dist, scale))
+    return flips
+
+
+def encodec_bf16_runs(codec, launches: dict, lstm_routes: dict) -> dict:
+    """Phase 8's EnCodec-24kHz cast to bf16 on the phase's 3 s clip in bf16
+    at 6 kbps: encode and decode launch lstm_bf16 4 times, all on the row
+    route, and nothing else; lstm held to its plain version on the path's
+    operands; against the same bf16 weights and clip on the CPU: the
+    encoder's output within ENCODEC_BF16_CPU_REL_RMS, every code the CPU's
+    or, on the card's own encoder output, within CODE_TIE_SHARE of the
+    nearest, and the card's codes decoded on both within
+    ENCODEC_BF16_CPU_REL_RMS."""
+    from mlx_audio_tpu_torch.codec.encodec import Encodec, preprocess_audio
+    from mlx_audio_tpu_torch.nn import kernels
+
+    codec.to(torch.bfloat16)
+    sr = codec.config.sampling_rate
+    audio = (np.random.default_rng(0).standard_normal(int(ENCODEC_SECONDS * sr))
+             * 0.1).astype(np.float32)
+    x, mask = preprocess_audio(audio, sr)
+    x = x.to(torch.bfloat16)
+    path_calls, wall = {}, {}
+    run = path_runner(launches, wall)
+    lstm = record_lstm_calls(path_calls)
+
+    def encode_decode():
+        codes, scales = codec.encode(x, mask, bandwidth=ENCODEC_BANDWIDTH)
+        return codes, codec.decode(codes, scales, mask)
+
+    try:
+        codes, y = run_counted(run, "encodec_bf16_encode_decode", encode_decode, lstm_routes)
+    finally:
+        kernels.lstm = lstm
+    _check_only("encodec_bf16_encode_decode", launches["encodec_bf16_encode_decode"],
+                {"lstm_bf16": 4})
+    _check_row_route("encodec_bf16_encode_decode", lstm_routes["encodec_bf16_encode_decode"], 4)
+    if y.dtype != torch.bfloat16 or not bool(torch.isfinite(y.float()).all()):
+        fail(f"encodec bf16: audio {y.dtype}")
+    path_err = check_lstm_path(path_calls, lstm, "EnCodec bf16")
+    t0 = time.perf_counter()
+    ref = Encodec(codec.config, device="cpu").to(torch.bfloat16)
+    ref.load_state_dict({k: v.cpu() for k, v in codec.state_dict().items()})
+    codes_ref, scales_ref = ref.encode(x, mask, bandwidth=ENCODEC_BANDWIDTH)
+    codes = codes.cpu()
+    y_ref = ref.decode(codes, scales_ref, mask)
+    cpu_s = time.perf_counter() - t0
+    with torch.no_grad():
+        latent_card = codec.encoder(x.to(codec.device))[0].cpu()
+        latent_cpu = ref.encoder(x)[0]
+    latent_err = rel_rms(latent_card, latent_cpu)
+    flips = _code_flips(ref, codes[0, 0], codes_ref[0, 0], latent_card, latent_cpu)
+    far = [f for f in flips if f[2] > f[3] + CODE_TIE_SHARE * f[6]]
+    err = rel_rms(y, y_ref)
+    print(f"encodec bf16 ({ENCODEC_SECONDS} s, {ENCODEC_BANDWIDTH} kbps): launches "
+          f"{json.dumps({k: v for k, v in launches['encodec_bf16_encode_decode'].items() if v})}"
+          f", lstm by route {json.dumps(lstm_routes['encodec_bf16_encode_decode'])}; against "
+          f"the CPU in bf16 ({cpu_s:.1f} s): encoder output relative RMS {latent_err:.3e}; "
+          f"codes differing {int((codes != codes_ref).sum())} of {codes.numel()} at "
+          f"{len(flips)} frames, the first differing codebook's distances (card's code, "
+          f"CPU's) from the card's encoder output and the CPU's "
+          f"{[tuple(round(v, 6) for v in f[2:6]) for f in flips[:4]]}, the largest card gap "
+          f"{max([(f[2] - f[3]) / f[6] for f in flips], default=0.0):.3e} of its distances' "
+          f"scale, {len(far)} past a bf16 step; the card's codes decoded on both: "
+          f"relative RMS {err:.3e} (bound {ENCODEC_BF16_CPU_REL_RMS}); wall s "
+          f"{json.dumps(wall)}", flush=True)
+    if latent_err > ENCODEC_BF16_CPU_REL_RMS:
+        fail(f"encodec bf16: the encoder's output is {latent_err:.3e} (relative RMS) from "
+             "the CPU's")
+    if far:
+        fail(f"encodec bf16: a code on the card is not the nearest to its encoder output: "
+             f"{far[:4]}")
+    if err > ENCODEC_BF16_CPU_REL_RMS:
+        fail(f"encodec bf16: the decode on the card is {err:.3e} (relative RMS) from the CPU's")
+    return {"rel_rms": err, "latent_rel_rms": latent_err, "code_flip_frames": len(flips),
+            "lstm_path_err": path_err,
+            "lstm_path_shapes": len(path_calls), "wall": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4618,11 +5094,20 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    # seconds from the start to each phase's start, printed before the kernels line
+    starts = {}
+
+    def phase_start(n):
+        starts[n] = round(time.perf_counter() - t_start, 1)
+
+    phase_start(1)
     build_kernels()
+    phase_start(2)
     records = check_kernels()
     launches = {}
     drive_probes(launches)
 
+    phase_start(3)
     model = Model(kokoro_82m_config(), device="cuda")
     with tempfile.TemporaryDirectory() as tmp:
         voice = str(Path(tmp) / "voice.npy")
@@ -4662,6 +5147,7 @@ def main() -> int:
     del model, run_once
     torch.cuda.empty_cache()
 
+    phase_start(5)
     csm = build_csm()
     csm_run = csm_runs(csm, launches)
     csm_breakdown(csm)
@@ -4675,6 +5161,7 @@ def main() -> int:
     del csm
     torch.cuda.empty_cache()
 
+    phase_start(6)
     orpheus = build_orpheus()
     orpheus_run = orpheus_runs(orpheus, launches)
     orpheus_info = orpheus_breakdown(orpheus)
@@ -4689,6 +5176,7 @@ def main() -> int:
           f"decode of {DAC_SECONDS} s {json.dumps(per_dac)}; Orpheus {json.dumps(orpheus_info)}",
           flush=True)
 
+    phase_start(7)
     outetts = build_outetts()
     outetts_run = outetts_runs(outetts, launches)
     outetts_info = outetts_breakdown(outetts)
@@ -4713,6 +5201,7 @@ def main() -> int:
           f"{dia_err:.3e}", flush=True)
 
     # phase 8: EnCodec-24kHz, Bark (decoding through that EnCodec) and Vocos
+    phase_start(8)
     lstm_routes8 = {}
     codec = build_encodec()
     encodec_run = encodec_runs(codec, launches, lstm_routes8)
@@ -4720,13 +5209,16 @@ def main() -> int:
     bark_run = bark_runs(bark, launches, lstm_routes8)
     bark_info = bark_breakdown(bark, bark_run)
     bark_err = bark_card_against_cpu(bark, bark_run)
-    del bark, codec
+    del bark
+    encodec_bf16 = encodec_bf16_runs(codec, launches, lstm_routes8)
+    del codec
     torch.cuda.empty_cache()
     vocos_run = vocos_runs(launches)
     phase8 = {k: v for k, v in launches.items() if k.startswith(("encodec_", "bark_", "vocos_"))}
     per_encodec = launches["encodec_encode_decode"]["lstm"]
     per_bark = launches["bark_generate"]["lstm"]
-    print(f"phase 8 launches: {json.dumps(phase8)}; lstm by route "
+    print(f"phase 8 launches: {json.dumps(phase8)}; EnCodec bf16 {json.dumps(encodec_bf16)}; "
+          f"lstm by route "
           f"{json.dumps(lstm_routes8)}; lstm per EnCodec encode and decode of "
           f"{ENCODEC_SECONDS} s {per_encodec}, per Bark generate {per_bark}; Bark "
           f"{json.dumps(bark_info)}, generate's real-time factor "
@@ -4735,6 +5227,7 @@ def main() -> int:
           f"{json.dumps(vocos_run['wall'])}", flush=True)
 
     # phase 9: Spark-TTS-0.5B (int8 LM, BiCodec, wav2vec2-large-xlsr-53)
+    phase_start(9)
     spark = build_spark()
     spark_run = spark_runs(spark, launches)
     spark_tok = spark_tokenize_against_cpu(spark, spark_run)
@@ -4754,6 +5247,7 @@ def main() -> int:
           f"{spark_err:.3e}", flush=True)
 
     # phase 10: Whisper-large-v3-turbo (f32) and Voxtral-Mini-3B (int8 LM)
+    phase_start(10)
     whisper, wtok = build_whisper()
     whisper_run = whisper_runs(whisper, wtok, launches)
     whisper_cpu = whisper_card_against_cpu(whisper, wtok, whisper_run)
@@ -4779,6 +5273,7 @@ def main() -> int:
           flush=True)
 
     # phase 11: Parakeet-TDT-0.6B-v2 and BigVGAN-v2-24kHz-100band (f32)
+    phase_start(11)
     parakeet, parakeet_ctc = build_parakeet()
     parakeet_run = parakeet_runs(parakeet, parakeet_ctc, launches)
     parakeet_cpu = parakeet_card_against_cpu(parakeet, parakeet_ctc, parakeet_run)
@@ -4789,6 +5284,8 @@ def main() -> int:
     bigvgan_run = bigvgan_runs(bigvgan, launches)
     bigvgan_info = bigvgan_breakdown(bigvgan, bigvgan_run)
     bigvgan_err = bigvgan_card_against_cpu(bigvgan, bigvgan_run)
+    bigvgan_bf16 = bigvgan_bf16_runs(bigvgan, launches, bigvgan_run,
+                                     bigvgan_info["forward_ms_batch1"])
     del bigvgan
     torch.cuda.empty_cache()
     phase11 = {k: v for k, v in launches.items() if k.startswith(("parakeet_", "bigvgan_"))}
@@ -4796,9 +5293,11 @@ def main() -> int:
           f"generate's real-time factor {parakeet_run['real_time_factor']:.4f}, peak "
           f"{parakeet_run['peak_memory_gb']:.2f} GB, against the CPU {json.dumps(parakeet_cpu)}; "
           f"BigVGAN {json.dumps(bigvgan_info)}, peak {bigvgan_run['peak_memory_gb']:.2f} GB, "
-          f"audio against the CPU {bigvgan_err:.3e}; on {card}", flush=True)
+          f"audio against the CPU {bigvgan_err:.3e}; BigVGAN bf16 {json.dumps(bigvgan_bf16)}; "
+          f"on {card}", flush=True)
 
     # phase 12: IndexTTS-1.5 (f32)
+    phase_start(12)
     t12 = time.perf_counter()
     indextts = build_indextts()
     indextts_run = indextts_runs(indextts, launches)
@@ -4812,14 +5311,30 @@ def main() -> int:
           f"{json.dumps(indextts_cpu)}; phase 12 took {time.perf_counter() - t12:.1f} s; "
           f"on {card}", flush=True)
 
+    # phase 13: Kokoro-82M in bf16 at bench.py's shape and dtype
+    phase_start(13)
+    t13 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        voice = str(Path(tmp) / "voice.npy")
+        np.save(voice, pack.astype(np.float32))
+        kokoro_bf16 = kokoro_bf16_runs(launches, bench, voice)
+    torch.cuda.empty_cache()
+    bf16_per_call = {k: v // kokoro_bf16["bench"]["calls"]
+                     for k, v in launches["kokoro_bf16_bench"].items()}
+    print(f"phase 13 launches: {json.dumps({k: launches[k] for k in launches if k.startswith('kokoro_bf16')})}"
+          f"; per bench synthesis call {json.dumps({k: v for k, v in bf16_per_call.items() if v})}"
+          f"; generate against the CPU {json.dumps(kokoro_bf16['against_cpu'])}; phase 13 took "
+          f"{time.perf_counter() - t13:.1f} s; on {card}", flush=True)
+
     kernel_line = []
     for name, (source, replaces) in KERNEL_INFO.items():
         cases = records[name]
         head = max(cases, key=lambda r: r["bound_ms"])
-        # each kernel's launches on its first path (Kokoro's, CSM's or the
-        # probes'), as before phase 6; Orpheus's, DAC's, OuteTTS's, Dia's,
-        # EnCodec's, Bark's and Spark's apart below
+        # each kernel's launches on its first path (Kokoro's, in float32 or
+        # bf16, CSM's or the probes'), as before phase 6; Orpheus's, DAC's,
+        # OuteTTS's, Dia's, EnCodec's, Bark's and Spark's apart below
         main = (("entry_points", "bench") if name in KOKORO_KERNELS
+                else ("kokoro_bf16_path", "kokoro_bf16_bench") if name in KOKORO_BF16_KERNELS
                 else ("probes_int8", "probes_bf16") if name in PROBE_KERNELS
                 else csm_phases)
         entry = {
@@ -4835,6 +5350,23 @@ def main() -> int:
                                     "plain_max_abs_err_f64", "sync_only_ms")
                if k in head},
         }
+        if name in KOKORO_BF16_KERNELS:
+            entry["max_bf16_steps"] = max(r["bf16_steps"] for r in cases)
+            entry["launches_per_synthesis"] = bf16_per_call[name]
+            entry["bench_batch"] = BF16_BENCH_BATCH
+            entry["path_shapes"] = kokoro_bf16["path_shapes"].get(name, 0)
+            if name == "lstm_bf16":
+                entry["max_abs_err"] = max(entry["max_abs_err"], kokoro_bf16["lstm_path_err"],
+                                           encodec_bf16["lstm_path_err"])
+                entry["launches_per_encodec_encode_decode"] = launches[
+                    "encodec_bf16_encode_decode"][name]
+            else:
+                entry["max_abs_err"] = max(entry["max_abs_err"],
+                                           kokoro_bf16["conv_path_err"].get(name, 0.0),
+                                           bigvgan_bf16["conv_path_err"].get(name, 0.0))
+                entry["launches_per_bigvgan_forward"] = launches["bigvgan_bf16_forward"][name]
+            kernel_line.append(entry)
+            continue
         if name == "quantized_matmul":
             entry["max_abs_err"] = max(entry["max_abs_err"], csm_run["qmm_path_err"],
                                        orpheus_run["qmm_path_err"],
@@ -4896,6 +5428,8 @@ def main() -> int:
             entry["path_shapes"] += indextts_run["conv_path_shapes"][name]
             entry["launches_per_indextts_vocoder_call"] = launches["indextts_generate"][name]
         kernel_line.append(entry)
+    phase_start(14)
+    print(f"phase starts (s from the start): {json.dumps(starts)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernel_line}))

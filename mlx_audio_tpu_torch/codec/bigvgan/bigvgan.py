@@ -32,6 +32,7 @@ from mlx_audio_tpu_torch.nn.layers import (
     WNConv1d,
     WNConvTranspose1d,
     _param,
+    promote_operands,
     snake,
     snake_beta,
 )
@@ -99,7 +100,7 @@ class LowPassFilter1d(nn.Module):
         x = x.transpose(1, 2)
         if self.padding:
             x = F.pad(x, (self.pad_left, self.pad_right), mode="replicate")
-        w = self.filter.expand(c, 1, -1).to(x.dtype)
+        x, w = promote_operands(x, self.filter.expand(c, 1, -1))
         return F.conv1d(x, w, stride=self.stride, groups=c).transpose(1, 2)
 
 
@@ -119,7 +120,7 @@ class UpSample1d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = x.shape[-1]
         x = F.pad(x.transpose(1, 2), (self.pad, self.pad), mode="replicate")
-        w = self.filter.expand(c, 1, -1).to(x.dtype)
+        x, w = promote_operands(x, self.filter.expand(c, 1, -1))
         y = self.ratio * F.conv_transpose1d(x, w, stride=self.stride, groups=c)
         return y.transpose(1, 2)[:, self.pad_left:y.shape[-1] - self.pad_right]
 
@@ -260,8 +261,12 @@ class BigVGAN(nn.Module):
     @torch.no_grad()
     def forward(self, x) -> torch.Tensor:
         """mel [B, num_mels, T] (NCL, the reference's contract; NLC passes
-        as it is) -> audio [B, T * upsampling, 1]."""
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        as it is) -> audio [B, T * upsampling, 1].  A tensor keeps its dtype
+        (a bf16 mel into a bf16 model runs bf16; float32 promotes), an array
+        becomes float32, as jnp.asarray makes it."""
+        if not isinstance(x, torch.Tensor):
+            x = torch.as_tensor(np.asarray(x, dtype=np.float32))
+        x = x.to(self.device)
         if x.shape[1] == self.config.num_mels and x.shape[-1] != self.config.num_mels:
             x = x.transpose(1, 2)  # NCL -> NLC
         x = self.conv_pre(x)

@@ -34,6 +34,7 @@ from mlx_audio_tpu_torch.nn.layers import (
     WNConv1d,
     WNConvTranspose1d,
     _param,
+    promote_operands,
     snake,
 )
 
@@ -182,7 +183,9 @@ def nearest_code(z_e: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     L2-normalised z_e [B, T, D] (squared distances, argmin)."""
     enc = _l2_normalize(z_e)
     cb = _l2_normalize(codebook)
-    dist = ((enc * enc).sum(-1, keepdim=True) - 2 * enc @ cb.t()
+    # each norm in its own dtype, the product promoted, as in the JAX package
+    e, c = promote_operands(enc, cb)
+    dist = ((enc * enc).sum(-1, keepdim=True) - 2 * e @ c.t()
             + (cb * cb).sum(-1)[None, None, :])
     return torch.argmin(dist, dim=-1)
 

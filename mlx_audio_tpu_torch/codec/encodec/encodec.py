@@ -34,7 +34,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from mlx_audio_tpu_torch.models.base import BaseModelArgs, init_weights, model_device
-from mlx_audio_tpu_torch.nn.layers import _param, _uniform_, conv1d, conv_transpose1d
+from mlx_audio_tpu_torch.nn.layers import (
+    _param,
+    _uniform_,
+    conv1d,
+    conv_transpose1d,
+    promote_operands,
+)
 from mlx_audio_tpu_torch.nn.recurrent import lstm_scan
 
 
@@ -225,7 +231,8 @@ class UniLSTM(nn.Module):
             _uniform_(p, scale, generator)
 
     def forward(self, x):
-        x_proj = x @ self.Wx.t() + self.bias
+        x, wx = promote_operands(x, self.Wx)
+        x_proj = x @ wx.t() + self.bias
         h0 = torch.zeros((x.shape[0], self.hidden_size), dtype=x.dtype,
                          device=x.device)
         out, _ = lstm_scan(x_proj, self.Wh, h0, h0)
@@ -338,7 +345,10 @@ class EncodecEuclideanCodebook(nn.Module):
         """[..., D] -> int32 codes [...], the argmin of squared distances."""
         flat = x.reshape(-1, x.shape[-1])
         emb = self.embed
-        dist = ((flat * flat).sum(1, keepdim=True) - 2 * flat @ emb.t()
+        # each norm in its own dtype, the product promoted, as in the JAX
+        # package
+        f, e = promote_operands(flat, emb)
+        dist = ((flat * flat).sum(1, keepdim=True) - 2 * f @ e.t()
                 + (emb * emb).sum(1)[None, :])
         return torch.argmin(dist, dim=-1).reshape(x.shape[:-1]).to(torch.int32)
 
@@ -437,15 +447,18 @@ class Encodec(nn.Module):
     def encode(self, input_values, padding_mask=None,
                bandwidth: Optional[float] = None):
         """[B, T, C] NLC -> (codes [n_chunks, B, nq, T'], scales: one [B, 1,
-        1] or None a chunk)."""
+        1] or None a chunk).  A tensor keeps its dtype (bf16 audio into a bf16
+        model encodes in bf16; float32 promotes), an array becomes float32,
+        as in the JAX package."""
         if bandwidth is None:
             bandwidth = self.config.target_bandwidths[0]
         if bandwidth not in self.config.target_bandwidths:
             raise ValueError(
                 f"This model doesn't support the bandwidth {bandwidth}. "
                 f"Select one of {self.config.target_bandwidths}.")
-        input_values = torch.as_tensor(input_values, dtype=torch.float32,
-                                       device=self.device)
+        if not isinstance(input_values, torch.Tensor):
+            input_values = torch.as_tensor(np.asarray(input_values, np.float32))
+        input_values = input_values.to(self.device)
         _, input_length, channels = input_values.shape
         if channels < 1 or channels > 2:
             raise ValueError(f"Number of audio channels must be 1 or 2, got {channels}")

@@ -158,7 +158,7 @@ class Mimi(nn.Module):
 
     # -- streaming ---------------------------------------------------------
 
-    def init_state(self, batch: int, dtype=None) -> MimiState:
+    def init_state(self, batch: int, dtype=torch.float32) -> MimiState:
         return MimiState(
             encoder=self.encoder.init_state(batch, dtype),
             encoder_tf=self.encoder_transformer.init_cache(batch, dtype),

@@ -10,7 +10,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from mlx_audio_tpu_torch.nn.layers import Linear, _param, _uniform_
+from mlx_audio_tpu_torch.nn.layers import Linear, _param, _uniform_, promote_operands
 
 
 class EuclideanCodebook(nn.Module):
@@ -34,8 +34,9 @@ class EuclideanCodebook(nn.Module):
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """[..., D] -> int64 codes [...], the nearest embedding."""
         emb = self.embedding
-        c2 = (emb * emb).sum(-1) / 2
-        return torch.argmin(c2 - x @ emb.t(), dim=-1)
+        c2 = (emb * emb).sum(-1) / 2  # in the embedding's dtype, as in JAX
+        x, e = promote_operands(x, emb)
+        return torch.argmin(c2 - x @ e.t(), dim=-1)
 
     def decode(self, codes: torch.Tensor) -> torch.Tensor:
         """int codes [...] -> [..., D].  A code outside the codebook (CSM's

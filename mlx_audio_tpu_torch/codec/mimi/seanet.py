@@ -55,7 +55,7 @@ class SeanetResnetBlock(nn.Module):
             x = conv(F.elu(x))
         return x + (residual if self.shortcut is None else self.shortcut(residual))
 
-    def init_state(self, batch: int, dtype=None) -> dict:
+    def init_state(self, batch: int, dtype=torch.float32) -> dict:
         state = {"block": [c.init_state(batch, dtype) for c in self.block]}
         if self.shortcut is not None:
             state["shortcut"] = self.shortcut.init_state(batch, dtype)
@@ -93,7 +93,7 @@ class EncoderLayer(nn.Module):
             x = r(x)
         return self.downsample(F.elu(x))
 
-    def init_state(self, batch: int, dtype=None) -> dict:
+    def init_state(self, batch: int, dtype=torch.float32) -> dict:
         return {"residuals": [r.init_state(batch, dtype) for r in self.residuals],
                 "downsample": self.downsample.init_state(batch, dtype)}
 
@@ -125,7 +125,7 @@ class SeanetEncoder(nn.Module):
             x = layer(x)
         return self.final_conv1d(F.elu(x))
 
-    def init_state(self, batch: int, dtype=None) -> dict:
+    def init_state(self, batch: int, dtype=torch.float32) -> dict:
         return {"init": self.init_conv1d.init_state(batch, dtype),
                 "layers": [layer.init_state(batch, dtype) for layer in self.layers],
                 "final": self.final_conv1d.init_state(batch, dtype)}
@@ -154,7 +154,7 @@ class DecoderLayer(nn.Module):
             x = r(x)
         return x
 
-    def init_state(self, batch: int, dtype=None) -> dict:
+    def init_state(self, batch: int, dtype=torch.float32) -> dict:
         return {"upsample": self.upsample.init_state(batch, dtype),
                 "residuals": [r.init_state(batch, dtype) for r in self.residuals]}
 
@@ -186,7 +186,7 @@ class SeanetDecoder(nn.Module):
             x = layer(x)
         return self.final_conv1d(F.elu(x))
 
-    def init_state(self, batch: int, dtype=None) -> dict:
+    def init_state(self, batch: int, dtype=torch.float32) -> dict:
         return {"init": self.init_conv1d.init_state(batch, dtype),
                 "layers": [layer.init_state(batch, dtype) for layer in self.layers],
                 "final": self.final_conv1d.init_state(batch, dtype)}

@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mlx_audio_tpu_torch.nn.layers import LayerNorm, Linear, RMSNorm
+from mlx_audio_tpu_torch.nn.layers import LayerNorm, Linear, RMSNorm, promote_operands
 
 
 @dataclass
@@ -90,11 +90,14 @@ class Attention(nn.Module):
         return q, k, v
 
     def _attend(self, q, k, v, allowed) -> torch.Tensor:
+        """Scores in float32; a float32 cache against bf16 queries (a bf16
+        model streaming from the default state) promotes, as in JAX."""
         b, _, t, _ = q.shape
-        scores = (q @ k.transpose(-1, -2)).float() * self.head_dim ** -0.5
+        qp, kp = promote_operands(q, k)
+        scores = (qp @ kp.transpose(-1, -2)).float() * self.head_dim ** -0.5
         scores = torch.where(allowed, scores, -1e9)
-        probs = torch.softmax(scores, dim=-1).to(q.dtype)
-        return self.out_proj((probs @ v).transpose(1, 2).reshape(b, t, -1))
+        probs, vp = promote_operands(torch.softmax(scores, dim=-1).to(q.dtype), v)
+        return self.out_proj((probs @ vp).transpose(1, 2).reshape(b, t, -1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pos = torch.arange(x.shape[1], device=x.device)
@@ -104,7 +107,7 @@ class Attention(nn.Module):
 
     # -- streaming ---------------------------------------------------------
 
-    def init_cache(self, batch: int, dtype=None) -> RotCacheState:
+    def init_cache(self, batch: int, dtype=torch.float32) -> RotCacheState:
         w = self.in_proj.weight
         shape = (batch, self.num_heads, self.context, self.head_dim)
         return RotCacheState(k=w.new_zeros(shape, dtype=dtype),
@@ -130,8 +133,9 @@ class Attention(nn.Module):
         out = self._attend(q, torch.cat([cache.k, k], dim=2),
                            torch.cat([cache.v, v], dim=2), valid)
         slots = torch.remainder(positions, w)
-        return out, RotCacheState(k=cache.k.index_copy(2, slots, k),
-                                  v=cache.v.index_copy(2, slots, v),
+        # the ring keeps its dtype (JAX's .at[].set casts to it)
+        return out, RotCacheState(k=cache.k.index_copy(2, slots, k.to(cache.k.dtype)),
+                                  v=cache.v.index_copy(2, slots, v.to(cache.v.dtype)),
                                   offset=off + t)
 
 
@@ -221,7 +225,7 @@ class ProjectedTransformer(nn.Module):
             x = layer(x)
         return [x if p is None else p(x) for p in self.output_projs]
 
-    def init_cache(self, batch: int, dtype=None) -> list:
+    def init_cache(self, batch: int, dtype=torch.float32) -> list:
         return [layer.self_attn.init_cache(batch, dtype) for layer in self.layers]
 
     def step(self, caches: list, x: torch.Tensor):

@@ -17,7 +17,7 @@ stores them in torch's layouts, so:
   alphas, CSM's ``audio_head`` [nc-1, Dm, V], Dia's ``DenseGeneral``
   weights [in..., out...], RoPE tables, quantized uint8 codes with their
   float32 scales and biases, batch-norm running statistics, FSQ tables)
-  keeps its layout, dtype and name.
+  keeps its layout, dtype and name (bf16 arrays bit for bit).
 
 The layout of a 3-d ``weight`` or ``weight_v`` follows the type of the
 module of the port ``module`` that owns it, not its path or its rank: a
@@ -99,5 +99,15 @@ def params_from_jax(named: dict[str, np.ndarray],
                 w = w.transpose(2, 1, 0)  # [K, Cin, Cout] -> [Cout, Cin, K]
         elif w.ndim == 4 and key.endswith("weight") and kind == "conv2d":
             w = w.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-        out[key] = torch.tensor(w)
+        out[key] = to_tensor(w)
     return out
+
+
+def to_tensor(w: np.ndarray) -> torch.Tensor:
+    """A copy of ``w`` as a tensor of its dtype.  A bf16 array (numpy's
+    ``ml_dtypes.bfloat16``, which torch does not take) crosses bit for bit
+    as its uint16 view."""
+    if w.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(w).view(np.uint16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return torch.tensor(w)

@@ -5,8 +5,9 @@
 //   out[b, l, o] = sum_tap sum_c x[b, l + tap - pad, c] * w[tap, c, o],
 //   pad = (K - 1) / 2, x read as zero outside [0, L).
 //
-// x [B, L, C], w [K, C, Cout], out [B, L, Cout], all float32 and contiguous;
-// C a multiple of 8, Cout a multiple of 8, x and w 16-byte aligned.
+// x [B, L, C], w [K, C, Cout], out [B, L, Cout], all float32 or all bf16,
+// contiguous; C a multiple of 8, Cout a multiple of 8, x and w 16-byte
+// aligned.
 //
 // Why no band.  The TPU kernel turned the K misaligned row shifts into one
 // aligned matmul per 8-row group against a banded weight W_band
@@ -51,16 +52,27 @@
 // Why not wgmma yet.  wgmma reads A from shared memory through descriptors
 // that anchor a tile to its swizzle atom, so a one-row tap shift cannot be
 // expressed as a descriptor; it needs A from registers, which is later work.
+//
+// The bf16 variant (banded_conv1d_forward_bf16) is the same kernel
+// instantiated for bf16 with slices of 16 channels: the window [192 + K - 1
+// rows][16, row stride 24] and the weights [16 K rows][128, stride 136] as
+// bf16, nothing split, one mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32
+// a tile a tap (mma_bf16.cuh), A by ldmatrix and B by ldmatrix.trans, float32
+// sums folded a tap, each output rounded to bf16 once.  Shared memory is
+// 2 (3 (W + 2176 K)) bytes with W = 24 (191 + K): 173 KB at K = 11, 199 KB
+// at K = 13.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
 
 constexpr int kTileM = 192;                  // output samples a block
 constexpr int kTileN = 128;                  // output channels a block
-constexpr int kSlice = 8;                    // input channels a stage
 constexpr int kStages = 3;                   // cp.async ring depth
 constexpr int kWarpM = 64;                   // output samples a warp
 constexpr int kWarpN = 32;                   // output channels a warp
@@ -68,50 +80,75 @@ constexpr int kWarpsM = kTileM / kWarpM;     // 3 along M, 4 along N
 constexpr int kThreads = 32 * kWarpsM * (kTileN / kWarpN);
 constexpr int kMTiles = kWarpM / 16;         // m16 tiles a warp
 constexpr int kNTiles = kWarpN / 8;          // n8 tiles a warp
-constexpr int kXStride = kSlice + 4;         // window row stride, floats
-constexpr int kWStride = kTileN + 8;         // weight row stride, floats
+constexpr int kWStride = kTileN + 8;         // weight row stride, values
 
-__host__ __device__ inline int window_floats(int K) {
-  return (kTileM + K - 1) * kXStride;
+// per element type: values in 16 bytes (a cp.async copy, the window's row
+// padding), input channels a stage, the window's row stride
+template <typename T>
+struct Shape {
+  static constexpr int kVec = 16 / (int)sizeof(T);
+  static constexpr int kSlice = std::is_same<T, float>::value ? 8 : 16;
+  static constexpr int kXStride = kSlice + kVec;
+};
+
+template <typename T>
+__host__ __device__ inline int window_elems(int K) {
+  return (kTileM + K - 1) * Shape<T>::kXStride;
 }
 
-__host__ __device__ inline int stage_floats(int K) {
-  return window_floats(K) + K * kSlice * kWStride;
+template <typename T>
+__host__ __device__ inline int stage_elems(int K) {
+  return window_elems<T>(K) + K * Shape<T>::kSlice * kWStride;
+}
+
+// float32 keeps one more window, the split remainder
+template <typename T>
+int smem_bytes(int K) {
+  const int split = std::is_same<T, float>::value ? window_elems<T>(K) : 0;
+  return (int)(sizeof(T) * (kStages * stage_elems<T>(K) + split));
 }
 
 // Issue the copies of channel slice c0 into one stage: the halo window of
-// kTileM + K - 1 rows from l0 - pad and the K [8, kTileN] weight slices.
-__device__ inline void load_stage(float* stage, const float* xb,
-                                  const float* w, int l0, int pad, int L,
-                                  int C, int Cout, int K, int c0, int n0,
-                                  int tid) {
-  float* xs = stage;
-  float* ws = stage + window_floats(K);
+// kTileM + K - 1 rows from l0 - pad and the K [kSlice, kTileN] weight slices.
+template <typename T>
+__device__ inline void load_stage(T* stage, const T* xb, const T* w, int l0,
+                                  int pad, int L, int C, int Cout, int K,
+                                  int c0, int n0, int tid) {
+  constexpr int kVec = Shape<T>::kVec;
+  constexpr int kSlice = Shape<T>::kSlice;
+  constexpr int kXStride = Shape<T>::kXStride;
+  T* xs = stage;
+  T* ws = stage + window_elems<T>(K);
   const int rows = kTileM + K - 1;
-  for (int e = tid; e < rows * (kSlice / 4); e += kThreads) {
-    const int i = e / (kSlice / 4);
-    const int part = 4 * (e % (kSlice / 4));
+  for (int e = tid; e < rows * (kSlice / kVec); e += kThreads) {
+    const int i = e / (kSlice / kVec);
+    const int part = kVec * (e % (kSlice / kVec));
     const int l = l0 - pad + i;
-    const bool ok = l >= 0 && l < L;
+    const bool ok = l >= 0 && l < L && c0 + part < C;
     cp_async16(xs + i * kXStride + part,
                ok ? xb + (size_t)l * C + c0 + part : xb, ok);
   }
-  constexpr int kChunks = kTileN / 4;
+  constexpr int kChunks = kTileN / kVec;
   for (int e = tid; e < K * kSlice * kChunks; e += kThreads) {
-    const int j = 4 * (e % kChunks);
+    const int j = kVec * (e % kChunks);
     const int r = e / kChunks;  // tap * kSlice + channel
+    const int c = c0 + r % kSlice;
     const int n = n0 + j;
-    const bool ok = n < Cout;
-    const size_t src = ((size_t)(r / kSlice) * C + c0 + r % kSlice) * Cout + n;
+    const bool ok = n < Cout && c < C;
+    const size_t src = ((size_t)(r / kSlice) * C + c) * Cout + n;
     cp_async16(ws + r * kWStride + j, ok ? w + src : w, ok);
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-    banded_conv1d_kernel(const float* __restrict__ x,
-                         const float* __restrict__ w, float* __restrict__ out,
-                         int L, int C, int Cout, int K) {
-  extern __shared__ __align__(16) float smem[];
+    banded_conv1d_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                         T* __restrict__ out, int L, int C, int Cout, int K) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kSlice = Shape<T>::kSlice;
+  constexpr int kXStride = Shape<T>::kXStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   const int tiles_n = (Cout + kTileN - 1) / kTileN;
   const int n0 = (blockIdx.x % tiles_n) * kTileN;
   const int l0 = (blockIdx.x / tiles_n) * kTileM;
@@ -124,69 +161,86 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int warp_n = warp / kWarpsM;
   const int g = lane / 4;  // fragment row group
   const int t = lane % 4;  // thread in group
-  const float* xb = x + (size_t)b * L * C;
-  const int sf = stage_floats(K);
-  const int wf = window_floats(K);
-  float* xsmall = smem + kStages * sf;  // split remainder of the window
-  const int slices = C / kSlice;
+  const T* xb = x + (size_t)b * L * C;
+  const int sf = stage_elems<T>(K);
+  const int wf = window_elems<T>(K);
+  T* xsmall = smem + kStages * sf;  // split remainder of the window (f32)
+  const int slices = (C + kSlice - 1) / kSlice;
 
-  // ldmatrix row of this lane: matrices (rows 0-7 | 8-15) x (cols 0-3 | 4-7)
-  // give a0, a1, a2, a3 of the m16n8k8 A fragment
+  // ldmatrix row of this lane: matrices (rows 0-7 | 8-15) x (the first |
+  // second 16 bytes of k) give a0, a1, a2, a3 of the A fragment (m16n8k8
+  // tf32 and m16n8k16 bf16 alike); the same lane pattern over [k][n] weight
+  // rows gives the bf16 B fragments through ldmatrix.trans
+  const int lane_row = lane % 8 + 8 * ((lane / 8) % 2);
   const int a_off =
-      (warp_m * kWarpM + lane % 8 + 8 * ((lane / 8) % 2)) * kXStride +
-      4 * (lane / 16);
+      (warp_m * kWarpM + lane_row) * kXStride + Shape<T>::kVec * (lane / 16);
   const uint32_t small_base = smem_addr(xsmall + a_off);
 
   float acc[kMTiles][kNTiles][4] = {};
 
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < slices)
-      load_stage(smem + s * sf, xb, w, l0, pad, L, C, Cout, K, s * kSlice, n0,
-                 tid);
+      load_stage<T>(smem + s * sf, xb, w, l0, pad, L, C, Cout, K, s * kSlice,
+                    n0, tid);
     cp_async_commit();
   }
   for (int it = 0; it < slices; ++it) {
     cp_async_wait<kStages - 2>();
     __syncthreads();  // stage it landed; every warp is done with it - 1
-    float* stage = smem + (it % kStages) * sf;
+    T* stage = smem + (it % kStages) * sf;
     const int next = it + kStages - 1;
     if (next < slices)
-      load_stage(smem + (next % kStages) * sf, xb, w, l0, pad, L, C, Cout, K,
-                 next * kSlice, n0, tid);
+      load_stage<T>(smem + (next % kStages) * sf, xb, w, l0, pad, L, C, Cout,
+                    K, next * kSlice, n0, tid);
     cp_async_commit();
 
-    for (int e = tid; e < (kTileM + K - 1) * kSlice; e += kThreads) {
-      const int idx = (e / kSlice) * kXStride + e % kSlice;
-      uint32_t big, small;
-      split_tf32(stage[idx], big, small);
-      stage[idx] = __uint_as_float(big);
-      xsmall[idx] = __uint_as_float(small);
+    if constexpr (kF32) {
+      for (int e = tid; e < (kTileM + K - 1) * kSlice; e += kThreads) {
+        const int idx = (e / kSlice) * kXStride + e % kSlice;
+        uint32_t big, small;
+        split_tf32(stage[idx], big, small);
+        stage[idx] = __uint_as_float(big);
+        xsmall[idx] = __uint_as_float(small);
+      }
+      __syncthreads();
     }
-    __syncthreads();
 
     const uint32_t big_base = smem_addr(stage + a_off);
-    const float* ws = stage + wf + t * kWStride + warp_n * kWarpN + g;
     for (int tap = 0; tap < K; ++tap) {
 #ifdef CONV_ONE_CHAIN
       float(&part)[kMTiles][kNTiles][4] = acc;
 #else
       float part[kMTiles][kNTiles][4] = {};  // this tap's products
 #endif
-      uint32_t bb[kNTiles][2], bs[kNTiles][2];
-      const float* wt = ws + tap * kSlice * kWStride;
+      if constexpr (kF32) {
+        const float* ws = stage + wf + t * kWStride + warp_n * kWarpN + g;
+        uint32_t bb[kNTiles][2], bs[kNTiles][2];
+        const float* wt = ws + tap * kSlice * kWStride;
 #pragma unroll
-      for (int j = 0; j < kNTiles; ++j) {
-        split_tf32(wt[8 * j], bb[j][0], bs[j][0]);
-        split_tf32(wt[4 * kWStride + 8 * j], bb[j][1], bs[j][1]);
-      }
-      uint32_t ab[kMTiles][4], as[kMTiles][4];
+        for (int j = 0; j < kNTiles; ++j) {
+          split_tf32(wt[8 * j], bb[j][0], bs[j][0]);
+          split_tf32(wt[4 * kWStride + 8 * j], bb[j][1], bs[j][1]);
+        }
+        uint32_t ab[kMTiles][4], as[kMTiles][4];
 #pragma unroll
-      for (int i = 0; i < kMTiles; ++i) {
-        const uint32_t row = sizeof(float) * (16 * i + tap) * kXStride;
-        ldmatrix_x4(ab[i], big_base + row);
-        ldmatrix_x4(as[i], small_base + row);
+        for (int i = 0; i < kMTiles; ++i) {
+          const uint32_t row = sizeof(float) * (16 * i + tap) * kXStride;
+          ldmatrix_x4(ab[i], big_base + row);
+          ldmatrix_x4(as[i], small_base + row);
+        }
+        mma_3xtf32(part, ab, as, bb, bs);
+      } else {
+        uint32_t bf[kNTiles][2];
+        load_b_frags(bf, smem_addr(stage + wf +
+                                   (tap * kSlice + lane_row) * kWStride +
+                                   warp_n * kWarpN + 8 * (lane / 16)));
+        uint32_t af[kMTiles][4];
+#pragma unroll
+        for (int i = 0; i < kMTiles; ++i)
+          ldmatrix_x4(af[i],
+                      big_base + sizeof(T) * (16 * i + tap) * kXStride);
+        mma_bf16_tiles(part, af, bf);
       }
-      mma_3xtf32(part, ab, as, bb, bs);
 #ifndef CONV_ONE_CHAIN
       fold_into(acc, part);
 #endif
@@ -195,7 +249,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // accumulator i, j: rows g and g + 8 of m-tile i, columns 2t, 2t + 1 of
   // n-tile j; Cout % 8 == 0 keeps an n-tile wholly in or out
-  float* ob = out + (size_t)b * L * Cout;
+  T* ob = out + (size_t)b * L * Cout;
 #pragma unroll
   for (int j = 0; j < kNTiles; ++j) {
     const int o = n0 + warp_n * kWarpN + 8 * j + 2 * t;
@@ -203,35 +257,49 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int i = 0; i < kMTiles; ++i) {
       const int l = l0 + warp_m * kWarpM + 16 * i + g;
-      if (l < L)
-        *reinterpret_cast<float2*>(ob + (size_t)l * Cout + o) =
-            make_float2(acc[i][j][0], acc[i][j][1]);
+      if (l < L) store2(ob + (size_t)l * Cout + o, acc[i][j][0], acc[i][j][1]);
       if (l + 8 < L)
-        *reinterpret_cast<float2*>(ob + (size_t)(l + 8) * Cout + o) =
-            make_float2(acc[i][j][2], acc[i][j][3]);
+        store2(ob + (size_t)(l + 8) * Cout + o, acc[i][j][2], acc[i][j][3]);
     }
   }
 }
 
+template <typename T>
+int forward(const T* x, const T* w, T* out, int B, int L, int C, int Cout,
+            int K, void* stream) {
+  const int smem = smem_bytes<T>(K);
+  cudaError_t err = cudaFuncSetAttribute(
+      banded_conv1d_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles_m = (L + kTileM - 1) / kTileM;
+  const int tiles_n = (Cout + kTileN - 1) / kTileN;
+  const dim3 grid(tiles_m * tiles_n, B);
+  banded_conv1d_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      x, w, out, L, C, Cout, K);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-extern "C" int banded_conv1d_smem_bytes(int K) {
-  return (int)(sizeof(float) * (kStages * stage_floats(K) + window_floats(K)));
+extern "C" int banded_conv1d_smem_bytes(int K) { return smem_bytes<float>(K); }
+
+extern "C" int banded_conv1d_smem_bytes_bf16(int K) {
+  return smem_bytes<bf16>(K);
 }
 
 extern "C" int banded_conv1d_forward(const float* x, const float* w,
                                      float* out, int B, int L, int C,
                                      int Cout, int K, void* stream) {
-  const int smem = banded_conv1d_smem_bytes(K);
-  cudaError_t err = cudaFuncSetAttribute(
-      banded_conv1d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles_m = (L + kTileM - 1) / kTileM;
-  const int tiles_n = (Cout + kTileN - 1) / kTileN;
-  const dim3 grid(tiles_m * tiles_n, B);
-  banded_conv1d_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      x, w, out, L, C, Cout, K);
-  return (int)cudaGetLastError();
+  return forward<float>(x, w, out, B, L, C, Cout, K, stream);
+}
+
+extern "C" int banded_conv1d_forward_bf16(const void* x, const void* w,
+                                          void* out, int B, int L, int C,
+                                          int Cout, int K, void* stream) {
+  return forward<bf16>(static_cast<const bf16*>(x),
+                       static_cast<const bf16*>(w), static_cast<bf16*>(out),
+                       B, L, C, Cout, K, stream);
 }
 
 extern "C" const char* banded_conv1d_error_string(int code) {

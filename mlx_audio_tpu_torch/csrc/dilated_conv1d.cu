@@ -5,8 +5,9 @@
 //   out[b, l, o] = sum_tap sum_c x[b, l + tap d - pad, c] * w[tap, c, o],
 //   pad = (K - 1) d / 2, x read as zero outside [0, L).
 //
-// x [B, L, C], w [K, C, Cout], out [B, L, Cout], all float32 and contiguous;
-// K odd, C a multiple of 8, Cout a multiple of 8, x and w 16-byte aligned.
+// x [B, L, C], w [K, C, Cout], out [B, L, Cout], all float32 or all bf16,
+// contiguous; K odd, C a multiple of 8, Cout a multiple of 8, x and w 16-byte
+// aligned.
 //
 // What bounds it on this card: operations.  At Kokoro-82M's resblock shapes
 // (K = 3, d = 1, 3, 5, C = Cout = 128 or 256) every input row feeds 2 K Cout
@@ -56,9 +57,25 @@
 // descriptors anchored to a swizzle atom, so a tile that starts tap d rows
 // into the window cannot be a descriptor; it needs A from registers, which is
 // later work.
+//
+// The bf16 variant (dilated_conv1d_forward_bf16) is the same kernel
+// instantiated for bf16: a stage holds the window and weights as bf16 (row
+// strides s + 8 and 136 values, 16-byte rows), a 16-byte cp.async carries 8
+// values, nothing is split, and each k16 step is one
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 a tile (mma_bf16.cuh),
+// its A fragments by ldmatrix from the window and its B fragments by
+// ldmatrix.trans from the weights.  The sums are float32 (each tap folded
+// into the running sum, as above) and each output is rounded to bf16 once.
+// Its (s, S) are tried in the order (32, 2), (16, 3), (16, 2), with 2 S (W +
+// 136 s K) bytes of shared memory, W = (s + 8) (192 + (K-1) d).  At one
+// bf16 product a multiply-add and 989 TFLOP/s dense its bound is a sixth of
+// the 3xTF32 one.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -71,7 +88,7 @@ constexpr int kWarpsM = kTileM / kWarpM;     // 3 along M, 4 along N
 constexpr int kThreads = 32 * kWarpsM * (kTileN / kWarpN);
 constexpr int kMTiles = kWarpM / 16;         // m16 tiles a warp
 constexpr int kNTiles = kWarpN / 8;          // n8 tiles a warp
-constexpr int kWStride = kTileN + 8;         // weight row stride, floats
+constexpr int kWStride = kTileN + 8;         // weight row stride, values
 constexpr int kSmemLimit = 232448;           // bytes a block may use (H100)
 
 // A stage's channel slice and the ring's depth, in the order tried.
@@ -79,50 +96,67 @@ struct Config {
   int slice, stages;
 };
 constexpr Config kConfigs[] = {{32, 2}, {8, 3}, {8, 2}};
+constexpr Config kConfigsBf16[] = {{32, 2}, {16, 3}, {16, 2}};
+
+// values in 16 bytes: a cp.async copy, the window's row padding and the
+// second half of an ldmatrix fragment's k
+template <typename T>
+__host__ __device__ constexpr int vec16() {
+  return 16 / (int)sizeof(T);
+}
 
 // span = (K - 1) d: the window's rows beyond the tile
-__host__ __device__ constexpr int window_floats(int slice, int span) {
-  return (kTileM + span) * (slice + 4);
+template <typename T>
+__host__ __device__ constexpr int window_elems(int slice, int span) {
+  return (kTileM + span) * (slice + vec16<T>());
 }
 
-__host__ __device__ constexpr int stage_floats(int slice, int K, int span) {
-  return window_floats(slice, span) + K * slice * kWStride;
+template <typename T>
+__host__ __device__ constexpr int stage_elems(int slice, int K, int span) {
+  return window_elems<T>(slice, span) + K * slice * kWStride;
 }
 
+// float32 keeps one more window, the split remainder
+template <typename T>
 int smem_bytes(Config cfg, int K, int span) {
-  return (int)(sizeof(float) * (cfg.stages * stage_floats(cfg.slice, K, span) +
-                                window_floats(cfg.slice, span)));
+  const int split = std::is_same<T, float>::value
+                        ? window_elems<T>(cfg.slice, span) : 0;
+  return (int)(sizeof(T) * (cfg.stages * stage_elems<T>(cfg.slice, K, span) +
+                            split));
 }
 
 // the first config whose shared memory fits a block (the last if none does)
+template <typename T>
 Config config_for(int K, int span) {
-  for (const Config& cfg : kConfigs)
-    if (smem_bytes(cfg, K, span) <= kSmemLimit) return cfg;
-  return kConfigs[2];
+  const Config* cfgs =
+      std::is_same<T, float>::value ? kConfigs : kConfigsBf16;
+  for (int i = 0; i < 3; ++i)
+    if (smem_bytes<T>(cfgs[i], K, span) <= kSmemLimit) return cfgs[i];
+  return cfgs[2];
 }
 
 // Issue the copies of channel slice c0 into one stage: the halo window of
 // kTileM + span rows from l0 - pad and the K [kSlice, kTileN] weight slices.
-template <int kSlice>
-__device__ inline void load_stage(float* stage, const float* xb,
-                                  const float* w, int l0, int pad, int span,
-                                  int L, int C, int Cout, int K, int c0,
-                                  int n0, int tid) {
-  constexpr int kXStride = kSlice + 4;
-  float* xs = stage;
-  float* ws = stage + window_floats(kSlice, span);
-  constexpr int kParts = kSlice / 4;
+template <typename T, int kSlice>
+__device__ inline void load_stage(T* stage, const T* xb, const T* w, int l0,
+                                  int pad, int span, int L, int C, int Cout,
+                                  int K, int c0, int n0, int tid) {
+  constexpr int kVec = vec16<T>();
+  constexpr int kXStride = kSlice + vec16<T>();
+  T* xs = stage;
+  T* ws = stage + window_elems<T>(kSlice, span);
+  constexpr int kParts = kSlice / kVec;
   for (int e = tid; e < (kTileM + span) * kParts; e += kThreads) {
     const int i = e / kParts;
-    const int c = c0 + 4 * (e % kParts);
+    const int c = c0 + kVec * (e % kParts);
     const int l = l0 - pad + i;
     const bool ok = l >= 0 && l < L && c < C;
     cp_async16(xs + i * kXStride + c - c0, ok ? xb + (size_t)l * C + c : xb,
                ok);
   }
-  constexpr int kChunks = kTileN / 4;
+  constexpr int kChunks = kTileN / kVec;
   for (int e = tid; e < K * kSlice * kChunks; e += kThreads) {
-    const int j = 4 * (e % kChunks);
+    const int j = kVec * (e % kChunks);
     const int r = e / kChunks;  // tap * kSlice + channel
     const int c = c0 + r % kSlice;
     const int n = n0 + j;
@@ -132,13 +166,15 @@ __device__ inline void load_stage(float* stage, const float* xb,
   }
 }
 
-template <int kSlice, int kStages>
+template <typename T, int kSlice, int kStages>
 __global__ void __launch_bounds__(kThreads, 1)
-    dilated_conv1d_kernel(const float* __restrict__ x,
-                          const float* __restrict__ w, float* __restrict__ out,
-                          int L, int C, int Cout, int K, int dilation) {
-  constexpr int kXStride = kSlice + 4;  // window row stride, floats
-  extern __shared__ __align__(16) float smem[];
+    dilated_conv1d_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                          T* __restrict__ out, int L, int C, int Cout, int K,
+                          int dilation) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kXStride = kSlice + vec16<T>();  // window row stride
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   const int tiles_n = (Cout + kTileN - 1) / kTileN;
   const int n0 = (blockIdx.x % tiles_n) * kTileN;
   const int l0 = (blockIdx.x / tiles_n) * kTileM;
@@ -152,48 +188,51 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int warp_n = warp / kWarpsM;
   const int g = lane / 4;  // fragment row group
   const int t = lane % 4;  // thread in group
-  const float* xb = x + (size_t)b * L * C;
-  const int sf = stage_floats(kSlice, K, span);
-  const int wf = window_floats(kSlice, span);
-  float* xsmall = smem + kStages * sf;  // split remainder of the window
+  const T* xb = x + (size_t)b * L * C;
+  const int sf = stage_elems<T>(kSlice, K, span);
+  const int wf = window_elems<T>(kSlice, span);
+  T* xsmall = smem + kStages * sf;  // split remainder of the window (f32)
   const int slices = (C + kSlice - 1) / kSlice;
 
-  // ldmatrix row of this lane: matrices (rows 0-7 | 8-15) x (cols 0-3 | 4-7)
-  // give a0, a1, a2, a3 of the m16n8k8 A fragment
+  // ldmatrix row of this lane: matrices (rows 0-7 | 8-15) x (the first |
+  // second 16 bytes of k) give a0, a1, a2, a3 of the A fragment (m16n8k8
+  // tf32 and m16n8k16 bf16 alike); the same lane pattern over [k][n] weight
+  // rows gives the bf16 B fragments through ldmatrix.trans
+  const int lane_row = lane % 8 + 8 * ((lane / 8) % 2);
   const int a_off =
-      (warp_m * kWarpM + lane % 8 + 8 * ((lane / 8) % 2)) * kXStride +
-      4 * (lane / 16);
+      (warp_m * kWarpM + lane_row) * kXStride + vec16<T>() * (lane / 16);
   const uint32_t small_base = smem_addr(xsmall + a_off);
 
   float acc[kMTiles][kNTiles][4] = {};
 
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < slices)
-      load_stage<kSlice>(smem + s * sf, xb, w, l0, pad, span, L, C, Cout, K,
-                         s * kSlice, n0, tid);
+      load_stage<T, kSlice>(smem + s * sf, xb, w, l0, pad, span, L, C, Cout,
+                            K, s * kSlice, n0, tid);
     cp_async_commit();
   }
   for (int it = 0; it < slices; ++it) {
     cp_async_wait<kStages - 2>();
     __syncthreads();  // stage it landed; every warp is done with it - 1
-    float* stage = smem + (it % kStages) * sf;
+    T* stage = smem + (it % kStages) * sf;
     const int next = it + kStages - 1;
     if (next < slices)
-      load_stage<kSlice>(smem + (next % kStages) * sf, xb, w, l0, pad, span,
-                         L, C, Cout, K, next * kSlice, n0, tid);
+      load_stage<T, kSlice>(smem + (next % kStages) * sf, xb, w, l0, pad,
+                            span, L, C, Cout, K, next * kSlice, n0, tid);
     cp_async_commit();
 
-    for (int e = tid; e < (kTileM + span) * kSlice; e += kThreads) {
-      const int idx = (e / kSlice) * kXStride + e % kSlice;
-      uint32_t big, small;
-      split_tf32(stage[idx], big, small);
-      stage[idx] = __uint_as_float(big);
-      xsmall[idx] = __uint_as_float(small);
+    if constexpr (kF32) {
+      for (int e = tid; e < (kTileM + span) * kSlice; e += kThreads) {
+        const int idx = (e / kSlice) * kXStride + e % kSlice;
+        uint32_t big, small;
+        split_tf32(stage[idx], big, small);
+        stage[idx] = __uint_as_float(big);
+        xsmall[idx] = __uint_as_float(small);
+      }
+      __syncthreads();
     }
-    __syncthreads();
 
     const uint32_t big_base = smem_addr(stage + a_off);
-    const float* ws = stage + wf + t * kWStride + warp_n * kWarpN + g;
     for (int tap = 0; tap < K; ++tap) {
       const int shift = tap * dilation;  // the tap's row offset in the window
 #ifdef CONV_ONE_CHAIN
@@ -201,24 +240,42 @@ __global__ void __launch_bounds__(kThreads, 1)
 #else
       float part[kMTiles][kNTiles][4] = {};  // this tap's products
 #endif
+      if constexpr (kF32) {
+        const float* ws = stage + wf + t * kWStride + warp_n * kWarpN + g;
 #pragma unroll
-      for (int kk = 0; kk < kSlice / 8; ++kk) {  // one k8 step a pass
-        uint32_t bb[kNTiles][2], bs[kNTiles][2];
-        const float* wt = ws + (tap * kSlice + 8 * kk) * kWStride;
+        for (int kk = 0; kk < kSlice / 8; ++kk) {  // one k8 step a pass
+          uint32_t bb[kNTiles][2], bs[kNTiles][2];
+          const float* wt = ws + (tap * kSlice + 8 * kk) * kWStride;
 #pragma unroll
-        for (int j = 0; j < kNTiles; ++j) {
-          split_tf32(wt[8 * j], bb[j][0], bs[j][0]);
-          split_tf32(wt[4 * kWStride + 8 * j], bb[j][1], bs[j][1]);
+          for (int j = 0; j < kNTiles; ++j) {
+            split_tf32(wt[8 * j], bb[j][0], bs[j][0]);
+            split_tf32(wt[4 * kWStride + 8 * j], bb[j][1], bs[j][1]);
+          }
+          uint32_t ab[kMTiles][4], as[kMTiles][4];
+#pragma unroll
+          for (int i = 0; i < kMTiles; ++i) {
+            const uint32_t at =
+                sizeof(float) * ((16 * i + shift) * kXStride + 8 * kk);
+            ldmatrix_x4(ab[i], big_base + at);
+            ldmatrix_x4(as[i], small_base + at);
+          }
+          mma_3xtf32(part, ab, as, bb, bs);
         }
-        uint32_t ab[kMTiles][4], as[kMTiles][4];
+      } else {
+        const uint32_t w_base = smem_addr(
+            stage + wf + (tap * kSlice + lane_row) * kWStride +
+            warp_n * kWarpN + 8 * (lane / 16));
 #pragma unroll
-        for (int i = 0; i < kMTiles; ++i) {
-          const uint32_t at =
-              sizeof(float) * ((16 * i + shift) * kXStride + 8 * kk);
-          ldmatrix_x4(ab[i], big_base + at);
-          ldmatrix_x4(as[i], small_base + at);
+        for (int kk = 0; kk < kSlice / 16; ++kk) {  // one k16 step a pass
+          uint32_t bf[kNTiles][2];
+          load_b_frags(bf, w_base + sizeof(T) * 16 * kk * kWStride);
+          uint32_t af[kMTiles][4];
+#pragma unroll
+          for (int i = 0; i < kMTiles; ++i)
+            ldmatrix_x4(af[i], big_base + sizeof(T) * ((16 * i + shift) *
+                                                       kXStride + 16 * kk));
+          mma_bf16_tiles(part, af, bf);
         }
-        mma_3xtf32(part, ab, as, bb, bs);
       }
 #ifndef CONV_ONE_CHAIN
       fold_into(acc, part);
@@ -228,7 +285,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // accumulator i, j: rows g and g + 8 of m-tile i, columns 2t, 2t + 1 of
   // n-tile j; Cout % 8 == 0 keeps an n-tile wholly in or out
-  float* ob = out + (size_t)b * L * Cout;
+  T* ob = out + (size_t)b * L * Cout;
 #pragma unroll
   for (int j = 0; j < kNTiles; ++j) {
     const int o = n0 + warp_n * kWarpN + 8 * j + 2 * t;
@@ -236,33 +293,23 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int i = 0; i < kMTiles; ++i) {
       const int l = l0 + warp_m * kWarpM + 16 * i + g;
-      if (l < L)
-        *reinterpret_cast<float2*>(ob + (size_t)l * Cout + o) =
-            make_float2(acc[i][j][0], acc[i][j][1]);
+      if (l < L) store2(ob + (size_t)l * Cout + o, acc[i][j][0], acc[i][j][1]);
       if (l + 8 < L)
-        *reinterpret_cast<float2*>(ob + (size_t)(l + 8) * Cout + o) =
-            make_float2(acc[i][j][2], acc[i][j][3]);
+        store2(ob + (size_t)(l + 8) * Cout + o, acc[i][j][2], acc[i][j][3]);
     }
   }
 }
 
-}  // namespace
-
-extern "C" int dilated_conv1d_smem_bytes(int K, int dilation) {
+template <typename T>
+int forward(const T* x, const T* w, T* out, int B, int L, int C, int Cout,
+            int K, int dilation, void* stream) {
   const int span = (K - 1) * dilation;
-  return smem_bytes(config_for(K, span), K, span);
-}
-
-extern "C" int dilated_conv1d_forward(const float* x, const float* w,
-                                      float* out, int B, int L, int C,
-                                      int Cout, int K, int dilation,
-                                      void* stream) {
-  const int span = (K - 1) * dilation;
-  const Config cfg = config_for(K, span);
-  const int smem = smem_bytes(cfg, K, span);
-  auto kernel = cfg.slice == 32   ? dilated_conv1d_kernel<32, 2>
-                : cfg.stages == 3 ? dilated_conv1d_kernel<8, 3>
-                                  : dilated_conv1d_kernel<8, 2>;
+  const Config cfg = config_for<T>(K, span);
+  const int smem = smem_bytes<T>(cfg, K, span);
+  constexpr int kSmall = std::is_same<T, float>::value ? 8 : 16;
+  auto kernel = cfg.slice == 32   ? dilated_conv1d_kernel<T, 32, 2>
+                : cfg.stages == 3 ? dilated_conv1d_kernel<T, kSmall, 3>
+                                  : dilated_conv1d_kernel<T, kSmall, 2>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -272,6 +319,34 @@ extern "C" int dilated_conv1d_forward(const float* x, const float* w,
   kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(x, w, out, L, C, Cout,
                                                          K, dilation);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int dilated_conv1d_smem_bytes(int K, int dilation) {
+  const int span = (K - 1) * dilation;
+  return smem_bytes<float>(config_for<float>(K, span), K, span);
+}
+
+extern "C" int dilated_conv1d_smem_bytes_bf16(int K, int dilation) {
+  const int span = (K - 1) * dilation;
+  return smem_bytes<bf16>(config_for<bf16>(K, span), K, span);
+}
+
+extern "C" int dilated_conv1d_forward(const float* x, const float* w,
+                                      float* out, int B, int L, int C,
+                                      int Cout, int K, int dilation,
+                                      void* stream) {
+  return forward<float>(x, w, out, B, L, C, Cout, K, dilation, stream);
+}
+
+extern "C" int dilated_conv1d_forward_bf16(const void* x, const void* w,
+                                           void* out, int B, int L, int C,
+                                           int Cout, int K, int dilation,
+                                           void* stream) {
+  return forward<bf16>(static_cast<const bf16*>(x),
+                       static_cast<const bf16*>(w), static_cast<bf16*>(out),
+                       B, L, C, Cout, K, dilation, stream);
 }
 
 extern "C" const char* dilated_conv1d_error_string(int code) {

@@ -42,6 +42,14 @@
 // (lstm_route): one block a batch row, one thread a gate column, wh read
 // from L2 every step.
 //
+// The bf16 variant (lstm_forward_bf16), both routes: x_proj, wh, h0 and c0
+// are read as bf16 and widened to float32 on load (the cluster route's wh
+// slice sits in registers as float32, so its register budget is the float32
+// one's), the state, the exchanged h and the gate arithmetic stay float32,
+// and hs, cs, h_T and c_T are stored rounded to bf16 (nearest even).  A bf16
+// value is 2 bytes, which cp.async does not copy, so the cluster route reads
+// x_proj one step ahead into a register instead of through the cp.async ring.
+//
 // Build variants (scripts/tune_lstm.py): -DLSTM_CLUSTER=4|8|16 (CTAs a
 // row), -DLSTM_WH_REGS=n (the first n of a thread's quarter of k in
 // registers, the rest in shared memory), -DLSTM_SYNC_ONLY (no arithmetic:
@@ -51,7 +59,10 @@
 // and storing h and c before the barrier's arrive instead of between arrive
 // and wait lost (PERF.md, row 1 of the kernel table).
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #ifndef LSTM_CLUSTER
 #define LSTM_CLUSTER 8
@@ -87,6 +98,20 @@ size_t cluster_smem_bytes(int H) {
           kXDepth * 4 * (size_t)units + (size_t)in_smem * cluster_threads(H));
 }
 
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+// v rounded to T (bf16: nearest even)
+template <typename T>
+__device__ __forceinline__ T from_f32(float v) {
+  if constexpr (std::is_same<T, float>::value)
+    return v;
+  else
+    return __float2bfloat16_rn(v);
+}
+
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
@@ -107,14 +132,14 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
+template <typename E>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-    lstm_cluster_kernel(const float* __restrict__ xp,
-                            const float* __restrict__ wh,
-                            const float* __restrict__ h0,
-                            const float* __restrict__ c0,
-                            float* __restrict__ hs, float* __restrict__ cs,
-                            float* __restrict__ h_last,
-                            float* __restrict__ c_last, int T, int H) {
+    lstm_cluster_kernel(const E* __restrict__ xp, const E* __restrict__ wh,
+                        const E* __restrict__ h0, const E* __restrict__ c0,
+                        E* __restrict__ hs, E* __restrict__ cs,
+                        E* __restrict__ h_last, E* __restrict__ c_last, int T,
+                        int H) {
+  constexpr bool kF32 = std::is_same<E, float>::value;
   cg::cluster_group cluster = cg::this_cluster();
   const int r = (int)cluster.block_rank();
   const int b = blockIdx.x / kCluster;
@@ -136,36 +161,48 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   const int q = tid / nc;
   const int j = tid - q * nc;
   const int gj = j / units, uj = j - gj * units;
-  const float* wcol = wh + (size_t)q * kq * h4 + gj * H + r * units + uj;
+  const E* wcol = wh + (size_t)q * kq * h4 + gj * H + r * units + uj;
   float wr[kWhRegs > 0 ? kWhRegs : 1];
 #pragma unroll
-  for (int k = 0; k < kWhRegs; ++k) wr[k] = k < kq ? wcol[(size_t)k * h4] : 0.0f;
+  for (int k = 0; k < kWhRegs; ++k)
+    wr[k] = k < kq ? to_f32(wcol[(size_t)k * h4]) : 0.0f;
   for (int k = kWhRegs; k < kq; ++k)
-    wsm[(k - kWhRegs) * nt + tid] = wcol[(size_t)k * h4];
+    wsm[(k - kWhRegs) * nt + tid] = to_f32(wcol[(size_t)k * h4]);
 
   // the gates: 4 consecutive threads a unit, thread gg of them gate gg
   const bool gate = tid < nc;
   const int gate_threads = (nc + 31) & ~31;  // whole warps, for the shuffles
   const int gu = tid >> 2, gg = tid & 3;
   const int unit = r * units + gu;
-  const float* xcol = xp + (size_t)b * T * h4 + gg * H + unit;
+  const E* xcol = xp + (size_t)b * T * h4 + gg * H + unit;
   float c = 0.0f;  // the unit's cell state, in its first lane
-  if (gate && gg == 0) c = c0[(size_t)b * H + unit];
-  // x_proj runs kXDepth - 1 steps ahead: one cp.async group a step
-  for (int s = 0; s < kXDepth - 1; ++s) {
-    if (gate && s < T) cp_async4(xs + s * nc + tid, xcol + (size_t)s * h4);
-    cp_async_commit();
+  if (gate && gg == 0) c = to_f32(c0[(size_t)b * H + unit]);
+  E x_next = E();  // bf16: the next step's x_proj, loaded a step ahead
+  if constexpr (kF32) {
+    // x_proj runs kXDepth - 1 steps ahead: one cp.async group a step
+    for (int s = 0; s < kXDepth - 1; ++s) {
+      if (gate && s < T) cp_async4(xs + s * nc + tid, xcol + (size_t)s * h4);
+      cp_async_commit();
+    }
+  } else {
+    if (gate && T > 0) x_next = xcol[0];
   }
-  for (int k = tid; k < H; k += nt) hbuf[k] = h0[(size_t)b * H + k];
+  for (int k = tid; k < H; k += nt) hbuf[k] = to_f32(h0[(size_t)b * H + k]);
   // every CTA of the cluster runs, and h0 is in place, before any exchange
   cluster.sync();
 
   for (int t = 0; t < T; ++t) {
     const int p = t & 1;
-    const int ahead = t + kXDepth - 1;
-    if (gate && ahead < T)
-      cp_async4(xs + (ahead & (kXDepth - 1)) * nc + tid, xcol + (size_t)ahead * h4);
-    cp_async_commit();
+    E x_now = x_next;
+    if constexpr (kF32) {
+      const int ahead = t + kXDepth - 1;
+      if (gate && ahead < T)
+        cp_async4(xs + (ahead & (kXDepth - 1)) * nc + tid,
+                  xcol + (size_t)ahead * h4);
+      cp_async_commit();
+    } else {
+      if (gate && t + 1 < T) x_next = xcol[(size_t)(t + 1) * h4];
+    }
 #ifndef LSTM_SYNC_ONLY
     {
       const float4* hq = reinterpret_cast<const float4*>(hbuf + p * H + q * kq);
@@ -189,10 +226,12 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     __syncthreads();  // every partial written
     float hn = 0.0f, cn = 0.0f;
     if (tid < gate_threads) {
-      cp_async_wait<kXDepth - 1>();  // this thread's x_proj of step t is in
+      if constexpr (kF32)
+        cp_async_wait<kXDepth - 1>();  // this thread's x_proj of step t is in
       float a = 0.0f;
       if (gate) {
-        const float x = xs[(t & (kXDepth - 1)) * nc + tid];
+        const float x =
+            kF32 ? to_f32(xs[(t & (kXDepth - 1)) * nc + tid]) : to_f32(x_now);
 #ifdef LSTM_SYNC_ONLY
         a = x;
 #else
@@ -229,22 +268,23 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     // next step.  The outputs go to global memory between arrive and wait,
     // off the barrier's release (nothing in the kernel reads them).
     __cluster_barrier_arrive();
-    if (gate && gg == 0) hs[at] = hn;
-    if (gate && gg == 1) cs[at] = cn;
+    if (gate && gg == 0) hs[at] = from_f32<E>(hn);
+    if (gate && gg == 1) cs[at] = from_f32<E>(cn);
     __cluster_barrier_wait();
   }
   if (gate && gg == 0) {
-    h_last[(size_t)b * H + unit] = hbuf[(T & 1) * H + unit];
-    c_last[(size_t)b * H + unit] = c;
+    h_last[(size_t)b * H + unit] = from_f32<E>(hbuf[(T & 1) * H + unit]);
+    c_last[(size_t)b * H + unit] = from_f32<E>(c);
   }
 }
 
+template <typename E>
 __global__ void __launch_bounds__(1024)
-    lstm_row_kernel(const float* __restrict__ xp, const float* __restrict__ wh,
-                    const float* __restrict__ h0, const float* __restrict__ c0,
-                    float* __restrict__ hs, float* __restrict__ cs,
-                    float* __restrict__ h_last, float* __restrict__ c_last,
-                    int T, int H) {
+    lstm_row_kernel(const E* __restrict__ xp, const E* __restrict__ wh,
+                    const E* __restrict__ h0, const E* __restrict__ c0,
+                    E* __restrict__ hs, E* __restrict__ cs,
+                    E* __restrict__ h_last, E* __restrict__ c_last, int T,
+                    int H) {
   extern __shared__ float smem[];
   float* h = smem;              // [H]
   float* c = smem + H;          // [H]
@@ -253,23 +293,24 @@ __global__ void __launch_bounds__(1024)
   const int h4 = 4 * H;
 
   for (int n = threadIdx.x; n < H; n += blockDim.x) {
-    h[n] = h0[(size_t)b * H + n];
-    c[n] = c0[(size_t)b * H + n];
+    h[n] = to_f32(h0[(size_t)b * H + n]);
+    c[n] = to_f32(c0[(size_t)b * H + n]);
   }
   __syncthreads();
 
-  const float* xb = xp + (size_t)b * T * h4;
-  float* hsb = hs + (size_t)b * T * H;
-  float* csb = cs + (size_t)b * T * H;
+  const E* xb = xp + (size_t)b * T * h4;
+  E* hsb = hs + (size_t)b * T * H;
+  E* csb = cs + (size_t)b * T * H;
   for (int t = 0; t < T; ++t) {
-    const float* xt = xb + (size_t)t * h4;
+    const E* xt = xb + (size_t)t * h4;
     for (int j = threadIdx.x; j < h4; j += blockDim.x) {
       // column j of h @ wh: consecutive threads read consecutive words of
       // each row of wh, and every thread reads the same h[k] (a broadcast)
       float acc = 0.0f;
 #pragma unroll 8
-      for (int k = 0; k < H; ++k) acc = fmaf(h[k], wh[(size_t)k * h4 + j], acc);
-      const float g = xt[j] + acc;
+      for (int k = 0; k < H; ++k)
+        acc = fmaf(h[k], to_f32(wh[(size_t)k * h4 + j]), acc);
+      const float g = to_f32(xt[j]) + acc;
       gates[j] = (j >= 2 * H && j < 3 * H) ? tanhf(g) : sigmoid(g);
     }
     __syncthreads();  // all reads of h done, all gates written
@@ -278,27 +319,28 @@ __global__ void __launch_bounds__(1024)
       const float h_new = gates[3 * H + n] * tanhf(c_new);
       c[n] = c_new;
       h[n] = h_new;
-      hsb[(size_t)t * H + n] = h_new;
-      csb[(size_t)t * H + n] = c_new;
+      hsb[(size_t)t * H + n] = from_f32<E>(h_new);
+      csb[(size_t)t * H + n] = from_f32<E>(c_new);
     }
     __syncthreads();  // the new h is complete before the next step reads it
   }
   for (int n = threadIdx.x; n < H; n += blockDim.x) {
-    h_last[(size_t)b * H + n] = h[n];
-    c_last[(size_t)b * H + n] = c[n];
+    h_last[(size_t)b * H + n] = from_f32<E>(h[n]);
+    c_last[(size_t)b * H + n] = from_f32<E>(c[n]);
   }
 }
 
+template <typename E>
 cudaError_t prepare_cluster(int H) {
   const size_t smem = cluster_smem_bytes(H);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        lstm_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        lstm_cluster_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
   if (kCluster > 8)
-    return cudaFuncSetAttribute(lstm_cluster_kernel,
+    return cudaFuncSetAttribute(lstm_cluster_kernel<E>,
                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   return cudaSuccess;
 }
@@ -339,24 +381,27 @@ extern "C" int lstm_cluster_size() { return kCluster; }
 // *out: how many batch rows run at once
 extern "C" int lstm_max_active_clusters(int H, int* out) {
   if (!lstm_route(H)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = prepare_cluster(H);
+  cudaError_t err = prepare_cluster<float>(H);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg = cluster_config(1, H, 0, &attr);
-  return (int)cudaOccupancyMaxActiveClusters(out, lstm_cluster_kernel, &cfg);
+  return (int)cudaOccupancyMaxActiveClusters(out, lstm_cluster_kernel<float>,
+                                             &cfg);
 }
 
-extern "C" int lstm_forward(const float* xp, const float* wh, const float* h0,
-                            const float* c0, float* hs, float* cs,
-                            float* h_last, float* c_last, int B, int T, int H,
-                            int cluster, void* stream) {
+namespace {
+
+template <typename E>
+int forward(const E* xp, const E* wh, const E* h0, const E* c0, E* hs, E* cs,
+            E* h_last, E* c_last, int B, int T, int H, int cluster,
+            void* stream) {
   if (cluster) {
     if (!lstm_route(H)) return (int)cudaErrorInvalidValue;
-    cudaError_t err = prepare_cluster(H);
+    cudaError_t err = prepare_cluster<E>(H);
     if (err != cudaSuccess) return (int)err;
     cudaLaunchAttribute attr;
     cudaLaunchConfig_t cfg = cluster_config(B, H, (cudaStream_t)stream, &attr);
-    err = cudaLaunchKernelEx(&cfg, lstm_cluster_kernel, xp, wh, h0, c0, hs,
+    err = cudaLaunchKernelEx(&cfg, lstm_cluster_kernel<E>, xp, wh, h0, c0, hs,
                              cs, h_last, c_last, T, H);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
@@ -367,12 +412,35 @@ extern "C" int lstm_forward(const float* xp, const float* wh, const float* h0,
   const size_t smem = (size_t)6 * H * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        lstm_row_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        lstm_row_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  lstm_row_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
+  lstm_row_kernel<E><<<B, threads, smem, (cudaStream_t)stream>>>(
       xp, wh, h0, c0, hs, cs, h_last, c_last, T, H);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int lstm_forward(const float* xp, const float* wh, const float* h0,
+                            const float* c0, float* hs, float* cs,
+                            float* h_last, float* c_last, int B, int T, int H,
+                            int cluster, void* stream) {
+  return forward<float>(xp, wh, h0, c0, hs, cs, h_last, c_last, B, T, H,
+                        cluster, stream);
+}
+
+extern "C" int lstm_forward_bf16(const void* xp, const void* wh,
+                                 const void* h0, const void* c0, void* hs,
+                                 void* cs, void* h_last, void* c_last, int B,
+                                 int T, int H, int cluster, void* stream) {
+  typedef const bf16* In;
+  return forward<bf16>(static_cast<In>(xp), static_cast<In>(wh),
+                       static_cast<In>(h0), static_cast<In>(c0),
+                       static_cast<bf16*>(hs), static_cast<bf16*>(cs),
+                       static_cast<bf16*>(h_last), static_cast<bf16*>(c_last),
+                       B, T, H, cluster, stream);
 }
 
 extern "C" const char* lstm_error_string(int code) {

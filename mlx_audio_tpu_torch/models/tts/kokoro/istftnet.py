@@ -33,6 +33,7 @@ from mlx_audio_tpu_torch.nn import (
     get_padding,
     interpolate,
     leaky_relu,
+    promote_operands,
 )
 
 
@@ -318,9 +319,10 @@ class SourceModuleHnNSF(nn.Module):
 
     def forward(self, x, rand_ini=None, noise=None, seed: int = 0):
         sine_wavs, uv, _ = self.l_sin_gen(x, rand_ini, noise, seed)
-        # harmonic mix: a contraction over H
-        mixed = (torch.einsum("bhl,h->bl", sine_wavs, self.l_linear.weight[0])
-                 + self.l_linear.bias[0])
+        # harmonic mix: a contraction over H (float32 sine waves against a
+        # bf16 weight promote, as in the JAX package)
+        mixed = (torch.einsum("bhl,h->bl", *promote_operands(
+            sine_wavs, self.l_linear.weight[0])) + self.l_linear.bias[0])
         return torch.tanh(mixed)[..., None], uv
 
 

@@ -40,7 +40,7 @@ from mlx_audio_tpu_torch.models.tts.kokoro.modules import (
     TextEncoder,
 )
 from mlx_audio_tpu_torch.models.tts.kokoro.pipeline import KokoroPipeline
-from mlx_audio_tpu_torch.nn import Linear
+from mlx_audio_tpu_torch.nn import Linear, promote_operands
 
 
 @dataclass
@@ -123,7 +123,9 @@ def synthesis_stage(model: "Model", input_ids: torch.Tensor,
     en = torch.einsum("bnc,bnf->bfc", d, aln)
     f0_pred, n_pred = model.predictor.F0Ntrain(en, style_p, frame_lengths=total)
     t_en = model.text_encoder(input_ids, lengths, pad_mask)
-    asr = torch.einsum("bnc,bnf->bfc", t_en, aln)
+    # the text encoder's bf16 against a float32 alignment (float32 style in
+    # a bf16 model) promotes, as jnp.einsum does
+    asr = torch.einsum("bnc,bnf->bfc", *promote_operands(t_en, aln))
     audio = model.decoder(asr, f0_pred, n_pred, style_d, rand_ini, noise,
                           seed, frame_lengths=total)
     return audio, total
@@ -218,7 +220,7 @@ class Model(nn.Module):
         f_bucket = pick_frame_bucket(int(totals.max()))
         audio, _ = synthesis_stage(self, input_ids, lengths, d, pred_dur, ref,
                                    f_bucket, seed=seed)
-        audio_np = audio.cpu().numpy()
+        audio_np = audio.float().cpu().numpy()
         return [(audio_np[i, :int(totals[i]) * self.SAMPLES_PER_FRAME],
                  pred_np[i, :n_valid[i]]) for i in range(b)]
 

@@ -318,9 +318,14 @@ class Model(nn.Module):
 
     def cast_lm(self, dtype) -> "Model":
         """Cast the backbone and depth decoder; float32 only in this port so
-        far (bf16 is a later slice)."""
+        far.  bf16 runs through the conv and LSTM kernels (Kokoro, the conv
+        codecs and vocoders); CSM's bf16 LM, with quantized_matmul's bf16
+        activations and the depth draft's inputs, is ROADMAP queue 1 item
+        7b."""
         if dtype != torch.float32:
-            raise NotImplementedError("cast_lm: only float32 is ported")
+            raise NotImplementedError(
+                "cast_lm: CSM's LM runs float32 only so far (bf16 is ROADMAP "
+                "queue 1 item 7b)")
         return self
 
     def _watermark(self, audio: np.ndarray) -> np.ndarray:

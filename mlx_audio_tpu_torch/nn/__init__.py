@@ -21,6 +21,7 @@ from mlx_audio_tpu_torch.nn.layers import (
     depthwise_conv_transpose1d,
     get_padding,
     leaky_relu,
+    promote_operands,
     snake,
     snake_beta,
     weight_norm,
@@ -32,7 +33,7 @@ __all__ = [
     "AdaLayerNorm", "BatchNorm", "Conv1d", "WNConv1d", "WNConvTranspose1d", "Identity",
     "conv1d", "conv1d_route", "conv_transpose1d",
     "depthwise_conv_transpose1d", "weight_norm", "get_padding", "leaky_relu",
-    "snake", "snake_beta",
+    "promote_operands", "snake", "snake_beta",
     "LSTM", "lstm_scan", "masked_flip", "scaled_dot_product_attention",
     "interpolate", "interpolate1d",
 ]

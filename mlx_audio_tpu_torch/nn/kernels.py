@@ -44,8 +44,15 @@ int64 that depends on every byte it streams or every product it computes
 Each wrapper takes its plain PyTorch version for a tensor that lies on the
 CPU, and only then.  For a CUDA tensor it launches the kernel or raises:
 there is no fallback.  Every launch adds one to the kernel's entry in
-``LAUNCHES``, so a run can show that it went through the kernels.  The
-kernels take float32 activations only (bf16 is a later slice).
+``LAUNCHES``, so a run can show that it went through the kernels.
+
+The three Kokoro kernels take float32 or bf16 (``BF16_KERNELS``): a bf16
+launch runs the kernel's bf16 variant, built from the same source, and
+counts under ``<name>_bf16``; it accumulates in float32 and rounds each
+output to bf16 once, as the plain version does (float32 compute, one
+rounding).  Every other dtype raises ``TypeError`` on the card, and so does
+bf16 for the other kernels (``quantized_matmul``'s bf16 activations and
+CSM's depth draft are ROADMAP queue 1 item 7b).
 """
 
 from __future__ import annotations
@@ -61,8 +68,11 @@ from mlx_audio_tpu_torch import build
 from mlx_audio_tpu_torch.nn.pallas_depth import PackedDepth, depth_draft_plain
 
 LAUNCHES = {"lstm": 0, "dilated_conv1d": 0, "banded_conv1d": 0,
+            "lstm_bf16": 0, "dilated_conv1d_bf16": 0, "banded_conv1d_bf16": 0,
             "quantized_matmul": 0, "depth_draft": 0, "probe_depth": 0,
             "probe_vpu": 0, "probe_auto": 0}
+# the kernels with a bf16 variant, counted in LAUNCHES as "<name>_bf16"
+BF16_KERNELS = ("lstm", "dilated_conv1d", "banded_conv1d")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -71,6 +81,11 @@ _SIGNATURES = {
     "lstm": ("lstm_forward", [_P] * 8 + [_I] * 4 + [_P]),
     "dilated_conv1d": ("dilated_conv1d_forward", [_P] * 3 + [_I] * 6 + [_P]),
     "banded_conv1d": ("banded_conv1d_forward", [_P] * 3 + [_I] * 5 + [_P]),
+    "lstm_bf16": ("lstm_forward_bf16", [_P] * 8 + [_I] * 4 + [_P]),
+    "dilated_conv1d_bf16": ("dilated_conv1d_forward_bf16",
+                            [_P] * 3 + [_I] * 6 + [_P]),
+    "banded_conv1d_bf16": ("banded_conv1d_forward_bf16",
+                           [_P] * 3 + [_I] * 5 + [_P]),
     "quantized_matmul": ("quantized_matmul_forward", [_P] * 6 + [_I] * 5 + [_P]),
     "depth_draft": ("depth_draft_forward",
                     [_P] * 21 + [ctypes.c_uint] + [_I] * 13 + [_F] * 2 + [_P]),
@@ -82,10 +97,12 @@ _SIGNATURES = {
 # shared memory one Hopper block may use (227 KB)
 SMEM_LIMIT_BYTES = 232448
 # csrc/banded_conv1d.cu and csrc/dilated_conv1d.cu: kTileM, kTileN; window
-# and weight rows padded by 4 and 8 floats
+# rows padded by 16 bytes, weight rows by 8 values
 _MMA_TILE_M, _MMA_TILE_N = 192, 128
-# csrc/dilated_conv1d.cu kConfigs: (channel slice, stages), in the order tried
-_DILATED_CONFIGS = ((32, 2), (8, 3), (8, 2))
+# csrc/dilated_conv1d.cu kConfigs and kConfigsBf16: (channel slice, stages),
+# in the order tried
+_DILATED_CONFIGS = {torch.float32: ((32, 2), (8, 3), (8, 2)),
+                    torch.bfloat16: ((32, 2), (16, 3), (16, 2))}
 
 
 def reset_launches() -> None:
@@ -101,17 +118,23 @@ _QUERIES = {
 }
 
 
+def _source(name: str) -> str:
+    """The kernel whose source (and library) holds ``name``: a bf16 variant
+    lives with its float32 kernel."""
+    return name.removesuffix("_bf16")
+
+
 def _library(name: str, variant=None):
     """The port's build of kernel ``name``, or ``variant``, a library built
     from the same source with other flags (the tune scripts), with the
     types of its C entry points declared."""
-    lib = build.load(name) if variant is None else variant
+    lib = build.load(_source(name)) if variant is None else variant
     fn_name, argtypes = _SIGNATURES[name]
     fn = getattr(lib, fn_name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        err = getattr(lib, f"{name}_error_string")
+        err = getattr(lib, f"{_source(name)}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         for query, (types, result) in _QUERIES.get(name, {}).items():
@@ -128,7 +151,7 @@ def _launch(name: str, device: torch.device, *args, variant=None) -> None:
         stream = torch.cuda.current_stream(device).cuda_stream
         code = getattr(lib, _SIGNATURES[name][0])(*args, stream)
     if code != 0:
-        msg = getattr(lib, f"{name}_error_string")(code)
+        msg = getattr(lib, f"{_source(name)}_error_string")(code)
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {code} "
                            f"({msg.decode()})")
     if variant is None:
@@ -137,8 +160,9 @@ def _launch(name: str, device: torch.device, *args, variant=None) -> None:
 
 def _on_cpu(name: str, *tensors: torch.Tensor, other=()) -> bool:
     """True when the plain version serves the call; checks what the kernel
-    takes when it does not: ``tensors`` float32, ``other`` any dtype, all
-    contiguous and on one device."""
+    takes when it does not: ``tensors`` float32 (or all bf16 where the
+    kernel has a bf16 variant), ``other`` any dtype, all contiguous and on
+    one device."""
     dev = (*tensors, *other)[0].device
     if any(t.device != dev for t in (*tensors, *other)):
         raise ValueError(f"{name}: tensors on different devices")
@@ -146,12 +170,45 @@ def _on_cpu(name: str, *tensors: torch.Tensor, other=()) -> bool:
         return True
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
-    for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} kernel takes float32, got {t.dtype}")
+    dtypes = {t.dtype for t in tensors}
+    if tensors and dtypes != {torch.float32} and not (
+            name in BF16_KERNELS and dtypes == {torch.bfloat16}):
+        kinds = "float32 or bf16" if name in BF16_KERNELS else "float32"
+        raise TypeError(f"{name} kernel takes {kinds} (one dtype), got "
+                        f"{sorted(map(str, dtypes))}")
     if not all(t.is_contiguous() for t in (*tensors, *other)):
         raise ValueError(f"{name} kernel takes contiguous tensors")
     return False
+
+
+# bf16_steps: the step of an output below this share of the largest one is
+# taken at that share
+BF16_STEP_FLOOR = 2.0 ** -10
+
+
+def bf16_steps(got: torch.Tensor, exact: torch.Tensor) -> float:
+    """The largest error of ``got`` against ``exact`` in bf16 steps: each
+    |got - exact| over the spacing of bf16 values at |exact| (2^(e - 7) for
+    2^e <= |exact| < 2^(e + 1)), |exact| floored at BF16_STEP_FLOOR times
+    the largest |exact|.  A bf16 output within one step of a float64 result
+    gives at most 1."""
+    got, exact = got.double(), exact.double()
+    mag = exact.abs()
+    top = float(mag.max()) if mag.numel() else 0.0
+    mag = mag.clamp(min=max(top * BF16_STEP_FLOOR, 1e-30))
+    step = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((got - exact).abs() / step).max()) if mag.numel() else 0.0
+
+
+def _kernel_name(name: str, t: torch.Tensor) -> str:
+    """The LAUNCHES and _SIGNATURES name of ``name``'s launch on ``t``."""
+    return f"{name}_bf16" if t.dtype == torch.bfloat16 else name
+
+
+def _compute_dtype(dt: torch.dtype) -> torch.dtype:
+    """What a plain version computes in: float32 for bf16 (one rounding of
+    the result), the input's own dtype for float32 and float64."""
+    return torch.promote_types(dt, torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -196,12 +253,15 @@ def lstm_max_active_clusters(h: int) -> int:
 
 def lstm_plain(x_proj, wh, h0, c0):
     """Plain version of the LSTM kernel: gates = x_proj[:, t] + h @ wh in
-    torch gate order i, f, g, o, state carried in float32."""
+    torch gate order i, f, g, o, state carried in float32 (float64 for a
+    float64 input), outputs rounded to x_proj's dtype once."""
     hdim = h0.shape[-1]
-    h, c = h0.float(), c0.float()
+    ct = _compute_dtype(x_proj.dtype)
+    h, c = h0.to(ct), c0.to(ct)
+    w = wh.to(ct)
     hs, cs = [], []
     for t in range(x_proj.shape[1]):
-        gates = x_proj[:, t].float() + h @ wh.float()
+        gates = x_proj[:, t].to(ct) + h @ w
         i = torch.sigmoid(gates[:, :hdim])
         f = torch.sigmoid(gates[:, hdim:2 * hdim])
         g = torch.tanh(gates[:, 2 * hdim:3 * hdim])
@@ -222,8 +282,10 @@ def lstm(x_proj: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor,
     x_proj: [B, T, 4H] input projections (x @ Wx^T + b_ih + b_hh),
     wh:     [H, 4H] recurrent weight (transposed torch W_hh),
     h0/c0:  [B, H] initial state.
-    Returns (hidden states [B, T, H], cell states [B, T, H], (h_T, c_T)).
-    On the card it launches the kernel ``lstm_route(H)`` names.
+    Returns (hidden states [B, T, H], cell states [B, T, H], (h_T, c_T)),
+    in the inputs' dtype (float32 or bf16; the state is float32 either way).
+    On the card it launches the kernel ``lstm_route(H)`` names, or its bf16
+    variant.
     """
     if _on_cpu("lstm", x_proj, wh, h0, c0):
         return lstm_plain(x_proj, wh, h0, c0)
@@ -232,12 +294,12 @@ def lstm(x_proj: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor,
     if h4 != 4 * h or wh.shape != (h, h4) or h0.shape != (b, h) or c0.shape != (b, h):
         raise ValueError(f"lstm: shapes x_proj {tuple(x_proj.shape)}, wh "
                          f"{tuple(wh.shape)}, h0 {tuple(h0.shape)}")
-    hs = torch.empty((b, t, h), device=x_proj.device, dtype=torch.float32)
+    hs = torch.empty((b, t, h), device=x_proj.device, dtype=x_proj.dtype)
     cs = torch.empty_like(hs)
-    h_last = torch.empty((b, h), device=x_proj.device, dtype=torch.float32)
+    h_last = torch.empty((b, h), device=x_proj.device, dtype=x_proj.dtype)
     c_last = torch.empty_like(h_last)
     route = lstm_route(h)
-    _launch("lstm", x_proj.device, x_proj.data_ptr(), wh.data_ptr(),
+    _launch(_kernel_name("lstm", x_proj), x_proj.device, x_proj.data_ptr(), wh.data_ptr(),
             h0.data_ptr(), c0.data_ptr(), hs.data_ptr(), cs.data_ptr(),
             h_last.data_ptr(), c_last.data_ptr(), b, t, h,
             int(route == "cluster"))
@@ -251,14 +313,17 @@ def lstm(x_proj: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _mma_conv_smem_bytes(k: int, span: int, channels: int,
-                         stages: int) -> int:
-    """Shared memory of one block of the 3xTF32 conv kernels: ``stages``
-    stages of the halo window (192 + span rows of ``channels``) and K
-    [channels, 128] weight slices, and the split remainder of one window."""
-    window = (_MMA_TILE_M + span) * (channels + 4)
+def _mma_conv_smem_bytes(k: int, span: int, channels: int, stages: int,
+                         dtype: torch.dtype = torch.float32) -> int:
+    """Shared memory of one block of the conv kernels: ``stages`` stages of
+    the halo window (192 + span rows of ``channels``, padded by 16 bytes)
+    and K [channels, 128] weight slices (padded by 8 values); float32 keeps
+    the split remainder of one window besides, bf16 splits nothing."""
+    size = torch.empty((), dtype=dtype).element_size()
+    window = (_MMA_TILE_M + span) * (channels + 16 // size)
     weights = k * channels * (_MMA_TILE_N + 8)
-    return 4 * (stages * (window + weights) + window)
+    split = window if dtype == torch.float32 else 0
+    return size * (stages * (window + weights) + split)
 
 
 def _check_mma_conv(name: str, x: torch.Tensor, w: torch.Tensor,
@@ -277,20 +342,24 @@ def _check_mma_conv(name: str, x: torch.Tensor, w: torch.Tensor,
                          "shared memory, more than a block has")
 
 
-def dilated_conv1d_smem_bytes(k: int, dilation: int) -> int:
-    """Shared memory of one dilated_conv1d block (csrc/dilated_conv1d.cu):
-    that of the first (slice, stages) in ``_DILATED_CONFIGS`` that fits a
-    block, or of the last when none does."""
+def dilated_conv1d_smem_bytes(k: int, dilation: int,
+                              dtype: torch.dtype = torch.float32) -> int:
+    """Shared memory of one dilated_conv1d block (csrc/dilated_conv1d.cu),
+    or of its bf16 variant: that of the first (slice, stages) in
+    ``_DILATED_CONFIGS`` that fits a block, or of the last when none does."""
     span = (k - 1) * dilation
-    for channels, stages in _DILATED_CONFIGS:
-        smem = _mma_conv_smem_bytes(k, span, channels, stages)
+    for channels, stages in _DILATED_CONFIGS[dtype]:
+        smem = _mma_conv_smem_bytes(k, span, channels, stages, dtype)
         if smem <= SMEM_LIMIT_BYTES:
             break
     return smem
 
 
 def dilated_conv1d_plain(x, w, dilation: int = 1):
-    """Plain version: sum over taps of the shifted input times w[k]."""
+    """Plain version: sum over taps of the shifted input times w[k], in
+    float32 for bf16 operands, rounded to their dtype once."""
+    dt = x.dtype
+    x, w = x.to(_compute_dtype(dt)), w.to(_compute_dtype(dt))
     _, l, _ = x.shape
     k = w.shape[0]
     span = (k - 1) * dilation
@@ -299,35 +368,38 @@ def dilated_conv1d_plain(x, w, dilation: int = 1):
     out = xp[:, :l] @ w[0]
     for tap in range(1, k):
         out = out + xp[:, tap * dilation:tap * dilation + l] @ w[tap]
-    return out
+    return out.to(dt)
 
 
 def dilated_conv1d(x: torch.Tensor, w: torch.Tensor,
                    dilation: int = 1) -> torch.Tensor:
     """'Same'-padded dilated conv, NLC: x [B, L, C] * w [K, C, Cout] ->
     [B, L, Cout].  K odd.  The kernel computes 3xTF32 products on the
-    tensor cores, every tap reading one staged window at row offset
-    tap * dilation; it takes C and Cout multiples of 8, 16-byte aligned x
-    and w, and a window whose stages fit a block's shared memory."""
+    tensor cores (bf16 products for bf16 operands, into float32 sums), every
+    tap reading one staged window at row offset tap * dilation; it takes C
+    and Cout multiples of 8, 16-byte aligned x and w, and a window whose
+    stages fit a block's shared memory.  The output has x's dtype."""
     if _on_cpu("dilated_conv1d", x, w):
         return dilated_conv1d_plain(x, w, dilation)
     if dilation < 1:
         raise ValueError(f"dilated_conv1d: dilation {dilation}")
     k = w.shape[0]
     _check_mma_conv("dilated_conv1d", x, w,
-                    dilated_conv1d_smem_bytes(k, dilation))
+                    dilated_conv1d_smem_bytes(k, dilation, x.dtype))
     b, l, c = x.shape
     c_out = w.shape[2]
-    out = torch.empty((b, l, c_out), device=x.device, dtype=torch.float32)
-    _launch("dilated_conv1d", x.device, x.data_ptr(), w.data_ptr(),
+    out = torch.empty((b, l, c_out), device=x.device, dtype=x.dtype)
+    _launch(_kernel_name("dilated_conv1d", x), x.device, x.data_ptr(), w.data_ptr(),
             out.data_ptr(), b, l, c, c_out, k, dilation)
     return out
 
 
-def banded_conv1d_smem_bytes(k: int) -> int:
+def banded_conv1d_smem_bytes(k: int, dtype: torch.dtype = torch.float32) -> int:
     """Shared memory of one banded_conv1d block (csrc/banded_conv1d.cu):
-    three stages of a window of 192 + K - 1 rows."""
-    return _mma_conv_smem_bytes(k, k - 1, 8, 3)
+    three stages of a window of 192 + K - 1 rows, of 8 channels (16 in the
+    bf16 variant)."""
+    return _mma_conv_smem_bytes(k, k - 1, 8 if dtype == torch.float32 else 16,
+                                3, dtype)
 
 
 def banded_groups(k: int) -> int:
@@ -348,7 +420,10 @@ def banded_weight(w: torch.Tensor, q_groups: int) -> torch.Tensor:
 
 def banded_conv1d_plain(x, w):
     """Plain version: one matmul per window group against W_band, summed
-    over the Q groups, on the [L/8, 8C] view of the padded signal."""
+    over the Q groups, on the [L/8, 8C] view of the padded signal; in
+    float32 for bf16 operands, rounded to their dtype once."""
+    dt = x.dtype
+    x, w = x.to(_compute_dtype(dt)), w.to(_compute_dtype(dt))
     b, l, c = x.shape
     k, _, c_out = w.shape
     q_groups = banded_groups(k)
@@ -361,23 +436,24 @@ def banded_conv1d_plain(x, w):
     out = xr[:, :groups] @ wb[:eight_c]
     for q in range(1, q_groups):
         out = out + xr[:, q:q + groups] @ wb[q * eight_c:(q + 1) * eight_c]
-    return out.reshape(b, 8 * groups, c_out)[:, :l]
+    return out.reshape(b, 8 * groups, c_out)[:, :l].to(dt)
 
 
 def banded_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Dense (dilation-1) 'same'-padded conv, NLC: x [B, L, C] * w
     [K, C, Cout] -> [B, L, Cout].  K odd.  The kernel reads w as it is and
-    forms no banded weight (3xTF32 products on the tensor cores); the plain
-    version still goes through W_band.  The kernel takes C and Cout
-    multiples of 8, 16-byte aligned x and w, and K up to 13."""
+    forms no banded weight (3xTF32 products on the tensor cores, bf16 ones
+    for bf16 operands); the plain version still goes through W_band.  The
+    kernel takes C and Cout multiples of 8, 16-byte aligned x and w, and K
+    up to 13.  The output has x's dtype."""
     if _on_cpu("banded_conv1d", x, w):
         return banded_conv1d_plain(x, w)
     k = w.shape[0]
-    _check_mma_conv("banded_conv1d", x, w, banded_conv1d_smem_bytes(k))
+    _check_mma_conv("banded_conv1d", x, w, banded_conv1d_smem_bytes(k, x.dtype))
     b, l, c = x.shape
     c_out = w.shape[2]
-    out = torch.empty((b, l, c_out), device=x.device, dtype=torch.float32)
-    _launch("banded_conv1d", x.device, x.data_ptr(), w.data_ptr(),
+    out = torch.empty((b, l, c_out), device=x.device, dtype=x.dtype)
+    _launch(_kernel_name("banded_conv1d", x), x.device, x.data_ptr(), w.data_ptr(),
             out.data_ptr(), b, l, c, c_out, k)
     return out
 

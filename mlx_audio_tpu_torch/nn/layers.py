@@ -15,6 +15,10 @@ Conventions:
   it.
 * Every module with parameters has ``init_weights(generator)``, drawing
   from a ``torch.Generator`` with the JAX package's init scales.
+* A model cast with ``.to(torch.bfloat16)`` runs in bf16.  Where a layer's
+  input and weight differ in dtype, both are promoted first
+  (``promote_operands``), as ``jnp.matmul`` and the JAX package's
+  ``promote_conv_operands`` do: an f32 input into a bf16 layer runs in f32.
 """
 
 from __future__ import annotations
@@ -42,6 +46,16 @@ def get_padding(kernel_size: int, dilation: int = 1) -> int:
     return (kernel_size * dilation - dilation) // 2
 
 
+def promote_operands(x: torch.Tensor, w: torch.Tensor):
+    """(x, w) in one dtype, the promotion of theirs: the counterpart of the
+    JAX package's ``promote_conv_operands`` and of ``jnp.matmul``'s rule
+    (torch's matmul and convs raise on mixed dtypes instead)."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return x.to(dt), w.to(dt)
+    return x, w
+
+
 # ---------------------------------------------------------------------------
 # Dense / embedding
 # ---------------------------------------------------------------------------
@@ -63,7 +77,8 @@ class Linear(nn.Module):
             _uniform_(self.bias, scale, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.weight.t()
+        x, w = promote_operands(x, self.weight)
+        y = x @ w.t()
         if self.bias is not None:
             y = y + self.bias
         return y
@@ -82,7 +97,8 @@ class Embedding(nn.Module):
 
     def as_linear(self, x: torch.Tensor) -> torch.Tensor:
         """Tied-embedding output projection: x [..., dim] -> [..., num]."""
-        return x @ self.weight.t()
+        x, w = promote_operands(x, self.weight)
+        return x @ w.t()
 
 
 # ---------------------------------------------------------------------------
@@ -235,16 +251,18 @@ class Identity(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def banded_conv_supported(k: int, c: int, c_out: int, l: int) -> bool:
+def banded_conv_supported(k: int, c: int, c_out: int, l: int,
+                          dtype: torch.dtype = torch.float32) -> bool:
     """Shape rules of the JAX package's banded gate: K >= 5 and odd, C and
     Cout multiples of 128, at least 4096 rows, and a band waste 8Q/K <= 3.
     Its 10 MiB VMEM budget for W_band is a TPU fact: the Hopper kernel
     forms no band, and its own limit is shared memory, whose stages grow
-    with K (K <= 13)."""
+    with K: K <= 13 in float32's tiles, K <= 15 in bf16's."""
     if k < 5 or k % 2 == 0 or c % 128 or c_out % 128 or l < 4096:
         return False
     return (8 * kernels.banded_groups(k) / k <= 3.0
-            and kernels.banded_conv1d_smem_bytes(k) <= kernels.SMEM_LIMIT_BYTES)
+            and kernels.banded_conv1d_smem_bytes(k, dtype)
+            <= kernels.SMEM_LIMIT_BYTES)
 
 
 def conv1d_route(k: int, c: int, c_out: int, l: int, dilation: int = 1,
@@ -253,20 +271,21 @@ def conv1d_route(k: int, c: int, c_out: int, l: int, dilation: int = 1,
                  dtype: torch.dtype = torch.float32) -> str:
     """Which implementation ``conv1d`` takes: "banded", "shifted" or
     "library".  Mirrors the dispatch of the JAX package's conv1d with both
-    TPU opt-ins on.  The shifted route's 8 MiB VMEM weight clause becomes
-    the Hopper kernel's own limit, its shared memory per block.  The
-    kernels take float32; every other conv is torch.nn.functional.conv1d."""
+    TPU opt-ins on, float32 and bf16 under the same shape rules.  The
+    shifted route's 8 MiB VMEM weight clause becomes the Hopper kernel's own
+    limit, its shared memory per block in ``dtype``'s tiles.  Every other
+    dtype goes to torch.nn.functional.conv1d."""
     if isinstance(padding, int):
         padding = (padding, padding)
     span = (k - 1) * dilation
     same = (stride == 1 and groups == 1 and k > 1 and k % 2 == 1
             and tuple(padding) == (span // 2, span // 2))
-    if not same or dtype != torch.float32:
+    if not same or dtype not in (torch.float32, torch.bfloat16):
         return "library"
-    if banded_conv_supported(k, c, c_out, l // max(dilation, 1)):
+    if banded_conv_supported(k, c, c_out, l // max(dilation, 1), dtype):
         return "banded"
     if (l >= 2048 and c % 128 == 0 and c_out % 128 == 0
-            and kernels.dilated_conv1d_smem_bytes(k, dilation)
+            and kernels.dilated_conv1d_smem_bytes(k, dilation, dtype)
             <= kernels.SMEM_LIMIT_BYTES):
         return "shifted"
     return "library"
@@ -291,9 +310,11 @@ def _dilated_conv1d_residue(x: torch.Tensor, weight: torch.Tensor,
 def conv1d(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
            padding: Union[int, tuple] = 0, dilation: int = 1,
            groups: int = 1) -> torch.Tensor:
-    """Conv over NLC input with weight [out, in/groups, k]."""
+    """Conv over NLC input with weight [out, in/groups, k]; mixed dtypes
+    promote (``promote_operands``)."""
     if isinstance(padding, int):
         padding = (padding, padding)
+    x, weight = promote_operands(x, weight)
     k = weight.shape[-1]
     route = conv1d_route(k, x.shape[-1], weight.shape[0], x.shape[1],
                          dilation, stride, groups, padding, x.dtype)
@@ -317,7 +338,9 @@ def conv1d(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
 def conv_transpose1d(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
                      padding: int = 0, output_padding: int = 0,
                      groups: int = 1) -> torch.Tensor:
-    """Transposed conv over NLC input, weight [in, out/groups, k]."""
+    """Transposed conv over NLC input, weight [in, out/groups, k]; mixed
+    dtypes promote (``promote_operands``)."""
+    x, weight = promote_operands(x, weight)
     y = F.conv_transpose1d(x.transpose(1, 2), weight, None, stride, padding,
                            output_padding, groups)
     return y.transpose(1, 2)

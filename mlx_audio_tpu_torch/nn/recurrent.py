@@ -7,6 +7,7 @@ one to one.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -14,7 +15,7 @@ import torch
 from torch import nn
 
 from mlx_audio_tpu_torch.nn import kernels
-from mlx_audio_tpu_torch.nn.layers import _param, _uniform_
+from mlx_audio_tpu_torch.nn.layers import _param, _uniform_, promote_operands
 
 
 def lstm_scan(x_proj: torch.Tensor, w_h: torch.Tensor, h0: torch.Tensor,
@@ -26,9 +27,16 @@ def lstm_scan(x_proj: torch.Tensor, w_h: torch.Tensor, h0: torch.Tensor,
     Returns (hidden states [B, L, H], final (h, c)); with ``return_cells``,
     (hidden states, cell states [B, L, H], final (h, c)).
 
-    A CUDA tensor runs the LSTM kernel, a CPU tensor its plain version.  The
-    reverse direction flips time, runs forward and flips back.
+    A CUDA tensor runs the LSTM kernel (its bf16 variant in bf16), a CPU
+    tensor its plain version; mixed dtypes promote first, as in the JAX
+    package, whose ``lax.scan`` promotes the f32 state against a bf16
+    weight.  The state is float32 in bf16 too, where the JAX scan carries
+    it in bf16 (a deliberate difference, ROADMAP queue 3).  The reverse
+    direction flips time, runs forward and flips back.
     """
+    dt = functools.reduce(torch.promote_types,
+                          (t.dtype for t in (w_h, h0, c0)), x_proj.dtype)
+    x_proj, w_h, h0, c0 = (t.to(dt) for t in (x_proj, w_h, h0, c0))
     xp = x_proj.flip(1) if reverse else x_proj
     hs, cs, (h_t, c_t) = kernels.lstm(xp.contiguous(), w_h.t().contiguous(),
                                       h0.contiguous(), c0.contiguous())
@@ -84,6 +92,7 @@ class LSTM(nn.Module):
         wx = getattr(self, f"Wx_{direction}")
         b_ih = getattr(self, f"bias_ih_{direction}")
         b_hh = getattr(self, f"bias_hh_{direction}")
+        x, wx = promote_operands(x, wx)
         x_proj = x @ wx.t()
         if b_ih is not None:
             x_proj = x_proj + b_ih + b_hh

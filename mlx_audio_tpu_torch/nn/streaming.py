@@ -89,7 +89,7 @@ class StreamableConv1d(nn.Module):
 
     # -- streaming ---------------------------------------------------------
 
-    def init_state(self, batch: int, dtype=None) -> ConvState:
+    def init_state(self, batch: int, dtype=torch.float32) -> ConvState:
         pad = self.effective_ksize - self.stride
         in_ch = self.weight.shape[1] * self.groups
         return ConvState(
@@ -149,7 +149,7 @@ class StreamableConvTranspose1d(nn.Module):
 
     # -- streaming ---------------------------------------------------------
 
-    def init_state(self, batch: int, dtype=None) -> ConvTrState:
+    def init_state(self, batch: int, dtype=torch.float32) -> ConvTrState:
         if self.ksize < self.stride:
             # a "gappy" transposed conv: the batch path works, but exact
             # streaming would need an end-of-stream flush of the ragged tail
@@ -165,7 +165,8 @@ class StreamableConvTranspose1d(nn.Module):
         pad = self.ksize - self.stride
         y = conv_transpose1d(x, self.weight, self.stride, groups=self.groups)
         if pad > 0:
-            y = torch.cat([y[:, :pad] + state.buf, y[:, pad:]], dim=1)
+            # the overlap is added in y's dtype (JAX's .at[].add casts it)
+            y = torch.cat([y[:, :pad] + state.buf.to(y.dtype), y[:, pad:]], dim=1)
         emit_len = y.shape[1] - pad
         emit = y[:, :emit_len]
         if self.bias is not None:

@@ -8,7 +8,7 @@ in float32) beside two variants of each (``csrc/mma_tf32.cuh``):
   product, as the kernels had it before the fold;
 * ``one-pass``: ``-DCONV_ONE_PASS``, the big products alone (one TF32 pass).
 
-    python -m mlx_audio_tpu_torch.scripts.tune_conv [--out DIR] [--rounds 2]
+    python -m mlx_audio_tpu_torch.scripts.tune_conv [--out DIR] [--rounds 2] [--bf16]
 
 At DAC-44kHz's routed resblock shapes (K=7, one 3 s clip) and Kokoro-82M's
 (batch 2), each variant's output is held against the plain version in
@@ -18,6 +18,12 @@ FAILS"), and timed.  A variant is not held to the tolerance: the point is
 to see which of them it tells apart.  The variants run in one order, then
 in the reverse one.  Prints one line a kernel, variant, shape and round,
 then the card's name and power limit.
+
+With ``--bf16`` it compares the bf16 variants' two accumulations instead
+(``default``, folded a tap, and ``one-chain``) at Kokoro-82M's shapes and
+BigVGAN-v2's and DAC-44kHz's widest on bf16 operands: each output's error against
+the plain version in float64, in bf16 steps (``kernels.bf16_steps``; "step
+ok" at most one step), and its time.
 """
 
 from __future__ import annotations
@@ -50,6 +56,16 @@ SHAPES = (
     ("banded_conv1d", (1, 16576, 384), 7, 1), ("banded_conv1d", (1, 16576, 384), 7, 3),
     ("banded_conv1d", (2, 26000, 256), 7, 1),
 )
+# the same for the bf16 variants: Kokoro-82M's shapes as chip_smoke.py's
+# phase 2 holds them (batch 2), BigVGAN-v2's widest resblocks and
+# DAC-44kHz's C = 768 (C K = 8448 and 5376, the longest sums)
+SHAPES_BF16 = (
+    ("dilated_conv1d", (2, 26000, 256), 3, 1), ("dilated_conv1d", (2, 26000, 256), 3, 5),
+    ("dilated_conv1d", (2, 156001, 128), 3, 1), ("dilated_conv1d", (1, 3752, 768), 11, 5),
+    ("dilated_conv1d", (1, 2072, 768), 7, 1),
+    ("banded_conv1d", (2, 26000, 256), 7, 1), ("banded_conv1d", (2, 156001, 128), 11, 1),
+    ("banded_conv1d", (2, 26000, 256), 7, 3), ("banded_conv1d", (1, 15008, 384), 11, 1),
+)
 TOL = {"atol": 1e-4, "rtol": 1e-4}
 
 
@@ -77,15 +93,17 @@ def build_variants(out: Path) -> dict:
 
 def variant_fn(kernel: str, lib, d: int):
     """f(x, w): the conv through the variant's library (launches not counted),
-    the banded kernel with d > 1 through the residue fold, as the port does."""
+    the banded kernel with d > 1 through the residue fold, as the port does;
+    bf16 operands take the library's bf16 entry point."""
     def launch(x, w, dilation=1):
         b, l, c = x.shape
         k, _, c_out = w.shape
-        out = torch.empty((b, l, c_out), device=x.device)
+        out = torch.empty((b, l, c_out), device=x.device, dtype=x.dtype)
         args = [x.data_ptr(), w.data_ptr(), out.data_ptr(), b, l, c, c_out, k]
         if kernel == "dilated_conv1d":
             args.append(dilation)
-        kernels._launch(kernel, x.device, *args, variant=lib)
+        name = f"{kernel}_bf16" if x.dtype == torch.bfloat16 else kernel
+        kernels._launch(name, x.device, *args, variant=lib)
         return out
 
     if kernel == "dilated_conv1d":
@@ -107,7 +125,10 @@ def main() -> None:
     ap.add_argument("--out", default=None,
                     help="directory for the variants' libraries (a temporary one by default)")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--bf16", action="store_true",
+                    help="compare the bf16 variants' fold with one chain")
     args = ap.parse_args()
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     with tempfile.TemporaryDirectory() as tmp:
@@ -116,9 +137,9 @@ def main() -> None:
         libs = build_variants(out)
         gen = torch.Generator(device="cuda").manual_seed(0)
         cases = []
-        for kernel, (b, l, c), k, d in SHAPES:
-            x = torch.randn(b, l, c, generator=gen, device="cuda") * 0.3
-            w = torch.randn(k, c, c, generator=gen, device="cuda") * 0.05
+        for kernel, (b, l, c), k, d in (SHAPES_BF16 if args.bf16 else SHAPES):
+            x = (torch.randn(b, l, c, generator=gen, device="cuda") * 0.3).to(dtype)
+            w = (torch.randn(k, c, c, generator=gen, device="cuda") * 0.05).to(dtype)
             ref64 = plain_fn(kernel, d, torch.float64)(x, w)
             ref32 = plain_fn(kernel, d, torch.float32)(x, w)
             plain_err = float((ref32.double() - ref64).abs().max())
@@ -126,7 +147,7 @@ def main() -> None:
                   f"{float(ref64.abs().max()):.3f}; float32 plain against float64 "
                   f"{plain_err:.3e}", flush=True)
             cases.append((kernel, (b, l, c), k, d, x, w, ref64, ref32))
-        names = list(VARIANTS)
+        names = ["default", "one-chain"] if args.bf16 else list(VARIANTS)
         for rnd in range(args.rounds):
             for name in (names if rnd % 2 == 0 else names[::-1]):
                 for kernel, (b, l, c), k, d, x, w, ref64, ref32 in cases:
@@ -134,11 +155,17 @@ def main() -> None:
                     got = fn(x, w)
                     torch.cuda.synchronize()
                     err64 = float((got.double() - ref64).abs().max())
-                    ok = torch.allclose(got, ref32, **TOL)
+                    if args.bf16:
+                        steps = kernels.bf16_steps(got, ref64)
+                        check = (f"{steps:.3f} bf16 steps, step "
+                                 f"{'ok' if steps <= 1 else 'FAILS'}")
+                    else:
+                        ok = torch.allclose(got, ref32, **TOL)
+                        check = f"TOL {'ok' if ok else 'FAILS'}"
                     ms = events_ms(lambda fn=fn, x=x, w=w: fn(x, w))
                     print(f"round {rnd} {kernel:14s} {name:8s} [{b}, {l}, {c}] K={k} "
                           f"d={d}: {ms:.4f} ms, against float64 {err64:.3e}, "
-                          f"TOL {'ok' if ok else 'FAILS'}", flush=True)
+                          f"{check}", flush=True)
                     del got
     print(card_line(torch.device("cuda", 0)))
 

@@ -201,6 +201,121 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         assert kernels.LAUNCHES[name] == before
 
 
+# ---------------------------------------------------------------------------
+# bf16 variants: each output within one bf16 step of a float64 run of the
+# plain version (kernels.bf16_steps <= 1), launches counted as <name>_bf16
+# ---------------------------------------------------------------------------
+
+
+def _bf16(rng, shape, scale, device):
+    return _randn(rng, shape, scale, device).to(torch.bfloat16)
+
+
+def _within_a_bf16_step(got, exact):
+    assert got.dtype == torch.bfloat16
+    steps = kernels.bf16_steps(got, exact)
+    assert steps <= 1.0, steps
+
+
+# the cluster route at Kokoro's H = 256 and the tests' 128, the row route at
+# H = 100 and at EnCodec's 512
+@pytest.mark.parametrize("b,t,h", [(3, 37, 128), (8, 512, 256), (2, 1300, 256),
+                                   (3, 64, 100), (1, 150, 512), (4, 150, 512)])
+def test_lstm_bf16_kernel_within_a_bf16_step(cuda, b, t, h):
+    rng = np.random.default_rng(3)
+    args = (_bf16(rng, (b, t, 4 * h), 0.3, cuda), _bf16(rng, (h, 4 * h), 0.1, cuda),
+            _bf16(rng, (b, h), 0.1, cuda), _bf16(rng, (b, h), 0.1, cuda))
+    route = kernels.lstm_route(h)
+    before = dict(kernels.LAUNCHES)
+    before_route = kernels.LSTM_ROUTE_LAUNCHES[route]
+    got = kernels.lstm(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["lstm_bf16"] == before["lstm_bf16"] + 1
+    assert kernels.LAUNCHES["lstm"] == before["lstm"]
+    assert kernels.LSTM_ROUTE_LAUNCHES[route] == before_route + 1
+    exact = kernels.lstm_plain(*(a.double() for a in args))
+    for g, r in zip((got[0], got[1], *got[2]), (exact[0], exact[1], *exact[2])):
+        _within_a_bf16_step(g, r)
+    again = kernels.lstm(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(again[0], got[0]) and torch.equal(again[2][1], got[2][1])
+
+
+@pytest.mark.parametrize("b,l,c,c_out,k,d", [
+    (2, 2600, 256, 256, 3, 1),     # Kokoro's resblocks, K = 3
+    (2, 4133, 128, 128, 3, 5),
+    (1, 3752, 768, 768, 11, 5),    # BigVGAN-v2's widest: (32, 2) at 225 KB
+    (1, 3752, 768, 768, 7, 3),
+    (2, 100, 128, 128, 3, 1),      # L below one 192-sample tile
+    (2, 7, 128, 128, 3, 5),        # L below the span: taps off both ends
+    (2, 4133, 128, 128, 15, 1),    # (16, 3)
+    (2, 1000, 64, 72, 3, 1),       # Cout not a multiple of the 128 tile
+    (2, 1000, 72, 64, 3, 1),       # C not a multiple of the 16-channel k step
+])
+def test_dilated_conv_bf16_kernel_within_a_bf16_step(cuda, b, l, c, c_out, k, d):
+    rng = np.random.default_rng(4)
+    x = _bf16(rng, (b, l, c), 0.3, cuda)
+    w = _bf16(rng, (k, c, c_out), 0.05, cuda)
+    before = dict(kernels.LAUNCHES)
+    got = kernels.dilated_conv1d(x, w, d)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["dilated_conv1d_bf16"] == before["dilated_conv1d_bf16"] + 1
+    assert kernels.LAUNCHES["dilated_conv1d"] == before["dilated_conv1d"]
+    _within_a_bf16_step(got, kernels.dilated_conv1d_plain(x.double(), w.double(), d))
+
+
+@pytest.mark.parametrize("b,l,c,c_out,k,d", [
+    (2, 5200, 128, 128, 7, 1),     # Kokoro's
+    (2, 15601, 128, 128, 11, 1),
+    (2, 9001, 128, 128, 11, 5),    # through the residue fold
+    (1, 15008, 384, 384, 11, 1),   # BigVGAN-v2's 384-wide resblocks
+    (2, 100, 128, 128, 11, 1),     # L below one tile
+    (2, 9, 128, 128, 11, 1),       # L below K
+    (2, 4133, 128, 128, 15, 1),    # K = 15 fits three bf16 stages
+    (2, 1000, 64, 72, 7, 1),       # Cout not a multiple of the 128 tile
+    (2, 1000, 72, 64, 7, 1),       # C not a multiple of the 16-channel slice
+])
+def test_banded_conv_bf16_kernel_within_a_bf16_step(cuda, b, l, c, c_out, k, d):
+    rng = np.random.default_rng(5)
+    x = _bf16(rng, (b, l, c), 0.3, cuda)
+    w = _bf16(rng, (k, c, c_out), 0.05, cuda)
+    before = dict(kernels.LAUNCHES)
+    got = _dilated_conv1d_residue(x, w, d, kernels.banded_conv1d)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["banded_conv1d_bf16"] == before["banded_conv1d_bf16"] + 1
+    assert kernels.LAUNCHES["banded_conv1d"] == before["banded_conv1d"]
+    exact = _dilated_conv1d_residue(x.double(), w.double(), d,
+                                    kernels.banded_conv1d_plain)
+    _within_a_bf16_step(got, exact)
+
+
+@pytest.mark.parametrize("k,d", [(3, 1), (3, 5), (7, 3), (11, 5), (13, 1),
+                                 (15, 1), (3, 1000)])
+def test_conv_bf16_shared_memory_agrees_with_the_kernels(cuda, k, d):
+    dilated = build.load("dilated_conv1d").dilated_conv1d_smem_bytes_bf16
+    assert dilated(k, d) == kernels.dilated_conv1d_smem_bytes(k, d, torch.bfloat16)
+    banded = build.load("banded_conv1d").banded_conv1d_smem_bytes_bf16
+    assert banded(k) == kernels.banded_conv1d_smem_bytes(k, torch.bfloat16)
+
+
+def test_wrappers_reject_f16_and_mixed_dtypes(cuda):
+    """bf16 launches the bf16 variant; f16, and bf16 mixed with float32,
+    raise TypeError on the card."""
+    x = torch.zeros(1, 64, 128, device=cuda)
+    w = torch.zeros(3, 128, 128, device=cuda)
+    for xb, wb in ((x.half(), w.half()), (x.bfloat16(), w), (x, w.bfloat16())):
+        for call in (lambda: kernels.dilated_conv1d(xb, wb),
+                     lambda: kernels.banded_conv1d(xb, torch.zeros_like(wb[:1]).repeat(7, 1, 1))):
+            with pytest.raises(TypeError):
+                call()
+    xp, wh = torch.zeros(1, 4, 512, device=cuda), torch.zeros(128, 512, device=cuda)
+    h0 = torch.zeros(1, 128, device=cuda)
+    with pytest.raises(TypeError):
+        kernels.lstm(xp.half(), wh.half(), h0.half(), h0.half())
+    with pytest.raises(TypeError):
+        kernels.lstm(xp.bfloat16(), wh, h0, h0)
+
+
 def _quantized(rng, i, o, gs, bits, device):
     from mlx_audio_tpu_torch.nn.layers import Linear
     from mlx_audio_tpu_torch.nn.quantize import QuantizedLinear

@@ -206,7 +206,9 @@ def test_kokoro_82m_resblock_convs_reach_the_kernels():
     assert tnn.conv1d_route(post[2], post[1], post[0], length, 1, 1, 1, 3) == "library"
     assert tnn.conv1d_route(3, 1090, 1024, KOKORO_FRAMES, 1, 1, 1, 1) == "library"
     assert tnn.conv1d_route(7, 128, 128, length, 1, 1, 1, 3,
-                            torch.bfloat16) == "library"
+                            torch.bfloat16) == "banded"
+    assert tnn.conv1d_route(7, 128, 128, length, 1, 1, 1, 3,
+                            torch.float16) == "library"
 
 
 @pytest.mark.parametrize("k,route", [(11, "banded"), (13, "banded"),
