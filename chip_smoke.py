@@ -5,8 +5,9 @@ streamed), Orpheus-3B, OuteTTS-1B and Spark-TTS-0.5B through int8 decode,
 Dia-1.6B, Bark, the DAC-44kHz and EnCodec-24kHz codecs, the Vocos vocoder,
 Whisper-large-v3-turbo, Voxtral-Mini-3B and Parakeet-TDT-0.6B-v2 speech
 to text, the BigVGAN-v2 vocoder, IndexTTS-1.5, the depth-draft probes,
-Kokoro-82M, EnCodec and BigVGAN in bf16, and check its hand-written CUDA
-kernels and their bf16 variants.
+Kokoro-82M, EnCodec, BigVGAN and the int8 LMs (CSM-1B, Orpheus-3B,
+OuteTTS-1B, Spark-TTS-0.5B, Voxtral-Mini-3B) in bf16, and check its
+hand-written CUDA kernels and their bf16 variants.
 
     python3 chip_smoke.py
 
@@ -44,7 +45,13 @@ Phases; the failure of any one ends the script with a non-zero exit:
    route: each output within one bf16 step of a float64 run of the plain
    version (``kernels.bf16_steps``), timed beside cuDNN's conv or
    ``torch.nn.LSTM`` on the same bf16 operands, bound at 989 TFLOP/s dense
-   bf16 or 2-byte traffic;
+   bf16 or 2-byte traffic; and ``quantized_matmul``'s bf16 variant
+   (``quantized_matmul_bf16``) at every int8 projection and tied head of
+   CSM-1B, Orpheus-3B, OuteTTS-1B, Spark-TTS-0.5B and Voxtral-Mini-3B, 1
+   and 4 rows (and CSM's 32-row verify), with bf16 and with float32 scales:
+   each output within one bf16 step of float64, timed beside a cuBLAS bf16
+   matmul against the weight dequantized ahead of time, its rows bitwise
+   independent of their batch;
 3. run Kokoro-82M's ``Model.generate``, ``Model.generate_batch`` and
    ``Model.synthesize_batch`` at full width with seeded random weights;
 4. run the Kokoro bench-shaped pass (batch 8, phoneme bucket 512, frame
@@ -63,11 +70,16 @@ Phases; the failure of any one ends the script with a non-zero exit:
    plain version on the operands of its first call at each (rows, I, O)
    these runs gave it; then a timed breakdown (prefill, frame loop, Mimi)
    and a ``torch.profiler`` view of the spec-decode frame loop, with
-   ``quantized_matmul``'s calls and device time in it;
+   ``quantized_matmul``'s calls and device time in it; then the same CSM
+   cast with ``cast_lm(torch.bfloat16)`` (the RoPE tables, Mimi and the
+   watermark float32): greedy ``generate`` without and with spec decode
+   (the draft packed again from the bf16 weights, fed float32 caches), the
+   frames equal or the first differing code a near-tie of the plain run's
+   logits (the winner within one bf16 step), counted;
 6. Orpheus-3B at the published widths (hidden 3072, 28 layers, 24/8 heads,
    vocabulary 156 940, tied head; seeded random weights with the stop and
    audio-marker rows of the embedding at 0; int8 in groups of 64; a stub
-   tokenizer; SNAC-24kHz): greedy ``generate`` of 175 tokens,
+   tokenizer; SNAC-24kHz): greedy ``generate`` of 70 tokens,
    ``generate_batch`` of 4 texts, one sampled ``generate`` at the defaults;
    a one-prompt ``generate_tokens_batch`` must equal ``generate_tokens``,
    and each batch row's tokens shared with its one-row run are printed;
@@ -77,7 +89,9 @@ Phases; the failure of any one ends the script with a non-zero exit:
    published config, seeded random weights): encode and decode 3 s, with
    the route of every conv printed, ``compress`` and ``decompress`` 3 s,
    and the same 3 s encoded and decoded on the CPU with the same weights:
-   codes equal, the encoder's latents and the audio within the tolerance;
+   codes equal, the encoder's latents and the audio within the tolerance.
+   Before DAC, the Orpheus model cast with ``.to(torch.bfloat16)`` (SNAC
+   too): a greedy ``generate``;
 7. OuteTTS-1B at the published widths (hidden 2048, 16 layers, 32/8
    heads, vocabulary 134 400, tied head; seeded random weights arranged so
    that greedy decoding emits c1, c2 code pairs and never stops; int8 in
@@ -87,9 +101,11 @@ Phases; the failure of any one ends the script with a non-zero exit:
    the defaults; a one-prompt ``generate_tokens_batch`` must equal the
    greedy run; ``quantized_matmul`` held against its plain version on the
    path's operands; tokens/s at batch 1 and 4, the DAC decode, the
-   real-time factor, a profile of 32 steps.  Then Dia-1.6B at the published
+   real-time factor, a profile of 32 steps; then the model cast with
+   ``.to(torch.bfloat16)`` (its DAC too): a greedy ``generate``.  Then
+   Dia-1.6B at the published
    widths (float32, seeded random weights with channel 0's EOS logit held
-   at 0; DAC-44kHz): greedy ``generate`` of 202 steps (2 s of audio),
+   at 0; DAC-44kHz): greedy ``generate`` of 116 steps (1 s of audio),
    ``generate_batch`` of 4 texts, a one-text ``generate_batch`` (codes
    equal to the greedy run's), the encoder bucket against all 1024
    positions (codes equal), one sampled ``generate`` at the defaults; the
@@ -129,8 +145,8 @@ Phases; the failure of any one ends the script with a non-zero exit:
    its two stop rows at 0; int8 in
    groups of 64; BiCodec at ``DEFAULT_BICODEC_CONFIG``; wav2vec2 at
    wav2vec2-large-xlsr-53's widths; a stub tokenizer whose ``decode`` reads
-   a run as 32 global and 150 semantic tokens): greedy control-mode
-   ``generate`` (150 semantic tokens, 3 s at 16 kHz), ``generate_batch`` of
+   a run as 32 global and 110 semantic tokens): greedy control-mode
+   ``generate`` (110 semantic tokens, 2.2 s at 16 kHz), ``generate_batch`` of
    4 texts (each row's tokens shared with its one-row run printed), one
    sampled ``generate`` at the defaults, a greedy voice-clone ``generate``
    from a seeded 6 s clip; a one-prompt ``generate_tokens_batch`` must
@@ -145,7 +161,10 @@ Phases; the failure of any one ends the script with a non-zero exit:
    ``detokenize`` of the greedy tokens (audio within the tolerance) and the
    int8 LM's teacher-forced logits over 8 steps (within the tolerance);
    tokens/s at batch 1 and 4, the time of ``tokenize`` and ``detokenize``,
-   the real-time factor, peak memory, a profile of 32 decode steps;
+   the real-time factor, peak memory, a profile of 32 decode steps; then
+   the model cast with ``.to(torch.bfloat16)`` (BiCodec too; its float32
+   speaker embedding promotes the wave generator to float32 as in the JAX
+   package): a greedy control-mode ``generate``;
 10. Whisper-large-v3-turbo at the published dims (128 mels, a 32-layer
    1280-wide encoder, a 4-layer decoder, vocabulary 51 866; f32, seeded
    random weights arranged so that every decode runs its 224 tokens and
@@ -164,13 +183,18 @@ Phases; the failure of any one ends the script with a non-zero exit:
    profile of 32 decode steps.  Then Voxtral-Mini-3B (the audio tower at
    ``AudioConfig``'s defaults, f32; the published Llama text config with
    head_dim 128, int8 in groups of 64, the head's end-of-speech row at 0):
-   greedy ``generate`` of a 30 s clip (64 tokens) and of a 60 s clip (two
+   greedy ``generate`` of a 30 s clip (40 tokens) and of a 60 s clip (two
    windows as one batch); ``dilated_conv1d`` once an encode,
    ``quantized_matmul`` 211 times a decode step (and once for the prompt's
    head), both held to their plain versions on the path's operands; the
    audio embeddings, the logits of the prompt and of 8 teacher-forced
    steps held to the CPU's, the tokens to its argmax; tokens/s, the
-   real-time factor, peak memory, a profile of 32 decode steps;
+   real-time factor, peak memory, a profile of 32 decode steps; then the
+   model cast with ``.to(torch.bfloat16)``: one 30 s window, the float32
+   log-mel and audio embeddings promoting through the tower and the
+   prefill as in the JAX package (the float32 ``dilated_conv1d`` and
+   ``quantized_matmul`` once each, for the prompt), every decode step in
+   bf16;
 11. Parakeet-TDT-0.6B-v2 at the published widths (128 mels; a 24-layer
    FastConformer, d_model 1024, 8 heads, ff 4096, conv kernel 9,
    subsampling by 8 with 256 channels; a 2-layer 640-wide prediction net
@@ -247,7 +271,17 @@ and decode and Bark's EnCodec decode: ``lstm``; Whisper's and Voxtral's
 encodes: ``dilated_conv1d``; Voxtral's decode steps: ``quantized_matmul``;
 BigVGAN's forwards and IndexTTS's runs: both conv kernels; Parakeet's
 runs: none; the bf16 runs of Kokoro, BigVGAN and EnCodec: their bf16
-variants only),
+variants only; the bf16 LM runs: ``quantized_matmul_bf16``, ``depth_draft``
+on CSM's spec path, both conv kernels' bf16 variants in OuteTTS's DAC, and
+of the kernels with a bf16 variant no float32 one but where the JAX
+package promotes to float32 too (Spark's wave generator, Voxtral's
+prompt); each of their launches is held to its plain version on the
+path's operands; Spark's and Voxtral's runs are held, over
+4 teacher-forced steps, to the same bf16 weights run in float32 on the
+CPU: logits within a relative RMS, tokens equal wherever the CPU's winner
+beats its runner-up by more than one bf16 step of its logit, the
+near-ties counted; each bf16 run prints its tokens (frames) a second
+beside its float32 run's),
 Kokoro's ``lstm`` launches only on the cluster route, EnCodec's and Bark's
 only on the row route.
 Needs
@@ -307,7 +341,7 @@ KERNEL_INFO = {
 }
 # the bf16 variants: each built from its float32 kernel's source, standing
 # in for the same TPU kernel (which the JAX package runs in bf16 too)
-for _name in ("lstm", "dilated_conv1d", "banded_conv1d"):
+for _name in ("lstm", "dilated_conv1d", "banded_conv1d", "quantized_matmul"):
     KERNEL_INFO[f"{_name}_bf16"] = KERNEL_INFO[_name]
 # the kernels each main-path run must launch
 KOKORO_KERNELS = ("lstm", "dilated_conv1d", "banded_conv1d")
@@ -481,19 +515,21 @@ ENCODEC_LSTM_SHAPES = ((1, 150), (1, 225), (4, 150))
 # library route)
 DAC_RESBLOCKS = ((128, 66304), (256, 16576), (512, 2072), (768, 2072), (384, 16576))
 # (C, L) of the 24 kHz speech DAC's (OuteTTS's) decoder resblocks that a
-# kernel takes in phase 7: C = 384 at 40 samples a frame (C = 768 at 8 a
-# frame is under 2048 rows, C = 192 and 96 are no multiples of 128: the
-# library), 40 samples a frame less one: the greedy generate's 142 frames
-# and its stream's first chunk of 86 (phase 7 also holds the kernels to
-# their plain versions on every operand its decodes give them)
+# kernel takes: C = 384 at 40 samples a frame (C = 768 at 8 a frame is
+# under 2048 rows, C = 192 and 96 are no multiples of 128: the library), 40
+# samples a frame less one: the greedy generate's 142 frames and its
+# stream's first chunk of 86 (phase 7 also holds the kernels to their plain
+# versions on every operand its decodes give them)
 DAC24_RESBLOCKS = ((384, 5679), (384, 3439))
 # the same of DAC-44kHz in Dia's greedy generate of 202 steps: 172 frames
-# (after the 30-frame drop) at 64 samples a frame, C = 384
+# (after the 30-frame drop) at 64 samples a frame, C = 384 (phase 7 runs 116
+# steps, 86 frames, and holds the kernels on its own operands)
 DIA_RESBLOCKS = ((384, 11008),)
-# (C, L) of Spark's BiCodec wave generator that a kernel takes in phase 9:
-# its second block, C = 384 at 40 samples a semantic token, 150 tokens (C =
-# 768 at 8 a token is under 2048 rows, C = 192 and 96 are no multiples of
-# 128: the library)
+# (C, L) of Spark's BiCodec wave generator that a kernel takes: its second
+# block, C = 384 at 40 samples a semantic token, 150 tokens (C = 768 at 8 a
+# token is under 2048 rows, C = 192 and 96 are no multiples of 128: the
+# library; phase 9 runs 110 tokens, 4400 rows, and holds the kernels on its
+# own operands)
 SPARK_RESBLOCKS = ((384, 6000),)
 # (C, L) of BigVGAN-v2-24kHz's resblocks on a 10 s mel (938 frames) whose
 # width is a multiple of 128: 768 channels at 4 samples a frame, 384 at 16
@@ -771,32 +807,104 @@ def _qmm_cases(gen):
             }
 
 
+# the bf16 variant at every int8 shape above: 1 and 4 rows (a decode step
+# at batch 1 and 4), and CSM's 32-row verify
+QMM_BF16_ROWS = (1, 4)
+QMM_BF16_CSM_ROWS = (1, 4, 32)
+
+
+def _qmm_bf16_cases(gen):
+    """quantized_matmul's bf16 variant at every int8 projection and tied head
+    of CSM-1B (groups of 128), Orpheus-3B, OuteTTS-1B, Spark-TTS-0.5B and
+    Voxtral-Mini-3B (groups of 64): bf16 x with bf16 scales and biases (a
+    quantized model cast to bf16) and with float32 ones (a bf16 model
+    quantized after its cast).  Each output within one bf16 step of a
+    float64 run of the plain version; timed with the operands cold in L2
+    beside the plain version (float32 dequantize and matmul) and one
+    cuBLAS bf16 matmul against the weight dequantized to bf16 ahead of
+    time; bound by the code, scale and bias bytes (2 a bf16 value) and the
+    2-byte x and y, or by the products at the dense bf16 peak."""
+    from mlx_audio_tpu_torch.nn import kernels
+    from mlx_audio_tpu_torch.nn.quantize import _affine_dequantize
+
+    bf16 = torch.bfloat16
+    for family, (i, o), role, gs, bits, _ in _qmm_shapes():
+        if bits != 8:
+            continue
+        q = _quantized(gen, i, o, gs, bits)
+        parts, _ = kernels.quantized_matmul_parts(i, o, gs, q.packed)
+        for sdt in (bf16, torch.float32):
+            s, z = q.scales.to(sdt), q.biases.to(sdt)
+            qbytes = q.weight.numel() + s.element_size() * (s.numel() + z.numel())
+            sets = [(q.weight.clone(), s.clone(), z.clone())
+                    for _ in range(cold_copies(qbytes))]
+            dense = _affine_dequantize(q.weight, s.float(), z.float(), gs).to(bf16)
+            denses = [dense.clone() for _ in range(cold_copies(2 * dense.numel()))]
+            del dense
+            sname = "bf16" if sdt == bf16 else "float32"
+            for b in (QMM_BF16_CSM_ROWS if family == "csm" else QMM_BF16_ROWS):
+                x = torch.randn(b, i, generator=gen, device="cuda").to(bf16)
+                kern = [lambda a=(x, *w, gs, q.packed): kernels.quantized_matmul(*a)
+                        for w in sets]
+                plain = [lambda a=(x, *w, gs, q.packed): kernels.quantized_matmul_plain(*a)
+                         for w in sets]
+                lib = [lambda x=x, w=w: x @ w.t() for w in denses]
+                yield {
+                    "kernel": "quantized_matmul_bf16", "queued": True, "rows": b,
+                    "bits": bits, "io": (i, o), "family": family, "scales": sname,
+                    "shape": f"B={b} I={i} O={o} int{bits} gs{gs} parts {parts} bf16 x, "
+                             f"{sname} scales ({role})",
+                    "kernel_fn": kern[0], "plain_fn": plain[0], "library_fn": lib[0],
+                    "timed": (kern, plain, lib),
+                    "flops": 2.0 * b * i * o, "bytes": qbytes + 2 * b * (i + o),
+                    "peak_ops": PEAK_BF16_FLOPS, "bf16": True,
+                    "float64_fn": lambda a=(x.double(), *sets[0], gs, q.packed):
+                        kernels.quantized_matmul_plain(*a),
+                }
+            del sets, denses
+        del q
+        torch.cuda.empty_cache()
+
+
 def qmm_row_independence(gen) -> None:
     """Each row of a 2-, 8- and 32-row quantized_matmul equals, bit for bit,
     the 1-row call on that row (the kernel sums in one order whatever the
     row count), at every int8 shape of CSM-1B (groups of 128), of
     Orpheus-3B, OuteTTS-1B, Spark-TTS-0.5B and Voxtral-Mini-3B (groups of
-    64), and at llama-1B's q, o in int4."""
+    64), and at llama-1B's q, o in int4; in float32, and in bf16 (bf16 x
+    and scales; at CSM-1B's shapes bf16 x with float32 scales too: one
+    rounding after the same sums)."""
     from mlx_audio_tpu_torch.nn import kernels
 
     shapes = [(io, 128, 8) for io, _ in QMM_SHAPES] + [(QMM_SHAPES[0][0], 128, 4)]
     shapes += [(io, 64, 8) for io, _ in ORPHEUS_QMM_SHAPES + OUTETTS_QMM_SHAPES
                + SPARK_QMM_SHAPES + VOXTRAL_QMM_SHAPES]
+    bf16 = torch.bfloat16
+    csm_int8 = {io for io, _ in QMM_SHAPES}
     for (i, o), gs, bits in shapes:
         q = _quantized(gen, i, o, gs, bits)
-        w = (q.weight, q.scales, q.biases, gs, q.packed)
-        x = torch.randn(32, i, generator=gen, device="cuda")
-        ones = torch.cat([kernels.quantized_matmul(x[r:r + 1], *w) for r in range(32)])
-        for rows in (2, 8, 32):
-            got = kernels.quantized_matmul(x[:rows], *w)
-            if not torch.equal(got, ones[:rows]):
-                n = int((got != ones[:rows]).any(1).sum())
-                fail(f"quantized_matmul I={i} O={o} int{bits} gs{gs}: {n} of {rows} "
-                     "rows differ from the 1-row calls on them")
-        del q, w, ones
+        x32 = torch.randn(32, i, generator=gen, device="cuda")
+        variants = [("float32", x32, q.scales, q.biases)]
+        if bits == 8:
+            variants.append(("bf16", x32.to(bf16), q.scales.to(bf16), q.biases.to(bf16)))
+            if (i, o) in csm_int8 and gs == 128:
+                variants.append(("bf16 x, float32 scales", x32.to(bf16), q.scales, q.biases))
+        for label, x, s, z in variants:
+            w = (q.weight, s, z, gs, q.packed)
+            ones = torch.cat([kernels.quantized_matmul(x[r:r + 1], *w) for r in range(32)])
+            for rows in (2, 8, 32):
+                got = kernels.quantized_matmul(x[:rows], *w)
+                if not torch.equal(got, ones[:rows]):
+                    n = int((got != ones[:rows]).any(1).sum())
+                    fail(f"quantized_matmul ({label}) I={i} O={o} int{bits} gs{gs}: {n} "
+                         f"of {rows} rows differ from the 1-row calls on them")
+            del ones
+        del q, x32, variants
     print("quantized_matmul rows independent: every row of 2-, 8- and 32-row "
           "calls equals the 1-row call bit for bit, at "
-          + ", ".join(f"I={i} O={o} int{b} gs{g}" for (i, o), g, b in shapes), flush=True)
+          + ", ".join(f"I={i} O={o} int{b} gs{g}" for (i, o), g, b in shapes)
+          + "; in float32, in bf16 at every int8 shape, and with bf16 x and float32 "
+          "scales at CSM-1B's int8 shapes", flush=True)
 
 
 def _draft_cases(gen):
@@ -958,7 +1066,8 @@ def check_kernels() -> dict:
     records = {name: [] for name in KERNEL_INFO}
     bad = []
     cases = itertools.chain(_lstm_cases(gen), _conv_cases(gen), _qmm_cases(gen),
-                            _draft_cases(gen), _probe_cases(gen), _bf16_cases(bf16_gen))
+                            _draft_cases(gen), _probe_cases(gen), _bf16_cases(bf16_gen),
+                            _qmm_bf16_cases(bf16_gen))
     for case in cases:
         name = case["kernel"]
         before = kernels.LAUNCHES[name]
@@ -999,7 +1108,8 @@ def check_kernels() -> dict:
         rec = {"shape": case["shape"], "max_abs_err": err, "ok": ok,
                "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                "bound_by": by, "library_ms": library_ms,
-               **{k: case[k] for k in ("rows", "bits", "io", "family", "exchanges", "temp")
+               **{k: case[k] for k in ("rows", "bits", "io", "family", "exchanges", "temp",
+                                       "scales")
                   if k in case}}
         bound = f"bound {bms:.4f} ms ({by})"
         if case.get("f32_fma_bound"):
@@ -1341,14 +1451,16 @@ def path_runner(launches: dict, wall: dict):
 
 def record_qmm_calls(path_calls: dict):
     """Route kernels.quantized_matmul through a recorder that keeps the
-    operands of its first call at each (rows, I, O, group size, packed) in
-    path_calls; returns the kernel's wrapper, which the caller puts back."""
+    operands of its first call at each (rows, I, O, group size, packed, x's
+    and the scales' dtypes) in path_calls; returns the kernel's wrapper,
+    which the caller puts back."""
     from mlx_audio_tpu_torch.nn import kernels
 
     qmm = kernels.quantized_matmul
 
     def recording_qmm(x, codes, scales, biases, group_size, packed=False):
-        key = (x.shape[0], x.shape[1], codes.shape[0], group_size, packed)
+        key = (x.shape[0], x.shape[1], codes.shape[0], group_size, packed,
+               str(x.dtype).removeprefix("torch."), str(scales.dtype).removeprefix("torch."))
         if key not in path_calls:
             path_calls[key] = (x.clone(), codes, scales, biases, group_size, packed)
         return qmm(x, codes, scales, biases, group_size, packed)
@@ -1357,25 +1469,40 @@ def record_qmm_calls(path_calls: dict):
     return qmm
 
 
-def check_qmm_path(path_calls: dict, qmm, label: str) -> float:
+def check_qmm_path(path_calls: dict, qmm, label: str, stats: dict = None) -> float:
     """quantized_matmul against its plain version on the operands a path
-    gave it; fails past TOL, returns the largest error."""
+    gave it: a float32 call within TOL, a bf16 one (the bf16 variant)
+    within one bf16 step of the plain version in float64.  Fails past them,
+    returns the largest error against the plain version; ``stats`` gets
+    the bf16 calls' largest error in bf16 steps."""
     from mlx_audio_tpu_torch.nn import kernels
 
-    path_err, bad = 0.0, []
+    path_err, steps, bad = 0.0, 0.0, []
     for key, args in sorted(path_calls.items()):
         got, ref = qmm(*args), kernels.quantized_matmul_plain(*args)
-        err = float((got - ref).abs().max())
+        err = float((got.float() - ref.float()).abs().max())
         path_err = max(path_err, err)
-        if not torch.allclose(got, ref, **TOL):
-            bad.append(f"rows {key[0]} I={key[1]} O={key[2]}: {err:.3e}")
+        if args[0].dtype == torch.bfloat16:
+            n = kernels.bf16_steps(got, kernels.quantized_matmul_plain(
+                args[0].double(), *args[1:]))
+            steps = max(steps, n)
+            ok = got.dtype == torch.bfloat16 and n <= 1.0
+        else:
+            ok = torch.allclose(got, ref, **TOL)
+        if not ok:
+            bad.append(f"rows {key[0]} I={key[1]} O={key[2]} {key[5]} x: {err:.3e}")
         del got, ref
     if bad:
         fail(f"quantized_matmul disagrees with its plain version at the {label} "
              "path's shapes: " + "; ".join(bad))
+    kinds = sorted({k[5:] for k in path_calls})
+    if stats is not None:
+        stats["bf16_steps"] = steps
     print(f"quantized_matmul at the {len(path_calls)} (rows, I, O) the {label} "
           f"path gave it, on the path's own operands: max_abs_err "
-          f"{path_err:.3e} (atol {TOL['atol']}, rtol {TOL['rtol']}) ok; rows "
+          f"{path_err:.3e} (float32: atol {TOL['atol']}, rtol {TOL['rtol']}; bf16: one "
+          f"bf16 step of float64, the largest {steps:.3f}) ok; (x, scales) dtypes "
+          f"{kinds}; rows "
           + ", ".join(str(n) for n in sorted({k[0] for k in path_calls}))
           + "; (I, O) " + ", ".join(f"({i}, {o})" for i, o in
                                    sorted({k[1:3] for k in path_calls})), flush=True)
@@ -1802,7 +1929,7 @@ def csm_stream_breakdown(model) -> dict:
 # phase 6: Orpheus-3B int8 and DAC-44kHz
 # ---------------------------------------------------------------------------
 
-ORPHEUS_TOKENS = 175  # generated: 25 SNAC frames of 7 tokens, 2.13 s of audio
+ORPHEUS_TOKENS = 70  # generated: 10 SNAC frames of 7 tokens, 0.85 s of audio
 ORPHEUS_FRAME_SAMPLES = 2048  # a frame: 4 steps of SNAC's 512-sample hop
 ORPHEUS_TEXT = "The port speaks in a voice of its own."
 ORPHEUS_BATCH_TEXTS = CSM_BATCH_TEXTS
@@ -2157,7 +2284,7 @@ OUTETTS_STREAM_INTERVAL = 1.0  # a decode every 137 tokens
 OUTETTS_CODES, OUTETTS_EOS = 130_000, 133_000
 OUTETTS_OWN = 0.02  # each code row's own part, against the shared part's RMS
 
-DIA_STEPS = 202  # decode steps: 172 frames, 2 s at 86.13 a second, after the 30-frame drop
+DIA_STEPS = 116  # decode steps: 86 frames, 1 s at 86.13 a second, after the 30-frame drop
 DIA_TEXT = "[S1] The port speaks in a voice of its own. [S2] And it answers."
 DIA_BATCH_TEXTS = ["[S1] One short line. [S2] Yes.",
                    "[S1] A second line, a little longer. [S2] It is.",
@@ -3050,7 +3177,9 @@ def vocos_runs(launches: dict) -> dict:
 # phase 9: Spark-TTS-0.5B int8 with BiCodec and wav2vec2-large-xlsr-53
 # ---------------------------------------------------------------------------
 
-SPARK_SEMANTIC = 150  # semantic tokens a run: 3 s at 50 a second
+# semantic tokens a run: 2.2 s at 50 a second; the wave generator's C = 384
+# stage then holds 4 400 rows, past the banded route's 4 096
+SPARK_SEMANTIC = 110
 SPARK_GLOBAL = 32  # the global tokens BiCodec's speaker encoder speaks
 SPARK_TOKENS = SPARK_GLOBAL + SPARK_SEMANTIC  # generated a run
 SPARK_TEXT = ORPHEUS_TEXT
@@ -3414,7 +3543,7 @@ WHISPER_END_ROW_SCALE = 5.0
 VOXTRAL_TEXT = {"head_dim": 128}
 VOXTRAL_EOS = 2
 VOXTRAL_EMBED_SCALE = 10.0  # the LM embedding's scale against the init's (build_voxtral)
-VOXTRAL_TOKENS = 64  # generated a window
+VOXTRAL_TOKENS = 40  # generated a window (a profile's 32 steps and 2 to warm fit in)
 VOXTRAL_SECONDS = 30.0  # one window; the two-window clip is twice as long
 VOXTRAL_TF_STEPS = 8
 VOXTRAL_QMM_PER_STEP = 30 * 7 + 1  # 7 projections a layer and the head
@@ -3820,7 +3949,7 @@ def build_voxtral():
 
 def voxtral_runs(model, launches: dict) -> dict:
     """The entry point: greedy generate of a seeded 30 s clip (one window,
-    64 tokens) and of a 60 s clip (two windows decoded as one batch through
+    VOXTRAL_TOKENS tokens) and of a 60 s clip (two windows decoded as one batch through
     _decode_window_rows).  dilated_conv1d must launch once in every encode,
     quantized_matmul 211 times in every decode step (and once for the
     prompt's head); both are held to their plain versions on the path's
@@ -5066,6 +5195,477 @@ def encodec_bf16_runs(codec, launches: dict, lstm_routes: dict) -> dict:
             "lstm_path_shapes": len(path_calls), "wall": wall}
 
 
+# ---------------------------------------------------------------------------
+# the int8 LMs in bf16: the ends of phases 5, 6, 7, 9 and 10
+# ---------------------------------------------------------------------------
+
+# the bf16 LM runs, whose launches the kernels line counts for
+# quantized_matmul_bf16
+BF16_LM_RUNS = ("csm_bf16_generate", "csm_bf16_generate_spec", "orpheus_bf16_generate",
+                "outetts_bf16_generate", "spark_bf16_generate", "voxtral_bf16_generate")
+# teacher-forced steps of a bf16 run held against the CPU (Spark's and
+# Voxtral's, whose float32 runs are held against it too)
+BF16_TF_STEPS = 4
+# the card's bf16 logits against the CPU's, which runs the same bf16 weights
+# (dequantized once, upcast exactly) in float32 (relative RMS): the card
+# rounds activations, caches and the products' outputs to bf16, the CPU
+# does not.  The CPU twins of tests/test_torch_bf16_lm.py hold the port's
+# bf16 LMs to the JAX package's within the same bound
+BF16_LM_CPU_REL_RMS = 3e-2
+
+
+def bf16_step(v: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |v|: 2^(e - 7) for 2^e <= |v| < 2^(e + 1)."""
+    return torch.exp2(torch.floor(torch.log2(v.double().abs().clamp(min=1e-30))) - 7)
+
+
+def _bf16_near_tie(logits: torch.Tensor) -> tuple:
+    """(margin, bf16 step) of one row of logits: its winner's lead over the
+    runner-up, and the spacing of bf16 values at the winner's logit."""
+    two = torch.topk(logits.double().flatten(), 2).values
+    return float(two[0] - two[1]), float(bf16_step(two[0]))
+
+
+def check_bf16_lm_launches(name: str, lc: dict, need=(), f32_qmm: int = 0,
+                           f32_kernels: dict = None) -> None:
+    """A bf16 LM run's launches: quantized_matmul_bf16 and every kernel of
+    ``need``; of the kernels with a bf16 variant, the float32 one
+    (quantized_matmul ``f32_qmm`` times, the others as ``f32_kernels``
+    gives them, 0 by default): no fallback from bf16 to float32."""
+    from mlx_audio_tpu_torch.nn import kernels
+
+    missing = [k for k in ("quantized_matmul_bf16", *need) if lc[k] == 0]
+    if missing:
+        fail(f"{name}: kernels never launched: {missing}")
+    want = dict(f32_kernels or {}, quantized_matmul=f32_qmm)
+    f32 = {k: lc[k] for k in kernels.BF16_KERNELS}
+    if f32 != {k: want.get(k, 0) for k in f32}:
+        fail(f"{name}: float32 launches {f32}, expected {want} and no other")
+
+
+def _penalized_rows(logits: torch.Tensor, tokens, penalty: float, context: int):
+    """The decode loop's repetition penalty on the rows of teacher-forced
+    logits: row t (t >= 1) penalizes the tokens generated in the
+    ``context`` steps before it; row 0 comes from the prefill, unpenalized."""
+    out = logits.clone()
+    for t in range(1, out.shape[0]):
+        for v in set(tokens[max(0, t - context):t]):
+            out[t, v] = out[t, v] / penalty if out[t, v] > 0 else out[t, v] * penalty
+    return out
+
+
+def _bf16_tie_check(name: str, card_tokens, cpu_logits) -> dict:
+    """The card's tokens against the CPU's argmax: equal wherever the CPU's
+    winner beats its runner-up by more than one bf16 step of its logit."""
+    two = torch.topk(cpu_logits, 2, dim=-1).values
+    return _tie_check(name, card_tokens, cpu_logits, bf16_step(two[:, 0]).float())
+
+
+def csm_bf16_runs(model, launches: dict, f32_run: dict) -> dict:
+    """The phase's CSM-1B cast with cast_lm(torch.bfloat16) (the backbone and
+    depth decoder; the RoPE tables, Mimi and the watermark float32) and the
+    draft packed again from the bf16 weights' float32 upcasts, as the JAX
+    package packs them: greedy generate of CSM_FRAMES without and with spec
+    decode.  Both launch quantized_matmul_bf16 and never the float32 kernel,
+    the spec run depth_draft too (fed float32 caches); every launch is held
+    to its plain version on the path's operands.  The frames must be equal;
+    where a frame differs, its first differing code must be a near-tie of
+    the plain run's logits there (the winner within one bf16 step of the
+    runner-up), counted; the frames after it follow another history and
+    are not compared.  Frames a second beside the float32 run's."""
+    from mlx_audio_tpu_torch.nn import kernels
+
+    sm = model.model
+    sm.spec_decode = False
+    t0 = time.perf_counter()
+    model.cast_lm(torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cast_s = time.perf_counter() - t0
+    dtypes = {str(t.dtype) for k, t in sm.state_dict().items()
+              if t.is_floating_point() and "rope_" not in k}
+    if dtypes != {"torch.bfloat16"} or sm.backbone.rope_cos.dtype != torch.float32:
+        fail(f"csm bf16: cast_lm left {dtypes}, RoPE {sm.backbone.rope_cos.dtype}")
+    ref = (np.random.default_rng(0).standard_normal(48_000) * 0.1).astype(np.float32)
+    kw = dict(ref_audio=ref, ref_text=CSM_REF_TEXT, max_audio_length_ms=CSM_FRAMES * 80,
+              temperature=0.0)
+    decoded, head_rows = [], []
+    decode, head = model.mimi.decode, sm.head_logits
+
+    def recording_decode(codes):
+        decoded.append(codes.clone())
+        return decode(codes)
+
+    def recording_head(h, i):
+        out = head(h, i)
+        if not sm.spec_decode:
+            head_rows.append(out.detach())
+        return out
+
+    path_calls, wall = {}, {}
+    qmm = record_qmm_calls(path_calls)
+    model.mimi.decode, sm.head_logits = recording_decode, recording_head
+    run = path_runner(launches, wall)
+    try:
+        plain = run("csm_bf16_generate", lambda: list(model.generate(CSM_TEXT, **kw)))
+        sm.enable_spec_decode()
+        sm.spec_stats = [0, 0]
+        spec = run("csm_bf16_generate_spec", lambda: list(model.generate(CSM_TEXT, **kw)))
+        accept = sm.spec_stats[:]
+    finally:
+        model.mimi.decode = decode
+        del sm.head_logits
+        kernels.quantized_matmul = qmm
+    _check_results("csm bf16 generate", plain, CSM_FRAMES)
+    _check_results("csm bf16 generate (spec)", spec, CSM_FRAMES)
+    check_bf16_lm_launches("csm_bf16_generate", launches["csm_bf16_generate"])
+    check_bf16_lm_launches("csm_bf16_generate_spec", launches["csm_bf16_generate_spec"],
+                           need=("depth_draft",))
+    stats = {}
+    path_err = check_qmm_path(path_calls, qmm, "CSM bf16", stats)
+    # the spec run's frames against the plain run's; the plain run's head
+    # logits come 31 a frame (codebooks 1..31) in frame order
+    nc = sm.audio_num_codebooks
+    a, b = decoded[0][0], decoded[1][0]          # [nc, frames]
+    if len(head_rows) != (nc - 1) * a.shape[1]:
+        fail(f"csm bf16: {len(head_rows)} head products in the plain run of "
+             f"{a.shape[1]} frames")
+    differ = (a != b).any(0).nonzero().flatten().tolist()
+    tie = None
+    if differ:
+        f = differ[0]
+        k = int((a[:, f] != b[:, f]).nonzero()[0])
+        if k == 0:
+            fail(f"csm bf16: spec decode's frame {f} differs from the plain one at "
+                 "codebook 0, which both take from the same backbone step")
+        margin, step = _bf16_near_tie(head_rows[f * (nc - 1) + k - 1])
+        tie = {"frame": f, "codebook": k, "margin": margin, "bf16_step": step}
+        if margin > step:
+            fail(f"csm bf16: spec decode's frame {f} differs from the plain one at codebook "
+                 f"{k}, where the plain run's winner leads by {margin:.4e}, more than one "
+                 f"bf16 step ({step:.4e})")
+    f32_fps = CSM_FRAMES / f32_run["wall"]["csm_generate_spec"]
+    out = {"frames_equal": not differ, "first_near_tie": tie,
+           "near_ties": int(bool(differ)), "accept": accept,
+           "frames_per_s": CSM_FRAMES / wall["csm_bf16_generate_spec"],
+           "frames_per_s_f32": f32_fps,
+           "frames_per_s_plain": CSM_FRAMES / wall["csm_bf16_generate"],
+           "qmm_path_err": path_err, "qmm_path_steps": stats["bf16_steps"],
+           "qmm_path_shapes": len(path_calls), "cast_s": cast_s}
+    print(f"csm bf16 (cast_lm, {CSM_FRAMES} frames): spec-decode frames "
+          + ("equal to the plain ones" if not differ else
+             f"equal to the plain ones up to frame {differ[0]}, whose first differing code "
+             f"is a near-tie of the plain run {json.dumps(tie)}")
+          + f"; draft accepted {accept[0]} of {accept[1]}; spec generate "
+          f"{out['frames_per_s']:.3f} frames/s (float32 {f32_fps:.3f}), plain "
+          f"{out['frames_per_s_plain']:.3f}; launches "
+          + json.dumps({k: {n: v for n, v in launches[k].items() if v}
+                        for k in ("csm_bf16_generate", "csm_bf16_generate_spec")})
+          + f"; wall s {json.dumps(wall)}; on {gpu_line()}", flush=True)
+    return out
+
+
+def _lm_bf16_run(label: str, model, launches: dict, generate, tokens: int,
+                 f32_wall: float, need=(), f32_qmm: int = 0, f32_kernels=None) -> dict:
+    """One bf16 run of a family cast with .to(torch.bfloat16): ``generate()``
+    under the launch counters, every quantized_matmul and conv launch held
+    to its plain version on the path's operands; tokens a wall second of
+    ``generate`` beside the float32 run's of the same depth (``f32_wall``;
+    each the phase's first run in its dtype, so both carry first-call
+    costs)."""
+    from mlx_audio_tpu_torch.nn import kernels
+
+    path_calls, conv_calls, wall = {}, {}, {}
+    qmm = record_qmm_calls(path_calls)
+    convs = record_conv_calls(conv_calls)
+    run = path_runner(launches, wall)
+    name = f"{label}_bf16_generate"
+    try:
+        results = run(name, generate)
+    finally:
+        kernels.quantized_matmul = qmm
+        kernels.banded_conv1d, kernels.dilated_conv1d = convs
+    out = {"results": results, "wall_s": wall[name], "tokens_per_s": tokens / wall[name],
+           "tokens_per_s_f32": tokens / f32_wall}
+    print(f"{label} bf16: generate of {tokens} tokens {out['tokens_per_s']:.3f} tokens a "
+          f"wall second (float32 {out['tokens_per_s_f32']:.3f}); launches "
+          f"{json.dumps({k: v for k, v in launches[name].items() if v})}; conv shapes "
+          f"{sorted(conv_calls)}; on {gpu_line()}", flush=True)
+    check_bf16_lm_launches(name, launches[name], need, f32_qmm, f32_kernels)
+    stats = {}
+    path_err = check_qmm_path(path_calls, qmm, f"{label} bf16", stats)
+    conv_err = check_conv_path(conv_calls, convs, f"{label} bf16") if conv_calls else {}
+    out.update(qmm_path_err=path_err, qmm_path_steps=stats["bf16_steps"],
+               qmm_path_shapes=len(path_calls), conv_path_err=conv_err,
+               conv_path_shapes=_per_kernel(conv_calls))
+    return out
+
+
+def lm_decode_rate(lm, rows, penalty: float, context: int, steps: int = PROFILE_STEPS,
+                   profile_label: str = None):
+    """Batch-1 greedy decode tokens/s of the causal loop's own steps, as
+    lm_breakdown times them, warm: the prompt prefilled, 2 steps, then
+    ``steps`` timed, synced.  With ``profile_label``, then ``steps`` more
+    under the profiler: returns (tokens/s, the profile's idle share,
+    kernels a step and device ms a step)."""
+    from mlx_audio_tpu_torch.models.lm import causal
+
+    caches, pad_len, prompt, pen, window = causal._start(lm, rows, 2 * steps + 2, None,
+                                                         penalty, context)
+    last = causal._prefill(lm, caches, pad_len, prompt).argmax(-1).to(torch.int32)
+    window[:, -1] = last
+
+    def run(n):
+        nonlocal window, last
+        _, window, last = causal._decode_chunk(lm, caches, pad_len, last, window, n, 0.0,
+                                               0, 1.0, pen, None)
+
+    run(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(steps)
+    torch.cuda.synchronize()
+    rate = steps / (time.perf_counter() - t0)
+    if profile_label is None:
+        return rate
+    prof = profile_steps(profile_label, lambda: run(steps), steps) or {}
+    return rate, {k: prof.get(k) for k in ("profile_idle_share", "launches_per_step",
+                                           "device_ms_per_step")}
+
+
+def _cast_bf16(model) -> float:
+    t0 = time.perf_counter()
+    model.to(torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0
+
+
+def orpheus_bf16_runs(model, launches: dict, f32_run: dict) -> dict:
+    """The phase's Orpheus-3B cast with .to(torch.bfloat16) (the int8 LM's
+    scales and biases, its norms and RoPE tables, and SNAC): greedy generate
+    of ORPHEUS_TOKENS; quantized_matmul_bf16 only.  The decode rate at
+    batch 1 in float32, then in bf16 (lm_decode_rate)."""
+    rows = model.prepare_input_ids([ORPHEUS_TEXT], "tara")
+    f32_rate = lm_decode_rate(model.lm, rows, 1.3, 20)
+    cast_s = _cast_bf16(model)
+    out = _lm_bf16_run("orpheus", model, launches, lambda: list(model.generate(
+        ORPHEUS_TEXT, voice="tara", temperature=0.0, max_tokens=ORPHEUS_TOKENS)),
+        ORPHEUS_TOKENS, f32_run["wall"]["orpheus_generate"])
+    _check_orpheus("orpheus bf16 generate", out.pop("results"), rows)
+    out.update(cast_s=cast_s, decode_tokens_per_s_f32=f32_rate,
+               decode_tokens_per_s=lm_decode_rate(model.lm, rows, 1.3, 20))
+    return out
+
+
+def outetts_bf16_runs(model, launches: dict, f32_run: dict) -> dict:
+    """The phase's OuteTTS-1B cast with .to(torch.bfloat16), and its 24 kHz
+    DAC cast too: the default DAC is built on first use and held by the
+    audio processor, not by the model, so ``.to`` does not reach it (nor
+    does the JAX package's ``astype``).  Greedy generate of OUTETTS_TOKENS:
+    quantized_matmul_bf16 and both conv kernels' bf16 variants, no float32
+    kernel.  The decode rate at batch 1 in float32, then in bf16, and a
+    profile of PROFILE_STEPS bf16 steps."""
+    from mlx_audio_tpu_torch.models.tts.outetts import PromptProcessor
+    from mlx_audio_tpu_torch.models.tts.outetts import outetts as outetts_mod
+
+    rows = _outetts_rows(model, [OUTETTS_TEXT])
+    f32_rate = lm_decode_rate(model.lm, rows, 1.1, 64)
+    cast_s = _cast_bf16(model) + _cast_bf16(model.audio_processor.audio_codec.model)
+    tokens, gen_fn = [], outetts_mod.generate_tokens
+
+    def recording_gen(*a, **k):
+        for chunk in gen_fn(*a, **k):
+            tokens.extend(int(t) for t in chunk)
+            yield chunk
+
+    outetts_mod.generate_tokens = recording_gen
+    try:
+        out = _lm_bf16_run("outetts", model, launches, lambda: list(model.generate(
+            OUTETTS_TEXT, temperature=0.0, max_tokens=OUTETTS_TOKENS)),
+            OUTETTS_TOKENS, f32_run["wall"]["outetts_generate"],
+            need=("banded_conv1d_bf16", "dilated_conv1d_bf16"))
+    finally:
+        outetts_mod.generate_tokens = gen_fn
+    _check_outetts("outetts bf16 generate", out.pop("results"), 1)
+    codes = [t for t in tokens if OUTETTS_CODES <= t < OUTETTS_CODES + 2 * 1025]
+    rate, prof = lm_decode_rate(model.lm, rows, 1.1, 64, profile_label="outetts bf16")
+    out.update(cast_s=cast_s, tokens=len(tokens), codes=len(codes),
+               distinct_codes=len(set(codes)), decode_tokens_per_s_f32=f32_rate,
+               decode_tokens_per_s=rate, profile=prof,
+               frames=len(PromptProcessor(model._tokenizer).extract_audio_from_tokens(
+                   tokens)[0]))
+    if len(tokens) != OUTETTS_TOKENS:
+        fail(f"outetts bf16: greedy generate stopped after {len(tokens)} tokens")
+    return out
+
+
+def spark_bf16_runs(model, launches: dict, f32_run: dict) -> dict:
+    """The phase's Spark-TTS-0.5B cast with .to(torch.bfloat16) (the int8
+    LM and BiCodec; wav2vec2, which the audio tokenizer holds, is not the
+    model's and stays float32, as under the JAX package's astype): greedy
+    control-mode generate of SPARK_TOKENS, quantized_matmul_bf16 in every
+    step.  BiCodec's speaker embedding comes out of its FSQ codes in
+    float32 and promotes the prenet and the wave generator to float32, as
+    in the JAX package, so the wave generator launches the float32 conv
+    kernels (banded at d = 1, dilated at d = 3 and 9) and no bf16 one.
+    Then held against the CPU."""
+    from mlx_audio_tpu_torch.models.tts.spark import spark as spark_mod
+
+    rows = _spark_rows(model, [SPARK_TEXT])
+    f32_rate = lm_decode_rate(model.lm, rows, 1.3, 20)
+    cast_s = _cast_bf16(model)
+    tokens, gen_fn = [], spark_mod.generate_tokens
+
+    def recording_gen(*a, **k):
+        for chunk in gen_fn(*a, **k):
+            tokens.extend(int(t) for t in chunk)
+            yield chunk
+
+    spark_mod.generate_tokens = recording_gen
+    try:
+        out = _lm_bf16_run("spark", model, launches, lambda: list(model.generate(
+            SPARK_TEXT, temperature=0.0, max_tokens=SPARK_TOKENS)),
+            SPARK_TOKENS, f32_run["wall"]["spark_generate"],
+            f32_kernels={"banded_conv1d": 1, "dilated_conv1d": 2})
+    finally:
+        spark_mod.generate_tokens = gen_fn
+    _check_spark("spark bf16 generate", out.pop("results"), 1)
+    if len(tokens) != SPARK_TOKENS:
+        fail(f"spark bf16: {len(tokens)} tokens, not {SPARK_TOKENS}")
+    out.update(cast_s=cast_s, decode_tokens_per_s_f32=f32_rate,
+               decode_tokens_per_s=lm_decode_rate(model.lm, rows, 1.3, 20),
+               against_cpu=spark_bf16_card_against_cpu(model, tokens),
+               distinct=len(set(tokens)))
+    return out
+
+
+def spark_bf16_card_against_cpu(model, tokens) -> dict:
+    """The bf16 greedy run's prompt and first BF16_TF_STEPS tokens fed,
+    teacher-forced, through the card's bf16 int8 LM and through the same
+    bf16 weights on the CPU (dequantized once on the card, upcast, moved),
+    run in float32: logits
+    within BF16_LM_CPU_REL_RMS; the card's tokens equal to the CPU's argmax
+    under the loop's penalty (1.3, a window of 20) wherever its winner
+    beats its runner-up by more than one bf16 step of its logit."""
+    import copy
+
+    from mlx_audio_tpu_torch.models.lm import causal
+    from mlx_audio_tpu_torch.nn.quantize import dequantize_model
+
+    prompt = _spark_rows(model, [SPARK_TEXT])[0]
+    toks = tokens[:BF16_TF_STEPS + 1]
+
+    def logits(lm):
+        dev = lm.model.rope_cos.device
+        caches, pad_len, ids, _, _ = causal._start(lm, [prompt], BF16_TF_STEPS + 1, None,
+                                                   1.0, 1)
+        out = [causal._prefill(lm, caches, pad_len, ids)]
+        with torch.no_grad():
+            for t in toks[:-1]:
+                h, _ = lm.model.step(caches, torch.tensor([[t]], device=dev), pad_len)
+                out.append(lm.logits(h[:, -1]).float())
+        return torch.cat([o.cpu() for o in out])
+
+    t0 = time.perf_counter()
+    card = logits(model.lm)
+    cpu_lm = dequantize_model(copy.deepcopy(model.lm)).float().cpu()
+    cpu = logits(cpu_lm)
+    del cpu_lm
+    err = rel_rms(card, cpu)
+    ties = _bf16_tie_check("spark bf16 greedy tokens", toks,
+                           _penalized_rows(cpu, toks, 1.3, 20))
+    print(f"spark bf16 card against the CPU (the same bf16 weights in float32, "
+          f"{time.perf_counter() - t0:.1f} s): the prefill's and {BF16_TF_STEPS} "
+          f"teacher-forced steps' logits {tuple(card.shape)}, relative RMS {err:.3e} (bound "
+          f"{BF16_LM_CPU_REL_RMS}); greedy tokens against the CPU's argmax {json.dumps(ties)}",
+          flush=True)
+    if err > BF16_LM_CPU_REL_RMS:
+        fail(f"spark bf16: teacher-forced logits on the card are {err:.3e} (relative RMS) "
+             "from the CPU's")
+    return {"rel_rms": err, "tokens": ties}
+
+
+def voxtral_bf16_runs(model, launches: dict, f32_run: dict) -> dict:
+    """The phase's Voxtral-Mini-3B cast with .to(torch.bfloat16): greedy
+    generate of one 30 s window, VOXTRAL_TOKENS tokens.  The float32 log-mel
+    promotes through the bf16 audio tower (its conv1 on the float32
+    dilated_conv1d, once) and the prompt's float32 audio embeddings through
+    the prefill, as the JAX package's jnp.where and einsums promote them, so
+    the prompt's head takes the float32 quantized_matmul once; every decode
+    step runs bf16 over the bf16 cache: quantized_matmul_bf16
+    VOXTRAL_QMM_PER_STEP times a step.  The decode rate at batch 1 in
+    float32, then in bf16 (voxtral_decode_rate).  Then held against the
+    CPU."""
+    clip = f32_run["clip"]
+    f32_rate = voxtral_decode_rate(model, clip, f32_run["tokens"])
+    cast_s = _cast_bf16(model)
+    out = _lm_bf16_run("voxtral", model, launches, lambda: model.generate(
+        clip, max_tokens=VOXTRAL_TOKENS), VOXTRAL_TOKENS, f32_run["wall"]["voxtral_generate"],
+        f32_qmm=1, f32_kernels={"dilated_conv1d": 1})
+    result = out.pop("results")
+    tokens = result.segments[0]["tokens"]
+    lc = launches["voxtral_bf16_generate"]
+    want = (VOXTRAL_TOKENS - 1) * VOXTRAL_QMM_PER_STEP
+    if len(tokens) != VOXTRAL_TOKENS or lc["quantized_matmul_bf16"] != want:
+        fail(f"voxtral bf16: {len(tokens)} tokens, {lc['quantized_matmul_bf16']} "
+             f"quantized_matmul_bf16 launches (expected {VOXTRAL_TOKENS} and {want})")
+    out.update(cast_s=cast_s, distinct=len(set(tokens)), decode_tokens_per_s_f32=f32_rate,
+               decode_tokens_per_s=voxtral_decode_rate(model, clip, tokens),
+               against_cpu=voxtral_bf16_card_against_cpu(model, clip, tokens))
+    return out
+
+
+def voxtral_decode_rate(model, clip, tokens, steps: int = PROFILE_STEPS) -> float:
+    """Batch-1 decode tokens/s of teacher-forced steps over a window's
+    prompt (``_voxtral_steps``), warm: 2 steps, then ``steps`` timed,
+    synced."""
+    mel, ids = model._prepare_inputs(clip)
+    with torch.no_grad():
+        caches, pad_len, _, _ = _voxtral_state(model, mel, ids, steps + 4)
+        _voxtral_steps(model, caches, pad_len, tokens[:2])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _voxtral_steps(model, caches, pad_len, tokens[2:steps + 2])
+        torch.cuda.synchronize()
+    return steps / (time.perf_counter() - t0)
+
+
+def voxtral_bf16_card_against_cpu(model, clip, tokens) -> dict:
+    """The bf16 run's window through the card's model and through the same
+    bf16 weights on the CPU (dequantized once on the card, upcast, moved),
+    run in float32: the logits of the prompt and of BF16_TF_STEPS teacher-forced steps within
+    BF16_LM_CPU_REL_RMS, the card's tokens equal to the CPU's argmax
+    wherever its winner beats its runner-up by more than one bf16 step of
+    its logit."""
+    import copy
+
+    from mlx_audio_tpu_torch.nn.quantize import dequantize_model
+
+    t0 = time.perf_counter()
+    mel, ids = model._prepare_inputs(clip)
+    toks = tokens[:BF16_TF_STEPS + 1]
+    cpu_model = dequantize_model(copy.deepcopy(model)).float().cpu()
+    cpu_model.device = torch.device("cpu")
+    res = {}
+    with torch.no_grad():
+        for name, m in (("card", model), ("cpu", cpu_model)):
+            caches, pad_len, _, first = _voxtral_state(m, mel, ids, len(toks) + 1)
+            res[name] = torch.cat([first.cpu(), _voxtral_steps(m, caches, pad_len,
+                                                               toks[:-1]).cpu()])
+    del cpu_model
+    err = rel_rms(res["card"], res["cpu"])
+    ties = _bf16_tie_check("voxtral bf16 greedy tokens", toks, res["cpu"])
+    print(f"voxtral bf16 card against the CPU (the same bf16 weights in float32, "
+          f"{time.perf_counter() - t0:.1f} s): the prompt's and {BF16_TF_STEPS} "
+          f"teacher-forced steps' logits {tuple(res['card'].shape)}, relative RMS "
+          f"{err:.3e} (bound {BF16_LM_CPU_REL_RMS}); greedy tokens against the CPU's argmax "
+          f"{json.dumps(ties)}", flush=True)
+    if err > BF16_LM_CPU_REL_RMS:
+        fail(f"voxtral bf16: logits on the card are {err:.3e} (relative RMS) from the CPU's")
+    return {"rel_rms": err, "tokens": ties}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5153,10 +5753,14 @@ def main() -> int:
     csm_breakdown(csm)
     csm_stream_breakdown(csm)
     csm_phases = [k for k in launches if k.startswith("csm_")]
+    csm_bf16 = csm_bf16_runs(csm, launches, csm_run)
     print(f"csm launches: {json.dumps({k: launches[k] for k in csm_phases})}; "
           f"per spec-decode frame: " + json.dumps({
               k: launches["csm_generate_spec"][k] / CSM_FRAMES
-              for k in ("quantized_matmul", "depth_draft")}))
+              for k in ("quantized_matmul", "depth_draft")})
+          + "; in bf16: " + json.dumps({
+              k: launches["csm_bf16_generate_spec"][k] / CSM_FRAMES
+              for k in ("quantized_matmul_bf16", "depth_draft")}), flush=True)
 
     del csm
     torch.cuda.empty_cache()
@@ -5165,6 +5769,7 @@ def main() -> int:
     orpheus = build_orpheus()
     orpheus_run = orpheus_runs(orpheus, launches)
     orpheus_info = orpheus_breakdown(orpheus)
+    orpheus_bf16 = orpheus_bf16_runs(orpheus, launches, orpheus_run)
     del orpheus
     torch.cuda.empty_cache()
     dac_runs(launches)
@@ -5173,13 +5778,14 @@ def main() -> int:
     phase6 = {k: v for k, v in launches.items() if k.startswith(("orpheus_", "dac_"))}
     print(f"phase 6 launches: {json.dumps(phase6)}; "
           f"quantized_matmul per Orpheus token {per_token:.2f}; per DAC encode and "
-          f"decode of {DAC_SECONDS} s {json.dumps(per_dac)}; Orpheus {json.dumps(orpheus_info)}",
-          flush=True)
+          f"decode of {DAC_SECONDS} s {json.dumps(per_dac)}; Orpheus {json.dumps(orpheus_info)}"
+          f"; Orpheus bf16 {json.dumps(orpheus_bf16)}", flush=True)
 
     phase_start(7)
     outetts = build_outetts()
     outetts_run = outetts_runs(outetts, launches)
     outetts_info = outetts_breakdown(outetts)
+    outetts_bf16 = outetts_bf16_runs(outetts, launches, outetts_run)
     del outetts
     torch.cuda.empty_cache()
     dia = build_dia()
@@ -5195,7 +5801,8 @@ def main() -> int:
     phase7 = {k: v for k, v in launches.items() if k.startswith(("outetts_", "dia_"))}
     print(f"phase 7 launches: {json.dumps(phase7)}; quantized_matmul per OuteTTS token "
           f"{per_outetts_token:.2f}; per DAC decode of a greedy generate "
-          f"{json.dumps(per_dac_call)}; OuteTTS {json.dumps(outetts_info)}; Dia "
+          f"{json.dumps(per_dac_call)}; OuteTTS {json.dumps(outetts_info)}; OuteTTS bf16 "
+          f"{json.dumps(outetts_bf16)}; Dia "
           f"{json.dumps(dia_info)}, generate's real-time factor "
           f"{dia_run['real_time_factor']:.4f}, teacher-forced logits against the CPU "
           f"{dia_err:.3e}", flush=True)
@@ -5233,6 +5840,7 @@ def main() -> int:
     spark_tok = spark_tokenize_against_cpu(spark, spark_run)
     spark_info = spark_breakdown(spark, spark_run)
     spark_err = spark_card_against_cpu(spark, spark_run)
+    spark_bf16 = spark_bf16_runs(spark, launches, spark_run)
     del spark
     torch.cuda.empty_cache()
     phase9 = {k: v for k, v in launches.items() if k.startswith("spark_")}
@@ -5244,7 +5852,7 @@ def main() -> int:
           f"{json.dumps(per_spark_detok)}; Spark {json.dumps(spark_info)}, generate's "
           f"real-time factor {spark_run['real_time_factor']:.4f}, tokenize against the CPU "
           f"{json.dumps(spark_tok)}, teacher-forced logits against the CPU "
-          f"{spark_err:.3e}", flush=True)
+          f"{spark_err:.3e}; Spark bf16 {json.dumps(spark_bf16)}", flush=True)
 
     # phase 10: Whisper-large-v3-turbo (f32) and Voxtral-Mini-3B (int8 LM)
     phase_start(10)
@@ -5258,6 +5866,7 @@ def main() -> int:
     voxtral_run = voxtral_runs(voxtral, launches)
     voxtral_info = voxtral_breakdown(voxtral, voxtral_run)
     voxtral_cpu = voxtral_card_against_cpu(voxtral, voxtral_run)
+    voxtral_bf16 = voxtral_bf16_runs(voxtral, launches, voxtral_run)
     del voxtral
     torch.cuda.empty_cache()
     phase10 = {k: v for k, v in launches.items() if k.startswith(("whisper_", "voxtral_"))}
@@ -5269,8 +5878,8 @@ def main() -> int:
           f"{whisper_run['real_time_factor']:.4f}, peak {whisper_run['peak_memory_gb']:.2f} GB, "
           f"against the CPU {json.dumps(whisper_cpu)}; Voxtral {json.dumps(voxtral_info)}, "
           f"generate's real-time factor {voxtral_run['real_time_factor']:.4f}, peak "
-          f"{voxtral_run['peak_memory_gb']:.2f} GB, against the CPU {json.dumps(voxtral_cpu)}",
-          flush=True)
+          f"{voxtral_run['peak_memory_gb']:.2f} GB, against the CPU {json.dumps(voxtral_cpu)}"
+          f"; Voxtral bf16 {json.dumps(voxtral_bf16)}", flush=True)
 
     # phase 11: Parakeet-TDT-0.6B-v2 and BigVGAN-v2-24kHz-100band (f32)
     phase_start(11)
@@ -5350,6 +5959,24 @@ def main() -> int:
                                     "plain_max_abs_err_f64", "sync_only_ms")
                if k in head},
         }
+        if name == "quantized_matmul_bf16":
+            lm_bf16 = {"csm": csm_bf16, "orpheus": orpheus_bf16, "outetts": outetts_bf16,
+                       "spark": spark_bf16, "voxtral": voxtral_bf16}
+            entry["launches"] = sum(launches[p][name] for p in BF16_LM_RUNS)
+            entry["max_bf16_steps"] = max([r["bf16_steps"] for r in cases]
+                                          + [v["qmm_path_steps"] for v in lm_bf16.values()])
+            entry["max_abs_err"] = max([entry["max_abs_err"]]
+                                       + [v["qmm_path_err"] for v in lm_bf16.values()])
+            entry["path_shapes"] = sum(v["qmm_path_shapes"] for v in lm_bf16.values())
+            entry["launches_per_spec_frame"] = (
+                launches["csm_bf16_generate_spec"][name] / CSM_FRAMES)
+            for fam, n in (("orpheus", ORPHEUS_TOKENS), ("outetts", OUTETTS_TOKENS),
+                           ("spark", SPARK_TOKENS)):
+                entry[f"launches_per_{fam}_token"] = launches[f"{fam}_bf16_generate"][name] / n
+            entry["launches_per_voxtral_token"] = (launches["voxtral_bf16_generate"][name]
+                                                   / (VOXTRAL_TOKENS - 1))
+            kernel_line.append(entry)
+            continue
         if name in KOKORO_BF16_KERNELS:
             entry["max_bf16_steps"] = max(r["bf16_steps"] for r in cases)
             entry["launches_per_synthesis"] = bf16_per_call[name]

@@ -61,6 +61,17 @@
 // device memory busy (the depth-draft probes stream a step at 76-114% of
 // 3.35 TB/s through loads alone).  A tensor-core dequant GEMM for 32 rows
 // and up, and a TMA ring, are later work.
+//
+// The bf16 variant (quantized_matmul_forward_bf16) is the same kernel
+// instantiated for bf16 x and y, with bf16 or float32 scales and biases, as
+// the TPU kernel takes them: x is converted to float32 as it is staged into
+// shared memory (the swizzled float layout, the inner loop and the shared
+// memory stay as they are), each group's scale and bias to float32 as they
+// are loaded, and the dequantization and the sums are float32 as above.  An
+// output is rounded to bf16 once, to nearest even: at the store where there
+// is one part, else by the sum kernel after the last part (the workspace
+// stays float32).  So the order contract holds in bf16 too.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -92,6 +103,22 @@ int part_cols(int in_f, int gs, int packed) {
   return stored <= p ? stored : p;
 }
 
+typedef __nv_bfloat16 bf16;
+
+// a value of x, a scale or a bias as float32 (exact), and an output rounded
+// to its type
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float load_float(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_float(const bf16* p) {
+  return __uint_as_float(
+      (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 // VEC codes of one load: 16 as a uint4, 4 as a word, 1 as a byte
 template <int VEC>
 struct Slot {
@@ -115,11 +142,11 @@ __device__ __forceinline__ float code_float(uint32_t q) {
   return __fsub_rn(__uint_as_float(0x4B000000u | q), 8388608.0f);
 }
 
-template <int VEC, bool PACKED>
+template <int VEC, bool PACKED, typename S>
 __device__ __forceinline__ void fetch(Slot<VEC>& slot,
                                       const uint8_t* __restrict__ qrow,
-                                      const float* __restrict__ srow,
-                                      const float* __restrict__ zrow, int p,
+                                      const S* __restrict__ srow,
+                                      const S* __restrict__ zrow, int p,
                                       int stored, int gs) {
   if constexpr (VEC == 16) {
     const uint4 v = __ldg(reinterpret_cast<const uint4*>(qrow + p));
@@ -133,24 +160,26 @@ __device__ __forceinline__ void fetch(Slot<VEC>& slot,
     slot.w[0] = __ldg(qrow + p);
   }
   const int g = p / gs;
-  slot.s = __ldg(srow + g);
-  slot.z = __ldg(zrow + g);
+  slot.s = load_float(srow + g);
+  slot.z = load_float(zrow + g);
   if constexpr (PACKED) {
     const int g2 = (p + stored) / gs;
-    slot.s2 = __ldg(srow + g2);
-    slot.z2 = __ldg(zrow + g2);
+    slot.s2 = load_float(srow + g2);
+    slot.z2 = load_float(zrow + g2);
   }
 }
 
 // One block: kBlockCols output columns, one part of the stored columns, TB
-// rows.  Writes y (parts == 1) or the part's slice of the workspace.
-template <int VEC, int TB, bool PACKED>
+// rows.  Writes y (one part: gridDim.y == 1) or the part's slice of the
+// float32 workspace.
+template <int VEC, int TB, bool PACKED, typename T, typename S>
 __global__ void __launch_bounds__(kThreads)
-    qmm_kernel_part(const float* __restrict__ x,
+    qmm_kernel_part(const T* __restrict__ x,
                     const uint8_t* __restrict__ codes,
-                    const float* __restrict__ scales,
-                    const float* __restrict__ biases, float* __restrict__ out,
-                    int rows, int in_f, int out_f, int gs, int part) {
+                    const S* __restrict__ scales,
+                    const S* __restrict__ biases, T* __restrict__ y,
+                    float* __restrict__ ws, int rows, int in_f, int out_f,
+                    int gs, int part) {
   constexpr int kHalves = PACKED ? 2 : 1;
   constexpr int kStep = 32 * VEC;  // stored columns a warp step
   extern __shared__ __align__(16) float xs[];  // [TB][kHalves][part]
@@ -164,8 +193,8 @@ __global__ void __launch_bounds__(kThreads)
   const int nsteps = (len + kStep - 1) / kStep;
 
   const uint8_t* qrow[kWarpCols];
-  const float* srow[kWarpCols];
-  const float* zrow[kWarpCols];
+  const S* srow[kWarpCols];
+  const S* zrow[kWarpCols];
 #pragma unroll
   for (int c = 0; c < kWarpCols; ++c) {
     // a column past O reads column O - 1 and is not stored
@@ -183,7 +212,7 @@ __global__ void __launch_bounds__(kThreads)
     if (k < len) {
 #pragma unroll
       for (int c = 0; c < kWarpCols; ++c)
-        fetch<VEC, PACKED>(buf[d][c], qrow[c], srow[c], zrow[c], p0 + k,
+        fetch<VEC, PACKED, S>(buf[d][c], qrow[c], srow[c], zrow[c], p0 + k,
                            stored, gs);
     }
   }
@@ -194,9 +223,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int h = 0; h < kHalves; ++h) {
       float* dst = xs + (t * kHalves + h) * part;
-      const float* src = x + (size_t)row * in_f + (size_t)h * stored + p0;
+      const T* src = x + (size_t)row * in_f + (size_t)h * stored + p0;
       for (int k = threadIdx.x; k < len; k += kThreads)
-        dst[x_index<VEC>(k)] = row < rows ? src[k] : 0.0f;
+        dst[x_index<VEC>(k)] = row < rows ? to_float(src[k]) : 0.0f;
     }
   }
   __syncthreads();
@@ -262,14 +291,14 @@ __global__ void __launch_bounds__(kThreads)
         if (kn < len) {
 #pragma unroll
           for (int c = 0; c < kWarpCols; ++c)
-            fetch<VEC, PACKED>(buf[d][c], qrow[c], srow[c], zrow[c],
+            fetch<VEC, PACKED, S>(buf[d][c], qrow[c], srow[c], zrow[c],
                                p0 + kn, stored, gs);
         }
       }
     }
   }
 
-  float* dst = out + (size_t)blockIdx.y * rows * out_f;
+  float* dst = ws + (size_t)blockIdx.y * rows * out_f;
 #pragma unroll
   for (int c = 0; c < kWarpCols; ++c) {
 #pragma unroll
@@ -279,30 +308,37 @@ __global__ void __launch_bounds__(kThreads)
       for (int off = 16; off > 0; off >>= 1)
         v += __shfl_xor_sync(0xffffffffu, v, off);
       const int o = col0 + c, row = row0 + t;
-      if (lane == 0 && o < out_f && row < rows) dst[(size_t)row * out_f + o] = v;
+      if (lane == 0 && o < out_f && row < rows) {
+        if (gridDim.y == 1)
+          store(y + (size_t)row * out_f + o, v);
+        else
+          dst[(size_t)row * out_f + o] = v;
+      }
     }
   }
 }
 
-// y[n] = the parts' sums of output n added in ascending part order
+// y[n] = the parts' sums of output n added in ascending part order, rounded
+// to y's type once
+template <typename T>
 __global__ void __launch_bounds__(kSumThreads)
-    qmm_kernel_sum(const float* __restrict__ ws, float* __restrict__ y, int n,
+    qmm_kernel_sum(const float* __restrict__ ws, T* __restrict__ y, int n,
                    int parts) {
   const int i = blockIdx.x * kSumThreads + threadIdx.x;
   if (i >= n) return;
   float v = ws[i];
   for (int p = 1; p < parts; ++p) v = __fadd_rn(v, ws[(size_t)p * n + i]);
-  y[i] = v;
+  store(y + i, v);
 }
 
-template <int VEC, int TB, bool PACKED>
-cudaError_t launch_part(const float* x, const uint8_t* codes,
-                        const float* scales, const float* biases, float* out,
-                        int rows, int in_f, int out_f, int gs, int part,
-                        int parts, cudaStream_t stream) {
+template <int VEC, int TB, bool PACKED, typename T, typename S>
+cudaError_t launch_part(const T* x, const uint8_t* codes, const S* scales,
+                        const S* biases, T* y, float* ws, int rows, int in_f,
+                        int out_f, int gs, int part, int parts,
+                        cudaStream_t stream) {
   constexpr int kHalves = PACKED ? 2 : 1;
   const size_t smem = sizeof(float) * TB * kHalves * part;
-  auto kernel = qmm_kernel_part<VEC, TB, PACKED>;
+  auto kernel = qmm_kernel_part<VEC, TB, PACKED, T, S>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -310,42 +346,77 @@ cudaError_t launch_part(const float* x, const uint8_t* codes,
   }
   const dim3 grid((unsigned)((out_f + kBlockCols - 1) / kBlockCols),
                   (unsigned)parts, (unsigned)((rows + TB - 1) / TB));
-  kernel<<<grid, kThreads, smem, stream>>>(x, codes, scales, biases, out,
+  kernel<<<grid, kThreads, smem, stream>>>(x, codes, scales, biases, y, ws,
                                            rows, in_f, out_f, gs, part);
   return cudaGetLastError();
 }
 
-template <int VEC, bool PACKED>
-cudaError_t launch_rows(const float* x, const uint8_t* codes,
-                        const float* scales, const float* biases, float* out,
-                        int rows, int in_f, int out_f, int gs, int part,
-                        int parts, cudaStream_t s) {
+template <int VEC, bool PACKED, typename T, typename S>
+cudaError_t launch_rows(const T* x, const uint8_t* codes, const S* scales,
+                        const S* biases, T* y, float* ws, int rows, int in_f,
+                        int out_f, int gs, int part, int parts,
+                        cudaStream_t s) {
   if (rows == 1)
-    return launch_part<VEC, 1, PACKED>(x, codes, scales, biases, out, rows,
+    return launch_part<VEC, 1, PACKED>(x, codes, scales, biases, y, ws, rows,
                                        in_f, out_f, gs, part, parts, s);
   if (rows <= 2)
-    return launch_part<VEC, 2, PACKED>(x, codes, scales, biases, out, rows,
+    return launch_part<VEC, 2, PACKED>(x, codes, scales, biases, y, ws, rows,
                                        in_f, out_f, gs, part, parts, s);
   if (rows <= 4)
-    return launch_part<VEC, 4, PACKED>(x, codes, scales, biases, out, rows,
+    return launch_part<VEC, 4, PACKED>(x, codes, scales, biases, y, ws, rows,
                                        in_f, out_f, gs, part, parts, s);
-  return launch_part<VEC, 8, PACKED>(x, codes, scales, biases, out, rows,
+  return launch_part<VEC, 8, PACKED>(x, codes, scales, biases, y, ws, rows,
                                      in_f, out_f, gs, part, parts, s);
 }
 
-template <bool PACKED>
-cudaError_t launch_vec(int vec, const float* x, const uint8_t* codes,
-                       const float* scales, const float* biases, float* out,
+template <bool PACKED, typename T, typename S>
+cudaError_t launch_vec(int vec, const T* x, const uint8_t* codes,
+                       const S* scales, const S* biases, T* y, float* ws,
                        int rows, int in_f, int out_f, int gs, int part,
                        int parts, cudaStream_t s) {
   if (vec == 16)
-    return launch_rows<16, PACKED>(x, codes, scales, biases, out, rows, in_f,
-                                   out_f, gs, part, parts, s);
+    return launch_rows<16, PACKED>(x, codes, scales, biases, y, ws, rows,
+                                   in_f, out_f, gs, part, parts, s);
   if (vec == 4)
-    return launch_rows<4, PACKED>(x, codes, scales, biases, out, rows, in_f,
+    return launch_rows<4, PACKED>(x, codes, scales, biases, y, ws, rows, in_f,
                                   out_f, gs, part, parts, s);
-  return launch_rows<1, PACKED>(x, codes, scales, biases, out, rows, in_f,
+  return launch_rows<1, PACKED>(x, codes, scales, biases, y, ws, rows, in_f,
                                 out_f, gs, part, parts, s);
+}
+
+int part_count(int in_f, int gs, int packed) {
+  const int stored = packed ? in_f / 2 : in_f;
+  const int part = part_cols(in_f, gs, packed);
+  return (stored + part - 1) / part;
+}
+
+// ws: float32 [parts, rows, O] where parts > 1, else unused (may be null)
+template <typename T, typename S>
+int forward(const T* x, const uint8_t* codes, const S* scales,
+            const S* biases, T* y, float* ws, int rows, int in_f, int out_f,
+            int gs, int packed, void* stream) {
+  if (rows < 1 || out_f < 1 || gs < 1 || in_f % gs != 0 ||
+      (packed && in_f % 2 != 0) || (rows + 7) / 8 > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int stored = packed ? in_f / 2 : in_f;
+  const int part = part_cols(in_f, gs, packed);
+  const int parts = part_count(in_f, gs, packed);
+  if (parts > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(codes);
+  const int vec = stored % 16 == 0 && gs % 16 == 0 && addr % 16 == 0 ? 16
+                  : stored % 4 == 0 && gs % 4 == 0 && addr % 4 == 0  ? 4
+                                                                     : 1;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err =
+      packed ? launch_vec<true>(vec, x, codes, scales, biases, y, ws, rows,
+                                in_f, out_f, gs, part, parts, s)
+             : launch_vec<false>(vec, x, codes, scales, biases, y, ws, rows,
+                                 in_f, out_f, gs, part, parts, s);
+  if (err != cudaSuccess || parts == 1) return (int)err;
+  const int n = rows * out_f;
+  qmm_kernel_sum<T><<<(n + kSumThreads - 1) / kSumThreads, kSumThreads, 0,
+                      s>>>(ws, y, n, parts);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -356,9 +427,7 @@ extern "C" int quantized_matmul_parts(int in_f, int out_f, int gs,
                                       int packed) {
   (void)out_f;
   if (in_f < 1 || gs < 1) return 0;
-  const int stored = packed ? in_f / 2 : in_f;
-  const int part = part_cols(in_f, gs, packed);
-  return (stored + part - 1) / part;
+  return part_count(in_f, gs, packed);
 }
 
 // ws: float32 [parts, rows, O] where parts > 1, else unused (may be null)
@@ -368,29 +437,27 @@ extern "C" int quantized_matmul_forward(const float* x, const uint8_t* codes,
                                         float* ws, int rows, int in_f,
                                         int out_f, int gs, int packed,
                                         void* stream) {
-  if (rows < 1 || out_f < 1 || gs < 1 || in_f % gs != 0 ||
-      (packed && in_f % 2 != 0) || (rows + 7) / 8 > 65535)
-    return (int)cudaErrorInvalidValue;
-  const int stored = packed ? in_f / 2 : in_f;
-  const int part = part_cols(in_f, gs, packed);
-  const int parts = quantized_matmul_parts(in_f, out_f, gs, packed);
-  if (parts > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(codes);
-  const int vec = stored % 16 == 0 && gs % 16 == 0 && addr % 16 == 0 ? 16
-                  : stored % 4 == 0 && gs % 4 == 0 && addr % 4 == 0  ? 4
-                                                                     : 1;
-  cudaStream_t s = (cudaStream_t)stream;
-  float* out = parts > 1 ? ws : y;
-  cudaError_t err =
-      packed ? launch_vec<true>(vec, x, codes, scales, biases, out, rows,
-                                in_f, out_f, gs, part, parts, s)
-             : launch_vec<false>(vec, x, codes, scales, biases, out, rows,
-                                 in_f, out_f, gs, part, parts, s);
-  if (err != cudaSuccess || parts == 1) return (int)err;
-  const int n = rows * out_f;
-  qmm_kernel_sum<<<(n + kSumThreads - 1) / kSumThreads, kSumThreads, 0, s>>>(
-      ws, y, n, parts);
-  return (int)cudaGetLastError();
+  return forward(x, codes, scales, biases, y, ws, rows, in_f, out_f, gs,
+                 packed, stream);
+}
+
+// x and y bf16; scales and biases bf16 (scales_bf16 != 0) or float32
+extern "C" int quantized_matmul_forward_bf16(const void* x,
+                                             const uint8_t* codes,
+                                             const void* scales,
+                                             const void* biases, void* y,
+                                             float* ws, int rows, int in_f,
+                                             int out_f, int gs, int packed,
+                                             int scales_bf16, void* stream) {
+  const bf16* xb = static_cast<const bf16*>(x);
+  bf16* yb = static_cast<bf16*>(y);
+  if (scales_bf16)
+    return forward(xb, codes, static_cast<const bf16*>(scales),
+                   static_cast<const bf16*>(biases), yb, ws, rows, in_f,
+                   out_f, gs, packed, stream);
+  return forward(xb, codes, static_cast<const float*>(scales),
+                 static_cast<const float*>(biases), yb, ws, rows, in_f, out_f,
+                 gs, packed, stream);
 }
 
 extern "C" const char* quantized_matmul_error_string(int code) {

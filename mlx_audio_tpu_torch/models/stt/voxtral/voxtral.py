@@ -218,7 +218,9 @@ class Model(nn.Module):
         b, t = input_ids.shape
         flat_mask = (input_ids == self.audio_token_id).reshape(-1)
         idx = torch.clamp(torch.cumsum(flat_mask, 0) - 1, 0, audio_embeds.shape[0] - 1)
-        spliced = torch.where(flat_mask[:, None], audio_embeds[idx].to(embeds.dtype),
+        # promoted, as jnp.where promotes: a bf16 LM's prompt takes the
+        # float32 audio embeddings as they are, and its prefill runs float32
+        spliced = torch.where(flat_mask[:, None], audio_embeds[idx],
                               embeds.reshape(b * t, -1))
         return spliced.reshape(embeds.shape)
 

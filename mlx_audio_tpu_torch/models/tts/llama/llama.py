@@ -109,7 +109,8 @@ def decode_audio_from_codes(code_list: List[int], snac: SNAC) -> np.ndarray:
     codes = [torch.as_tensor(np.clip(layer, 0, 4095), dtype=torch.long,
                              device=snac.device)[None, :]
              for layer in (layer_1, layer_2, layer_3)]
-    return snac.decode(codes)[:, 0].cpu().numpy()
+    # a bf16 SNAC's audio leaves as float32 (numpy holds no bf16)
+    return snac.decode(codes)[:, 0].float().cpu().numpy()
 
 
 def encode_audio_to_codes(audio: np.ndarray, snac: SNAC) -> np.ndarray:

@@ -145,7 +145,8 @@ class DacInterface:
         """codes [1, 2, T'] -> audio [1, 1, T]."""
         codes = torch.as_tensor(np.asarray(codes), dtype=torch.long,
                                 device=self.model.device)
-        return self.model.decode_codes(codes).cpu().numpy()
+        # a bf16 DAC's audio leaves as float32 (numpy holds no bf16)
+        return self.model.decode_codes(codes).float().cpu().numpy()
 
 
 class AudioProcessor:

@@ -25,9 +25,12 @@ decodes the frames to 24 kHz audio.
   chunks of ``streaming_interval * 12.5`` frames, each decoded through
   Mimi's carried streaming state; a chunk schedule changes when audio
   leaves, not which frames are sampled.
+* ``Model.cast_lm(torch.bfloat16)`` runs the LM in bf16, as the JAX
+  package's does: every projection through ``quantized_matmul``'s bf16
+  variant, the RoPE tables, Mimi, the watermark, the draft's caches and the
+  sampling decisions in float32.
 * Left for later slices: the silentcipher watermark, the tokenizer loader
-  (pass ``text_tokenizer``), the mesh and data-parallel branches, and
-  bf16.
+  (pass ``text_tokenizer``), and the mesh and data-parallel branches.
 """
 
 from __future__ import annotations
@@ -167,6 +170,14 @@ class SesameModel(nn.Module):
     def lm_dtype(self) -> torch.dtype:
         return lm_dtype(self.backbone)
 
+    def head_logits(self, h: torch.Tensor, i: int) -> torch.Tensor:
+        """Codebook i + 1's logits from depth hidden states h [B, Dm].  The
+        plain depth decode, the spec decode's verify pass and its finishing
+        steps all take this one product a position, so a position's logits
+        do not depend on the path that computes them (in bf16 a batched
+        product over the verify's 31 positions may round otherwise)."""
+        return h @ self.audio_head[i]
+
     # -- one frame ---------------------------------------------------------
 
     def _use_spec(self, batch: int) -> bool:
@@ -202,7 +213,7 @@ class SesameModel(nn.Module):
             if i:
                 embed = self.embed_audio(i, codes[-1])
                 h, _ = self.decoder.step(caches, self.projection(embed), pad0)
-            logits = h[:, -1] @ self.audio_head[i]
+            logits = self.head_logits(h[:, -1], i)
             codes.append(sample_top_k_rows(logits, temp, top_k,
                                            call_seed(generator))[:, None].long())
         return torch.cat(codes, dim=1)
@@ -240,7 +251,7 @@ class SesameModel(nn.Module):
         caches = self.decoder.init_cache(1, max_len=DRAFT_CACHE, dtype=last_h.dtype)
         first = torch.cat([last_h[:, None], self.embed_audio(0, c0)], dim=1)
         h, _ = self.decoder.step(caches, self.projection(first), pad0)
-        c1 = gumbel_argmax(padded(h[:, -1] @ self.audio_head[0]),
+        c1 = gumbel_argmax(padded(self.head_logits(h[:, -1], 0)),
                            noise[0:1], v, temp, top_k)[0]
 
         kc = torch.stack([c.k[0] for c in caches]).float()
@@ -253,7 +264,7 @@ class SesameModel(nn.Module):
         ver_in = self.projection(torch.cat([first, emb], dim=1))
         ver_caches = self.decoder.init_cache(1, max_len=DRAFT_CACHE, dtype=last_h.dtype)
         vh, _ = self.decoder.prefill(ver_caches, ver_in, pad0)
-        logits = torch.einsum("td,tdv->tv", vh[0, 1:], self.audio_head)
+        logits = torch.cat([self.head_logits(vh[:, t + 1], t) for t in range(nc - 1)])
         targets = gumbel_argmax(padded(logits), noise, v, temp, top_k)
 
         mismatch = torch.nonzero(targets != draft_full).flatten().tolist()
@@ -268,7 +279,7 @@ class SesameModel(nn.Module):
         for j in range(m + 1, nc - 1):
             embed = self.audio_embeddings(tokens[j - 1].reshape(1, 1) + j * v)
             hh, _ = self.decoder.step(ver_caches, self.projection(embed), pad0)
-            tokens[j] = gumbel_argmax(padded(hh[:, -1] @ self.audio_head[j]),
+            tokens[j] = gumbel_argmax(padded(self.head_logits(hh[:, -1], j)),
                                       noise[j:j + 1], v, temp, top_k)[0]
         return torch.cat([c0, tokens[None]], dim=1)
 
@@ -316,16 +327,24 @@ class Model(nn.Module):
     def mimi(self) -> Mimi:
         return self._mimi
 
+    @torch.no_grad()
     def cast_lm(self, dtype) -> "Model":
-        """Cast the backbone and depth decoder; float32 only in this port so
-        far.  bf16 runs through the conv and LSTM kernels (Kokoro, the conv
-        codecs and vocoders); CSM's bf16 LM, with quantized_matmul's bf16
-        activations and the depth draft's inputs, is ROADMAP queue 1 item
-        7b."""
-        if dtype != torch.float32:
-            raise NotImplementedError(
-                "cast_lm: CSM's LM runs float32 only so far (bf16 is ROADMAP "
-                "queue 1 item 7b)")
+        """Cast every floating tensor of the backbone and depth decoder (the
+        embeddings, heads, norms, Linear weights, a quantized model's scales
+        and biases) to ``dtype``, as the JAX package's ``cast_lm`` does: the
+        RoPE tables stay float32 (``apply_rope`` casts them per use), and
+        Mimi and the watermark are not touched.  A bf16 LM decodes through
+        ``quantized_matmul``'s bf16 variant; spec decode packs the draft
+        from float32 upcasts and hands it float32 caches, as in JAX.
+        Returns self."""
+        for mod in self.model.modules():
+            for table in (mod._parameters, mod._buffers):
+                for key, t in table.items():
+                    if t is None or not t.is_floating_point() or key in ("rope_cos", "rope_sin"):
+                        continue
+                    cast = t.detach().to(dtype)
+                    table[key] = (nn.Parameter(cast, requires_grad=False)
+                                  if isinstance(t, nn.Parameter) else cast)
         return self
 
     def _watermark(self, audio: np.ndarray) -> np.ndarray:

@@ -125,4 +125,5 @@ class BiCodecTokenizer:
 
     def detokenize(self, global_tokens, semantic_tokens) -> np.ndarray:
         wav = self.model.detokenize(semantic_tokens, global_tokens)
-        return wav.cpu().numpy().squeeze()
+        # a bf16 BiCodec's audio leaves as float32 (numpy holds no bf16)
+        return wav.float().cpu().numpy().squeeze()

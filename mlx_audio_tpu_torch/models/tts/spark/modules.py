@@ -28,6 +28,7 @@ from mlx_audio_tpu_torch.nn.layers import (
     WNConv1d,
     WNConvTranspose1d,
     _param,
+    promote_operands,
     leaky_relu,
 )
 
@@ -106,7 +107,9 @@ class FactorizedVectorQuantize(nn.Module):
         the unit-normed rows and codebook rows."""
         enc = _l2_normalize(z_e)
         cb = _l2_normalize(self.codebook.weight)
-        return ((enc * enc).sum(-1, keepdim=True) - 2 * enc @ cb.t()
+        # each norm in its own dtype, the product promoted (jnp.matmul's rule)
+        dots = torch.matmul(*promote_operands(enc, cb.t()))
+        return ((enc * enc).sum(-1, keepdim=True) - 2 * dots
                 + (cb * cb).sum(-1)[None, None, :])
 
     def decode_latents(self, z_e):
@@ -288,9 +291,11 @@ class PerceiverAttention(nn.Module):
         k, v = self.to_kv(ctx).chunk(2, dim=-1)
         k = k.reshape(b, m, self.heads, self.dim_head).transpose(1, 2)
         v = v.reshape(b, m, self.heads, self.dim_head).transpose(1, 2)
-        scores = (q @ k.transpose(-1, -2)).float() * self.dim_head ** -0.5
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        return self.to_out((probs @ v).transpose(1, 2).reshape(b, n, -1))
+        # the products promote mixed dtypes, as the JAX package's einsums do
+        scores = torch.matmul(*promote_operands(q, k.transpose(-1, -2))).float()
+        probs = torch.softmax(scores * self.dim_head ** -0.5, dim=-1).to(x.dtype)
+        out = torch.matmul(*promote_operands(probs, v))
+        return self.to_out(out.transpose(1, 2).reshape(b, n, -1))
 
 
 class PerceiverResampler(nn.Module):

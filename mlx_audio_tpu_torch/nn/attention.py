@@ -16,6 +16,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from mlx_audio_tpu_torch.nn.layers import promote_operands
+
 
 def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor,
                                  v: torch.Tensor,
@@ -25,28 +27,32 @@ def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor,
     (grouped-query heads share a key/value head without a copy of the cache);
     ``mask`` additive, broadcast to [B, Hq, Lq, Lk] scores.
 
-    Written as matmul + softmax, with the scores divided by sqrt(D) and the
-    softmax taken in float32, as the JAX package's attention does.
+    Written as matmul + softmax, with the scores taken to float32, divided
+    by sqrt(D) and put through the softmax there, as the JAX package's
+    attention does.  Mixed dtypes promote, as its einsums do: a float32
+    query (a bf16 LM's prompt that holds float32 embeddings) over a bf16
+    cache scores in float32.
     """
     b, hq, lq, d = q.shape
     hkv = k.shape[1]
     if hq != hkv:
         rep = hq // hkv
         qg = q.reshape(b, hkv, rep, lq, d)
-        scores = (qg @ k[:, :, None].transpose(-1, -2)) / math.sqrt(d)
+        scores = torch.matmul(*promote_operands(
+            qg, k[:, :, None].transpose(-1, -2))).float() / math.sqrt(d)
         if mask is not None:
             if mask.ndim == 4 and mask.shape[1] == hq:
                 mask = mask.reshape(mask.shape[0], hkv, rep, *mask.shape[2:])
             elif mask.ndim == 4:
                 mask = mask[:, :, None]
             scores = scores + mask
-        probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
-        return (probs @ v[:, :, None]).reshape(b, hq, lq, d)
-    scores = (q @ k.transpose(-1, -2)) / math.sqrt(d)
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        return torch.matmul(*promote_operands(probs, v[:, :, None])).reshape(b, hq, lq, d)
+    scores = torch.matmul(*promote_operands(q, k.transpose(-1, -2))).float() / math.sqrt(d)
     if mask is not None:
         scores = scores + mask
-    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
-    return probs @ v
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.matmul(*promote_operands(probs, v))
 
 
 # ---------------------------------------------------------------------------

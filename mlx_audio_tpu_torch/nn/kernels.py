@@ -46,13 +46,14 @@ CPU, and only then.  For a CUDA tensor it launches the kernel or raises:
 there is no fallback.  Every launch adds one to the kernel's entry in
 ``LAUNCHES``, so a run can show that it went through the kernels.
 
-The three Kokoro kernels take float32 or bf16 (``BF16_KERNELS``): a bf16
-launch runs the kernel's bf16 variant, built from the same source, and
-counts under ``<name>_bf16``; it accumulates in float32 and rounds each
-output to bf16 once, as the plain version does (float32 compute, one
-rounding).  Every other dtype raises ``TypeError`` on the card, and so does
-bf16 for the other kernels (``quantized_matmul``'s bf16 activations and
-CSM's depth draft are ROADMAP queue 1 item 7b).
+The three Kokoro kernels and ``quantized_matmul`` take float32 or bf16
+(``BF16_KERNELS``): a bf16 launch runs the kernel's bf16 variant, built from
+the same source, and counts under ``<name>_bf16``; it accumulates in float32
+and rounds each output to bf16 once, as the plain version does (float32
+compute, one rounding).  ``quantized_matmul``'s bf16 variant takes bf16
+activations with bf16 or float32 scales and biases, as the TPU kernel does.
+Every other dtype raises ``TypeError`` on the card, and so does bf16 for
+the depth draft, whose caches are float32 in the JAX package too.
 """
 
 from __future__ import annotations
@@ -69,10 +70,10 @@ from mlx_audio_tpu_torch.nn.pallas_depth import PackedDepth, depth_draft_plain
 
 LAUNCHES = {"lstm": 0, "dilated_conv1d": 0, "banded_conv1d": 0,
             "lstm_bf16": 0, "dilated_conv1d_bf16": 0, "banded_conv1d_bf16": 0,
-            "quantized_matmul": 0, "depth_draft": 0, "probe_depth": 0,
+            "quantized_matmul": 0, "quantized_matmul_bf16": 0, "depth_draft": 0, "probe_depth": 0,
             "probe_vpu": 0, "probe_auto": 0}
 # the kernels with a bf16 variant, counted in LAUNCHES as "<name>_bf16"
-BF16_KERNELS = ("lstm", "dilated_conv1d", "banded_conv1d")
+BF16_KERNELS = ("lstm", "dilated_conv1d", "banded_conv1d", "quantized_matmul")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -87,6 +88,8 @@ _SIGNATURES = {
     "banded_conv1d_bf16": ("banded_conv1d_forward_bf16",
                            [_P] * 3 + [_I] * 5 + [_P]),
     "quantized_matmul": ("quantized_matmul_forward", [_P] * 6 + [_I] * 5 + [_P]),
+    "quantized_matmul_bf16": ("quantized_matmul_forward_bf16",
+                              [_P] * 6 + [_I] * 6 + [_P]),
     "depth_draft": ("depth_draft_forward",
                     [_P] * 21 + [ctypes.c_uint] + [_I] * 13 + [_F] * 2 + [_P]),
     "probe_depth": ("probe_depth_forward", [_P] * 3 + [_I] * 7 + [_P]),
@@ -465,12 +468,15 @@ def banded_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def quantized_matmul_plain(x, codes, scales, biases, group_size: int,
                            packed: bool = False):
-    """Plain version: dequantize the whole weight, then one matmul."""
+    """Plain version: dequantize the whole weight, then one matmul, both in
+    float32 for bf16 x (the output rounded to bf16 once) and in x's dtype
+    for float32 and float64."""
+    ct = _compute_dtype(x.dtype)
     q = torch.cat([codes & 0xF, codes >> 4], dim=-1) if packed else codes
     o, i = q.shape
-    w = (q.reshape(o, i // group_size, group_size).to(scales.dtype)
-         * scales[..., None] + biases[..., None]).reshape(o, i)
-    return x @ w.t()
+    w = (q.reshape(o, i // group_size, group_size).to(ct)
+         * scales.to(ct)[..., None] + biases.to(ct)[..., None]).reshape(o, i)
+    return (x.to(ct) @ w.t()).to(x.dtype)
 
 
 # csrc/quantized_matmul.cu kPartCols: stored columns a part, at most
@@ -505,10 +511,20 @@ def quantized_matmul(x: torch.Tensor, codes: torch.Tensor,
     dense weight is never formed.  The kernel sums each of
     ``quantized_matmul_parts`` pieces of I apart and adds the parts in
     ascending order (a second launch, into y, where there is more than one),
-    so a row's result does not depend on the rows batched with it."""
-    if _on_cpu("quantized_matmul", x, scales, biases, other=(codes,)):
+    so a row's result does not depend on the rows batched with it.
+
+    x is float32 or bf16, and the output takes its dtype; scales and
+    biases share one dtype, x's or float32 (bf16 x with float32 scales, as
+    a bf16 model quantized after its cast holds them).  A bf16 launch runs
+    the bf16 variant (``LAUNCHES["quantized_matmul_bf16"]``): x and the
+    scales converted to float32 on load, float32 sums, one rounding."""
+    if _on_cpu("quantized_matmul", x, other=(codes, scales, biases)):
         return quantized_matmul_plain(x, codes, scales, biases, group_size,
                                       packed)
+    if scales.dtype != biases.dtype or scales.dtype not in (x.dtype, torch.float32):
+        raise TypeError(f"quantized_matmul kernel takes scales and biases of "
+                        f"x's dtype {x.dtype} or float32 (one dtype), got "
+                        f"{scales.dtype} and {biases.dtype}")
     rows, i = x.shape
     o, stored = codes.shape
     groups = i // group_size if group_size > 0 else 0
@@ -520,14 +536,15 @@ def quantized_matmul(x: torch.Tensor, codes: torch.Tensor,
             f"quantized_matmul: x {tuple(x.shape)}, codes {tuple(codes.shape)} "
             f"{codes.dtype}, scales {tuple(scales.shape)}, group_size "
             f"{group_size}, packed {packed}")
-    y = torch.empty((rows, o), device=x.device, dtype=torch.float32)
+    y = torch.empty((rows, o), device=x.device, dtype=x.dtype)
     parts, _ = quantized_matmul_parts(i, o, group_size, packed)
     ws = (torch.empty((parts, rows, o), device=x.device, dtype=torch.float32)
           if parts > 1 else None)
-    _launch("quantized_matmul", x.device, x.data_ptr(), codes.data_ptr(),
-            scales.data_ptr(), biases.data_ptr(), y.data_ptr(),
+    extra = (int(scales.dtype == torch.bfloat16),) if x.dtype == torch.bfloat16 else ()
+    _launch(_kernel_name("quantized_matmul", x), x.device, x.data_ptr(),
+            codes.data_ptr(), scales.data_ptr(), biases.data_ptr(), y.data_ptr(),
             None if ws is None else ws.data_ptr(), rows, i, o, group_size,
-            int(packed))
+            int(packed), *extra)
     return y
 
 

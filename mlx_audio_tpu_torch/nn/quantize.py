@@ -14,7 +14,10 @@ kernel, which never forms the dense weight; a larger call dequantizes and
 multiplies.  The JAX package's alignment gate
 (``quant_matmul_supported``: O, I, group size and I/2 multiples of 128) was
 Mosaic's layout rule and is gone: the Hopper kernel takes any group size that
-divides I.  Codes are computed with the same float32 operations as the JAX
+divides I.  A model cast to bf16 keeps uint8 codes and bf16 scales and
+biases; a bf16 x takes the kernel's bf16 variant on the card (float32 sums,
+as the TPU kernel's), and on the CPU dequantizes and multiplies in bf16, as
+the JAX package's CPU route does.  Codes are computed with the same float32 operations as the JAX
 package's numpy code, so both give equal codes.
 """
 
@@ -78,16 +81,24 @@ def _unpack4(qp: torch.Tensor) -> torch.Tensor:
 
 
 def _matmul_codes(x, codes, scales, biases, group_size: int, packed: bool):
-    """x [..., I] @ dequant(codes [O, I(/2)])^T -> [..., O]: the kernel for
-    at most ``KERNEL_MAX_ROWS`` rows, else dequantize and multiply."""
+    """x [..., I] @ dequant(codes [O, I(/2)])^T -> [..., O] in x's dtype:
+    the kernel for at most ``KERNEL_MAX_ROWS`` rows, else dequantize in x's
+    dtype and multiply, as the JAX package's dense route does.  A bf16 x on
+    the CPU takes the dense route at every row count (the JAX package's CPU
+    route; the kernel sums in float32, as the TPU kernel does).  Float32
+    scales meet bf16 x in the kernel as they are; bf16 scales meet a
+    float32 x cast up, exactly."""
     x2 = x.reshape(-1, scales.shape[1] * group_size)
-    if x2.shape[0] <= KERNEL_MAX_ROWS:
+    if x2.shape[0] <= KERNEL_MAX_ROWS and (x.is_cuda or x.dtype == torch.float32):
+        if x.dtype == torch.float32:
+            scales, biases = scales.float(), biases.float()
         y = kernels.quantized_matmul(x2.contiguous(), codes, scales, biases,
                                      group_size, packed)
     else:
-        y = kernels.quantized_matmul_plain(x2, codes, scales.to(x.dtype),
-                                           biases.to(x.dtype), group_size,
-                                           packed)
+        q = _unpack4(codes) if packed else codes
+        w = _affine_dequantize(q, scales.to(x.dtype), biases.to(x.dtype),
+                               group_size)
+        y = x2 @ w.t()
     return y.reshape(*x.shape[:-1], codes.shape[0])
 
 
@@ -125,7 +136,7 @@ class QuantizedLinear(nn.Module):
         qe.weight = _pack4(q) if qe.packed else q
         qe.scales, qe.biases = s, b
         if lin.bias is not None:
-            qe.bias.data.copy_(lin.bias.detach())
+            qe.bias = nn.Parameter(lin.bias.detach().clone(), requires_grad=False)
         return qe
 
     def _codes(self) -> torch.Tensor:

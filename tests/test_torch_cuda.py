@@ -394,6 +394,70 @@ def test_quantized_matmul_parts_agree_with_the_kernel(cuda, i, o, gs, bits):
             == kernels.quantized_matmul_parts(i, o, gs, packed)[0])
 
 
+# bf16 x, with bf16 scales (a quantized model cast to bf16) and with float32
+# ones (a bf16 model quantized after its cast): int8 and packed int4, one
+# part and several, 16-, 4- and 1-code loads, CSM's verify and a head whose O
+# is no multiple of a tile
+QMM_BF16_CASES = [
+    (1, 2048, 384, 128, 8), (3, 1024, 200, 64, 4), (1, 8192, 1024, 128, 8),
+    (32, 1024, 8192, 128, 8), (1, 2048, 2051, 128, 8), (5, 96, 72, 12, 8),
+    (4, 5760, 40, 12, 4), (9, 96, 40, 6, 4), (4, 3072, 2051, 64, 8)]
+
+
+@pytest.mark.parametrize("scale_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,i,o,gs,bits", QMM_BF16_CASES)
+def test_quantized_matmul_bf16_kernel_within_a_bf16_step(cuda, rows, i, o, gs,
+                                                         bits, scale_dtype):
+    rng = np.random.default_rng(3)
+    q = _quantized(rng, i, o, gs, bits, cuda)
+    x = _randn(rng, (rows, i), 0.5, cuda).bfloat16()
+    args = (x, q.weight, q.scales.to(scale_dtype), q.biases.to(scale_dtype),
+            gs, q.packed)
+    before = dict(kernels.LAUNCHES)
+    got = kernels.quantized_matmul(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["quantized_matmul_bf16"] == before["quantized_matmul_bf16"] + 1
+    assert kernels.LAUNCHES["quantized_matmul"] == before["quantized_matmul"]
+    assert got.dtype == torch.bfloat16
+    exact = kernels.quantized_matmul_plain(x.double(), *args[1:])
+    assert kernels.bf16_steps(got, exact) <= 1.0
+    plain = kernels.quantized_matmul_plain(*args)
+    assert plain.dtype == torch.bfloat16
+    assert kernels.bf16_steps(plain, exact) <= 1.0
+
+
+@pytest.mark.parametrize("scale_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("i,o,bits", [(8192, 1024, 8), (1024, 8192, 8),
+                                      (2048, 2048, 4)])
+def test_quantized_matmul_bf16_rows_are_independent(cuda, i, o, bits, scale_dtype):
+    """The order contract in bf16: each row of a 2-, 8- or 32-row call equals
+    the 1-row call on it bit for bit (one rounding after the same sums)."""
+    rng = np.random.default_rng(8)
+    q = _quantized(rng, i, o, 128, bits, cuda)
+    w = (q.weight, q.scales.to(scale_dtype), q.biases.to(scale_dtype), 128, q.packed)
+    x = _randn(rng, (32, i), 0.5, cuda).bfloat16()
+    ones = [kernels.quantized_matmul(x[r:r + 1], *w)[0] for r in range(32)]
+    for rows in (2, 8, 32):
+        got = kernels.quantized_matmul(x[:rows], *w)
+        for r in range(rows):
+            assert torch.equal(got[r], ones[r]), (rows, r)
+
+
+def test_quantized_matmul_rejects_other_dtype_mixes(cuda):
+    """bf16 x takes bf16 or float32 scales and biases of one dtype; float32
+    x takes float32 ones; every other mix and f16 raise TypeError."""
+    rng = np.random.default_rng(9)
+    q = _quantized(rng, 256, 64, 64, 8, cuda)
+    x = _randn(rng, (2, 256), 0.5, cuda)
+    s, z = q.scales, q.biases
+    bad = ((x, s.bfloat16(), z.bfloat16()), (x.half(), s.half(), z.half()),
+           (x.bfloat16(), s.bfloat16(), z), (x.bfloat16(), s.half(), z.half()),
+           (x.half(), s, z))
+    for xb, sb, zb in bad:
+        with pytest.raises(TypeError):
+            kernels.quantized_matmul(xb, q.weight, sb, zb, 64, False)
+
+
 def _draft_inputs(device, temp=0.0, layers=2, dm=256, heads=(4, 2), f=512,
                   nc=8, vocab=200):
     """A depth pack of a small llama (head_dim 128, seeded), its caches with
