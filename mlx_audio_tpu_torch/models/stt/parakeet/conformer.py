@@ -27,6 +27,7 @@ from mlx_audio_tpu_torch.nn.layers import (
     Linear,
     _param,
     _uniform_,
+    promote_operands,
 )
 
 
@@ -206,7 +207,10 @@ class Conv2dLayer(nn.Module):
         _uniform_(self.bias, scale, generator)
 
     def forward(self, x):
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias, self.stride,
+        # mixed operands promote (the JAX package's promote_conv_operands):
+        # a float32 log-mel takes a bf16 model's encoder to float32
+        x, w = promote_operands(x, self.weight)
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, self.bias.to(w.dtype), self.stride,
                      self.padding, 1, self.groups)
         return y.permute(0, 2, 3, 1)
 

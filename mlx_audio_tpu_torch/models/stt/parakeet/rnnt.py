@@ -16,7 +16,7 @@ from typing import List, Optional
 import torch
 from torch import nn
 
-from mlx_audio_tpu_torch.nn.layers import Embedding, Linear, _param, _uniform_
+from mlx_audio_tpu_torch.nn.layers import Embedding, Linear, _param, _uniform_, promote_operands
 
 
 @dataclass
@@ -66,7 +66,10 @@ class LSTMLayer(nn.Module):
 
     def step(self, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
         """x [B, D], h and c [B, H] -> (h', c')."""
-        i, f, g, o = (x @ self.Wx.t() + h @ self.Wh.t() + self.bias).chunk(4, dim=-1)
+        # mixed operands promote, as the JAX package's matmuls do: a bf16
+        # model's float32 state keeps the step in float32
+        (x, wx), (h, wh) = promote_operands(x, self.Wx), promote_operands(h, self.Wh)
+        i, f, g, o = (x @ wx.t() + h @ wh.t() + self.bias).chunk(4, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         return torch.sigmoid(o) * torch.tanh(c), c
 
@@ -100,8 +103,10 @@ class PredictNetwork(nn.Module):
         # the blank start's token may lie past the table (blank_as_pad off):
         # it is looked up in range and masked out
         token = token.clamp(max=self.embed.weight.shape[0] - 1)
+        # a float32 zero row, as in the JAX package: jnp.where promotes a
+        # bf16 embedding to float32
         x = torch.where(use_embedding[:, None], self.embed(token),
-                        torch.zeros((), dtype=h.dtype, device=h.device))
+                        torch.zeros((token.shape[0], self.pred_hidden), device=h.device))
         new_h, new_c = [], []
         for i, layer in enumerate(self.lstm):
             x, ci = layer.step(x, h[i], c[i])

@@ -511,7 +511,7 @@ class Model(nn.Module):
         """EnCodec decode of [8, T] fine tokens -> [1, samples]."""
         codes = torch.as_tensor(np.asarray(fine_tokens), dtype=torch.long)[None, None]
         audio = self._get_codec().decode(codes, [None])
-        return audio.cpu().numpy()[:, :, 0]
+        return audio.float().cpu().numpy()[:, :, 0]
 
     def generate(self, text: str, voice=None, temperature: float = 0.7,
                  seed: int = 0, **kwargs):
@@ -542,7 +542,8 @@ class Model(nn.Module):
         for idxs in groups.values():
             codes = torch.as_tensor(np.stack([fines[i] for i in idxs]),
                                     dtype=torch.long)[None]      # [1, G, 8, T]
-            wavs = codec.decode(codes, [None]).cpu().numpy()       # [G, T, C]
+            # a bf16 EnCodec's audio leaves as float32 (numpy holds no bf16)
+            wavs = codec.decode(codes, [None]).float().cpu().numpy()  # [G, T, C]
             for row, i in enumerate(idxs):
                 audios[i] = wavs[row, :, 0]
         return [make_generation_result(audios[i], self.config.sample_rate, i,

@@ -85,7 +85,8 @@ def codebook_to_audio_batch(codes_list, dac_model, delay_pattern,
             reverted = reverted[:, :-TAIL_DROP, :]
         codebook = reverted.transpose(1, 2)                  # [G, C, T]
         codebook = torch.where((codebook < 0) | (codebook > 1023), 0, codebook)
-        audio = dac_model.decode_codes(codebook).cpu().numpy()  # [G, 1, S]
+        # a bf16 DAC's audio leaves as float32 (numpy holds no bf16)
+        audio = dac_model.decode_codes(codebook).float().cpu().numpy()  # [G, 1, S]
         for j, i in enumerate(idxs):
             out[i] = audio[j, 0]
     return out

@@ -5,7 +5,9 @@
   out_features`` (q/k/v ``[D, H, hd]``, o ``[H, hd, D]``, the fused MLP
   input ``[D, 2, hidden]``, the logits head ``[D, C, V]``), and contracts
   with ``tensordot``, so weights cross as they are.  These projections are
-  plain float32 matmuls in the JAX package too.
+  plain float32 matmuls in the JAX package too.  Mixed operands promote,
+  as ``lax.dot_general`` promotes them: the logits head takes a float32
+  ``x`` into the bf16 weight of a cast model and gives float32 logits.
 * Attention scores are NOT divided by sqrt(d) (a Dia quirk): ``_attend``
   takes float32 scores, ``where(mask, s, -1e9)`` and a float32 softmax, so
   it does not use the shared ``nn.attention`` path, which scales.
@@ -29,7 +31,13 @@ from torch import nn
 
 from mlx_audio_tpu_torch.models.tts.dia.config import DiaConfig
 from mlx_audio_tpu_torch.nn.attention import KVCache
-from mlx_audio_tpu_torch.nn.layers import Embedding, RMSNorm, _param, _uniform_
+from mlx_audio_tpu_torch.nn.layers import (
+    Embedding,
+    RMSNorm,
+    _param,
+    _uniform_,
+    promote_operands,
+)
 
 
 class DenseGeneral(nn.Module):
@@ -47,7 +55,8 @@ class DenseGeneral(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n_in = len(self.in_shapes)
-        return torch.tensordot(x, self.weight,
+        x, w = promote_operands(x, self.weight)
+        return torch.tensordot(x, w,
                                dims=(list(range(x.ndim - n_in, x.ndim)),
                                      list(range(n_in))))
 

@@ -18,17 +18,18 @@ import numpy as np
 import torch
 from torch import nn
 
-from mlx_audio_tpu_torch.nn.layers import Embedding, Linear, _param
+from mlx_audio_tpu_torch.nn.layers import Embedding, Linear, _param, promote_operands
 
 
 def _sdpa(q, k, v, scale: float, mask=None):
     """[B, H, T, D] attention, scores scaled after the product and the
-    softmax taken in float32."""
-    scores = (q @ k.transpose(-1, -2)).float() * scale
+    softmax taken in float32; mixed operands promote, as the JAX package's
+    einsums do (a bf16 model's float32 conditioning meets its bf16 latents)."""
+    scores = torch.matmul(*promote_operands(q, k.transpose(-1, -2))).float() * scale
     if mask is not None:
         scores = scores + mask.float()
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return probs @ v
+    return torch.matmul(*promote_operands(probs, v))
 
 
 class MultiHeadAttention(nn.Module):
@@ -93,7 +94,7 @@ class RelPositionMultiHeadAttention(MultiHeadAttention):
         vh = self._split(self.linear_v(v), b, tk)
         p = self.linear_pos(pos_emb)
         p = p.reshape(p.shape[0], p.shape[1], self.n_head, self.head_dim).transpose(1, 2)
-        matrix_bd = (q_v @ p.transpose(-1, -2)) * self.scale
+        matrix_bd = torch.matmul(*promote_operands(q_v, p.transpose(-1, -2))) * self.scale
         if mask is not None:
             matrix_bd = matrix_bd.masked_fill(mask, -1e9)
         return self._merge(_sdpa(q_u, kh, vh, self.scale, mask=matrix_bd))

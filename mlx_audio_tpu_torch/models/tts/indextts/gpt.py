@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mlx_audio_tpu_torch.nn.attention import KVCache
-from mlx_audio_tpu_torch.nn.layers import LayerNorm, Linear
+from mlx_audio_tpu_torch.nn.layers import LayerNorm, Linear, promote_operands
 
 
 @dataclass
@@ -56,11 +56,14 @@ class GPT2Attention(nn.Module):
         q, k, v = (self._split(t) for t in self.c_attn(x).chunk(3, dim=-1))
         cache.update(k, v)
         keys, values = cache.k[:, :, :cache.idx], cache.v[:, :, :cache.idx]
-        scores = (q @ keys.transpose(-1, -2)).float() * self.head_dim ** -0.5
+        # a bf16 model's float32 prompt meets its bf16 caches: mixed
+        # operands promote, as the JAX package's einsums do
+        scores = (torch.matmul(*promote_operands(q, keys.transpose(-1, -2))).float()
+                  * self.head_dim ** -0.5)
         if mask is not None:
             scores = scores + mask
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        out = probs @ values
+        out = torch.matmul(*promote_operands(probs, values))
         b, h, t, d = out.shape
         return self.c_proj(out.transpose(1, 2).reshape(b, t, h * d))
 

@@ -293,7 +293,9 @@ class Model(nn.Module):
         for idxs in length_groups.values():
             for j in range(0, len(idxs), cap):
                 part = idxs[j:j + cap]
-                stack = torch.stack([streams[i] for i in part])  # [G, n, D]
+                # float32, as the JAX package stacks them: a bf16 model's
+                # vocoder runs in float32 over its bf16 weights
+                stack = torch.stack([streams[i] for i in part]).float()  # [G, n, D]
                 # one reference: its speaker embedding broadcasts over the rows
                 wavs = self.bigvgan(stack, ref_mel).cpu().numpy()
                 for row, i in enumerate(part):
