@@ -7,8 +7,10 @@ Whisper-large-v3-turbo, Voxtral-Mini-3B and Parakeet-TDT-0.6B-v2 speech
 to text, the BigVGAN-v2 vocoder, IndexTTS-1.5, the depth-draft probes,
 Kokoro-82M, EnCodec, BigVGAN, the int8 LMs (CSM-1B, Orpheus-3B,
 OuteTTS-1B, Spark-TTS-0.5B, Voxtral-Mini-3B), Dia-1.6B, Bark,
-Whisper-large-v3-turbo, Parakeet-TDT-0.6B-v2 and IndexTTS-1.5 in bf16, and
-check its hand-written CUDA kernels and their bf16 variants.
+Whisper-large-v3-turbo, Parakeet-TDT-0.6B-v2 and IndexTTS-1.5 in bf16, the
+entry points a user calls (native checkpoints, the TTS CLI, the HTTP
+server's batched /tts and its /stt), and check its hand-written CUDA
+kernels and their bf16 variants.
 
     python3 chip_smoke.py
 
@@ -198,10 +200,9 @@ Phases; the failure of any one ends the script with a non-zero exit:
    greedy ``generate`` of a 30 s clip (40 tokens) and of a 60 s clip (two
    windows as one batch); ``dilated_conv1d`` once an encode,
    ``quantized_matmul`` 211 times a decode step (and once for the prompt's
-   head), both held to their plain versions on the path's operands; the
-   audio embeddings, the logits of the prompt and of 8 teacher-forced
-   steps held to the CPU's, the tokens to its argmax; tokens/s, the
-   real-time factor, peak memory, a profile of 32 decode steps; then the
+   head), both held to their plain versions on the path's operands;
+   tokens/s, the real-time factor, peak memory, a profile of 32 decode
+   steps; then the
    model cast with ``.to(torch.bfloat16)``: one 30 s window, the float32
    log-mel and audio embeddings promoting through the tower and the
    prefill as in the JAX package (the float32 ``dilated_conv1d`` and
@@ -273,7 +274,27 @@ Phases; the failure of any one ends the script with a non-zero exit:
    the same bf16 weights on the CPU, the source's draws made on the CPU
    for both: durations equal, audio within a relative RMS past sample
    2400;
-14. print one ``{"kernels": [...]}`` line, then the device line last.
+14. the entry points a user calls (``entry_point_runs``): Kokoro-82M at
+   its published config written with ``utils.loader.save_checkpoint`` and
+   read back with ``load_model`` (every tensor equal bit for bit), a bf16
+   copy from the convert CLI (``tts.convert.main``, on the card), the TTS
+   CLI (``tts.generate.main``) on that directory (its wav equal to the
+   loaded model's own ``generate`` within one 16-bit step), then the HTTP
+   server (``server.create_app`` behind aiohttp's test server on
+   loopback): one lone /tts request, 8 concurrent ones that the
+   ``DynamicBatcher`` runs as one batch of 8 rows (``lstm``,
+   ``dilated_conv1d`` and ``banded_conv1d`` launching as in one phase 4
+   synthesis, each held to its plain version on the batch's own operands;
+   each row's wav against its text alone past sample 2400, within 2e-3 but
+   for one source-phase flip's 2 400 samples, by at most 0.2),
+   and 5 under ``max_batch=6`` (one batch of exactly 5 rows); then
+   Whisper-large-v3-turbo in bf16 written as a native checkpoint (about 1.6
+   GB), loaded bit for bit by the server, and /stt of a served wav: every
+   encode launches ``dilated_conv1d_bf16`` once and nothing else of ours,
+   and the tokens equal the written model's own ``generate``; the save and
+   load seconds, the batch's and the lone request's wall seconds, peak
+   memory;
+15. print one ``{"kernels": [...]}`` line, then the device line last.
 
 Phase 2 holds ``quantized_matmul`` at Orpheus-3B's, OuteTTS-1B's,
 Spark-TTS-0.5B's and Voxtral-Mini-3B's shapes too (int8, groups of 64, 1
@@ -282,7 +303,7 @@ BiCodec's routed resblock shapes (K=7, d = 1, 3, 9), at Whisper's conv1
 (batch 1 and 4), and at BigVGAN-v2's resblocks ([1, 3752, 768] and [1,
 15008, 384], K = 3, 7, 11 at d = 1, 3, 5) and IndexTTS-1.5's ([1, 2408,
 768] and [1, 19264, 384], the same K and d).  Launch counters are set to 0
-just before each run of the probes' entry point and of phases 3 to 13, and
+just before each run of the probes' entry point and of phases 3 to 14, and
 read just after:
 each kernel of a run's path must have launched in it (Orpheus:
 ``quantized_matmul``; DAC's encode and decode: both conv kernels; OuteTTS
@@ -3625,7 +3646,6 @@ VOXTRAL_EOS = 2
 VOXTRAL_EMBED_SCALE = 10.0  # the LM embedding's scale against the init's (build_voxtral)
 VOXTRAL_TOKENS = 40  # generated a window (a profile's 32 steps and 2 to warm fit in)
 VOXTRAL_SECONDS = 30.0  # one window; the two-window clip is twice as long
-VOXTRAL_TF_STEPS = 4
 VOXTRAL_QMM_PER_STEP = 30 * 7 + 1  # 7 projections a layer and the head
 WHISPER_KERNEL_STRAYS = ("banded_conv1d", "lstm", "depth_draft")
 
@@ -4161,51 +4181,6 @@ def voxtral_breakdown(model, run: dict) -> dict:
               f"calls, {qmm_ms:.3f} ms, {out['profile_qmm_share']:.2%} of device time",
               flush=True)
     return out
-
-
-def voxtral_card_against_cpu(model, run: dict) -> dict:
-    """The 30 s clip's window through the card's model and a copy on the
-    CPU, whose int8 LM is dequantized once (the weights quantized_matmul's
-    plain version forms at every call): the audio embeddings spliced into
-    the prompt, and the logits of the prompt and of VOXTRAL_TF_STEPS
-    teacher-forced steps of the greedy tokens, within TOL; the greedy
-    tokens against the CPU's argmax there (equal where its margin exceeds
-    WHISPER_TIE, the near-ties counted)."""
-    import copy
-
-    from mlx_audio_tpu_torch.nn.quantize import dequantize_model
-
-    t0 = time.perf_counter()
-    mel, ids = model._prepare_inputs(run["clip"])
-    toks = run["tokens"][:VOXTRAL_TF_STEPS + 1]
-    cpu = dequantize_model(copy.deepcopy(model).cpu())
-    cpu.device = torch.device("cpu")
-    n_audio = int((np.asarray(ids) == model.audio_token_id).sum())
-    res = {}
-    with torch.no_grad():
-        for name, m in (("card", model), ("cpu", cpu)):
-            caches, pad_len, embeds, first = _voxtral_state(m, mel, ids, len(toks) + 1)
-            pad = int(pad_len[0])
-            res[name] = (embeds[0, pad + 1:pad + 1 + n_audio].cpu(),
-                         torch.cat([first.cpu(), _voxtral_steps(m, caches, pad_len,
-                                                                toks[:-1]).cpu()]))
-    ae, logits = res["card"]
-    ae_c, logits_c = res["cpu"]
-    ties = _tie_check("voxtral greedy tokens", toks, logits_c, WHISPER_TIE)
-    errs = {"audio_embeds": float((ae - ae_c).abs().max()),
-            "logits": float((logits - logits_c).abs().max())}
-    print(f"voxtral card against the CPU ({time.perf_counter() - t0:.1f} s): audio "
-          f"embeddings {tuple(ae.shape)} (max |x| {float(ae_c.abs().max()):.3f}), the "
-          f"prompt's and {VOXTRAL_TF_STEPS} teacher-forced steps' logits "
-          f"{tuple(logits.shape)} (max |logit| {float(logits_c.abs().max()):.3f}): max abs "
-          f"diff {json.dumps(errs)} (atol {TOL['atol']}, rtol {TOL['rtol']}); greedy "
-          f"tokens against the CPU's argmax {json.dumps(ties)}", flush=True)
-    for name, a, b in (("audio embeddings", ae, ae_c), ("logits", logits, logits_c)):
-        if not torch.allclose(a, b, **TOL):
-            fail(f"voxtral: the {name} on the card differ from the CPU's by "
-                 f"{float((a - b).abs().max()):.3e}")
-    del cpu
-    return {"errors": errs, "tokens": ties}
 
 
 # ---------------------------------------------------------------------------
@@ -6253,6 +6228,370 @@ def indextts_bf16_runs(model, launches: dict, run: dict, f32_info: dict) -> dict
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the entry points: native checkpoints, the TTS CLI and the server
+# ---------------------------------------------------------------------------
+
+# the served texts, one segment each; at SERVE_SPEED the longest gives the
+# batch a frame bucket past 1 100 frames, where every dilated K = 7 and 11
+# resblock conv of the first upsampled stage (20 samples a frame, d = 5)
+# holds the banded route's 4 096 rows, as at phase 4's bench shape
+SERVE_TEXTS = [
+    "ðə pˈɔɹt sˈɜːvz ˈeɪt ɹɪkwˈɛsts æt wˈʌns, ˈiːtʃ ɪn ɪts ˈoʊn ɹˈoʊ.",
+    "ɐ ʃˈɔːɹt wˈʌn.",
+    "ðə sˈɛkənd ɹɪkwˈɛst.",
+    "hˈɪɹ ɪz ɐ θˈɜːd lˈaɪn ʌv tˈɛkst.",
+    "fˈɔːɹ wˈɜːdz ɪn ɐ ɹˈoʊ.",
+    "ðə fˈɪfθ ɪz lˈɔŋɡɚ ðæn ðə fˈɔːɹθ, bˌʌt nˈɑːt bˈaɪ mˈʌtʃ.",
+    "sˈɪks.",
+    "ænd ðə lˈæst wˌʌn klˈoʊzɪz ðə bˈætʃ.",
+]
+SERVE_SPEED = "1.0"  # the server takes 0.5 to 2.0
+SERVE_MAX_BATCH = 8
+SERVE_SMALL_BATCH = (5, 6)  # requests, and the batcher's max_batch
+SERVE_WINDOW_MS = 1000.0  # the batchers' coalescing window
+CLI_TEXT = "həlˈoʊ fɹʌm ðə kˈʌmænd lˈaɪn."
+PCM_STEP = 1 / 32768  # one step of the 16-bit wavs the server and the CLI write
+# a batch row against its text alone past the first SERVE_HEAD samples, at
+# the atol with which tests/test_torch_kokoro.py's test_generate_entry_points
+# holds a two-row batch's row: the first source frame's phase may flip
+# between batch shapes (a real spectrum's atan2 at +pi or -pi).  At full
+# width a bin later in the audio may flip too (seen between the batch of 8
+# and its first text alone: source frame 21 738 of 204 001, bin 9, +pi
+# against -pi, every other phase within 1e-4 rad; the audio then parts by
+# up to 0.10 over about 1 550 samples, relative RMS 3.36e-3), so
+# SERVE_FLIP_SAMPLES samples of a row may exceed the atol, by at most
+# SERVE_FLIP_MAX_ABS (twice the flip's 0.10; the audio peaks near 1), within
+# a relative RMS.  Each row is also read against its neighbour's text alone
+# (rows swapped), the reading a mis-batched row would give
+SERVE_HEAD, SERVE_ROW_ATOL = 2400, 2e-3
+SERVE_FLIP_SAMPLES, SERVE_FLIP_MAX_ABS, SERVE_ROW_REL_RMS = 2400, 0.2, 1e-2
+
+
+def _pcm(audio: np.ndarray) -> np.ndarray:
+    """A float waveform as it reads back from the 16-bit wav that
+    ``utils.audio_io.save_audio`` writes."""
+    return (np.clip(audio, -1.0, 1.0) * 32767).astype(np.int16) / 32768.0
+
+
+def kokoro_rows_alone(model, batch: tuple) -> tuple:
+    """Each row of a recorded ``synthesize_batch`` call (phoneme strings,
+    references, speeds and its outputs) synthesized alone, at that batch's
+    phoneme and frame buckets with its batch row's source draws.  Returns
+    (audio a row, phoneme bucket, frame bucket)."""
+    from mlx_audio_tpu_torch.models.tts.kokoro.model import (
+        pick_frame_bucket,
+        pick_phoneme_bucket,
+    )
+
+    phonemes, refs, speeds, outs = batch
+    n_bucket = pick_phoneme_bucket(max(len(model.phonemes_to_ids(p)) + 2 for p in phonemes))
+    f_bucket = pick_frame_bucket(max(a.shape[0] for a, _ in outs) // model.SAMPLES_PER_FRAME)
+    with torch.no_grad():
+        audio = [model.synthesize_batch([p], refs[i:i + 1], speeds=speeds,
+                                        buckets=(n_bucket, f_bucket), rows=[i])[0][0]
+                 for i, p in enumerate(phonemes)]
+    return audio, n_bucket, f_bucket
+
+
+def _check_same_state(name: str, got, want) -> None:
+    """Two models' state_dicts: the same keys, every tensor on the card and
+    equal bit for bit, in the same dtype."""
+    a, b = got.state_dict(), want.state_dict()
+    bad = sorted(set(a) ^ set(b)) or [k for k in b if not (
+        a[k].dtype == b[k].dtype and a[k].device.type == "cuda" and torch.equal(a[k], b[k]))]
+    if bad:
+        fail(f"{name}: {len(bad)} tensors differ from the written model's, e.g. {bad[:3]}")
+
+
+async def _serve(client, launches: dict, wall: dict, name: str, texts: list,
+                 model_dir: str, voice: str) -> list:
+    """One /tts request a text, all at once, with the launch counters set to
+    0 just before and read just after: the wav file names."""
+    import asyncio
+
+    from mlx_audio_tpu_torch.nn import kernels
+
+    async def one(text):
+        resp = await client.post("/tts", data={"text": text, "model": model_dir,
+                                               "voice": voice, "speed": SERVE_SPEED})
+        if resp.status != 200:
+            fail(f"/tts: {resp.status} {await resp.text()}")
+        return (await resp.json())["filename"]
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    names = await asyncio.gather(*(one(t) for t in texts))
+    torch.cuda.synchronize()
+    wall[name] = time.perf_counter() - t0
+    launches[name] = dict(kernels.LAUNCHES)
+    return names
+
+
+async def _post_stt(client, launches: dict, wall: dict, path: str, model_dir: str) -> dict:
+    from aiohttp import FormData
+
+    from mlx_audio_tpu_torch.nn import kernels
+
+    form = FormData()
+    form.add_field("model", model_dir)
+    with open(path, "rb") as f:
+        form.add_field("audio", f.read(), filename="clip.wav")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    resp = await client.post("/stt", data=form)
+    if resp.status != 200:
+        fail(f"/stt: {resp.status} {await resp.text()}")
+    out = await resp.json()
+    torch.cuda.synchronize()
+    wall["serve_stt"] = time.perf_counter() - t0
+    launches["serve_stt"] = dict(kernels.LAUNCHES)
+    return out
+
+
+def entry_point_runs(launches: dict, per_synthesis: dict, voice: str) -> dict:
+    """Phase 14: the port's entry points as a user calls them, all on the
+    card.  Kokoro-82M (seeded random weights at its published config) is
+    written with ``utils.loader.save_checkpoint`` into a directory named
+    Kokoro-82M and read back with ``load_model`` (every tensor equal bit for
+    bit); ``tts.convert.main`` writes a bf16 copy on the card, which loads
+    back equal bit for bit to the model cast; ``tts.generate.main`` makes a
+    wav of CLI_TEXT from that directory, held to the loaded model's own
+    ``generate`` within one PCM step.  Then ``server.create_app`` behind
+    aiohttp's test server on loopback: one lone /tts request, 8 concurrent
+    ones with different texts through a ``DynamicBatcher(max_batch=8)`` (one
+    batch of 8 rows launching ``lstm``, ``dilated_conv1d`` and
+    ``banded_conv1d`` as often as one phase 4 synthesis, each kernel held to
+    its plain version on the batch's own operands, each row's wav held to
+    its text alone at the batch's buckets with its row's draws, past
+    SERVE_HEAD within SERVE_ROW_ATOL but for SERVE_FLIP_SAMPLES samples
+    within SERVE_FLIP_MAX_ABS, and within SERVE_ROW_REL_RMS), and 5 under
+    ``max_batch=6`` (one ``generate_batch`` of exactly 5 rows).  Then
+    Whisper-large-v3-turbo (``build_whisper``'s weights, the bundled
+    tokenizer) cast to bf16 and
+    written as a native checkpoint; /stt of the shortest text's wav through
+    the loaded model (the route's defaults: language detection, then every
+    temperature of the fallback, which random weights never accept: 7
+    encodes of 224-token decodes): every encode launches
+    ``dilated_conv1d_bf16`` once (conv1) and no other kernel of ours, and the
+    segments' tokens and the text equal the written model's own
+    ``generate`` on that file."""
+    import asyncio
+    import dataclasses
+
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from mlx_audio_tpu_torch.models.tts.kokoro import Model
+    from mlx_audio_tpu_torch.models.tts.kokoro.presets import kokoro_82m_config
+    from mlx_audio_tpu_torch.nn import kernels
+    from mlx_audio_tpu_torch.server import DynamicBatcher, ServerState, create_app
+    from mlx_audio_tpu_torch.tts import convert as tts_convert
+    from mlx_audio_tpu_torch.tts import generate as tts_generate
+    from mlx_audio_tpu_torch.utils.audio_io import load_audio
+    from mlx_audio_tpu_torch.utils.loader import load_model, save_checkpoint
+
+    out, wall = {}, {}
+    run = path_runner(launches, wall)
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        # the native checkpoint
+        config = kokoro_82m_config()
+        written = Model(config, device="cuda")
+        kdir = str(tmp / "Kokoro-82M")
+        t0 = time.perf_counter()
+        save_checkpoint(written, kdir, {"model_type": "kokoro", **dataclasses.asdict(config)})
+        out["kokoro_save_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_model(kdir, device="cuda")
+        torch.cuda.synchronize()
+        out["kokoro_load_s"] = time.perf_counter() - t0
+        _check_same_state("kokoro native checkpoint", loaded, written)
+        # the converter, on the card by default: a bf16 copy that loads back in bf16
+        bdir = str(tmp / "Kokoro-82M-bf16")
+        t0 = time.perf_counter()
+        tts_convert.main(["--hf-path", kdir, "--out-path", bdir, "--dtype", "bfloat16"])
+        out["kokoro_convert_s"] = time.perf_counter() - t0
+        _check_same_state("kokoro bf16 conversion", load_model(bdir, device="cuda"),
+                          written.to(torch.bfloat16))
+        del written
+
+        # the TTS CLI
+        prefix = str(tmp / "cli")
+        run("serve_cli", lambda: tts_generate.main([
+            "--model", kdir, "--text", CLI_TEXT, "--voice", voice, "--speed", SERVE_SPEED,
+            "--file_prefix", prefix, "--join_audio"]))
+        missing = [k for k in KOKORO_KERNELS if launches["serve_cli"][k] == 0]
+        if missing:
+            fail(f"tts.generate CLI: kernels never launched: {missing}")
+        cli = load_audio(prefix + ".wav")
+        with torch.no_grad():
+            own = np.concatenate([r.audio for r in loaded.generate(
+                CLI_TEXT, voice=voice, speed=float(SERVE_SPEED))])
+        del loaded
+        cli_err = float(np.abs(cli - _pcm(own)).max()) if cli.shape == own.shape else np.inf
+        out["cli"] = {"wall_s": wall["serve_cli"], "samples": int(cli.shape[0]),
+                      "max_abs_diff": cli_err}
+        if not (np.isfinite(cli).all() and cli_err <= PCM_STEP):
+            fail(f"tts.generate CLI: {cli.shape} samples, {cli_err:.3e} from the loaded "
+                 f"model's own generate ({own.shape})")
+
+        # the server: a lone request, a batch of 8, 5 under max_batch 6
+        state = ServerState(output_folder=str(tmp / "served"), device="cuda")
+        t0 = time.perf_counter()
+        model = state.get_tts(kdir)
+        out["server_load_s"] = time.perf_counter() - t0
+        rows, synth = [], []
+        batch_fn, synth_fn = model.generate_batch, model.synthesize_batch
+        model.generate_batch = lambda texts, **kw: (rows.append(len(texts)),
+                                                    batch_fn(texts, **kw))[1]
+
+        def recording_synth(phonemes, refs, speeds=None, **kw):
+            outs = synth_fn(phonemes, refs, speeds=speeds, **kw)
+            synth.append((phonemes, refs, speeds, outs))
+            return outs
+
+        model.synthesize_batch = recording_synth
+        # the batch of 8 runs with every conv and lstm launch's operands
+        # recorded (the first at each shape), then held to the plain versions
+        conv_calls, lstm_calls = {}, {}
+        n_small, cap = SERVE_SMALL_BATCH
+        rounds = (("serve_tts_lone", SERVE_TEXTS[:1], 1),
+                  ("serve_tts_batch", SERVE_TEXTS, SERVE_MAX_BATCH),
+                  ("serve_tts_small", SERVE_TEXTS[:n_small], cap))
+
+        async def serve_tts():
+            names, sizes = {}, []
+            async with TestClient(TestServer(create_app(state), host="127.0.0.1")) as client:
+                for name, texts, max_batch in rounds:
+                    state.batcher = DynamicBatcher(state, max_batch=max_batch,
+                                                   max_wait_ms=SERVE_WINDOW_MS)
+                    recording = name == "serve_tts_batch"
+                    if recording:
+                        convs = record_conv_calls(conv_calls)
+                        lstm = record_lstm_calls(lstm_calls)
+                    try:
+                        names[name] = await _serve(client, launches, wall, name, texts,
+                                                   kdir, voice)
+                    finally:
+                        state.batcher.close()
+                        if recording:
+                            kernels.banded_conv1d, kernels.dilated_conv1d = convs
+                            kernels.lstm = lstm
+                    sizes.append(state.batcher.last_batch_size)
+            state.batcher = None
+            return names, sizes, convs, lstm
+
+        names, sizes, convs, lstm = asyncio.run(serve_tts())
+        want_rows = [len(texts) for _, texts, _ in rounds]
+        if rows != want_rows or sizes != want_rows:
+            fail(f"server: generate_batch rows {rows}, last batch sizes {sizes} "
+                 f"(expected {want_rows}: at most max_batch rows, none padded)")
+        got = {k: v for k, v in launches["serve_tts_batch"].items() if v}
+        want = {k: v for k, v in per_synthesis.items() if v}
+        if got != want:
+            fail(f"server batch of {SERVE_MAX_BATCH}: launches {got}, expected phase 4's "
+                 f"per-synthesis {want}")
+        conv_err = check_conv_path(conv_calls, convs, "server batch")
+        lstm_err = check_lstm_path(lstm_calls, lstm, "server batch")
+        path_shapes = {**_per_kernel(conv_calls), "lstm": len(lstm_calls)}
+        del conv_calls, lstm_calls
+        torch.cuda.empty_cache()
+        # each row against its text alone, at the batch's buckets
+        t0 = time.perf_counter()
+        model.synthesize_batch = synth_fn
+        alone, n_bucket, f_bucket = kokoro_rows_alone(model, synth[1])
+        wavs = [load_audio(Path(state.output_folder) / name)
+                for name in names["serve_tts_batch"]]
+
+        def against(wav, a):
+            n = min(wav.shape[0], a.shape[0])
+            got, want = wav[SERVE_HEAD:n], _pcm(a)[SERVE_HEAD:n]
+            diff = np.abs(got - want)
+            over = diff > SERVE_ROW_ATOL + PCM_STEP
+            return {"max_abs": float(diff.max()), "over_atol": int(over.sum()),
+                    "rel_rms": rel_rms(torch.from_numpy(got), torch.from_numpy(want))}
+
+        row_err = []
+        for i, (wav, a) in enumerate(zip(wavs, alone)):
+            if wav.shape != a.shape or not np.isfinite(wav).all():
+                fail(f"server row {i}: {wav.shape} samples, its text alone {a.shape}")
+            row_err.append(against(wav, a))
+        swapped = [against(wav, alone[(i + 1) % len(alone)]) for i, wav in enumerate(wavs)]
+        if any(e["over_atol"] > SERVE_FLIP_SAMPLES or e["max_abs"] > SERVE_FLIP_MAX_ABS
+               or e["rel_rms"] > SERVE_ROW_REL_RMS for e in row_err):
+            fail(f"server rows against their texts alone past sample {SERVE_HEAD}: "
+                 f"{row_err} (atol {SERVE_ROW_ATOL} but for {SERVE_FLIP_SAMPLES} samples "
+                 f"within {SERVE_FLIP_MAX_ABS}, relative RMS {SERVE_ROW_REL_RMS})")
+        print(f"server rows against their texts alone past sample {SERVE_HEAD}: relative "
+              f"RMS {max(e['rel_rms'] for e in row_err):.3e} at most, max_abs "
+              f"{max(e['max_abs'] for e in row_err):.3e} (bounds {SERVE_ROW_REL_RMS}, "
+              f"{SERVE_FLIP_MAX_ABS}); rows swapped (each against the next text alone): "
+              f"relative RMS {min(e['rel_rms'] for e in swapped):.3e} at least, max_abs "
+              f"{min(e['max_abs'] for e in swapped):.3e} at least", flush=True)
+        audio_s = sum(a.shape[0] for a in alone) / model.sample_rate
+        out["tts"] = {
+            "lone_wall_s": wall["serve_tts_lone"], "batch_wall_s": wall["serve_tts_batch"],
+            "small_batch_wall_s": wall["serve_tts_small"], "batch_audio_s": audio_s,
+            "batch_audio_s_per_s": audio_s / wall["serve_tts_batch"],
+            "lone_audio_s": alone[0].shape[0] / model.sample_rate,
+            "phoneme_bucket": n_bucket, "frame_bucket": f_bucket,
+            "frames": [a.shape[0] // 600 for a in alone],
+            "rows_past_head": row_err, "rows_swapped": swapped,
+            "conv_path_err": conv_err, "lstm_path_err": lstm_err, "path_shapes": path_shapes,
+            "alone_check_s": time.perf_counter() - t0}
+        stt_wav = str(Path(state.output_folder)
+                      / names["serve_tts_batch"][int(np.argmin([a.size for a in alone]))])
+        del model, alone, wavs, synth
+        state.tts_model = None
+        torch.cuda.empty_cache()
+
+        # Whisper-large-v3-turbo in bf16 through /stt
+        wmodel, _ = build_whisper()
+        del wmodel._tokenizer  # the bundled tokenizer, as a loaded model has
+        wmodel.to(torch.bfloat16)
+        wdir = str(tmp / "whisper-large-v3-turbo")
+        t0 = time.perf_counter()
+        save_checkpoint(wmodel, wdir, WHISPER_DIMS)
+        out["whisper_save_s"] = time.perf_counter() - t0
+        out["whisper_checkpoint_gb"] = (Path(wdir) / "weights.safetensors").stat().st_size / 1e9
+        t0 = time.perf_counter()
+        served = state.get_stt(wdir)
+        torch.cuda.synchronize()
+        out["whisper_load_s"] = time.perf_counter() - t0
+        _check_same_state("whisper bf16 native checkpoint", served, wmodel)
+        encodes = {"n": 0}
+        undo = _count_calls(served.encoder, encodes)
+
+        async def serve_stt():
+            async with TestClient(TestServer(create_app(state), host="127.0.0.1")) as client:
+                return await _post_stt(client, launches, wall, stt_wav, wdir)
+
+        try:
+            resp = asyncio.run(serve_stt())
+        finally:
+            undo()
+        _check_only("serve_stt", launches["serve_stt"], {"dilated_conv1d_bf16": encodes["n"]})
+        with torch.no_grad():
+            own = wmodel.generate(stt_wav)
+        got_tokens = [s["tokens"] for s in resp["segments"]]
+        own_tokens = [s["tokens"] for s in own.segments]
+        if not got_tokens or got_tokens != own_tokens or resp["text"] != own.text:
+            fail(f"/stt: segment tokens {[len(t) for t in got_tokens]} differ from the "
+                 f"written model's own generate {[len(t) for t in own_tokens]}")
+        out["stt"] = {"wall_s": wall["serve_stt"], "encodes": encodes["n"],
+                      "segments": len(got_tokens),
+                      "tokens": sum(len(t) for t in got_tokens), "language": resp["language"],
+                      "audio_s": len(load_audio(stt_wav)) / 24_000}
+        del wmodel, served
+        state.stt_model = None
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6455,7 +6794,6 @@ def main() -> int:
     voxtral = build_voxtral()
     voxtral_run = voxtral_runs(voxtral, launches)
     voxtral_info = voxtral_breakdown(voxtral, voxtral_run)
-    voxtral_cpu = voxtral_card_against_cpu(voxtral, voxtral_run)
     voxtral_bf16 = voxtral_bf16_runs(voxtral, launches, voxtral_run)
     del voxtral
     torch.cuda.empty_cache()
@@ -6469,7 +6807,7 @@ def main() -> int:
           f"against the CPU {json.dumps(whisper_cpu)}; Whisper bf16 {json.dumps(whisper_bf16)}; "
           f"Voxtral {json.dumps(voxtral_info)}, "
           f"generate's real-time factor {voxtral_run['real_time_factor']:.4f}, peak "
-          f"{voxtral_run['peak_memory_gb']:.2f} GB, against the CPU {json.dumps(voxtral_cpu)}"
+          f"{voxtral_run['peak_memory_gb']:.2f} GB"
           f"; Voxtral bf16 {json.dumps(voxtral_bf16)}", flush=True)
 
     # phase 11: Parakeet-TDT-0.6B-v2 and BigVGAN-v2-24kHz-100band (f32)
@@ -6530,6 +6868,17 @@ def main() -> int:
           f"; per bench synthesis call {json.dumps({k: v for k, v in bf16_per_call.items() if v})}"
           f"; generate against the CPU {json.dumps(kokoro_bf16['against_cpu'])}; phase 13 took "
           f"{time.perf_counter() - t13:.1f} s; on {card}", flush=True)
+
+    # phase 14: the entry points: native checkpoints, the TTS CLI, the server
+    phase_start(14)
+    t14 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        voice = str(Path(tmp) / "voice.npy")
+        np.save(voice, pack.astype(np.float32))
+        entry_out = entry_point_runs(launches, per_call, voice)
+    phase14 = {k: launches[k] for k in launches if k.startswith("serve_")}
+    print(f"phase 14 launches: {json.dumps(phase14)}; entry points {json.dumps(entry_out)}; "
+          f"phase 14 took {time.perf_counter() - t14:.1f} s; on {card}", flush=True)
 
     kernel_line = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -6625,6 +6974,10 @@ def main() -> int:
                 for r in cases if "route row" in r["shape"]]
         if name in KOKORO_KERNELS:
             entry["launches_per_synthesis"] = per_call[name]
+            server = entry_out["tts"]
+            entry["max_abs_err"] = max(entry["max_abs_err"], server["lstm_path_err"]
+                                       if name == "lstm" else server["conv_path_err"][name])
+            entry["server_batch_shapes"] = server["path_shapes"][name]
         elif name not in PROBE_KERNELS:
             entry["launches_per_spec_frame"] = (
                 launches["csm_generate_spec"][name] / CSM_FRAMES)
@@ -6662,7 +7015,7 @@ def main() -> int:
             entry["launches_per_indextts_bf16_vocoder_call"] = launches[
                 "indextts_bf16_generate"][name]
         kernel_line.append(entry)
-    phase_start(14)
+    phase_start(15)
     print(f"phase starts (s from the start): {json.dumps(starts)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

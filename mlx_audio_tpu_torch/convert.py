@@ -37,6 +37,12 @@ and attention ``pos_bias_u``/``pos_bias_v`` too).  Tests feed it
 ``dict(named_arrays(jax_model))`` as numpy arrays, and ``from_pretrained``
 the output of a JAX-layout ``sanitize``; the port never imports JAX to use
 it.
+
+``params_to_jax`` is its exact inverse: a port state_dict back to the JAX
+paths and channels-last layouts, as numpy arrays (bf16 as
+``ml_dtypes.bfloat16``, uint8 codes and their scales as they are).  It is
+the writing side of the native checkpoint format that both packages read
+(``utils.loader.save_checkpoint``).
 """
 
 from __future__ import annotations
@@ -111,3 +117,40 @@ def to_tensor(w: np.ndarray) -> torch.Tensor:
         bits = np.ascontiguousarray(w).view(np.uint16)
         return torch.from_numpy(bits.copy()).view(torch.bfloat16)
     return torch.tensor(w)
+
+
+def params_to_jax(state: dict[str, torch.Tensor],
+                  module: nn.Module) -> dict[str, np.ndarray]:
+    """A state_dict of the port's ``module`` -> the JAX package's
+    ``named_arrays`` paths and layouts, as numpy arrays; the inverse of
+    :func:`params_from_jax` (the computed tables it drops stay dropped)."""
+    kinds = conv_kinds(module)
+    out = {}
+    for key, t in state.items():
+        w = to_numpy(t)
+        kind = kinds.get(key.rpartition(".")[0])
+        if kind == "table":
+            continue
+        if w.ndim == 3 and key.endswith("weight_g"):
+            w = w.reshape((-1, 1, 1) if kind == "conv_tap"
+                          else (1, -1, 1) if kind == "convt" else (1, 1, -1))
+        elif w.ndim == 3 and key.endswith(("weight_v", "weight")):
+            if kind == "convt":
+                w = w.transpose(2, 0, 1)  # [Cin, Cout, K] -> [K, Cin, Cout]
+            elif kind in ("conv", "conv_tap"):
+                w = w.transpose(2, 1, 0)  # [Cout, Cin, K] -> [K, Cin, Cout]
+        elif w.ndim == 4 and key.endswith("weight") and kind == "conv2d":
+            w = w.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        out[key] = np.ascontiguousarray(w)
+    return out
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` as a numpy array of its dtype; bf16 as
+    ``ml_dtypes.bfloat16`` through its uint16 view, bit for bit."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()

@@ -23,6 +23,16 @@ class BaseModelArgs:
         return cls(**{k: v for k, v in params.items() if k in names})
 
 
+class DictConfig(dict):
+    """The config of a family whose ``Model`` takes a plain dict (CSM's,
+    Parakeet's NeMo config): the registry's ``ModelConfig.from_dict``
+    passes it on as it is."""
+
+    @classmethod
+    def from_dict(cls, params: dict) -> dict:
+        return dict(params)
+
+
 def model_device(device, who: str) -> torch.device:
     """The device a model is built on.  "cuda" raises without a card, and
     turns TF32 off: float32 matmuls and, by default, cuDNN convolutions

@@ -1,3 +1,4 @@
+from mlx_audio_tpu_torch.models.base import DictConfig as ModelConfig
 from mlx_audio_tpu_torch.models.stt.parakeet.parakeet import (
     BaseParakeet,
     Model,
@@ -8,5 +9,5 @@ from mlx_audio_tpu_torch.models.stt.parakeet.parakeet import (
     transducer_greedy_loop,
 )
 
-__all__ = ["Model", "BaseParakeet", "ParakeetTDT", "ParakeetRNNT", "ParakeetCTC",
-           "sanitize_hf_parakeet", "transducer_greedy_loop"]
+__all__ = ["Model", "ModelConfig", "BaseParakeet", "ParakeetTDT", "ParakeetRNNT",
+           "ParakeetCTC", "sanitize_hf_parakeet", "transducer_greedy_loop"]

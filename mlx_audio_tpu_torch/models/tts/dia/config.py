@@ -71,6 +71,11 @@ class DiaConfig:
     model: DiaModelConfig = field(default_factory=DiaModelConfig)
 
     @classmethod
+    def from_dict(cls, d: dict) -> "DiaConfig":
+        """The registry's name for :meth:`load_dict`."""
+        return cls.load_dict(d)
+
+    @classmethod
     def load_dict(cls, d: dict) -> "DiaConfig":
         if "decoder_config" in d or "encoder_config" in d:
             return cls.from_hf_dict(d)

@@ -229,9 +229,11 @@ NOISE_BLOCK = 60000  # audio samples: one frame-bucket step (100 x 600)
 
 
 def source_noise(b: int, length: int, harmonics: int, device,
-                 seed: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+                 seed: int = 0, rows: Optional[Sequence[int]] = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The source's draws: ``rand_ini`` [B, harmonics] and standard normal
-    ``noise`` [B, length, harmonics].
+    ``noise`` [B, length, harmonics], of batch rows 0 to B - 1, or of the
+    B batch rows that ``rows`` names.
 
     Each row has a ``torch.Generator`` of its own on ``device``, seeded from
     (seed, row), and draws its noise in blocks of ``NOISE_BLOCK`` samples.
@@ -241,7 +243,7 @@ def source_noise(b: int, length: int, harmonics: int, device,
     """
     n_blocks = -(-length // NOISE_BLOCK)
     rand_ini, noise = [], []
-    for row in range(b):
+    for row in (range(b) if rows is None else rows):
         gen = torch.Generator(device=device).manual_seed(seed * 2 ** 20 + row)
         rand_ini.append(torch.randn(harmonics, generator=gen, device=device))
         blocks = [torch.randn(NOISE_BLOCK, harmonics, generator=gen,

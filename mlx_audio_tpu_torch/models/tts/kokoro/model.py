@@ -34,7 +34,7 @@ from mlx_audio_tpu_torch.models.tts.kokoro.albert import (
     AlbertModelArgs,
     CustomAlbert,
 )
-from mlx_audio_tpu_torch.models.tts.kokoro.istftnet import Decoder
+from mlx_audio_tpu_torch.models.tts.kokoro.istftnet import Decoder, source_noise
 from mlx_audio_tpu_torch.models.tts.kokoro.modules import (
     ProsodyPredictor,
     TextEncoder,
@@ -185,13 +185,16 @@ class Model(nn.Module):
         return audio, pred_dur
 
     def synthesize_batch(self, phonemes_list: list, ref_s: np.ndarray,
-                         speeds=None, seed: int = 0):
+                         speeds=None, seed: int = 0, buckets=None, rows=None):
         """Batched synthesis: B phoneme strings -> list of (audio, pred_dur).
 
         One duration pass and one synthesis pass for the whole batch, with
         ragged lengths through per-row masks: durations are bit-exact with
         respect to single-row runs, and so are the source's draws, which
-        are per row.
+        are per row.  ``buckets`` (phoneme bucket, frame bucket) runs the
+        batch at those, which must fit it, in place of the least that do;
+        ``rows`` gives row i the source draws of batch row ``rows[i]``.
+        With both, a string alone computes as it does in a larger batch.
         """
         b = len(phonemes_list)
         toks = [[0, *self.phonemes_to_ids(p), 0] for p in phonemes_list]
@@ -199,7 +202,7 @@ class Model(nn.Module):
         if max(n_valid) > self.context_length:
             raise ValueError(f"phoneme sequence too long: {max(n_valid)} > "
                              f"{self.context_length}")
-        bucket = pick_phoneme_bucket(max(n_valid))
+        bucket = pick_phoneme_bucket(max(n_valid)) if buckets is None else buckets[0]
         ids = np.zeros((b, bucket), dtype=np.int64)
         for i, t in enumerate(toks):
             ids[i, :len(t)] = t
@@ -217,9 +220,12 @@ class Model(nn.Module):
                                      speed)
         pred_np = pred_dur.cpu().numpy()
         totals = pred_np.sum(axis=1)
-        f_bucket = pick_frame_bucket(int(totals.max()))
+        f_bucket = pick_frame_bucket(int(totals.max())) if buckets is None else buckets[1]
+        draws = (None, None) if rows is None else source_noise(
+            b, self.SAMPLES_PER_FRAME * f_bucket,
+            self.decoder.generator.m_source.l_sin_gen.dim, dev, seed, rows=rows)
         audio, _ = synthesis_stage(self, input_ids, lengths, d, pred_dur, ref,
-                                   f_bucket, seed=seed)
+                                   f_bucket, *draws, seed=seed)
         audio_np = audio.float().cpu().numpy()
         return [(audio_np[i, :int(totals[i]) * self.SAMPLES_PER_FRAME],
                  pred_np[i, :n_valid[i]]) for i in range(b)]

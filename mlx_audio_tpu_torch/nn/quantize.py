@@ -40,6 +40,9 @@ from mlx_audio_tpu_torch.nn.layers import Embedding, Linear
 # rows).  The JAX package's TPU kernel takes up to 512.
 KERNEL_MAX_ROWS = 32
 
+# the converter's mixed-bit recipes (``mixed_quant_predicate_builder``)
+QUANT_RECIPES = ["mixed_2_6", "mixed_3_4", "mixed_3_6", "mixed_4_6"]
+
 
 def _affine_quantize(w: torch.Tensor, group_size: int, bits: int):
     """w [O, I] -> (codes uint8 [O, I], scales [O, I/gs], biases [O, I/gs])."""
@@ -302,3 +305,22 @@ def dequantize_model(model: nn.Module) -> nn.Module:
 
     _walk_replace(model, decide)
     return model
+
+
+def mixed_quant_predicate_builder(recipe: str, model) -> Callable:
+    """The predicate of a mixed-bit recipe ``mixed_L_H``: embeddings and LM
+    heads get H bits, one in four indexed layers gets H bits, the rest get L
+    bits (the JAX package's rule)."""
+    import re
+
+    low, high = (int(x) for x in recipe.split("_")[1:])
+
+    def predicate(path, mod, config):
+        if "embed" in path or "lm_head" in path or path.endswith("head"):
+            return {"bits": high}
+        m = re.search(r"\.(\d+)\.", path)
+        if m is not None and int(m.group(1)) % 4 == 0:
+            return {"bits": high}
+        return {"bits": low}
+
+    return predicate

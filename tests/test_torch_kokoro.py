@@ -174,6 +174,30 @@ def test_synthesize_batch_contract(models):
         np.testing.assert_array_equal(dur, dur_single)
 
 
+def test_synthesize_batch_row_alone_at_the_batch_buckets(models):
+    """A row run alone at its batch's buckets, with its batch row's source
+    draws (``buckets``, ``rows``), gives that row's durations and, past
+    HEAD, its audio within FLIP_TAIL_ATOL."""
+    import mlx_audio_tpu_torch.models.tts.kokoro.model as km
+
+    port = models[1]
+    rng = np.random.default_rng(5)
+    ps = ["hello world", "abc", "a longer third phoneme string here"]
+    refs = (rng.standard_normal((3, 256)) * 0.1).astype(np.float32)
+    outs = port.synthesize_batch(ps, refs, speeds=4.0)
+    buckets = (km.pick_phoneme_bucket(max(len(port.phonemes_to_ids(p)) + 2 for p in ps)),
+               km.pick_frame_bucket(max(a.shape[0] for a, _ in outs) // 600))
+    for i, (p, (audio, dur)) in enumerate(zip(ps, outs)):
+        (alone, dur_alone), = port.synthesize_batch([p], refs[i:i + 1], speeds=4.0,
+                                                    buckets=buckets, rows=[i])
+        np.testing.assert_array_equal(dur_alone, dur)
+        assert alone.shape == audio.shape
+        np.testing.assert_allclose(alone[HEAD:], audio[HEAD:], atol=FLIP_TAIL_ATOL, rtol=0)
+    # row 1's draws are not row 0's: without ``rows`` the row parts from its batch
+    (default, _), = port.synthesize_batch([ps[1]], refs[1:2], speeds=4.0, buckets=buckets)
+    assert np.abs(default[HEAD:] - outs[1][0][HEAD:]).max() > FLIP_TAIL_ATOL
+
+
 def test_generate_entry_points(models, tmp_path):
     port = models[1]
     pack = (np.random.default_rng(4).standard_normal((510, 1, 256)) * 0.1
