@@ -9,8 +9,9 @@ Kokoro-82M, EnCodec, BigVGAN, the int8 LMs (CSM-1B, Orpheus-3B,
 OuteTTS-1B, Spark-TTS-0.5B, Voxtral-Mini-3B), Dia-1.6B, Bark,
 Whisper-large-v3-turbo, Parakeet-TDT-0.6B-v2 and IndexTTS-1.5 in bf16, the
 entry points a user calls (native checkpoints, the TTS CLI, the HTTP
-server's batched /tts and its /stt), and check its hand-written CUDA
-kernels and their bf16 variants.
+server's batched /tts and its /stt), a speech-to-speech session (Whisper,
+a chat LM and Kokoro behind /ws/sts and the WebRTC bridge), and check its
+hand-written CUDA kernels and their bf16 variants.
 
     python3 chip_smoke.py
 
@@ -244,8 +245,8 @@ Phases; the failure of any one ends the script with a non-zero exit:
    run makes its budget, a stub tokenizer), from a seeded 3 s clip as
    ``ref_audio``: greedy ``generate`` of 255 codes (256 latents, 10.92 s),
    ``generate_batch`` of 4 prompts of different lengths (one vocoder call
-   at batch 4) and each prompt's single run (codes equal, audio within the
-   tolerance), a sampled ``generate`` twice with one seed (it repeats);
+   at batch 4) and the single runs of its first two rows (codes equal,
+   audio within the tolerance), a sampled ``generate`` twice with one seed (it repeats);
    every vocoder call launches ``dilated_conv1d`` 26 times and
    ``banded_conv1d`` 10 times (the 768- and 384-channel resblocks) and no
    other kernel of ours, each held to its plain version on the path's
@@ -294,7 +295,21 @@ Phases; the failure of any one ends the script with a non-zero exit:
    and the tokens equal the written model's own ``generate``; the save and
    load seconds, the batch's and the lone request's wall seconds, peak
    memory;
-15. print one ``{"kernels": [...]}`` line, then the device line last.
+15. one speech-to-speech session on the card, as ``scripts/bench_sts.py``
+   drives it (``sts_session_runs``): phase 14's bf16 Whisper checkpoint
+   behind a greedy English shim, a chat LM at Qwen2.5-0.5B-Instruct's
+   widths in bf16 (written as an HF-layout directory and read with
+   ``ChatLM.from_pretrained``), phase 14's bf16 Kokoro with its duration
+   head at the trained rate; the server's ``prewarm`` (one call a stage),
+   3 turns through /ws/sts (2 s of speech, real-time silence frames, then
+   "flush") and one through the WebRTC bridge at 48 kHz: every turn gives
+   its transcript, a chunk a reply sentence and the final reply; each
+   chunk equals a direct ``generate`` of its sentence, each reply a direct
+   ``respond_stream``; every conv and lstm launch is held to its plain
+   version; the chat LM's bf16 logits within 3e-2 of float32's on the
+   card; per turn its launches, speech end and flush to the first audio
+   byte, and the STT, chat and TTS wall seconds;
+16. print one ``{"kernels": [...]}`` line, then the device line last.
 
 Phase 2 holds ``quantized_matmul`` at Orpheus-3B's, OuteTTS-1B's,
 Spark-TTS-0.5B's and Voxtral-Mini-3B's shapes too (int8, groups of 64, 1
@@ -303,7 +318,7 @@ BiCodec's routed resblock shapes (K=7, d = 1, 3, 9), at Whisper's conv1
 (batch 1 and 4), and at BigVGAN-v2's resblocks ([1, 3752, 768] and [1,
 15008, 384], K = 3, 7, 11 at d = 1, 3, 5) and IndexTTS-1.5's ([1, 2408,
 768] and [1, 19264, 384], the same K and d).  Launch counters are set to 0
-just before each run of the probes' entry point and of phases 3 to 14, and
+just before each run of the probes' entry point and of phases 3 to 15, and
 read just after:
 each kernel of a run's path must have launched in it (Orpheus:
 ``quantized_matmul``; DAC's encode and decode: both conv kernels; OuteTTS
@@ -2342,6 +2357,7 @@ OUTETTS_TOKENS = 240  # 120 frames of a c1 and a c2 code; the DAC decodes 112 of
 OUTETTS_TEXT = ORPHEUS_TEXT
 OUTETTS_BATCH_TEXTS = CSM_BATCH_TEXTS
 OUTETTS_STREAM_INTERVAL = 1.0  # a decode every 137 tokens
+OUTETTS_TIMED_TOKENS = 64  # tokens a timed decode of the breakdown
 # the stub tokenizer's ids: <|c1_n|> at OUTETTS_CODES + 2 n, <|c2_n|> at
 # OUTETTS_CODES + 2 n + 1, <|im_end|> at OUTETTS_EOS
 OUTETTS_CODES, OUTETTS_EOS = 130_000, 133_000
@@ -2354,9 +2370,10 @@ DIA_BATCH_TEXTS = ["[S1] One short line. [S2] Yes.",
                    "[S1] A second line, a little longer. [S2] It is.",
                    "[S1] Three. [S2] Four.",
                    "[S1] And the fourth line closes the batch. [S2] Done."]
-DIA_BUCKET_STEPS = 64  # steps of the encoder-bucket comparison
-DIA_TIMED_STEPS = 64  # steps a timed decode of the breakdown
-DIA_TF_STEPS = 4  # teacher-forced steps held against the CPU, to TOL
+DIA_BUCKET_STEPS = 40  # steps of the encoder-bucket comparison: its DAC decode drops
+# 30 frames
+DIA_TIMED_STEPS = 32  # steps a timed decode of the breakdown
+DIA_TF_STEPS = 2  # teacher-forced steps held against the CPU, to TOL
 DIA_CFG_SCALE = 3.0  # the entry points' default classifier-free guidance
 
 
@@ -2562,7 +2579,7 @@ def outetts_breakdown(model) -> dict:
 
     pp = PromptProcessor(model._tokenizer)
     return lm_breakdown("outetts", model.lm, _outetts_rows(model, [OUTETTS_TEXT]),
-                        _outetts_rows(model, OUTETTS_BATCH_TEXTS), OUTETTS_TOKENS,
+                        _outetts_rows(model, OUTETTS_BATCH_TEXTS), OUTETTS_TIMED_TOKENS,
                         1.1, 64, lambda t: model._decode(pp.extract_audio_from_tokens(t)),
                         model.sample_rate)
 
@@ -2752,7 +2769,10 @@ def dia_card_against_cpu(model, codes) -> float:
     t0 = time.perf_counter()
     card = _dia_tf_logits(model, model.model, codes, DIA_TF_STEPS)
     cpu_model = DiaModel(model.config)
-    cpu_model.load_state_dict({k: v.cpu() for k, v in model.model.state_dict().items()})
+    # assigned, not copied: DiaModel leaves its weights empty, and writing
+    # 6.4 GB of fresh pages costs seconds
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.model.state_dict().items()},
+                              assign=True)
     cpu = _dia_tf_logits(model, cpu_model, codes, DIA_TF_STEPS)
     err = float((card - cpu).abs().max())
     print(f"dia card against the CPU: {DIA_TF_STEPS} teacher-forced steps of the greedy "
@@ -4618,8 +4638,15 @@ INDEXTTS_BATCH_TEXTS = [
     INDEXTTS_TEXT, "One short line.", "A second line, a little longer than the first.",
     "And the fourth line of the batch is the longest of the four, so long that its "
     "prompt needs one more bucket."]
+# the batch rows held to single runs: the greedy run's text, and the
+# shortest, behind the most left padding
+INDEXTTS_SINGLE_ROWS = (0, 1)
 INDEXTTS_SAMPLED = {"temperature": 0.8, "top_k": 30, "seed": 7}
 INDEXTTS_TIE = 1e-5  # a code may differ from the CPU's where its margin is this or less
+# latents the vocoder check runs on the CPU: at the last upsampling stage
+# 6 144 rows at 384 channels, past the banded route's 4 096 as the whole
+# run's are
+INDEXTTS_CPU_LATENTS = 96
 INDEXTTS_AUDIO_STD = 0.05  # build_indextts scales the last conv to this audio std
 # launches of each conv kernel a vocoder call at 256 latents, by conv1d_route:
 # 18 + 8 dilated, 10 banded (the stages of 768 and 384 channels; the
@@ -4704,13 +4731,14 @@ def _check_indextts(name: str, result, hop: int) -> None:
 
 
 def indextts_runs(model, launches: dict) -> dict:
-    """Greedy generate of one text, generate_batch of 4 texts and each text's
-    single run, a sampled generate twice with one seed, all from a seeded
+    """Greedy generate of one text, generate_batch of 4 texts and the single
+    runs of rows INDEXTTS_SINGLE_ROWS (row 0's is the greedy run), a
+    sampled generate twice with one seed, all from a seeded
     3 s clip as ref_audio, INDEXTTS_TOKENS codes each.  Every vocoder call
     must launch dilated_conv1d 26 times and banded_conv1d 10 times and no
     other kernel of ours launch; each launched conv is held to its plain
-    version on the path's own operands; each batch row's codes equal its
-    single run's and its audio within TOL; the sampled runs repeat."""
+    version on the path's own operands; those batch rows' codes equal their
+    single runs' and their audio within TOL; the sampled runs repeat."""
     from mlx_audio_tpu_torch.nn import kernels, layers
 
     clip = _indextts_clip()
@@ -4741,9 +4769,9 @@ def indextts_runs(model, launches: dict) -> dict:
         batch = counted("indextts_generate_batch", lambda: model.generate_batch(
             INDEXTTS_BATCH_TEXTS, temperature=0, **budget))
         singles = [greedy] + [
-            counted(f"indextts_single_{i}", lambda t=t: model.generate_batch(
-                [t], temperature=0, **budget)[0])
-            for i, t in enumerate(INDEXTTS_BATCH_TEXTS[1:], 1)]
+            counted(f"indextts_single_{i}", lambda i=i: model.generate_batch(
+                [INDEXTTS_BATCH_TEXTS[i]], temperature=0, **budget)[0])
+            for i in INDEXTTS_SINGLE_ROWS[1:]]
         sampled = [counted(f"indextts_sampled_{i}", lambda: list(model.generate(
             INDEXTTS_TEXT, **INDEXTTS_SAMPLED, **budget))[0]) for i in range(2)]
     finally:
@@ -4774,17 +4802,17 @@ def indextts_runs(model, launches: dict) -> dict:
 
     batch_codes = codes("indextts_generate_batch")
     single_codes = [codes("indextts_generate")[0]] + [
-        codes(f"indextts_single_{i}")[0] for i in range(1, len(INDEXTTS_BATCH_TEXTS))]
+        codes(f"indextts_single_{i}")[0] for i in INDEXTTS_SINGLE_ROWS[1:]]
     stop = model.args.gpt.stop_mel_token
     if any(stop in c for c in batch_codes + single_codes):
         fail("indextts: a run sampled the stop code")
     row_err = []
-    for i, (r, s) in enumerate(zip(batch, singles)):
-        if batch_codes[i] != single_codes[i]:
-            k = next(j for j, (a, b) in enumerate(zip(batch_codes[i], single_codes[i]))
-                     if a != b)
+    for i, s, s_codes in zip(INDEXTTS_SINGLE_ROWS, singles, single_codes):
+        r = batch[i]
+        if batch_codes[i] != s_codes:
+            k = next(j for j, (a, b) in enumerate(zip(batch_codes[i], s_codes)) if a != b)
             fail(f"indextts: batch row {i}'s code {k} is {batch_codes[i][k]}, its single "
-                 f"run's {single_codes[i][k]}")
+                 f"run's {s_codes[k]}")
         row_err.append(float(np.abs(r.audio - s.audio).max()))
         if not np.allclose(r.audio, s.audio, **TOL):
             fail(f"indextts: batch row {i}'s audio differs from its single run by "
@@ -4799,9 +4827,11 @@ def indextts_runs(model, launches: dict) -> dict:
     print_routes("indextts", routes)
     conv_err = check_conv_path(conv_calls, convs, "IndexTTS")
     print(f"indextts: generate, generate_batch of {len(INDEXTTS_BATCH_TEXTS)} (prompts of "
-          f"{[len(t) for t in INDEXTTS_BATCH_TEXTS]} characters), 3 more single runs and a "
+          f"{[len(t) for t in INDEXTTS_BATCH_TEXTS]} characters), "
+          f"{len(INDEXTTS_SINGLE_ROWS) - 1} more single run and a "
           f"sampled generate twice, {INDEXTTS_TOKENS + 1} latents each ({INDEXTTS_SECONDS:.4f} s "
-          f"of 24 kHz audio): batch rows against single runs: codes equal, audio "
+          f"of 24 kHz audio): batch rows {list(INDEXTTS_SINGLE_ROWS)} against single runs: "
+          f"codes equal, audio "
           f"{', '.join(f'{e:.3e}' for e in row_err)}; sampled repeat: codes equal, audio "
           f"{sampled_err:.3e}, {sum(a != b for a, b in zip(sampled_codes[0], single_codes[0]))} "
           f"of {INDEXTTS_TOKENS + 1} codes differ from greedy; max |y| "
@@ -4889,8 +4919,8 @@ def indextts_card_against_cpu(model, run: dict) -> dict:
     latents and logits of the greedy run's prompt and all its steps
     teacher-forced in one causal pass (its codes fed back), the card's
     codes against the CPU's argmax (equal where the margin exceeds
-    INDEXTTS_TIE), and the vocoder's audio on the card's latents and
-    log-mel."""
+    INDEXTTS_TIE), and the vocoder's audio on the first
+    INDEXTTS_CPU_LATENTS of the card's latents and the log-mel, on both."""
     from mlx_audio_tpu_torch.models.tts.indextts import Model
     from mlx_audio_tpu_torch.models.tts.indextts.vocoder import log_mel_spectrogram
 
@@ -4929,8 +4959,11 @@ def indextts_card_against_cpu(model, run: dict) -> dict:
         hold("latents (teacher-forced)", run["stream"], latents)
         hold("logits (teacher-forced)", model.mel_head(run["stream"]), logits)
         out["codes"] = _tie_check("indextts", run["codes"], logits, INDEXTTS_TIE)
-        audio = cpu.bigvgan(run["stream"].cpu()[None], mel_card.cpu())[0]
-        hold("vocoder audio", torch.as_tensor(run["audio"]), audio)
+        # the vocoder on the first INDEXTTS_CPU_LATENTS of the card's latents,
+        # on the card and on the CPU
+        lat = run["stream"][:INDEXTTS_CPU_LATENTS]
+        hold("vocoder audio", model.bigvgan(lat[None], mel_card)[0],
+             cpu.bigvgan(lat.cpu()[None], mel_card.cpu())[0])
     out["max_abs_err"] = errs
     print(f"indextts card against the CPU ({time.perf_counter() - t0:.1f} s; prompt of "
           f"{n_prompt} positions, {g.stop_mel_token} the stop code): " + ", ".join(
@@ -6351,7 +6384,7 @@ async def _post_stt(client, launches: dict, wall: dict, path: str, model_dir: st
     return out
 
 
-def entry_point_runs(launches: dict, per_synthesis: dict, voice: str) -> dict:
+def entry_point_runs(launches: dict, per_synthesis: dict, voice: str, tmp: Path) -> tuple:
     """Phase 14: the port's entry points as a user calls them, all on the
     card.  Kokoro-82M (seeded random weights at its published config) is
     written with ``utils.loader.save_checkpoint`` into a directory named
@@ -6377,7 +6410,9 @@ def entry_point_runs(launches: dict, per_synthesis: dict, voice: str) -> dict:
     encodes of 224-token decodes): every encode launches
     ``dilated_conv1d_bf16`` once (conv1) and no other kernel of ours, and the
     segments' tokens and the text equal the written model's own
-    ``generate`` on that file."""
+    ``generate`` on that file.  The checkpoints are written under ``tmp``;
+    returns (the phase's figures, the bf16 Kokoro's and the Whisper's
+    checkpoint directories, which phase 15 serves)."""
     import asyncio
     import dataclasses
 
@@ -6395,201 +6430,688 @@ def entry_point_runs(launches: dict, per_synthesis: dict, voice: str) -> dict:
     out, wall = {}, {}
     run = path_runner(launches, wall)
     torch.cuda.reset_peak_memory_stats()
-    with tempfile.TemporaryDirectory() as tmp_name:
-        tmp = Path(tmp_name)
-        # the native checkpoint
-        config = kokoro_82m_config()
-        written = Model(config, device="cuda")
-        kdir = str(tmp / "Kokoro-82M")
-        t0 = time.perf_counter()
-        save_checkpoint(written, kdir, {"model_type": "kokoro", **dataclasses.asdict(config)})
-        out["kokoro_save_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        loaded = load_model(kdir, device="cuda")
-        torch.cuda.synchronize()
-        out["kokoro_load_s"] = time.perf_counter() - t0
-        _check_same_state("kokoro native checkpoint", loaded, written)
-        # the converter, on the card by default: a bf16 copy that loads back in bf16
-        bdir = str(tmp / "Kokoro-82M-bf16")
-        t0 = time.perf_counter()
-        tts_convert.main(["--hf-path", kdir, "--out-path", bdir, "--dtype", "bfloat16"])
-        out["kokoro_convert_s"] = time.perf_counter() - t0
-        _check_same_state("kokoro bf16 conversion", load_model(bdir, device="cuda"),
-                          written.to(torch.bfloat16))
-        del written
+    # the native checkpoint
+    config = kokoro_82m_config()
+    written = Model(config, device="cuda")
+    kdir = str(tmp / "Kokoro-82M")
+    t0 = time.perf_counter()
+    save_checkpoint(written, kdir, {"model_type": "kokoro", **dataclasses.asdict(config)})
+    out["kokoro_save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_model(kdir, device="cuda")
+    torch.cuda.synchronize()
+    out["kokoro_load_s"] = time.perf_counter() - t0
+    _check_same_state("kokoro native checkpoint", loaded, written)
+    # the converter, on the card by default: a bf16 copy that loads back in bf16
+    bdir = str(tmp / "Kokoro-82M-bf16")
+    t0 = time.perf_counter()
+    tts_convert.main(["--hf-path", kdir, "--out-path", bdir, "--dtype", "bfloat16"])
+    out["kokoro_convert_s"] = time.perf_counter() - t0
+    _check_same_state("kokoro bf16 conversion", load_model(bdir, device="cuda"),
+                      written.to(torch.bfloat16))
+    del written
 
-        # the TTS CLI
-        prefix = str(tmp / "cli")
-        run("serve_cli", lambda: tts_generate.main([
-            "--model", kdir, "--text", CLI_TEXT, "--voice", voice, "--speed", SERVE_SPEED,
-            "--file_prefix", prefix, "--join_audio"]))
-        missing = [k for k in KOKORO_KERNELS if launches["serve_cli"][k] == 0]
-        if missing:
-            fail(f"tts.generate CLI: kernels never launched: {missing}")
-        cli = load_audio(prefix + ".wav")
-        with torch.no_grad():
-            own = np.concatenate([r.audio for r in loaded.generate(
-                CLI_TEXT, voice=voice, speed=float(SERVE_SPEED))])
-        del loaded
-        cli_err = float(np.abs(cli - _pcm(own)).max()) if cli.shape == own.shape else np.inf
-        out["cli"] = {"wall_s": wall["serve_cli"], "samples": int(cli.shape[0]),
-                      "max_abs_diff": cli_err}
-        if not (np.isfinite(cli).all() and cli_err <= PCM_STEP):
-            fail(f"tts.generate CLI: {cli.shape} samples, {cli_err:.3e} from the loaded "
-                 f"model's own generate ({own.shape})")
+    # the TTS CLI
+    prefix = str(tmp / "cli")
+    run("serve_cli", lambda: tts_generate.main([
+        "--model", kdir, "--text", CLI_TEXT, "--voice", voice, "--speed", SERVE_SPEED,
+        "--file_prefix", prefix, "--join_audio"]))
+    missing = [k for k in KOKORO_KERNELS if launches["serve_cli"][k] == 0]
+    if missing:
+        fail(f"tts.generate CLI: kernels never launched: {missing}")
+    cli = load_audio(prefix + ".wav")
+    with torch.no_grad():
+        own = np.concatenate([r.audio for r in loaded.generate(
+            CLI_TEXT, voice=voice, speed=float(SERVE_SPEED))])
+    del loaded
+    cli_err = float(np.abs(cli - _pcm(own)).max()) if cli.shape == own.shape else np.inf
+    out["cli"] = {"wall_s": wall["serve_cli"], "samples": int(cli.shape[0]),
+                  "max_abs_diff": cli_err}
+    if not (np.isfinite(cli).all() and cli_err <= PCM_STEP):
+        fail(f"tts.generate CLI: {cli.shape} samples, {cli_err:.3e} from the loaded "
+             f"model's own generate ({own.shape})")
 
-        # the server: a lone request, a batch of 8, 5 under max_batch 6
-        state = ServerState(output_folder=str(tmp / "served"), device="cuda")
-        t0 = time.perf_counter()
-        model = state.get_tts(kdir)
-        out["server_load_s"] = time.perf_counter() - t0
-        rows, synth = [], []
-        batch_fn, synth_fn = model.generate_batch, model.synthesize_batch
-        model.generate_batch = lambda texts, **kw: (rows.append(len(texts)),
-                                                    batch_fn(texts, **kw))[1]
+    # the server: a lone request, a batch of 8, 5 under max_batch 6
+    state = ServerState(output_folder=str(tmp / "served"), device="cuda")
+    t0 = time.perf_counter()
+    model = state.get_tts(kdir)
+    out["server_load_s"] = time.perf_counter() - t0
+    rows, synth = [], []
+    batch_fn, synth_fn = model.generate_batch, model.synthesize_batch
+    model.generate_batch = lambda texts, **kw: (rows.append(len(texts)),
+                                                batch_fn(texts, **kw))[1]
 
-        def recording_synth(phonemes, refs, speeds=None, **kw):
-            outs = synth_fn(phonemes, refs, speeds=speeds, **kw)
-            synth.append((phonemes, refs, speeds, outs))
-            return outs
+    def recording_synth(phonemes, refs, speeds=None, **kw):
+        outs = synth_fn(phonemes, refs, speeds=speeds, **kw)
+        synth.append((phonemes, refs, speeds, outs))
+        return outs
 
-        model.synthesize_batch = recording_synth
-        # the batch of 8 runs with every conv and lstm launch's operands
-        # recorded (the first at each shape), then held to the plain versions
-        conv_calls, lstm_calls = {}, {}
-        n_small, cap = SERVE_SMALL_BATCH
-        rounds = (("serve_tts_lone", SERVE_TEXTS[:1], 1),
-                  ("serve_tts_batch", SERVE_TEXTS, SERVE_MAX_BATCH),
-                  ("serve_tts_small", SERVE_TEXTS[:n_small], cap))
+    model.synthesize_batch = recording_synth
+    # the batch of 8 runs with every conv and lstm launch's operands
+    # recorded (the first at each shape), then held to the plain versions
+    conv_calls, lstm_calls = {}, {}
+    n_small, cap = SERVE_SMALL_BATCH
+    rounds = (("serve_tts_lone", SERVE_TEXTS[:1], 1),
+              ("serve_tts_batch", SERVE_TEXTS, SERVE_MAX_BATCH),
+              ("serve_tts_small", SERVE_TEXTS[:n_small], cap))
 
-        async def serve_tts():
-            names, sizes = {}, []
-            async with TestClient(TestServer(create_app(state), host="127.0.0.1")) as client:
-                for name, texts, max_batch in rounds:
-                    state.batcher = DynamicBatcher(state, max_batch=max_batch,
-                                                   max_wait_ms=SERVE_WINDOW_MS)
-                    recording = name == "serve_tts_batch"
+    async def serve_tts():
+        names, sizes = {}, []
+        async with TestClient(TestServer(create_app(state), host="127.0.0.1")) as client:
+            for name, texts, max_batch in rounds:
+                state.batcher = DynamicBatcher(state, max_batch=max_batch,
+                                               max_wait_ms=SERVE_WINDOW_MS)
+                recording = name == "serve_tts_batch"
+                if recording:
+                    convs = record_conv_calls(conv_calls)
+                    lstm = record_lstm_calls(lstm_calls)
+                try:
+                    names[name] = await _serve(client, launches, wall, name, texts,
+                                               kdir, voice)
+                finally:
+                    state.batcher.close()
                     if recording:
-                        convs = record_conv_calls(conv_calls)
-                        lstm = record_lstm_calls(lstm_calls)
-                    try:
-                        names[name] = await _serve(client, launches, wall, name, texts,
-                                                   kdir, voice)
-                    finally:
-                        state.batcher.close()
-                        if recording:
-                            kernels.banded_conv1d, kernels.dilated_conv1d = convs
-                            kernels.lstm = lstm
-                    sizes.append(state.batcher.last_batch_size)
-            state.batcher = None
-            return names, sizes, convs, lstm
+                        kernels.banded_conv1d, kernels.dilated_conv1d = convs
+                        kernels.lstm = lstm
+                sizes.append(state.batcher.last_batch_size)
+        state.batcher = None
+        return names, sizes, convs, lstm
 
-        names, sizes, convs, lstm = asyncio.run(serve_tts())
-        want_rows = [len(texts) for _, texts, _ in rounds]
-        if rows != want_rows or sizes != want_rows:
-            fail(f"server: generate_batch rows {rows}, last batch sizes {sizes} "
-                 f"(expected {want_rows}: at most max_batch rows, none padded)")
-        got = {k: v for k, v in launches["serve_tts_batch"].items() if v}
-        want = {k: v for k, v in per_synthesis.items() if v}
-        if got != want:
-            fail(f"server batch of {SERVE_MAX_BATCH}: launches {got}, expected phase 4's "
-                 f"per-synthesis {want}")
-        conv_err = check_conv_path(conv_calls, convs, "server batch")
-        lstm_err = check_lstm_path(lstm_calls, lstm, "server batch")
-        path_shapes = {**_per_kernel(conv_calls), "lstm": len(lstm_calls)}
-        del conv_calls, lstm_calls
-        torch.cuda.empty_cache()
-        # each row against its text alone, at the batch's buckets
-        t0 = time.perf_counter()
-        model.synthesize_batch = synth_fn
-        alone, n_bucket, f_bucket = kokoro_rows_alone(model, synth[1])
-        wavs = [load_audio(Path(state.output_folder) / name)
-                for name in names["serve_tts_batch"]]
+    names, sizes, convs, lstm = asyncio.run(serve_tts())
+    want_rows = [len(texts) for _, texts, _ in rounds]
+    if rows != want_rows or sizes != want_rows:
+        fail(f"server: generate_batch rows {rows}, last batch sizes {sizes} "
+             f"(expected {want_rows}: at most max_batch rows, none padded)")
+    got = {k: v for k, v in launches["serve_tts_batch"].items() if v}
+    want = {k: v for k, v in per_synthesis.items() if v}
+    if got != want:
+        fail(f"server batch of {SERVE_MAX_BATCH}: launches {got}, expected phase 4's "
+             f"per-synthesis {want}")
+    conv_err = check_conv_path(conv_calls, convs, "server batch")
+    lstm_err = check_lstm_path(lstm_calls, lstm, "server batch")
+    path_shapes = {**_per_kernel(conv_calls), "lstm": len(lstm_calls)}
+    del conv_calls, lstm_calls
+    torch.cuda.empty_cache()
+    # each row against its text alone, at the batch's buckets
+    t0 = time.perf_counter()
+    model.synthesize_batch = synth_fn
+    alone, n_bucket, f_bucket = kokoro_rows_alone(model, synth[1])
+    wavs = [load_audio(Path(state.output_folder) / name)
+            for name in names["serve_tts_batch"]]
 
-        def against(wav, a):
-            n = min(wav.shape[0], a.shape[0])
-            got, want = wav[SERVE_HEAD:n], _pcm(a)[SERVE_HEAD:n]
-            diff = np.abs(got - want)
-            over = diff > SERVE_ROW_ATOL + PCM_STEP
-            return {"max_abs": float(diff.max()), "over_atol": int(over.sum()),
-                    "rel_rms": rel_rms(torch.from_numpy(got), torch.from_numpy(want))}
+    def against(wav, a):
+        n = min(wav.shape[0], a.shape[0])
+        got, want = wav[SERVE_HEAD:n], _pcm(a)[SERVE_HEAD:n]
+        diff = np.abs(got - want)
+        over = diff > SERVE_ROW_ATOL + PCM_STEP
+        return {"max_abs": float(diff.max()), "over_atol": int(over.sum()),
+                "rel_rms": rel_rms(torch.from_numpy(got), torch.from_numpy(want))}
 
-        row_err = []
-        for i, (wav, a) in enumerate(zip(wavs, alone)):
-            if wav.shape != a.shape or not np.isfinite(wav).all():
-                fail(f"server row {i}: {wav.shape} samples, its text alone {a.shape}")
-            row_err.append(against(wav, a))
-        swapped = [against(wav, alone[(i + 1) % len(alone)]) for i, wav in enumerate(wavs)]
-        if any(e["over_atol"] > SERVE_FLIP_SAMPLES or e["max_abs"] > SERVE_FLIP_MAX_ABS
-               or e["rel_rms"] > SERVE_ROW_REL_RMS for e in row_err):
-            fail(f"server rows against their texts alone past sample {SERVE_HEAD}: "
-                 f"{row_err} (atol {SERVE_ROW_ATOL} but for {SERVE_FLIP_SAMPLES} samples "
-                 f"within {SERVE_FLIP_MAX_ABS}, relative RMS {SERVE_ROW_REL_RMS})")
-        print(f"server rows against their texts alone past sample {SERVE_HEAD}: relative "
-              f"RMS {max(e['rel_rms'] for e in row_err):.3e} at most, max_abs "
-              f"{max(e['max_abs'] for e in row_err):.3e} (bounds {SERVE_ROW_REL_RMS}, "
-              f"{SERVE_FLIP_MAX_ABS}); rows swapped (each against the next text alone): "
-              f"relative RMS {min(e['rel_rms'] for e in swapped):.3e} at least, max_abs "
-              f"{min(e['max_abs'] for e in swapped):.3e} at least", flush=True)
-        audio_s = sum(a.shape[0] for a in alone) / model.sample_rate
-        out["tts"] = {
-            "lone_wall_s": wall["serve_tts_lone"], "batch_wall_s": wall["serve_tts_batch"],
-            "small_batch_wall_s": wall["serve_tts_small"], "batch_audio_s": audio_s,
-            "batch_audio_s_per_s": audio_s / wall["serve_tts_batch"],
-            "lone_audio_s": alone[0].shape[0] / model.sample_rate,
-            "phoneme_bucket": n_bucket, "frame_bucket": f_bucket,
-            "frames": [a.shape[0] // 600 for a in alone],
-            "rows_past_head": row_err, "rows_swapped": swapped,
-            "conv_path_err": conv_err, "lstm_path_err": lstm_err, "path_shapes": path_shapes,
-            "alone_check_s": time.perf_counter() - t0}
-        stt_wav = str(Path(state.output_folder)
-                      / names["serve_tts_batch"][int(np.argmin([a.size for a in alone]))])
-        del model, alone, wavs, synth
-        state.tts_model = None
-        torch.cuda.empty_cache()
+    row_err = []
+    for i, (wav, a) in enumerate(zip(wavs, alone)):
+        if wav.shape != a.shape or not np.isfinite(wav).all():
+            fail(f"server row {i}: {wav.shape} samples, its text alone {a.shape}")
+        row_err.append(against(wav, a))
+    swapped = [against(wav, alone[(i + 1) % len(alone)]) for i, wav in enumerate(wavs)]
+    if any(e["over_atol"] > SERVE_FLIP_SAMPLES or e["max_abs"] > SERVE_FLIP_MAX_ABS
+           or e["rel_rms"] > SERVE_ROW_REL_RMS for e in row_err):
+        fail(f"server rows against their texts alone past sample {SERVE_HEAD}: "
+             f"{row_err} (atol {SERVE_ROW_ATOL} but for {SERVE_FLIP_SAMPLES} samples "
+             f"within {SERVE_FLIP_MAX_ABS}, relative RMS {SERVE_ROW_REL_RMS})")
+    print(f"server rows against their texts alone past sample {SERVE_HEAD}: relative "
+          f"RMS {max(e['rel_rms'] for e in row_err):.3e} at most, max_abs "
+          f"{max(e['max_abs'] for e in row_err):.3e} (bounds {SERVE_ROW_REL_RMS}, "
+          f"{SERVE_FLIP_MAX_ABS}); rows swapped (each against the next text alone): "
+          f"relative RMS {min(e['rel_rms'] for e in swapped):.3e} at least, max_abs "
+          f"{min(e['max_abs'] for e in swapped):.3e} at least", flush=True)
+    audio_s = sum(a.shape[0] for a in alone) / model.sample_rate
+    out["tts"] = {
+        "lone_wall_s": wall["serve_tts_lone"], "batch_wall_s": wall["serve_tts_batch"],
+        "small_batch_wall_s": wall["serve_tts_small"], "batch_audio_s": audio_s,
+        "batch_audio_s_per_s": audio_s / wall["serve_tts_batch"],
+        "lone_audio_s": alone[0].shape[0] / model.sample_rate,
+        "phoneme_bucket": n_bucket, "frame_bucket": f_bucket,
+        "frames": [a.shape[0] // 600 for a in alone],
+        "rows_past_head": row_err, "rows_swapped": swapped,
+        "conv_path_err": conv_err, "lstm_path_err": lstm_err, "path_shapes": path_shapes,
+        "alone_check_s": time.perf_counter() - t0}
+    stt_wav = str(Path(state.output_folder)
+                  / names["serve_tts_batch"][int(np.argmin([a.size for a in alone]))])
+    del model, alone, wavs, synth
+    state.tts_model = None
+    torch.cuda.empty_cache()
 
-        # Whisper-large-v3-turbo in bf16 through /stt
-        wmodel, _ = build_whisper()
-        del wmodel._tokenizer  # the bundled tokenizer, as a loaded model has
-        wmodel.to(torch.bfloat16)
-        wdir = str(tmp / "whisper-large-v3-turbo")
-        t0 = time.perf_counter()
-        save_checkpoint(wmodel, wdir, WHISPER_DIMS)
-        out["whisper_save_s"] = time.perf_counter() - t0
-        out["whisper_checkpoint_gb"] = (Path(wdir) / "weights.safetensors").stat().st_size / 1e9
-        t0 = time.perf_counter()
-        served = state.get_stt(wdir)
-        torch.cuda.synchronize()
-        out["whisper_load_s"] = time.perf_counter() - t0
-        _check_same_state("whisper bf16 native checkpoint", served, wmodel)
-        encodes = {"n": 0}
-        undo = _count_calls(served.encoder, encodes)
+    # Whisper-large-v3-turbo in bf16 through /stt
+    wmodel, _ = build_whisper()
+    del wmodel._tokenizer  # the bundled tokenizer, as a loaded model has
+    wmodel.to(torch.bfloat16)
+    wdir = str(tmp / "whisper-large-v3-turbo")
+    t0 = time.perf_counter()
+    save_checkpoint(wmodel, wdir, WHISPER_DIMS)
+    out["whisper_save_s"] = time.perf_counter() - t0
+    out["whisper_checkpoint_gb"] = (Path(wdir) / "weights.safetensors").stat().st_size / 1e9
+    t0 = time.perf_counter()
+    served = state.get_stt(wdir)
+    torch.cuda.synchronize()
+    out["whisper_load_s"] = time.perf_counter() - t0
+    _check_same_state("whisper bf16 native checkpoint", served, wmodel)
+    encodes = {"n": 0}
+    undo = _count_calls(served.encoder, encodes)
 
-        async def serve_stt():
-            async with TestClient(TestServer(create_app(state), host="127.0.0.1")) as client:
-                return await _post_stt(client, launches, wall, stt_wav, wdir)
+    async def serve_stt():
+        async with TestClient(TestServer(create_app(state), host="127.0.0.1")) as client:
+            return await _post_stt(client, launches, wall, stt_wav, wdir)
 
-        try:
-            resp = asyncio.run(serve_stt())
-        finally:
-            undo()
-        _check_only("serve_stt", launches["serve_stt"], {"dilated_conv1d_bf16": encodes["n"]})
-        with torch.no_grad():
-            own = wmodel.generate(stt_wav)
-        got_tokens = [s["tokens"] for s in resp["segments"]]
-        own_tokens = [s["tokens"] for s in own.segments]
-        if not got_tokens or got_tokens != own_tokens or resp["text"] != own.text:
-            fail(f"/stt: segment tokens {[len(t) for t in got_tokens]} differ from the "
-                 f"written model's own generate {[len(t) for t in own_tokens]}")
-        out["stt"] = {"wall_s": wall["serve_stt"], "encodes": encodes["n"],
-                      "segments": len(got_tokens),
-                      "tokens": sum(len(t) for t in got_tokens), "language": resp["language"],
-                      "audio_s": len(load_audio(stt_wav)) / 24_000}
-        del wmodel, served
-        state.stt_model = None
+    try:
+        resp = asyncio.run(serve_stt())
+    finally:
+        undo()
+    _check_only("serve_stt", launches["serve_stt"], {"dilated_conv1d_bf16": encodes["n"]})
+    with torch.no_grad():
+        own = wmodel.generate(stt_wav)
+    got_tokens = [s["tokens"] for s in resp["segments"]]
+    own_tokens = [s["tokens"] for s in own.segments]
+    if not got_tokens or got_tokens != own_tokens or resp["text"] != own.text:
+        fail(f"/stt: segment tokens {[len(t) for t in got_tokens]} differ from the "
+             f"written model's own generate {[len(t) for t in own_tokens]}")
+    out["stt"] = {"wall_s": wall["serve_stt"], "encodes": encodes["n"],
+                  "segments": len(got_tokens),
+                  "tokens": sum(len(t) for t in got_tokens), "language": resp["language"],
+                  "audio_s": len(load_audio(stt_wav)) / 24_000}
+    del wmodel, served
+    state.stt_model = None
     out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.empty_cache()
+    return out, {"kokoro_bf16": bdir, "whisper": wdir}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: one speech-to-speech session: /ws/sts, --prewarm and WebRTC
+# ---------------------------------------------------------------------------
+
+# Qwen2.5-0.5B-Instruct's config.json (the published widths; the chat LM
+# caps its context at 8 192 positions, as the JAX package's does)
+QWEN25_05B_CONFIG = {"model_type": "qwen2", "hidden_size": 896, "intermediate_size": 4864,
+                     "num_attention_heads": 14, "num_hidden_layers": 24,
+                     "num_key_value_heads": 2, "rms_norm_eps": 1e-6,
+                     "rope_theta": 1_000_000.0, "tie_word_embeddings": True,
+                     "vocab_size": 151_936, "max_position_embeddings": 32_768}
+STS_TURNS = 3  # /ws/sts turns; then one through the WebRTC bridge
+STS_UTT_SECONDS = 2.0  # each turn's utterance
+STS_FRAME_SECONDS = 0.15  # the client's silence frames, sent in real time
+STS_ENDPOINT_SECONDS = 1.2  # the client's endpointing window before "flush"
+STS_CHAT_TOKENS = 32  # the chat LM's max_tokens
+STS_BRIDGE_RATE = 48_000  # the WebRTC bridge's peer clock
+STS_BRIDGE_FRAME = 960  # 20 ms at 48 kHz, as a peer's track delivers them
+# a random duration head predicts about 25 frames a phoneme where trained
+# Kokoro sits near 2.5: held at that rate (weight 0, bias logit(2.5 / 50))
+STS_DURATION_BIAS = float(np.log(0.05 / 0.95))
+
+
+class STSChatTokenizer:
+    """A chat template without tokenizer files: a character's id is 3 + its
+    code point mod 800, the prompt's last 512 kept; a reply decodes to
+    words with a period every sixth, so it has sentences to stream."""
+
+    eos_token_id = 2
+
+    def apply_chat_template(self, messages, tokenize=True, add_generation_prompt=True):
+        return [3 + (ord(c) % 800) for c in " ".join(m["content"] for m in messages)][-512:]
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(f"w{i}." if (j + 1) % 6 == 0 else f"w{i}" for j, i in enumerate(ids))
+
+    def convert_tokens_to_ids(self, tok):
+        return None
+
+
+class STSWhisper:
+    """Whisper's generate with the decode options of a latency benchmark
+    (greedy, English, no no-speech threshold): random weights would
+    otherwise fall back through every temperature.  Counts its calls and
+    their wall seconds."""
+
+    def __init__(self, model, wall: dict):
+        self.model, self.wall, self.texts = model, wall, []
+
+    def generate(self, audio, **kw):
+        t0 = time.perf_counter()
+        out = self.model.generate(np.asarray(audio, dtype=np.float32), temperature=0.0,
+                                  language="en", condition_on_previous_text=False,
+                                  no_speech_threshold=None)
+        self.wall["stt_s"] += time.perf_counter() - t0
+        self.wall["stt_calls"] += 1
+        self.texts.append(out.text.strip())
+        return out
+
+
+class STSTimedChat:
+    """The chat LM as the pipeline calls it, its calls' wall seconds added
+    up: a streamed turn (``respond_stream``, /ws/sts) or a whole one (the
+    call, the WebRTC bridge's ``process_turn``)."""
+
+    def __init__(self, chat, wall: dict):
+        self.chat, self.wall = chat, wall
+
+    def __call__(self, text, history=None):
+        t0 = time.perf_counter()
+        out = self.chat.respond(text, history=history)
+        self.wall["chat_s"] += time.perf_counter() - t0
+        return out
+
+    def respond_stream(self, text, history=None):
+        t0 = time.perf_counter()
+        yield from self.chat.respond_stream(text, history=history)
+        self.wall["chat_s"] += time.perf_counter() - t0
+
+    def prewarm(self):
+        return self.chat.prewarm()
+
+
+def build_sts_chat(root: Path):
+    """The chat LM at Qwen2.5-0.5B-Instruct's published widths with seeded
+    random weights, written in bf16 as an HF-layout directory and read back
+    through ``ChatLM.from_pretrained`` on the card (bf16 but the RoPE
+    tables; every tensor must equal the written one)."""
+    from safetensors.numpy import save_file
+
+    from mlx_audio_tpu_torch.convert import params_to_jax
+    from mlx_audio_tpu_torch.models.base import init_weights
+    from mlx_audio_tpu_torch.models.lm.causal import LlamaForCausalLM
+    from mlx_audio_tpu_torch.models.lm.chat import ChatLM, llama_config_from_hf
+    from mlx_audio_tpu_torch.models.lm.llama import cast_lm
+
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        written = LlamaForCausalLM(llama_config_from_hf(QWEN25_05B_CONFIG))
+    init_weights(written, torch.Generator(device="cuda").manual_seed(0))
+    cast_lm(written, torch.bfloat16)
+    path = root / "Qwen2.5-0.5B-Instruct"
+    path.mkdir()
+    state = {k: v for k, v in written.state_dict().items() if "rope_" not in k}
+    save_file(params_to_jax(state, written), str(path / "model.safetensors"))
+    (path / "config.json").write_text(json.dumps(QWEN25_05B_CONFIG))
+    t1 = time.perf_counter()
+    chat = ChatLM.from_pretrained(str(path), dtype="bfloat16", tokenizer=STSChatTokenizer(),
+                                  device="cuda", max_tokens=STS_CHAT_TOKENS)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    _check_same_state("chat LM checkpoint", chat.model, written)
+    got = {k: t.dtype for k, t in chat.model.state_dict().items()}
+    if {got.pop("model.rope_cos"), got.pop("model.rope_sin")} != {torch.float32} or set(
+            got.values()) != {torch.bfloat16}:
+        fail(f"chat LM: dtypes {set(got.values())} after from_pretrained(dtype=bfloat16)")
+    n = sum(t.numel() for t in state.values())
+    print(f"chat LM (Qwen2.5-0.5B-Instruct widths, {n / 1e6:.1f} M parameters, bf16) "
+          f"written in {t1 - t0:.1f} s ({(path / 'model.safetensors').stat().st_size / 1e9:.3f}"
+          f" GB), loaded with ChatLM.from_pretrained in {t2 - t1:.1f} s", flush=True)
+    del written
+    torch.cuda.empty_cache()
+    return chat
+
+
+def sts_chat_against_float32(chat, ids) -> dict:
+    """The bf16 chat LM's greedy tokens from ``ids`` and its logits over
+    the prefill and BF16_TF_STEPS teacher-forced steps, against the same
+    weights upcast to float32 on the card: logits within
+    BF16_LM_CPU_REL_RMS, tokens equal to float32's argmax but at a
+    one-bf16-step near-tie."""
+    import copy
+
+    from mlx_audio_tpu_torch.models.lm import causal
+    from mlx_audio_tpu_torch.models.lm.llama import cast_lm
+
+    ids = np.asarray(ids, dtype=np.int64)
+    toks = [int(t) for c in causal.generate_tokens(chat.model, ids,
+                                                   max_tokens=BF16_TF_STEPS + 1,
+                                                   temperature=0.0) for t in c]
+
+    def logits(lm):
+        dev = lm.model.rope_cos.device
+        caches, pad_len, prompt, _, _ = causal._start(lm, [ids], BF16_TF_STEPS + 1, None,
+                                                      1.0, 1)
+        out = [causal._prefill(lm, caches, pad_len, prompt)]
+        with torch.no_grad():
+            for t in toks[:-1]:
+                h, _ = lm.model.step(caches, torch.tensor([[t]], device=dev), pad_len)
+                out.append(lm.logits(h[:, -1]).float())
+        return torch.cat([o.cpu() for o in out])
+
+    card = logits(chat.model)
+    f32 = cast_lm(copy.deepcopy(chat.model), torch.float32)
+    ref = logits(f32)
+    del f32
+    torch.cuda.empty_cache()
+    err = rel_rms(card, ref)
+    ties = _bf16_tie_check("sts chat bf16 greedy tokens", toks, ref)
+    print(f"sts chat LM bf16 against the same weights in float32 on the card: the "
+          f"prefill's and {BF16_TF_STEPS} teacher-forced steps' logits {tuple(card.shape)}, "
+          f"relative RMS {err:.3e} (bound {BF16_LM_CPU_REL_RMS}); greedy tokens against "
+          f"float32's argmax {json.dumps(ties)}", flush=True)
+    if err > BF16_LM_CPU_REL_RMS:
+        fail(f"sts chat LM: bf16 logits {err:.3e} (relative RMS) from float32's")
+    return {"rel_rms": err, "tokens": ties}
+
+
+async def _sts_ws_turns(client, utt: np.ndarray, turns: int, on_turn) -> list:
+    """Drive /ws/sts as a browser client does: each turn the utterance, the
+    endpointing window's silence frames in real time, then "flush"; a reader
+    takes every message and the first audio byte's time.  ``on_turn(i,
+    "start" | "end")`` brackets each turn.  Returns per turn the messages
+    and the times."""
+    import asyncio
+
+    out = []
+    sil = np.zeros(int(STS_FRAME_SECONDS * 16_000), dtype=np.float32)
+    async with client.ws_connect("/ws/sts") as ws:
+        for i in range(turns):
+            got = {"t_audio": None, "messages": []}
+
+            async def reader():
+                while True:
+                    msg = await ws.receive(timeout=600)
+                    if msg.type.name == "BINARY":
+                        got["t_audio"] = got["t_audio"] or time.perf_counter()
+                        got["messages"].append(("bytes", bytes(msg.data)))
+                    elif msg.type.name == "TEXT":
+                        data = json.loads(msg.data)
+                        got["messages"].append(("json", data))
+                        if "transcript" in data:
+                            return
+                    else:
+                        fail(f"/ws/sts turn {i}: message {msg.type.name}")
+
+            on_turn(i, "start")
+            task = asyncio.create_task(reader())
+            await ws.send_bytes(utt.tobytes())
+            t_speech_end = time.perf_counter()
+            for _ in range(round(STS_ENDPOINT_SECONDS / STS_FRAME_SECONDS)):
+                await ws.send_bytes(sil.tobytes())
+                await asyncio.sleep(STS_FRAME_SECONDS)
+            await ws.send_str("flush")
+            t_flush = time.perf_counter()
+            await task
+            on_turn(i, "end")
+            t_audio = got["t_audio"] or float("nan")
+            out.append({"messages": got["messages"],
+                        "speech_end_to_audio_ms": (t_audio - t_speech_end) * 1e3,
+                        "flush_to_audio_ms": (t_audio - t_flush) * 1e3})
     return out
+
+
+async def _sts_bridge_turn(pipeline, utt: np.ndarray) -> dict:
+    """One turn through the WebRTC bridge at 48 kHz: the utterance and then
+    silence in 20 ms frames, as a peer's track delivers them, until the
+    endpointer closes the utterance; the reply pulled at the peer clock."""
+    from mlx_audio_tpu_torch.sts.webrtc import PcmAssistantBridge
+    from mlx_audio_tpu_torch.utils.audio_io import resample_audio
+
+    texts = []
+    bridge = PcmAssistantBridge(pipeline, in_rate=STS_BRIDGE_RATE, out_rate=STS_BRIDGE_RATE,
+                                on_transcript=texts.append)
+    pcm = resample_audio(utt, 16_000, STS_BRIDGE_RATE).astype(np.float32)
+    t0 = time.perf_counter()
+    for i in range(0, len(pcm), STS_BRIDGE_FRAME):
+        await bridge.feed(pcm[i:i + STS_BRIDGE_FRAME])
+    t_speech_end = time.perf_counter()
+    silence = np.zeros(STS_BRIDGE_FRAME, dtype=np.float32)
+    frames = 0
+    while bridge._turn_task is None:
+        await bridge.feed(silence)
+        frames += 1
+        if frames * 0.02 > 10 * pipeline.config.silence_duration:
+            fail("sts bridge: the endpointer never closed the utterance")
+    await bridge._turn_task
+    t_done = time.perf_counter()
+    audio = await bridge.pull(bridge.pending_samples)
+    return {"texts": texts, "audio": audio, "silence_frames": frames,
+            "speech_end_to_reply_s": t_done - t_speech_end, "wall_s": t_done - t0}
+
+
+def sts_session_runs(launches: dict, ckpts: dict, voice: str, tmp: Path) -> dict:
+    """Phase 15: one speech-to-speech session as ``scripts/bench_sts.py``
+    drives it, through the port's server on the card.  Whisper-large-v3-
+    turbo from phase 14's bf16 checkpoint (behind STSWhisper), the chat LM
+    at Qwen2.5-0.5B-Instruct's widths in bf16 (``build_sts_chat``), Kokoro-
+    82M from phase 14's bf16 conversion with its duration head at the
+    trained rate; the server's ``prewarm``, then STS_TURNS turns through
+    /ws/sts and one through the WebRTC bridge.
+
+    Every turn must give its transcript, then an audio chunk for each
+    sentence of the reply, then the final JSON with a non-empty reply.
+    Each chunk must equal ``tts.generate`` of its sentence called directly
+    on the card, bit for bit; each reply a direct ``ChatLM.respond_stream``
+    (the bridge's ``respond``) with the same seed and history.  Every conv
+    and lstm launch of the session is recorded and held to its plain
+    version on its operands; each turn's launches are read with the
+    counters set to 0 just before it, and each must include the Whisper
+    encode's ``dilated_conv1d_bf16`` (one an STT call) and every kernel a
+    direct synthesis launches."""
+    import asyncio
+
+    from aiohttp.test_utils import TestClient, TestServer
+
+    import mlx_audio_tpu_torch.server as server
+    from mlx_audio_tpu_torch.nn import kernels
+    from mlx_audio_tpu_torch.sts import voice_pipeline as vp
+    from mlx_audio_tpu_torch.sts.voice_pipeline import split_sentences
+    from mlx_audio_tpu_torch.utils.audio_io import resample_audio
+
+    torch.cuda.reset_peak_memory_stats()
+    t_build = time.perf_counter()
+    state = server.ServerState(output_folder=str(tmp / "sts"), device="cuda")
+    wall = {"stt_s": 0.0, "stt_calls": 0, "chat_s": 0.0, "tts_s": 0.0, "tts_calls": 0}
+    stt = STSWhisper(state.get_stt(ckpts["whisper"]), wall)
+    state.stt_model = stt
+    tts = state.get_tts(ckpts["kokoro_bf16"])
+    with torch.no_grad():
+        tts.predictor.duration_proj.weight.zero_()
+        tts.predictor.duration_proj.bias.fill_(STS_DURATION_BIAS)
+    chat = build_sts_chat(tmp)
+    build_s = time.perf_counter() - t_build
+    state.sts_options = {"stt_model": ckpts["whisper"], "tts_model": ckpts["kokoro_bf16"],
+                         "tts_voice": voice}
+    opts = dict(voice=voice, speed=1.0, lang_code="a")
+
+    # a direct synthesis's launches: every kernel a turn's TTS launches
+    kernels.reset_launches()
+    with torch.no_grad():
+        list(tts.generate("ðɪs ɪz ɐ tˈɛst.", **opts))
+    per_synthesis = {k: v for k, v in kernels.LAUNCHES.items() if v}
+
+    # the TTS timed and recorded; the pipelines take the chat LM, timed
+    tts_generate = tts.generate
+    spoken = []
+
+    def timed_generate(text, **kw):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = list(tts_generate(text, **kw))
+        wall["tts_s"] += time.perf_counter() - t0
+        wall["tts_calls"] += 1
+        spoken.append((text, kw, [r.audio for r in out]))
+        yield from out
+
+    tts.generate = timed_generate
+    init_models = vp.VoicePipeline.init_models
+    timed_chat = STSTimedChat(chat, wall)
+
+    def with_chat(self):
+        self._llm = self._llm or timed_chat
+        return init_models(self)
+
+    vp.VoicePipeline.init_models = with_chat
+    conv_calls, lstm_calls = {}, {}
+    convs = record_conv_calls(conv_calls)
+    lstm = record_lstm_calls(lstm_calls)
+    t = np.arange(int(STS_UTT_SECONDS * 16_000)) / 16_000
+    rng = np.random.default_rng(0)
+    utt = (0.1 * np.sin(2 * np.pi * 220 * t)
+           + 0.02 * rng.standard_normal(t.shape)).astype(np.float32)
+    turns_wall, turn_marks = [], {}
+
+    def on_turn(i, mark):
+        torch.cuda.synchronize()
+        if mark == "start":
+            kernels.reset_launches()
+            turn_marks[i] = (dict(wall), len(spoken))
+            return
+        launches[f"sts_turn_{i}"] = dict(kernels.LAUNCHES)
+        before, n_spoken = turn_marks[i]
+        turns_wall.append({**{k: wall[k] - before[k] for k in wall},
+                           "sentences": len(spoken) - n_spoken})
+
+    try:
+        t0 = time.perf_counter()
+        issued = server.prewarm(state)
+        torch.cuda.synchronize()
+        prewarm_s = time.perf_counter() - t0
+        if issued != 3:
+            fail(f"--prewarm: {issued} calls, not one a stage (synthesis, STT, chat)")
+        spoken.clear()
+
+        async def session():
+            async with TestClient(TestServer(server.create_app(state),
+                                             host="127.0.0.1")) as client:
+                return await _sts_ws_turns(client, utt, STS_TURNS, on_turn)
+
+        turns = asyncio.run(session())
+        n_ws_spoken = len(spoken)
+        pipeline = vp.VoicePipeline(vp.VoicePipelineConfig(**state.sts_options),
+                                    server_state=state)
+        on_turn(STS_TURNS, "start")
+        bridge = asyncio.run(_sts_bridge_turn(pipeline, utt))
+        on_turn(STS_TURNS, "end")
+    finally:
+        vp.VoicePipeline.init_models = init_models
+        kernels.banded_conv1d, kernels.dilated_conv1d = convs
+        kernels.lstm = lstm
+        tts.generate = tts_generate
+
+    # each /ws/sts turn: transcript, a chunk a sentence, the final reply
+    history, rows, k = [], [], 0
+    for i, turn in enumerate(turns):
+        msgs = turn["messages"]
+        kinds = [m[0] for m in msgs]
+        header, final = msgs[0][1], msgs[-1][1]
+        if not (kinds[0] == "json" and header.get("user_transcript")
+                and header.get("sample_rate") == tts.sample_rate):
+            fail(f"/ws/sts turn {i}: the first message is {msgs[0][1] if msgs else None}, "
+                 "not the user's transcript (an empty transcript ends the turn before "
+                 "the chat LM)")
+        reply = final.get("transcript") if kinds[-1] == "json" else None
+        chunks = [m[1] for m in msgs[1:-1]]
+        if not reply or set(kinds[1:-1]) != {"bytes"}:
+            fail(f"/ws/sts turn {i}: messages {kinds}, final {final}")
+        sents, rest = split_sentences(reply)
+        sents += [rest] if rest else []
+        said = spoken[k:k + turns_wall[i]["sentences"]]
+        k += len(said)
+        if [s for s, _, _ in said] != sents or len(chunks) != sum(len(a) for _, _, a in said):
+            fail(f"/ws/sts turn {i}: {len(chunks)} chunks for sentences "
+                 f"{[s for s, _, _ in said]}, the reply's {sents}")
+        want = list(chat.respond_stream(header["user_transcript"], history=list(history)))[-1]
+        if reply != want:
+            fail(f"/ws/sts turn {i}: the reply {reply!r} differs from a direct "
+                 f"respond_stream's {want!r}")
+        history += [{"role": "user", "content": header["user_transcript"]},
+                     {"role": "assistant", "content": reply}]
+        rows.append((chunks, said))
+    if k != n_ws_spoken:
+        fail(f"/ws/sts: {n_ws_spoken} sentences spoken, {k} in the turns' replies")
+
+    # every chunk against tts.generate of its sentence, called directly
+    exact, err = True, 0.0
+    for chunks, said in rows:
+        direct = []
+        for text, kw, _ in said:
+            with torch.no_grad():
+                direct += [np.asarray(r.audio, dtype=np.float32).reshape(-1)
+                           for r in tts_generate(text, **kw)]
+        for got, want in zip(chunks, direct):
+            got = np.frombuffer(got, dtype=np.float32)
+            same = got.shape == want.shape and got.tobytes() == want.tobytes()
+            exact = exact and same
+            if got.shape != want.shape:
+                fail(f"/ws/sts: a chunk of {got.shape[0]} samples, its direct generate "
+                     f"{want.shape[0]}")
+            err = max(err, float(np.abs(got - want).max()))
+    if not exact:
+        print(f"sts: the chunks are not bit for bit a direct generate's (max abs "
+              f"{err:.3e}); held to phase 14's row bounds instead", flush=True)
+        if err > SERVE_FLIP_MAX_ABS:
+            fail(f"/ws/sts: a chunk differs from its direct generate by {err:.3e}")
+
+    # the bridge turn: the reply of a direct respond to its transcript, and
+    # the audio of a direct generate of that, resampled to the peer clock
+    text = stt.texts[-1] if stt.texts else ""
+    said = spoken[n_ws_spoken:]
+    if not text or len(said) != 1 or bridge["texts"] != [said[0][0]]:
+        fail(f"sts bridge: transcript {text!r}, replies {bridge['texts']}, "
+             f"{len(said)} syntheses")
+    reply = chat.respond(text, history=[])
+    if said[0][0] != reply:
+        fail(f"sts bridge: the reply spoken {said[0][0]!r} differs from a direct "
+             f"respond's {reply!r}")
+    with torch.no_grad():
+        direct = np.concatenate([r.audio for r in tts_generate(reply, **said[0][1])])
+    want = resample_audio(np.asarray(direct, dtype=np.float32), tts.sample_rate,
+                          STS_BRIDGE_RATE).astype(np.float32)
+    if bridge["audio"].shape != want.shape:
+        fail(f"sts bridge: {bridge['audio'].shape} samples pulled, a direct generate "
+             f"resampled {want.shape}")
+    bridge_err = float(np.abs(bridge["audio"] - want).max())
+    if bridge_err > (0.0 if exact else SERVE_FLIP_MAX_ABS):
+        fail(f"sts bridge: the pulled reply differs from a direct generate by {bridge_err:.3e}")
+
+    # the launches of each turn
+    stray = ("quantized_matmul", "quantized_matmul_bf16", "depth_draft", *PROBE_KERNELS)
+    for i in range(STS_TURNS + 1):
+        lc = launches[f"sts_turn_{i}"]
+        need = {"dilated_conv1d_bf16": turns_wall[i]["stt_calls"] + per_synthesis.get(
+            "dilated_conv1d_bf16", 0) * turns_wall[i]["tts_calls"]}
+        missing = [k2 for k2 in per_synthesis if lc[k2] == 0]
+        if turns_wall[i]["stt_calls"] != 1:
+            fail(f"sts turn {i}: {turns_wall[i]['stt_calls']} STT calls, not the one "
+                 "speculative transcription")
+        if missing or lc["dilated_conv1d_bf16"] != need["dilated_conv1d_bf16"] or any(
+                lc[k2] for k2 in stray):
+            fail(f"sts turn {i}: launches {({k2: v for k2, v in lc.items() if v})}; a "
+                 f"direct synthesis launches {per_synthesis}, {turns_wall[i]['stt_calls']} "
+                 "STT encodes launch dilated_conv1d_bf16 once each")
+    conv_err = check_conv_path(conv_calls, convs, "STS session")
+    lstm_err = check_lstm_path(lstm_calls, lstm, "STS session")
+    path_shapes = {**_per_kernel(conv_calls), "lstm": len(lstm_calls)}
+    del conv_calls, lstm_calls
+    torch.cuda.empty_cache()
+
+    tf = sts_chat_against_float32(chat, chat._build_prompt_ids(turns[0]["messages"][0][1][
+        "user_transcript"]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    per_turn = [{"launches": {k2: v for k2, v in launches[f"sts_turn_{i}"].items() if v},
+                 **{k2: round(v, 4) if isinstance(v, float) else v
+                    for k2, v in turns_wall[i].items()}}
+                for i in range(STS_TURNS + 1)]
+    for i, turn in enumerate(turns):
+        per_turn[i].update(speech_end_to_audio_ms=turn["speech_end_to_audio_ms"],
+                           flush_to_audio_ms=turn["flush_to_audio_ms"],
+                           chunks=sum(m[0] == "bytes" for m in turn["messages"]))
+    per_turn[-1].update(bridge_speech_end_to_reply_s=bridge["speech_end_to_reply_s"],
+                        bridge_silence_frames=bridge["silence_frames"])
+    card = gpu_line()
+    for i, row in enumerate(per_turn):
+        label = "WebRTC bridge turn" if i == STS_TURNS else f"/ws/sts turn {i}"
+        print(f"sts {label}: {json.dumps(row)}; on {card}", flush=True)
+    print(f"sts session: prewarm (3 calls) {prewarm_s:.3f} s; built in {build_s:.1f} s; "
+          f"chunks {'bit for bit' if exact else f'within {err:.3e}'} a direct generate's; "
+          f"replies equal a direct respond_stream's; bridge audio {bridge_err:.3e} from a "
+          f"direct generate resampled; peak memory {peak:.2f} GB; a direct synthesis "
+          f"launches {json.dumps(per_synthesis)}; on {card}", flush=True)
+    return {"prewarm_s": prewarm_s, "build_s": build_s, "turns": per_turn,
+            "chunks_exact": exact, "chunk_max_abs": err, "bridge_max_abs": bridge_err,
+            "chat_against_float32": tf, "conv_path_err": conv_err, "lstm_path_err": lstm_err,
+            "path_shapes": path_shapes, "per_synthesis": per_synthesis,
+            "peak_memory_gb": peak}
 
 
 def main() -> int:
@@ -6875,10 +7397,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         voice = str(Path(tmp) / "voice.npy")
         np.save(voice, pack.astype(np.float32))
-        entry_out = entry_point_runs(launches, per_call, voice)
-    phase14 = {k: launches[k] for k in launches if k.startswith("serve_")}
-    print(f"phase 14 launches: {json.dumps(phase14)}; entry points {json.dumps(entry_out)}; "
-          f"phase 14 took {time.perf_counter() - t14:.1f} s; on {card}", flush=True)
+        entry_out, ckpts = entry_point_runs(launches, per_call, voice, Path(tmp))
+        phase14 = {k: launches[k] for k in launches if k.startswith("serve_")}
+        print(f"phase 14 launches: {json.dumps(phase14)}; entry points "
+              f"{json.dumps(entry_out)}; phase 14 took {time.perf_counter() - t14:.1f} s; "
+              f"on {card}", flush=True)
+
+        # phase 15: a speech-to-speech session on phase 14's checkpoints
+        phase_start(15)
+        t15 = time.perf_counter()
+        sts = sts_session_runs(launches, ckpts, voice, Path(tmp))
+    print(f"phase 15: {json.dumps({k: v for k, v in sts.items() if k != 'turns'})}; phase "
+          f"15 took {time.perf_counter() - t15:.1f} s; on {card}", flush=True)
 
     kernel_line = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -7015,7 +7545,17 @@ def main() -> int:
             entry["launches_per_indextts_bf16_vocoder_call"] = launches[
                 "indextts_bf16_generate"][name]
         kernel_line.append(entry)
-    phase_start(15)
+    # the speech-to-speech session's launches a turn (the last through the
+    # WebRTC bridge), and its path errors
+    for entry in kernel_line:
+        name = entry["name"]
+        per_turn = [launches[f"sts_turn_{i}"][name] for i in range(STS_TURNS + 1)]
+        if any(per_turn):
+            entry["launches_per_sts_turn"] = per_turn
+            entry["max_abs_err"] = max(entry["max_abs_err"], sts["lstm_path_err"]
+                                       if name.startswith("lstm")
+                                       else sts["conv_path_err"].get(name, 0.0))
+    phase_start(16)
     print(f"phase starts (s from the start): {json.dumps(starts)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -47,6 +47,23 @@ class LlamaConfig:
     use_qk_norm: bool = False
 
 
+@torch.no_grad()
+def cast_lm(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Every floating parameter and buffer of ``module`` in ``dtype`` but
+    the RoPE tables, which stay float32 (``apply_rope`` casts them a use),
+    as the JAX package's ``cast_lm`` and chat ``from_pretrained`` cast.
+    Returns ``module``."""
+    for mod in module.modules():
+        for table in (mod._parameters, mod._buffers):
+            for key, t in table.items():
+                if t is None or not t.is_floating_point() or key in ("rope_cos", "rope_sin"):
+                    continue
+                cast = t.detach().to(dtype)
+                table[key] = (nn.Parameter(cast, requires_grad=False)
+                              if isinstance(t, nn.Parameter) else cast)
+    return module
+
+
 def lm_dtype(model: nn.Module) -> torch.dtype:
     """Activation and cache dtype of an LM: its first floating tensor other
     than the RoPE tables (quantized modules hold uint8 codes)."""
@@ -137,6 +154,7 @@ class LlamaModel(nn.Module):
                               base=cfg.rope_theta, scaling=cfg.rope_scaling)
         self.register_buffer("rope_cos", cos)
         self.register_buffer("rope_sin", sin)
+        self._rope_longer = None  # (cos, sin) past max_position_embeddings
 
     def init_cache(self, batch: int, max_len: Optional[int] = None,
                    dtype=torch.float32) -> list:
@@ -150,8 +168,23 @@ class LlamaModel(nn.Module):
             return self.embed_tokens(x)
         return x
 
+    def _rope(self, length: int) -> tuple:
+        """RoPE tables covering positions [0, length).  A prompt left-padded
+        to its bucket can take the decode past ``max_position_embeddings``
+        although its own tokens fit (the JAX package then reads NaN rows
+        and decodes token 0); past the buffers, tables computed from the
+        same config, kept for later calls."""
+        if length <= self.rope_cos.shape[0]:
+            return self.rope_cos, self.rope_sin
+        ext = self._rope_longer
+        if ext is None or ext[0].shape[0] < length or ext[0].device != self.rope_cos.device:
+            cos, sin = rope_table(self.cfg.head_dim, length, base=self.cfg.rope_theta,
+                                  scaling=self.cfg.rope_scaling)
+            self._rope_longer = (cos.to(self.rope_cos.device), sin.to(self.rope_cos.device))
+        return self._rope_longer
+
     def _run(self, h, start, mask, caches):
-        rope = (self.rope_cos, self.rope_sin)
+        rope = self._rope(start + h.shape[1])
         for i, layer in enumerate(self.layers):
             h, _ = layer(h, rope, start, mask,
                          None if caches is None else caches[i])

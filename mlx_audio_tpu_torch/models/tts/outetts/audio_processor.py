@@ -9,9 +9,9 @@ target (ITU-R BS.1770 gating is approximated by energy-weighted RMS).
 
 A speaker from reference audio, given as samples or as a file path read
 through ``utils.audio_io``, takes the word timestamps of a Whisper model
-the caller passes (``create_speaker_from_whisper``).  Not ported yet, and
-raising ``NotImplementedError`` instead: loading the default Whisper when
-none is passed (the port has no ``utils/loader`` yet).
+(``create_speaker_from_whisper``): the one the caller passes, else
+whisper-large-v3-turbo loaded through ``utils.loader`` from a local
+directory.
 """
 
 from __future__ import annotations
@@ -149,6 +149,10 @@ class DacInterface:
         return self.model.decode_codes(codes).float().cpu().numpy()
 
 
+# the Whisper a speaker is transcribed with when none is given
+DEFAULT_WHISPER = "mlx-community/whisper-large-v3-turbo"
+
+
 class AudioProcessor:
     def __init__(self, dac_model=None, device="cuda", seed: int = 0):
         self.features = Features()
@@ -159,18 +163,18 @@ class AudioProcessor:
         ``audio`` (24 kHz samples); ``whisper_model`` is a
         ``models.stt.whisper.Model``, or anything whose
         ``generate(audio_16khz, word_timestamps=True)`` returns text and
-        segments with words."""
+        segments with words.  Without one, ``DEFAULT_WHISPER`` loads from
+        that local directory on the codec's device (nothing is fetched: a
+        missing directory raises ``FileNotFoundError``)."""
         if isinstance(audio, str):
             audio = self.audio_codec.load_audio(audio)
         else:
             audio = process_audio_array(np.asarray(audio), self.audio_codec.sr)
         if whisper_model is None:
-            raise NotImplementedError(
-                "a speaker from reference audio needs a Whisper model: pass "
-                "whisper_model= (models.stt.whisper.Model, built or loaded from "
-                "a local directory); loading the default whisper-large-v3-turbo "
-                "needs utils/loader, which the port does not have yet (ROADMAP "
-                "queue 1 item 11)")
+            from mlx_audio_tpu_torch.utils.loader import load_model
+
+            whisper_model = load_model(DEFAULT_WHISPER, domain="stt",
+                                       device=self.audio_codec.model.device)
         wav16 = resample_audio(audio.reshape(-1), self.audio_codec.sr, 16000)
         data = whisper_model.generate(wav16, word_timestamps=True)
         words = []

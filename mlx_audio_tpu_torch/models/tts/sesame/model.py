@@ -56,6 +56,7 @@ from mlx_audio_tpu_torch.models.lm.llama import (
     LLAMA_FLAVORS,
     LlamaConfig,
     LlamaModel,
+    cast_lm,
     lm_dtype,
 )
 from mlx_audio_tpu_torch.models.sampling import (
@@ -337,14 +338,7 @@ class Model(nn.Module):
         ``quantized_matmul``'s bf16 variant; spec decode packs the draft
         from float32 upcasts and hands it float32 caches, as in JAX.
         Returns self."""
-        for mod in self.model.modules():
-            for table in (mod._parameters, mod._buffers):
-                for key, t in table.items():
-                    if t is None or not t.is_floating_point() or key in ("rope_cos", "rope_sin"):
-                        continue
-                    cast = t.detach().to(dtype)
-                    table[key] = (nn.Parameter(cast, requires_grad=False)
-                                  if isinstance(t, nn.Parameter) else cast)
+        cast_lm(self.model, dtype)
         return self
 
     def _watermark(self, audio: np.ndarray) -> np.ndarray:

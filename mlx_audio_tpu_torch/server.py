@@ -2,9 +2,10 @@
 
 Endpoints: POST /tts, GET /audio/{filename}, POST /stt, POST /play,
 POST /stop, GET /languages, GET /models, POST /open_output_folder,
-POST /speech_to_speech_input and GET / (the web player).  The
-speech-to-speech routes (/ws/sts, /webrtc/offer) and ``--prewarm`` are not
-ported yet.
+POST /speech_to_speech_input, GET /ws/sts (speech to speech over a
+websocket), POST /webrtc/offer (the same over WebRTC; 501 without aiortc)
+and GET / (the web player).  ``--prewarm`` runs one call of each
+speech-to-speech stage before the server takes traffic.
 
 Models load through the port's registry (``utils.loader.load_model``) from
 local checkpoint directories, on the server's device, and are hot-swapped
@@ -478,6 +479,87 @@ def create_app(state: Optional[ServerState] = None):
         state.sts_options.update(opts)
         return web.json_response({"status": "success"})
 
+    async def sts_ws(request):
+        """Speech to speech over a websocket: binary frames of 16 kHz
+        float32 PCM in; per turn a JSON header (the user's transcript and
+        the sample rate), one binary float32 chunk a synthesized sentence,
+        then one final JSON with the reply.  The client sends "flush" at
+        its endpoint; the server commits earlier (adaptive endpointing)
+        once the speculative transcript is ready and
+        ``adaptive_min_silence`` of silence has passed."""
+        from aiohttp import WSMsgType
+
+        from mlx_audio_tpu_torch.sts.voice_pipeline import (
+            SpeculativeTranscriber,
+            VoicePipeline,
+            VoicePipelineConfig,
+        )
+
+        ws = web.WebSocketResponse()
+        await ws.prepare(request)
+        cfg = VoicePipelineConfig(**state.sts_options)
+        pipeline = VoicePipeline(config=cfg, server_state=state)
+        # STT runs during the client's endpointing silence window, so the
+        # transcript is usually there when "flush" comes
+        spec = SpeculativeTranscriber(pipeline.transcribe, sample_rate=cfg.sample_rate,
+                                      silence_threshold=cfg.silence_threshold)
+        buffer = []
+        loop = asyncio.get_running_loop()
+
+        async def commit_turn():
+            nonlocal buffer
+            audio_in = np.concatenate(buffer)
+            buffer = []
+            pre_text = await spec.take(audio_in)
+            sent_final = False
+            async for kind, payload in pipeline.process_turn_streaming(audio_in,
+                                                                       text=pre_text):
+                rate = getattr(pipeline._tts, "sample_rate", 24000)
+                if kind == "transcript":
+                    await ws.send_json({"user_transcript": payload, "sample_rate": rate})
+                elif kind == "audio":
+                    await ws.send_bytes(np.asarray(payload, dtype=np.float32).tobytes())
+                elif kind == "done":
+                    await ws.send_json({"transcript": payload, "sample_rate": rate})
+                    sent_final = True
+            if not sent_final:      # one JSON a flush, always
+                await ws.send_json({"transcript": ""})
+
+        early_committed = False
+        async for msg in ws:
+            if msg.type == WSMsgType.BINARY:
+                frames = np.frombuffer(msg.data, dtype=np.float32)
+                buffer.append(frames)
+                spec.feed(frames, loop=loop)
+                if spec.seen_speech:
+                    early_committed = False   # a new utterance is pending
+                if (cfg.adaptive_endpoint and spec.seen_speech and spec.ready
+                        and spec.trailing_silence >= cfg.adaptive_min_silence):
+                    await commit_turn()
+                    early_committed = True
+            elif msg.type == WSMsgType.TEXT and msg.data == "flush":
+                if buffer and not early_committed:
+                    await commit_turn()
+                else:
+                    # the silent tail after an early commit goes, from the
+                    # speculative tracker too: the JAX package keeps it
+                    # there, so that the next turn's snapshot is longer than
+                    # its audio and its transcript is made a second time
+                    buffer = []
+                    spec.reset()
+                early_committed = False
+            elif msg.type == WSMsgType.ERROR:
+                break
+        return ws
+
+    async def webrtc_offer_route(request):
+        """WebRTC signaling: POST an SDP offer, get the answer; the peer's
+        microphone track runs the pipeline of /ws/sts.  501 without
+        aiortc."""
+        from mlx_audio_tpu_torch.sts.webrtc import webrtc_offer
+
+        return await webrtc_offer(request, state)
+
     app.router.add_post("/tts", tts)
     app.router.add_get("/audio/{filename}", audio)
     app.router.add_post("/stt", stt)
@@ -487,6 +569,8 @@ def create_app(state: Optional[ServerState] = None):
     app.router.add_get("/models", models)
     app.router.add_post("/open_output_folder", open_output_folder)
     app.router.add_post("/speech_to_speech_input", speech_to_speech_input)
+    app.router.add_get("/ws/sts", sts_ws)
+    app.router.add_post("/webrtc/offer", webrtc_offer_route)
 
     ui = Path(__file__).parent / "tts" / "audio_player.html"
     if ui.exists():
@@ -495,6 +579,16 @@ def create_app(state: Optional[ServerState] = None):
 
         app.router.add_get("/", index)
     return app
+
+
+def prewarm(state: ServerState) -> int:
+    """One call of each speech-to-speech stage on the server's models
+    (``VoicePipeline.prewarm``): every later session shares them.  Returns
+    the calls issued."""
+    from mlx_audio_tpu_torch.sts.voice_pipeline import VoicePipeline, VoicePipelineConfig
+
+    return VoicePipeline(config=VoicePipelineConfig(**state.sts_options),
+                         server_state=state).prewarm()
 
 
 def main(argv=None):
@@ -511,6 +605,12 @@ def main(argv=None):
                         help="how long to wait coalescing concurrent requests")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device the models run on (cuda, or cpu)")
+    parser.add_argument("--prewarm", action="store_true",
+                        help="before taking traffic, run one call of each "
+                             "speech-to-speech stage (a synthesis, an STT "
+                             "window, a chat turn when a chat LM is "
+                             "configured), so that no live turn pays for the "
+                             "kernels' and libraries' first use")
     args = parser.parse_args(argv)
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
@@ -520,6 +620,8 @@ def main(argv=None):
     if args.max_batch > 0:
         state.batcher = DynamicBatcher(state, max_batch=args.max_batch,
                                        max_wait_ms=args.batch_window_ms)
+    if args.prewarm:
+        prewarm(state)
     try:
         web.run_app(create_app(state), host=args.host, port=args.port)
     finally:

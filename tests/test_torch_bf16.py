@@ -239,10 +239,13 @@ KOKORO_FRAMES = 64
 
 @pytest.fixture(scope="module")
 def kokoros():
+    import mlx_audio_tpu.nn.layers as jax_layers
     from mlx_audio_tpu.models.tts.kokoro.model import Model as JaxModel
     from mlx_audio_tpu_torch.models.tts.kokoro import Model
     from test_torch_kokoro import _port_config, tiny_config
 
+    # set up before conftest's per-test reseed: seed the JAX init here
+    jax_layers._INIT_RNG = np.random.default_rng(0)
     j32 = JaxModel(tiny_config())
     p32 = Model(_port_config(), device="cpu")
     p32.load_state_dict(params_from_jax(

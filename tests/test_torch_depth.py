@@ -36,6 +36,10 @@ def _cfg(cls):
 
 @pytest.fixture(scope="module")
 def packs():
+    import mlx_audio_tpu.nn.layers as jax_layers
+
+    # set up before conftest's per-test reseed: seed the JAX init here
+    jax_layers._INIT_RNG = np.random.default_rng(0)
     rng = np.random.default_rng(0)
     jdec = JaxLlama(_cfg(JaxConfig), use_embed_tokens=False)
     tdec = LlamaModel(_cfg(LlamaConfig), use_embed_tokens=False)

@@ -48,12 +48,34 @@ def _port_config():
 
 @pytest.fixture(scope="module")
 def models():
+    import mlx_audio_tpu.nn.layers as jax_layers
+
+    # set up before conftest's per-test reseed: seed the JAX init here
+    jax_layers._INIT_RNG = np.random.default_rng(0)
     jax_model = JaxModel(tiny_config())
     port = Model(_port_config(), device="cpu")
     port.load_state_dict(params_from_jax(
         {k: np.asarray(v) for k, v in named_arrays(jax_model)}, port))
     return jax_model, port
 
+
+
+def test_models_fixture_does_not_depend_on_earlier_draws():
+    """The module-scoped fixture seeds the JAX init itself, so the files a
+    worker ran before this one (here: draws from the init RNG and a model
+    built) leave its weights, on both sides, as a fresh build's."""
+    import mlx_audio_tpu.nn.layers as jax_layers
+
+    fresh_j, fresh_p = models.__wrapped__()
+    for n in (7, 1000, 3):
+        jax_layers._INIT_RNG.uniform(size=n)
+    JaxModel(tiny_config())
+    again_j, again_p = models.__wrapped__()
+    a, b = dict(named_arrays(fresh_j)), dict(named_arrays(again_j))
+    assert a.keys() == b.keys()
+    assert all(np.array_equal(np.asarray(a[k]), np.asarray(b[k])) for k in a)
+    pa, pb = fresh_p.state_dict(), again_p.state_dict()
+    assert pa.keys() == pb.keys() and all(torch.equal(pa[k], pb[k]) for k in pa)
 
 def _source_draws(key, b, frames):
     """The JAX Generator's draws for ``key``: SourceModuleHnNSF splits the

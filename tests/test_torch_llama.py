@@ -38,6 +38,10 @@ def _cfg(cls, embed_vocab=50):
 
 @pytest.fixture(scope="module")
 def models():
+    import mlx_audio_tpu.nn.layers as jax_layers
+
+    # set up before conftest's per-test reseed: seed the JAX init here
+    jax_layers._INIT_RNG = np.random.default_rng(0)
     jm = JaxLlama(_cfg(JaxConfig))
     port = LlamaModel(_cfg(LlamaConfig))
     port.load_state_dict(params_from_jax(

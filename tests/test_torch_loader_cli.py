@@ -117,6 +117,10 @@ def kokoro_config_dict(cfg) -> dict:
 
 @pytest.fixture(scope="module")
 def jax_kokoro():
+    import mlx_audio_tpu.nn.layers as jax_layers
+
+    # set up before conftest's per-test reseed: seed the JAX init here
+    jax_layers._INIT_RNG = np.random.default_rng(0)
     return JaxKokoro(tiny_config())
 
 

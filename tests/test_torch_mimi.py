@@ -41,6 +41,10 @@ def carry(jax_module, port_module):
 
 @pytest.fixture(scope="module")
 def mimis():
+    import mlx_audio_tpu.nn.layers as jax_layers
+
+    # set up before conftest's per-test reseed: seed the JAX init here
+    jax_layers._INIT_RNG = np.random.default_rng(0)
     jm = tiny_mimi()
     return jm, carry(jm, Mimi(port_config(jm.cfg)))
 

@@ -358,6 +358,45 @@ def test_whisper_speaker_matches_jax(pair, monkeypatch):
     assert [w["word"] for w in got["words"]] and all(w["c1"] for w in got["words"])
 
 
+
+def test_default_whisper_loads_from_its_local_directory(pair, tmp_path, monkeypatch):
+    """Without a Whisper given, both packages load whisper-large-v3-turbo
+    from the local directory of that name (here the twins' tiny Whisper,
+    the JAX package's native checkpoint), the port's through its own
+    loader on the model's device: the speakers are equal.  Nothing is
+    fetched."""
+    import huggingface_hub
+
+    import mlx_audio_tpu.utils.loader as jax_loader
+    import test_torch_whisper as tw
+    from test_whisper import tiny_dims, tiny_encoding
+
+    from mlx_audio_tpu.models.stt.whisper.tokenizer import Tokenizer as JaxTokenizer
+    from mlx_audio_tpu_torch.models.stt.whisper.tokenizer import Tokenizer
+
+    fetched = []
+    monkeypatch.setattr(huggingface_hub, "snapshot_download",
+                        lambda *a, **k: fetched.append(a) or "")
+    enc = tiny_encoding()
+    kw = dict(num_languages=4, language="en", task="transcribe")
+    jt, pt = JaxTokenizer(encoding=enc, **kw), Tokenizer(encoding=enc, **kw)
+    for cls, tok in ((tw.jtr.Model, jt), (tw.transcribe.Model, pt)):
+        monkeypatch.setattr(cls, "_tokenizer", lambda self, language=None, task=None, t=tok: t)
+        greedy = cls.generate
+        monkeypatch.setattr(cls, "generate", lambda self, audio, g=greedy, **k: g(
+            self, audio, temperature=0.0, suppress_tokens=_GreedyWhisper.SUPPRESS, **k))
+    dims = tiny_dims(jt)
+    jw = tw.redraw(_seeded(lambda: tw.jtr.Model(dims)))
+    jax_loader.save_checkpoint(jw, tmp_path / "mlx-community" / "whisper-large-v3-turbo",
+                               dict(vars(dims)))
+    monkeypatch.chdir(tmp_path)
+    jm, tm = pair
+    audio = (np.random.default_rng(7).standard_normal(24000) * 0.1).astype(np.float32)
+    want = jm.audio_processor.create_speaker_from_whisper(audio)
+    got = tm.audio_processor.create_speaker_from_whisper(audio)
+    assert got == want
+    assert [w["word"] for w in got["words"]] and not fetched
+
 class _FixedWhisper:
     """A Whisper stand-in whose generate returns the same two timed words
     for any audio, and keeps the 16 kHz audio it was given."""
@@ -374,15 +413,17 @@ class _FixedWhisper:
         return types.SimpleNamespace(text=" Hello there.", segments=[{"words": words}])
 
 
-def test_speaker_from_audio_path_reads_it_and_without_whisper_raises(pair, tmp_path):
+def test_speaker_from_audio_path_reads_it_and_without_whisper_raises(pair, tmp_path,
+                                                                    monkeypatch):
     """A reference wav path is read at 24 kHz and loudness-normalised as the
     JAX package reads it, and the speaker built from it equals the JAX
-    package's; loading the default Whisper needs utils/loader, which the
-    port does not have yet."""
+    package's; without a Whisper given and no local directory of the
+    default one, it raises FileNotFoundError naming that directory."""
     from mlx_audio_tpu_torch.utils.audio_io import save_audio
 
     jm, tm = pair
-    with pytest.raises(NotImplementedError, match="Whisper model.*queue 1 item 11"):
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(FileNotFoundError, match="whisper-large-v3-turbo"):
         next(tm.generate("hi", ref_audio=np.zeros(24000, np.float32)))
     wav = str(tmp_path / "speech.wav")
     save_audio(wav, np.random.default_rng(8).standard_normal(24000) * 0.2, 22050)
@@ -393,7 +434,7 @@ def test_speaker_from_audio_path_reads_it_and_without_whisper_raises(pair, tmp_p
     want = jm.audio_processor.create_speaker_from_whisper(wav, jw)
     assert tm.audio_processor.create_speaker_from_whisper(wav, tw) == want
     np.testing.assert_array_equal(tw.heard[0], jw.heard[0])
-    with pytest.raises(NotImplementedError, match="Whisper model.*queue 1 item 11"):
+    with pytest.raises(FileNotFoundError, match="whisper-large-v3-turbo"):
         tm.audio_processor.create_speaker_from_whisper(wav)
 
 

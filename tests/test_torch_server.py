@@ -1,7 +1,8 @@
 """The port's HTTP server (the twins of tests/test_server_sts.py's server
-tests, without the speech-to-speech routes): the per-model shims held to
-the JAX package's on a table of inputs, ``synthesize_to_file`` and the
-``DynamicBatcher`` with the same fake models, the routes, the session
+tests; those of its speech-to-speech tests are in tests/test_torch_sts.py):
+the per-model shims held to the JAX package's on a table of inputs,
+``synthesize_to_file`` and the ``DynamicBatcher`` with the same fake
+models, the routes, the session
 options; the batcher's repair of the JAX package's padding past
 ``max_batch`` (``mlx_audio_tpu/server.py:332``); and the whole app on the
 CPU behind aiohttp's test server, serving the tiny Kokoro of
@@ -162,10 +163,9 @@ def test_server_routes_exist(tmp_path):
     app = create_app(ServerState(output_folder=str(tmp_path), device="cpu"))
     routes = {r.resource.canonical for r in app.router.routes() if r.resource is not None}
     for path in ["/tts", "/audio/{filename}", "/stt", "/play", "/stop", "/languages",
-                 "/models", "/open_output_folder", "/speech_to_speech_input", "/"]:
+                 "/models", "/open_output_folder", "/speech_to_speech_input", "/ws/sts",
+                 "/webrtc/offer", "/"]:
         assert path in routes, path
-    # the speech-to-speech routes wait for their slice
-    assert "/ws/sts" not in routes and "/webrtc/offer" not in routes
 
 
 def test_speech_to_speech_input_sets_session_options(tmp_path):

@@ -54,6 +54,10 @@ def _port_model(jm, quant: bool):
 
 @pytest.fixture(scope="module", params=["dense", "int8_g16"])
 def pair(request):
+    import mlx_audio_tpu.nn.layers as jax_layers
+
+    # set up before conftest's per-test reseed: seed the JAX init here
+    jax_layers._INIT_RNG = np.random.default_rng(0)
     quant = request.param == "int8_g16"
     jm = _jax_model(quant)
     return jm, _port_model(jm, quant)
