@@ -10,8 +10,10 @@ OuteTTS-1B, Spark-TTS-0.5B, Voxtral-Mini-3B), Dia-1.6B, Bark,
 Whisper-large-v3-turbo, Parakeet-TDT-0.6B-v2 and IndexTTS-1.5 in bf16, the
 entry points a user calls (native checkpoints, the TTS CLI, the HTTP
 server's batched /tts and its /stt), a speech-to-speech session (Whisper,
-a chat LM and Kokoro behind /ws/sts and the WebRTC bridge), and check its
-hand-written CUDA kernels and their bf16 variants.
+a chat LM and Kokoro behind /ws/sts and the WebRTC bridge), CSM-1B read
+from an HF-transformers directory, Mimi's own loaders, the SilentCipher
+watermark and the S3 speech tokenizers, and check its hand-written CUDA
+kernels and their bf16 variants.
 
     python3 chip_smoke.py
 
@@ -309,16 +311,42 @@ Phases; the failure of any one ends the script with a non-zero exit:
    version; the chat LM's bf16 logits within 3e-2 of float32's on the
    card; per turn its launches, speech end and flush to the first audio
    byte, and the STT, chat and TTS wall seconds;
-16. print one ``{"kernels": [...]}`` line, then the device line last.
+16. the CSM remainder and the S3 tokenizers (``csm_hf_runs``,
+   ``silentcipher_runs``, ``s3_runs``): the phase-5 CSM-1B rebuilt from its
+   seed at ``CSM_HF_CONFIG`` (sesame/csm-1b's config.json; its digest must
+   be phase 5's), written as an HF-transformers directory (the tied audio
+   table as the depth decoder's copy only, the embedded Mimi's q and k in
+   HF's rotate-half order) and read by ``load_model(..., strict=True)``:
+   every tensor bit for bit; then int8 in groups of 128 and spec decode: a
+   greedy ``generate`` whose frames must equal phase 5's spec frames, with
+   ``quantized_matmul`` and ``depth_draft`` launching and held to their
+   plain versions on the path's operands; its Mimi written as a kyutai/mimi
+   HF directory and as a Kyutai file and read back by
+   ``Mimi.from_pretrained``: state bit for bit, codes of a seeded 2 s clip
+   equal, audio within 1e-5; SilentCipher at ``SilentCipherConfig()``
+   written as a torch checkpoint (``module.`` prefixes, OIHW convs, one
+   ``dec_c`` array) and read by ``load_watermarker``; the CSM output marked
+   by the model's own ``_watermark`` through ``$MLX_AUDIO_TPU_SILENTCIPHER``
+   and verified; ``encode_wav`` and ``decode_wav`` of the CSM output and of
+   a seeded 2 s clip against the same weights on the CPU (perturbation
+   within 1e-4 relative RMS, messages equal, the clip's SDR at least 30
+   dB); S3 v1 (50 Hz) and v2 (25 Hz) at ``S3Config()``, written as MLX
+   community directories and read by ``from_pretrained``, on a batch of a
+   30 s and a 21.3 s seeded clip: v1 launches ``dilated_conv1d`` once an
+   encode (held to its plain version), v2 nothing of ours; codes and
+   lengths against the CPU's, a code differing only at a near-tie of the
+   CPU's margin (below 1e-4), at most 1% of them; the directories' sizes,
+   write and load seconds, frames a wall second, encode and decode ms;
+17. print one ``{"kernels": [...]}`` line, then the device line last.
 
 Phase 2 holds ``quantized_matmul`` at Orpheus-3B's, OuteTTS-1B's,
 Spark-TTS-0.5B's and Voxtral-Mini-3B's shapes too (int8, groups of 64, 1
 and 4 rows), and the conv kernels at DAC-44kHz's, DAC-24kHz's and
 BiCodec's routed resblock shapes (K=7, d = 1, 3, 9), at Whisper's conv1
-(batch 1 and 4), and at BigVGAN-v2's resblocks ([1, 3752, 768] and [1,
+(batch 1 and 4) and S3 v1's (batch 2), and at BigVGAN-v2's resblocks ([1, 3752, 768] and [1,
 15008, 384], K = 3, 7, 11 at d = 1, 3, 5) and IndexTTS-1.5's ([1, 2408,
 768] and [1, 19264, 384], the same K and d).  Launch counters are set to 0
-just before each run of the probes' entry point and of phases 3 to 15, and
+just before each run of the probes' entry point and of phases 3 to 16, and
 read just after:
 each kernel of a run's path must have launched in it (Orpheus:
 ``quantized_matmul``; DAC's encode and decode: both conv kernels; OuteTTS
@@ -326,7 +354,8 @@ and Spark: all three; Dia's DAC decode: both conv kernels; EnCodec's encode
 and decode and Bark's EnCodec decode: ``lstm``; Whisper's and Voxtral's
 encodes: ``dilated_conv1d``; Voxtral's decode steps: ``quantized_matmul``;
 BigVGAN's forwards and IndexTTS's runs: both conv kernels; Parakeet's
-runs: none; the bf16 runs of Kokoro, BigVGAN and EnCodec: their bf16
+runs: none; the HF-loaded CSM's spec generate: ``quantized_matmul`` and
+``depth_draft``; S3 v1's encode: ``dilated_conv1d`` alone, v2's: none; the bf16 runs of Kokoro, BigVGAN and EnCodec: their bf16
 variants only; the bf16 LM runs: ``quantized_matmul_bf16``, ``depth_draft``
 on CSM's spec path, both conv kernels' bf16 variants in OuteTTS's DAC, and
 of the kernels with a bf16 variant no float32 one but where the JAX
@@ -607,6 +636,8 @@ INDEXTTS_RESBLOCKS = ((768, 2408), (384, 19264))
 # (B, L, C, Cout) of Whisper-large-v3-turbo's and Voxtral's conv1 (K = 3,
 # 'same'; 128 mels into 1280) in phase 10: one 30 s window, and a batch of 4
 WHISPER_STEMS = ((1, 3000, 128, 1280), (4, 3000, 128, 1280))
+# the same of S3 v1 at 50 Hz in phase 16: a batch of 2, 3000 mel frames
+S3_STEMS = ((2, 3000, 128, 1280),)
 
 
 def _conv_cases(gen):
@@ -637,6 +668,10 @@ def _conv_cases(gen):
         if conv1d_route(3, c, c_out, l, padding=1) != "shifted":
             fail(f"Whisper's conv1 [{b}, {l}, {c}] -> {c_out} does not take dilated_conv1d")
         cases.append(("dilated_conv1d", (b, l, c, c_out), 3, 1, " (Whisper, Voxtral conv1)"))
+    for b, l, c, c_out in S3_STEMS:
+        if conv1d_route(3, c, c_out, l, padding=1) != "shifted":
+            fail(f"S3 v1's conv1 [{b}, {l}, {c}] -> {c_out} does not take dilated_conv1d")
+        cases.append(("dilated_conv1d", (b, l, c, c_out), 3, 1, " (S3 v1 conv1)"))
     yield from _conv_case_dicts(gen, cases, torch.float32)
 
 
@@ -1479,13 +1514,9 @@ def build_csm():
 
     t0 = time.perf_counter()
     model = Model(CSM_CONFIG, text_tokenizer=StubTokenizer(), device="cuda")
-    # codes past Mimi's 2048 bins (the audio vocabulary has 2051) decode to
-    # NaN; a trained CSM does not emit them, so neither do these random
-    # weights: their logits are held at 0, below the top of 2048 random ones
-    bins = model.mimi.cfg.quantizer_bins
-    with torch.no_grad():
-        model.model.codebook0_head.weight[bins:] = 0
-        model.model.audio_head[..., bins:] = 0
+    hold_extra_codes(model)
+    # phase 16 rebuilds these weights and checks them against this digest
+    model.source_digest = weights_digest(model)
     quantize_model(model.model, group_size=128, bits=8)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1830,7 +1861,8 @@ def csm_runs(model, launches: dict) -> dict:
           + "; generate_batch frames "
           + ", ".join(str(r.token_count) for r in batch), flush=True)
     return {"accept": accept, "wall": wall, "qmm_path_err": path_err,
-            "qmm_path_shapes": len(path_calls), "stream": stream_info}
+            "qmm_path_shapes": len(path_calls), "stream": stream_info,
+            "spec_codes": decoded[1].cpu(), "digest": model.source_digest}
 
 
 # the first chunk, the ramp chunk, then streaming_interval 0.5 s = 6 frames
@@ -7114,6 +7146,521 @@ def sts_session_runs(launches: dict, ckpts: dict, voice: str, tmp: Path) -> dict
             "peak_memory_gb": peak}
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the CSM remainder (an HF-transformers CSM-1B directory through
+# load_model, Mimi's own loaders, SilentCipher) and the S3 speech tokenizers
+# ---------------------------------------------------------------------------
+
+LLAMA3_ROPE = {"factor": 32.0, "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+               "original_max_position_embeddings": 8192, "rope_type": "llama3"}
+# sesame/csm-1b's config.json in HF-transformers' CsmConfig field names: the
+# published values, whose widths are CSM_CONFIG's llama-1B and llama-100M
+# flavors and mimi_202407(32)
+CSM_HF_CONFIG = {
+    "architectures": ["CsmForConditionalGeneration"], "model_type": "csm",
+    "num_codebooks": 32, "vocab_size": 2051, "text_vocab_size": 128_256,
+    "hidden_size": 2048, "intermediate_size": 8192, "num_hidden_layers": 16,
+    "num_attention_heads": 32, "num_key_value_heads": 8, "head_dim": 64,
+    "rms_norm_eps": 1e-5, "max_position_embeddings": 2048, "rope_theta": 500_000,
+    "rope_scaling": LLAMA3_ROPE, "attention_bias": False, "mlp_bias": False,
+    "hidden_act": "silu", "bos_token_id": 128_000, "pad_token_id": 128_002,
+    "audio_token_id": 128_002, "audio_eos_token_id": 128_003,
+    "codebook_pad_token_id": 2050, "codebook_eos_token_id": 0,
+    "tie_codebooks_embeddings": True,
+    "depth_decoder_config": {
+        "model_type": "csm_depth_decoder_model", "num_codebooks": 32,
+        "vocab_size": 2051, "backbone_hidden_size": 2048, "hidden_size": 1024,
+        "intermediate_size": 8192, "num_hidden_layers": 4, "num_attention_heads": 8,
+        "num_key_value_heads": 2, "head_dim": 128, "rms_norm_eps": 1e-5,
+        "max_position_embeddings": 33, "rope_theta": 500_000,
+        "rope_scaling": LLAMA3_ROPE, "attention_bias": False, "mlp_bias": False,
+        "hidden_act": "silu"},
+    "codec_config": {
+        "model_type": "mimi", "sampling_rate": 24_000, "audio_channels": 1,
+        "hidden_size": 512, "num_filters": 64, "num_residual_layers": 1,
+        "upsampling_ratios": [8, 6, 5, 4], "kernel_size": 7, "last_kernel_size": 3,
+        "residual_kernel_size": 3, "dilation_growth_rate": 2, "use_causal_conv": True,
+        "pad_mode": "constant", "compress": 2, "trim_right_ratio": 1.0,
+        "codebook_size": 2048, "codebook_dim": 256, "num_quantizers": 32,
+        "use_conv_shortcut": False, "vector_quantization_hidden_dimension": 256,
+        "upsample_groups": 512, "num_hidden_layers": 8, "intermediate_size": 2048,
+        "num_attention_heads": 8, "num_key_value_heads": 8, "head_dim": 64,
+        "hidden_act": "gelu", "max_position_embeddings": 8000, "norm_eps": 1e-5,
+        "rope_theta": 10000.0, "sliding_window": 250,
+        "layer_scale_initial_scale": 0.01, "attention_bias": False,
+        "num_semantic_quantizers": 1},
+}
+PHASE16_RUNS = ("csm_hf_generate_spec", "s3_v1_encode", "s3_v2_encode")
+MIMI_SECONDS = 2.0  # the clip Mimi's loaders encode
+S3_SECONDS = (30.0, 21.3)  # the batch of 2 the S3 tokenizers encode
+S3_TIE = 1e-4  # a code may differ from the CPU's where its margin is below this
+S3_TIE_SHARE = 0.01  # at most this share of the codes may so differ
+SC_REL_RMS = 1e-4  # SilentCipher's perturbation against the CPU's
+SC_MIN_SDR = 30.0
+
+
+def _mimi_conv_out(w: np.ndarray, transposed: bool) -> np.ndarray:
+    """The JAX package's conv layout [K, I, O] -> torch's: a conv [O, I, K],
+    a transposed conv [I, O/g, K]."""
+    return np.ascontiguousarray(w.transpose(1, 2, 0) if transposed else w.transpose(2, 1, 0))
+
+
+def _seanet_index(side: str, rest: list, n_ratios: int):
+    """(HF / Kyutai SEANet index, block tap, remaining path) of a JAX SEANet
+    path's components after ``side``."""
+    if rest[0] == "init_conv1d":
+        return 0, None, rest[1:]
+    if rest[0] == "final_conv1d":
+        return 3 * n_ratios + 2, None, rest[1:]
+    i = int(rest[1])
+    if rest[2] == "residuals":  # layers.i.residuals.0.block.j.<param>
+        base = 3 * i + 1 if side == "encoder" else 3 * i + 3
+        return base, int(rest[5]), rest[6:]
+    # layers.i.downsample / layers.i.upsample
+    return (3 * i + 3 if side == "encoder" else 3 * i + 2), None, rest[3:]
+
+
+def _rope_permute(w: np.ndarray, n_heads: int) -> np.ndarray:
+    """Interleaved-pair q/k rows -> HF's rotate-half order (the inverse of
+    ``codec.mimi.mimi._unpermute_rope``)."""
+    o, i = w.shape
+    return w.reshape(n_heads, o // n_heads // 2, 2, i).swapaxes(1, 2).reshape(o, i)
+
+
+def hf_mimi_weights(named: dict, n_heads: int = 8, n_ratios: int = 4) -> dict:
+    """A Mimi in the JAX package's paths and layouts -> an HF-transformers
+    ``MimiModel`` state (``kyutai/mimi``'s layout): the inverse of
+    ``sanitize_hf_mimi``."""
+    out = {}
+    for k, v in named.items():
+        v = np.asarray(v)
+        parts = k.split(".")
+        if parts[0] in ("encoder", "decoder"):
+            idx, tap, rest = _seanet_index(parts[0], parts[1:], n_ratios)
+            mid = f"block.{2 * tap + 1}.conv" if tap is not None else "conv"
+            if v.ndim == 3:
+                v = _mimi_conv_out(v, ".upsample." in k)
+            out[f"{parts[0]}.layers.{idx}.{mid}.{'.'.join(rest)}"] = v
+            continue
+        if k.endswith(".self_attn.in_proj.weight"):
+            pre = k[: -len("in_proj.weight")]
+            q, kk, vv = np.split(v, 3, axis=0)
+            out[pre + "q_proj.weight"] = np.ascontiguousarray(_rope_permute(q, n_heads))
+            out[pre + "k_proj.weight"] = np.ascontiguousarray(_rope_permute(kk, n_heads))
+            out[pre + "v_proj.weight"] = np.ascontiguousarray(vv)
+            continue
+        for ours, theirs in ((".self_attn.out_proj.", ".self_attn.o_proj."),
+                             (".gating.linear1.", ".mlp.fc1."), (".gating.linear2.", ".mlp.fc2."),
+                             (".norm1.", ".input_layernorm."),
+                             (".norm2.", ".post_attention_layernorm."),
+                             (".layer_scale_1.scale", ".self_attn_layer_scale.scale"),
+                             (".layer_scale_2.scale", ".mlp_layer_scale.scale"),
+                             (".rvq_first.vq.layers.", ".semantic_residual_vector_quantizer.layers."),
+                             (".rvq_rest.vq.layers.", ".acoustic_residual_vector_quantizer.layers."),
+                             (".rvq_first.", ".semantic_residual_vector_quantizer."),
+                             (".rvq_rest.", ".acoustic_residual_vector_quantizer."),
+                             (".codebook.embedding_sum", ".codebook.embed_sum")):
+            k = k.replace(ours, theirs)
+        if k in ("downsample.weight", "upsample.weight"):
+            v = _mimi_conv_out(v, k == "upsample.weight")
+            k = k.replace(".weight", ".conv.weight")
+        elif k.endswith(("input_proj.weight", "output_proj.weight")):
+            v = v[..., None]  # Linear [O, I] -> 1x1 conv [O, I, 1]
+        out[k] = v
+    return out
+
+
+def kyutai_mimi_weights(named: dict) -> dict:
+    """A Mimi in the JAX package's paths and layouts -> the Kyutai torch
+    checkpoint's keys and layouts (one ``.safetensors`` file): the inverse of
+    ``sanitize_mimi``, whose SEANet indices are those of 4 ratios."""
+    out = {}
+    for k, v in named.items():
+        v = np.asarray(v)
+        parts = k.split(".")
+        if parts[0] in ("encoder", "decoder"):
+            idx, tap, rest = _seanet_index(parts[0], parts[1:], 4)
+            up = ".upsample." in k
+            mid = (f"block.{2 * tap + 1}.conv.conv" if tap is not None
+                   else "convtr.convtr" if up else "conv.conv")
+            if v.ndim == 3:
+                v = _mimi_conv_out(v, up)
+            out[f"{parts[0]}.model.{idx}.{mid}.{'.'.join(rest)}"] = v
+            continue
+        k = (k.replace(".self_attn.in_proj.weight", ".self_attn.in_proj_weight")
+             .replace(".gating.linear", ".linear").replace(".codebook.", "._codebook."))
+        if k in ("downsample.weight", "upsample.weight"):
+            v = _mimi_conv_out(v, k == "upsample.weight")
+            k = ("downsample.conv.conv.weight" if k == "downsample.weight"
+                 else "upsample.convtr.convtr.weight")
+        elif k.endswith(("input_proj.weight", "output_proj.weight")):
+            v = v[..., None]
+        out[k] = v
+    return out
+
+
+def hf_csm_weights(named: dict, n_mimi_heads: int = 8, n_ratios: int = 4) -> dict:
+    """A CSM (the JAX package's ``model.*`` and ``_mimi.*`` paths) -> an
+    HF-transformers ``CsmForConditionalGeneration`` state, as
+    ``save_pretrained`` writes it: the tied audio-embedding table only as the
+    depth decoder's copy, no RoPE tables; the inverse of ``sanitize_hf_csm``."""
+    fixed = {"model.text_embeddings.weight": "embed_text_tokens.weight",
+             "model.audio_embeddings.weight": "depth_decoder.model.embed_tokens.weight",
+             "model.codebook0_head.weight": "lm_head.weight",
+             "model.audio_head": "depth_decoder.codebooks_head.weight",
+             "model.projection.weight": "depth_decoder.model.inputs_embeds_projector.weight"}
+    out = {f"codec_model.{k}": v for k, v in hf_mimi_weights(
+        {k[len("_mimi."):]: v for k, v in named.items() if k.startswith("_mimi.")},
+        n_mimi_heads, n_ratios).items()}
+    for k, v in named.items():
+        if k.startswith("_mimi.") or k.endswith(("rope_cos", "rope_sin")):
+            continue
+        if k in fixed:
+            k = fixed[k]
+        elif k.startswith("model.decoder."):
+            k = "depth_decoder.model." + k[len("model.decoder."):]
+        elif k.startswith("model.backbone."):
+            k = "backbone_model." + k[len("model.backbone."):]
+        out[k] = np.ascontiguousarray(v)
+    return out
+
+
+def s3_mlx_weights(named: dict) -> dict:
+    """An S3 tokenizer in the JAX package's layouts -> the MLX community
+    safetensors' (conv weights [O, K, I])."""
+    return {k: np.ascontiguousarray(v.transpose(2, 0, 1) if k.endswith(".weight")
+                                    and v.ndim == 3 else v) for k, v in named.items()}
+
+
+def silentcipher_torch_weights(state: dict, seed: int = 0) -> dict:
+    """A SilentCipher state in torch's layouts -> a torch checkpoint as a
+    DataParallel run saves it (``module.`` prefixes), with one array of the
+    ``dec_c`` carrier-SDR estimator that loading drops."""
+    out = {f"module.{k}": np.ascontiguousarray(v) for k, v in state.items()}
+    rng = np.random.default_rng(seed)
+    out["module.dec_c.conv_in.weight"] = rng.standard_normal((8, 1, 3, 3)).astype(np.float32)
+    return out
+
+
+def weights_digest(model) -> list:
+    """Per tensor (RoPE tables aside) its float64 sum and sum of squares:
+    two models built from one seed agree on it to the bit."""
+    return [(k, float(t.double().sum()), float(t.double().pow(2).sum()))
+            for k, t in model.state_dict().items()
+            if t.is_floating_point() and "rope_" not in k]
+
+
+def hold_extra_codes(model) -> None:
+    """Codes past Mimi's 2048 bins (the audio vocabulary has 2051) decode to
+    NaN; a trained CSM does not emit them, so neither do these random
+    weights: their logits are held at 0, below the top of 2048 random ones."""
+    bins = model.mimi.cfg.quantizer_bins
+    with torch.no_grad():
+        model.model.codebook0_head.weight[bins:] = 0
+        model.model.audio_head[..., bins:] = 0
+
+
+def _save(weights: dict, path: Path) -> None:
+    from safetensors.numpy import save_file
+
+    save_file(weights, str(path))
+
+
+def csm_hf_runs(launches: dict, tmp: Path, phase5: dict) -> dict:
+    """Step 1: a CSM-1B HF-transformers directory from the seeded source
+    (phase 5's weights, checked by digest), read by ``load_model``: every
+    tensor bit for bit; then int8 and spec decode, whose greedy frames must
+    be phase 5's.  Step 2: Mimi's loaders on the same Mimi."""
+    from mlx_audio_tpu_torch.convert import params_to_jax
+    from mlx_audio_tpu_torch.models.tts.sesame import Model
+    from mlx_audio_tpu_torch.nn import kernels
+    from mlx_audio_tpu_torch.nn.quantize import quantize_model
+    from mlx_audio_tpu_torch.utils.loader import load_model
+
+    src = Model(CSM_HF_CONFIG, text_tokenizer=StubTokenizer(), device="cuda")
+    hold_extra_codes(src)
+    if weights_digest(src) != phase5["digest"]:
+        fail("csm hf: the source's weights are not phase 5's")
+    d = tmp / "csm-1b-hf"
+    d.mkdir()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    named = params_to_jax(src.state_dict(), src)
+    _save(hf_csm_weights(named), d / "model.safetensors")
+    with open(d / "config.json", "w") as f:
+        json.dump(CSM_HF_CONFIG, f)
+    write_s = time.perf_counter() - t0
+    size_gb = sum(p.stat().st_size for p in d.iterdir()) / 1e9
+    t0 = time.perf_counter()
+    model = load_model(str(d), domain="tts", device="cuda", strict=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    _check_same_state("csm hf load_model", model, src)
+    del src
+    torch.cuda.empty_cache()
+    print(f"csm hf: {d.name} ({size_gb:.3f} GB, the tied audio table as the depth "
+          f"decoder's copy only) written in {write_s:.2f} s, read by load_model in "
+          f"{load_s:.2f} s; every tensor equal to the source's bit for bit", flush=True)
+
+    mimi_out = mimi_loader_runs(model, named, tmp)
+    del named
+
+    model._text_tokenizer = StubTokenizer()
+    quantize_model(model.model, group_size=128, bits=8)
+    model.model.enable_spec_decode()
+    ref = (np.random.default_rng(0).standard_normal(48_000) * 0.1).astype(np.float32)
+    decoded = []
+    decode = model.mimi.decode
+
+    def recording_decode(codes):
+        audio = decode(codes)
+        decoded.append((codes.clone(), audio[0, 0].cpu().numpy()))
+        return audio
+
+    path_calls, wall = {}, {}
+    qmm = record_qmm_calls(path_calls)
+    model.mimi.decode = recording_decode
+    run = path_runner(launches, wall)
+    try:
+        out = run("csm_hf_generate_spec", lambda: list(model.generate(
+            CSM_TEXT, temperature=0.0, ref_audio=ref, ref_text=CSM_REF_TEXT,
+            max_audio_length_ms=CSM_FRAMES * 80)))
+    finally:
+        model.mimi.decode = decode
+        kernels.quantized_matmul = qmm
+    _check_results("csm hf generate (spec)", out, CSM_FRAMES)
+    if not torch.equal(decoded[0][0].cpu(), phase5["spec_codes"]):
+        n = int((decoded[0][0].cpu() != phase5["spec_codes"]).sum())
+        fail(f"csm hf: greedy spec frames differ from phase 5's source ({n} codes)")
+    lc = launches["csm_hf_generate_spec"]
+    missing = [k for k in ("quantized_matmul", "depth_draft") if not lc[k]]
+    if missing:
+        fail(f"csm_hf_generate_spec: kernels never launched: {missing}")
+    qmm_err = check_qmm_path(path_calls, qmm, "HF-loaded CSM")
+    per_frame = {k: lc[k] / CSM_FRAMES for k in ("quantized_matmul", "depth_draft")}
+    print(f"csm hf: int8 spec greedy generate of {CSM_FRAMES} frames equal to phase 5's "
+          f"source; {CSM_FRAMES / wall['csm_hf_generate_spec']:.2f} frames a wall second "
+          f"({wall['csm_hf_generate_spec']:.3f} s); per frame {json.dumps(per_frame)}",
+          flush=True)
+    return {"model": model, "audio": decoded[0][1], "write_s": write_s, "load_s": load_s,
+            "size_gb": size_gb, "frames_per_s": CSM_FRAMES / wall["csm_hf_generate_spec"],
+            "per_frame": per_frame, "qmm_path_err": qmm_err,
+            "qmm_path_shapes": len(path_calls), "mimi": mimi_out}
+
+
+def mimi_loader_runs(model, named: dict, tmp: Path) -> dict:
+    """``Mimi.from_pretrained`` on a kyutai/mimi-layout HF directory and on a
+    Kyutai-layout file, both written from ``model``'s Mimi: each loaded
+    state equal bit for bit, and on a seeded clip codes equal to the
+    source's and audio within 1e-5."""
+    from mlx_audio_tpu_torch.codec.mimi import Mimi
+
+    mimi_named = {k[len("_mimi."):]: v for k, v in named.items() if k.startswith("_mimi.")}
+    hf_dir = tmp / "mimi-hf"
+    hf_dir.mkdir()
+    _save(hf_mimi_weights(mimi_named), hf_dir / "model.safetensors")
+    with open(hf_dir / "config.json", "w") as f:
+        json.dump(CSM_HF_CONFIG["codec_config"], f)
+    kyutai = tmp / "mimi-kyutai.safetensors"
+    _save(kyutai_mimi_weights(mimi_named), kyutai)
+    src = model.mimi
+    pcm = (np.random.default_rng(16).standard_normal(int(MIMI_SECONDS * 24_000)) * 0.1
+           ).astype(np.float32)
+    x = torch.as_tensor(pcm, device="cuda")[None, None]
+    want_codes = src.encode(x)
+    want_audio = src.decode(want_codes)
+    out = {}
+    for name, path in (("hf_directory", hf_dir), ("kyutai_file", kyutai)):
+        t0 = time.perf_counter()
+        m = Mimi.from_pretrained(str(path), device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        _check_same_state(f"mimi from_pretrained ({name})", m, src)
+        codes = m.encode(x)
+        if not torch.equal(codes, want_codes):
+            fail(f"mimi from_pretrained ({name}): {int((codes != want_codes).sum())} "
+                 "codes differ from the source's")
+        err = float((m.decode(codes) - want_audio).abs().max())
+        if err > 1e-5:
+            fail(f"mimi from_pretrained ({name}): audio {err:.3e} from the source's")
+        out[name] = {"load_s": load_s, "audio_err": err}
+        del m
+    print(f"mimi: from_pretrained of an HF directory and of a Kyutai file: state bit for "
+          f"bit, {want_codes.shape[-1]} frames x {want_codes.shape[1]} codes equal, audio "
+          f"within 1e-5 ({json.dumps(out)})", flush=True)
+    return out
+
+
+def silentcipher_runs(csm: dict, tmp: Path) -> dict:
+    """Step 3: SilentCipher at ``SilentCipherConfig()``, seeded weights written
+    as a torch checkpoint and read by ``load_watermarker``; the CSM output of
+    step 1 watermarked by the model's own ``_watermark`` through
+    ``$MLX_AUDIO_TPU_SILENTCIPHER`` and verified; ``encode_wav`` and
+    ``decode_wav`` against the same weights on the CPU."""
+    import os
+
+    from mlx_audio_tpu_torch.models.tts.sesame.silentcipher import SilentCipherModel
+    from mlx_audio_tpu_torch.models.tts.sesame.watermarking import (
+        CSM_1B_GH_WATERMARK,
+        load_watermarker,
+        verify,
+    )
+    from mlx_audio_tpu_torch.utils.audio_io import resample_audio
+
+    src = SilentCipherModel(device="cuda", seed=0)
+    d = tmp / "silentcipher"
+    d.mkdir()
+    _save(silentcipher_torch_weights({k: t.cpu().numpy() for k, t in
+                                      src.state_dict().items()}), d / "model.safetensors")
+    wm = load_watermarker(str(d))
+    if not isinstance(wm, SilentCipherModel):
+        fail(f"load_watermarker({d.name}): {type(wm).__name__}, not SilentCipherModel")
+    _check_same_state("load_watermarker", wm, src)
+    old = os.environ.get("MLX_AUDIO_TPU_SILENTCIPHER")
+    os.environ["MLX_AUDIO_TPU_SILENTCIPHER"] = str(d)
+    try:
+        t0 = time.perf_counter()
+        marked = csm["model"]._watermark(csm["audio"])
+        mark_s = time.perf_counter() - t0
+        verified = verify(load_watermarker(), marked, 24_000, CSM_1B_GH_WATERMARK)
+    finally:
+        if old is None:
+            del os.environ["MLX_AUDIO_TPU_SILENTCIPHER"]
+        else:
+            os.environ["MLX_AUDIO_TPU_SILENTCIPHER"] = old
+    if not (marked.shape == csm["audio"].shape and np.isfinite(marked).all()):
+        fail("silentcipher: the watermarked CSM output is not finite or changed length")
+
+    cfg = wm.cfg
+    cpu = SilentCipherModel(cfg, device="cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in wm.state_dict().items()})
+    clip = (np.random.default_rng(17).standard_normal(int(MIMI_SECONDS * 44_100)) * 0.1
+            ).astype(np.float32)
+    out = {"verify": bool(verified), "csm_watermark_s": mark_s,
+           "csm_audio_rms": float(np.sqrt(np.mean(csm["audio"] ** 2)))}
+    # the CSM output, and a seeded clip at speech level: the SDR bound holds
+    # where the carrier is above the perturbation's 1e-9 power floor
+    for name, audio in (("csm_output", resample_audio(csm["audio"], 24_000, 44_100)),
+                        ("clip", clip)):
+        out_card = wm.encode_wav(audio, 44_100, CSM_1B_GH_WATERMARK)[0]
+        encode_ms = _wall(lambda: wm.encode_wav(audio, 44_100, CSM_1B_GH_WATERMARK)) * 1e3
+        dec_card = wm.decode_wav(out_card, 44_100)
+        decode_ms = _wall(lambda: wm.decode_wav(out_card, 44_100)) * 1e3
+        out_cpu = cpu.encode_wav(audio, 44_100, CSM_1B_GH_WATERMARK)[0]
+        dec_cpu = cpu.decode_wav(out_card, 44_100)
+        pert = rel_rms(torch.as_tensor(out_card - audio), torch.as_tensor(out_cpu - audio))
+        delta = out_card - audio
+        sdr = float(10 * np.log10(np.mean(audio ** 2) / (np.mean(delta ** 2) + 1e-30)))
+        if pert > SC_REL_RMS:
+            fail(f"silentcipher ({name}): the card's perturbation {pert:.3e} (relative "
+                 "RMS) from the CPU's")
+        if dec_card["messages"] != dec_cpu["messages"]:
+            fail(f"silentcipher ({name}): decode_wav messages {dec_card['messages']} on "
+                 f"the card, {dec_cpu['messages']} on the CPU")
+        if name == "clip" and sdr < SC_MIN_SDR:
+            fail(f"silentcipher ({name}): SDR {sdr:.2f} dB < {SC_MIN_SDR}")
+        out[name] = {"perturbation_rel_rms": pert, "sdr_db": sdr,
+                     "confidence_err": abs(dec_card["confidence"] - dec_cpu["confidence"]),
+                     "messages": dec_card["messages"][0], "status": bool(dec_card["status"]),
+                     "encode_ms": encode_ms, "decode_ms": decode_ms,
+                     "seconds": len(audio) / 44_100}
+    print(f"silentcipher: {json.dumps(out)} (verify: whether random weights decode "
+          "the key)", flush=True)
+    return out
+
+
+def _s3_batch(device: str):
+    """A seeded 30 s clip and a shorter one as a padded mel batch [2, 128, T]
+    and its lengths.  30 s make 3001 frames: the last, past the encoder's
+    1500 positions, is dropped, as Whisper's log-mel drops it."""
+    from mlx_audio_tpu_torch.codec.s3 import S3Config, log_mel_spectrogram
+
+    frames = 2 * S3Config().n_audio_ctx
+    mels = [log_mel_spectrogram(torch.as_tensor(_clip(20 + i, s), device=device))[:, :frames]
+            for i, s in enumerate(S3_SECONDS)]
+    t = max(m.shape[1] for m in mels)
+    mel = torch.stack([torch.nn.functional.pad(m, (0, t - m.shape[1])) for m in mels])
+    return mel, torch.as_tensor([m.shape[1] for m in mels], device=device)
+
+
+def _s3_margins(tok, hidden: torch.Tensor) -> torch.Tensor:
+    """Each code's margin on the CPU: v1, the VQ distance from the runner-up
+    to the winner; v2, the least distance of the 8 FSQ digits' pre-rounding
+    values from a rounding boundary (+-0.5)."""
+    from mlx_audio_tpu_torch.codec.s3.s3 import FSQCodebook
+
+    q = tok.quantizer
+    if isinstance(q, FSQCodebook):
+        h = torch.tanh(q.project_down(hidden).float()) * 0.9990000128746033
+        return (h.abs() - 0.5).abs().min(-1).values
+    x = hidden / torch.sqrt((hidden ** 2).sum(-1, keepdim=True) + 1e-8)
+    e = q.embed.float()
+    dist = (x ** 2).sum(-1, keepdim=True) - 2 * x @ e.t() + (e ** 2).sum(1)
+    two = dist.topk(2, dim=-1, largest=False).values
+    return two[..., 1] - two[..., 0]
+
+
+def s3_runs(launches: dict, tmp: Path) -> dict:
+    """Step 4: S3 v1 (50 Hz) and v2 (25 Hz) at ``S3Config()``'s widths,
+    written as MLX-layout directories and read by ``from_pretrained``; a
+    batch of 2 clips on the card against the same weights on the CPU."""
+    from mlx_audio_tpu_torch.codec.s3 import S3Tokenizer, S3TokenizerV2
+    from mlx_audio_tpu_torch.convert import params_to_jax
+    from mlx_audio_tpu_torch.nn import kernels
+
+    mel, mel_len = _s3_batch("cuda")
+    mel_cpu, len_cpu = mel.cpu(), mel_len.cpu()
+    out, wall = {}, {}
+    run = path_runner(launches, wall)
+    conv_calls = {}
+    for cls, name, run_name in ((S3Tokenizer, "speech_tokenizer_v1", "s3_v1_encode"),
+                                (S3TokenizerV2, "speech_tokenizer_v2_25hz", "s3_v2_encode")):
+        src = cls(name, device="cuda", seed=0)
+        d = tmp / "s3" / name
+        d.mkdir(parents=True)
+        _save(s3_mlx_weights(params_to_jax(src.state_dict(), src)), d / f"{name}.safetensors")
+        tok = cls.from_pretrained(name, repo_id=str(d), device="cuda")
+        _check_same_state(f"{name} from_pretrained", tok, src)
+        del src
+        wrappers = record_conv_calls(conv_calls)
+        try:
+            codes, lens = run(run_name, lambda: tok.quantize(mel, mel_len))
+        finally:
+            kernels.banded_conv1d, kernels.dilated_conv1d = wrappers
+        want = {"dilated_conv1d": 1} if run_name == "s3_v1_encode" else {}
+        _check_only(run_name, launches[run_name], want)
+        encode_ms = _timed(lambda: tok.quantize(mel, mel_len)) * 1e3
+        cpu = cls(name, device="cpu")
+        cpu.load_state_dict({k: t.cpu() for k, t in tok.state_dict().items()})
+        with torch.no_grad():
+            hidden, lens_cpu = cpu.encoder(mel_cpu, len_cpu)
+            codes_cpu = cpu.quantizer.encode(hidden)
+            margin = _s3_margins(cpu, hidden)
+        if not torch.equal(lens.cpu(), lens_cpu):
+            fail(f"{name}: code lengths {lens.tolist()} on the card, {lens_cpu.tolist()} "
+                 "on the CPU")
+        valid = torch.arange(codes_cpu.shape[1])[None, :] < lens_cpu[:, None]
+        differ = (codes.cpu() != codes_cpu) & valid
+        ties = (margin < S3_TIE) & valid
+        n_codes = int(valid.sum())
+        if bool((differ & ~ties).any()):
+            fail(f"{name}: {int((differ & ~ties).sum())} codes differ from the CPU's "
+                 f"where its margin is {S3_TIE} or more")
+        if int(differ.sum()) > S3_TIE_SHARE * n_codes:
+            fail(f"{name}: {int(differ.sum())} of {n_codes} codes differ at near-ties")
+        out[name] = {"codes": n_codes, "distinct": int(torch.unique(codes_cpu[valid]).numel()),
+                     "near_ties": int(ties.sum()), "differ": int(differ.sum()),
+                     "lengths": lens_cpu.tolist(), "encode_ms": encode_ms,
+                     "launches": {k: v for k, v in launches[run_name].items() if v}}
+        del tok, cpu
+        torch.cuda.empty_cache()
+    conv_err = check_conv_path(conv_calls, wrappers, "S3 v1")
+    print(f"s3: a batch of {len(S3_SECONDS)} clips ({', '.join(map(str, S3_SECONDS))} s): "
+          f"{json.dumps(out)}", flush=True)
+    return {"runs": out, "conv_path_err": conv_err,
+            "conv_path_shapes": _per_kernel(conv_calls)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7410,6 +7957,21 @@ def main() -> int:
     print(f"phase 15: {json.dumps({k: v for k, v in sts.items() if k != 'turns'})}; phase "
           f"15 took {time.perf_counter() - t15:.1f} s; on {card}", flush=True)
 
+    # phase 16: an HF-transformers CSM-1B directory, Mimi's loaders,
+    # SilentCipher and the S3 speech tokenizers
+    phase_start(16)
+    t16 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        csm_hf = csm_hf_runs(launches, Path(tmp), csm_run)
+        silentcipher = silentcipher_runs(csm_hf, Path(tmp))
+        del csm_hf["model"], csm_hf["audio"]
+        torch.cuda.empty_cache()
+        s3 = s3_runs(launches, Path(tmp))
+    phase16 = {k: launches[k] for k in PHASE16_RUNS}
+    print(f"phase 16 launches: {json.dumps(phase16)}; csm hf {json.dumps(csm_hf)}; "
+          f"silentcipher {json.dumps(silentcipher)}; s3 {json.dumps(s3)}; phase 16 took "
+          f"{time.perf_counter() - t16:.1f} s; on {card}", flush=True)
+
     kernel_line = []
     for name, (source, replaces) in KERNEL_INFO.items():
         cases = records[name]
@@ -7424,7 +7986,7 @@ def main() -> int:
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": sum(launches[p][name] for p in main),
+            "launches": sum(launches[p][name] for p in (*main, *PHASE16_RUNS)),
             "max_abs_err": max(r["max_abs_err"] for r in cases),
             "shape": head["shape"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
@@ -7476,11 +8038,16 @@ def main() -> int:
                     entry["launches_per_whisper_encode"] = launches["whisper_bf16_encode"][name]
             kernel_line.append(entry)
             continue
+        if name in ("quantized_matmul", "depth_draft"):
+            entry["launches_per_csm_hf_spec_frame"] = csm_hf["per_frame"][name]
+        if name == "dilated_conv1d":
+            entry["launches_per_s3_v1_encode"] = launches["s3_v1_encode"][name]
+            entry["max_abs_err"] = max(entry["max_abs_err"], s3["conv_path_err"][name])
         if name == "quantized_matmul":
             entry["max_abs_err"] = max(entry["max_abs_err"], csm_run["qmm_path_err"],
                                        orpheus_run["qmm_path_err"],
-                                       outetts_run["qmm_path_err"])
-            entry["path_shapes"] = (csm_run["qmm_path_shapes"]
+                                       outetts_run["qmm_path_err"], csm_hf["qmm_path_err"])
+            entry["path_shapes"] = (csm_run["qmm_path_shapes"] + csm_hf["qmm_path_shapes"]
                                     + orpheus_run["qmm_path_shapes"]
                                     + outetts_run["qmm_path_shapes"])
             entry["max_abs_err"] = max(entry["max_abs_err"], spark_run["qmm_path_err"])
@@ -7555,7 +8122,7 @@ def main() -> int:
             entry["max_abs_err"] = max(entry["max_abs_err"], sts["lstm_path_err"]
                                        if name.startswith("lstm")
                                        else sts["conv_path_err"].get(name, 0.0))
-    phase_start(16)
+    phase_start(17)
     print(f"phase starts (s from the start): {json.dumps(starts)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -12,7 +12,8 @@ stores them in torch's layouts, so:
   wav2vec2 positional conv's per-tap ``weight_g`` ``[K, 1, 1]`` -> torch's
   ``weight_norm(dim=2)`` layout ``[1, 1, K]``;
 * 2-d conv weight HWIO ``[kh, kw, Cin/groups, Cout]`` -> OIHW ``[Cout,
-  Cin/groups, kh, kw]`` (Parakeet's ``Conv2dLayer``);
+  Cin/groups, kh, kw]`` (``nn.layers.Conv2d``: SilentCipher's convs and the
+  Parakeet and IndexTTS conformers' subsampling);
 * everything else (linear ``[out, in]``, LSTM, norms, embeddings, snake
   alphas, CSM's ``audio_head`` [nc-1, Dm, V], Dia's ``DenseGeneral``
   weights [in..., out...], RoPE tables, quantized uint8 codes with their
@@ -28,8 +29,7 @@ transposed conv (``WNConvTranspose1d``, the depthwise one of Spark's
 ``SamplingBlock`` too, ``StreamableConvTranspose1d``, EnCodec's
 ``EncodecConvTranspose1d``; DAC's sits at ``decoder.model.N.block.1`` and
 SNAC's at ``decoder.blocks.i.pre.1``).
-A 4-d ``weight`` moves when its owner is Parakeet's ``Conv2dLayer`` (IndexTTS's
-conformer subsampling reuses it).  The sinusoid table ``pe`` that IndexTTS's
+A 4-d ``weight`` moves when its owner is ``nn.layers.Conv2d``.  The sinusoid table ``pe`` that IndexTTS's
 ``RelPositionalEncoding`` keeps among the JAX model's arrays is computed, not
 learned: the port's module computes its own and the array is dropped.  Any
 other owner keeps the array as it is (IndexTTS's 2-d perceiver ``latents``
@@ -60,10 +60,14 @@ def conv_kinds(module: nn.Module) -> dict[str, str]:
         EncodecConv1d,
         EncodecConvTranspose1d,
     )
-    from mlx_audio_tpu_torch.models.stt.parakeet.conformer import Conv2dLayer
     from mlx_audio_tpu_torch.models.stt.wav2vec.wav2vec import PositionalConvEmbedding
     from mlx_audio_tpu_torch.models.tts.indextts.attention import RelPositionalEncoding
-    from mlx_audio_tpu_torch.nn.layers import Conv1d, WNConv1d, WNConvTranspose1d
+    from mlx_audio_tpu_torch.nn.layers import (
+        Conv1d,
+        Conv2d,
+        WNConv1d,
+        WNConvTranspose1d,
+    )
     from mlx_audio_tpu_torch.nn.streaming import (
         StreamableConv1d,
         StreamableConvTranspose1d,
@@ -78,7 +82,7 @@ def conv_kinds(module: nn.Module) -> dict[str, str]:
         elif isinstance(m, (WNConvTranspose1d, StreamableConvTranspose1d,
                             EncodecConvTranspose1d)):
             kinds[name] = "convt"
-        elif isinstance(m, Conv2dLayer):
+        elif isinstance(m, Conv2d):
             kinds[name] = "conv2d"
         elif isinstance(m, RelPositionalEncoding):
             kinds[name] = "table"

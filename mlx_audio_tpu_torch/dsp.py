@@ -1,8 +1,8 @@
 """DSP core for the port: windows, STFT/ISTFT as matmul-DFT, overlap-add, and
 the mel filterbank.
 
-Counterpart of the parts of ``mlx_audio_tpu/dsp.py`` that Kokoro and Vocos
-use.  The
+Counterpart of the parts of ``mlx_audio_tpu/dsp.py`` that the ported
+families use.  The
 STFT is the same matmul against a windowed real-DFT basis (built in float64
 numpy, applied in float32), and the ISTFT the same window-sum normalised
 overlap-add with the same trims, so the port rounds where the reference
@@ -125,6 +125,16 @@ def stft_realimag(x: torch.Tensor, n_fft: int = 800,
         x = _center_pad(x, n_fft // 2, pad_mode)
     frames = frame_signal(x, n_fft, hop_length).float()
     return frames @ wc, frames @ ws
+
+
+def stft(x: torch.Tensor, n_fft: int = 800, hop_length: Optional[int] = None,
+         win_length: Optional[int] = None,
+         window: Union[str, np.ndarray] = "hann", center: bool = True,
+         pad_mode: str = "reflect") -> torch.Tensor:
+    """Complex STFT: complex64 ``[..., num_frames, n_fft//2 + 1]``, the
+    real and imaginary parts of :func:`stft_realimag`."""
+    return torch.complex(*stft_realimag(x, n_fft, hop_length, win_length,
+                                        window, center, pad_mode))
 
 
 def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """Parakeet's Conformer encoder (NeMo FastConformer lineage), channels last
 (counterpart of ``mlx_audio_tpu/models/stt/parakeet/conformer.py``).
 
-Depthwise-striding 2-d subsampling (``Conv2dLayer``: ``F.conv2d`` on NHWC
-data, weight [out, in/groups, kh, kw]), relative-position multi-head
+Depthwise-striding 2-d subsampling (``nn.layers.Conv2d``: ``F.conv2d`` on
+NHWC data, weight [out, in/groups, kh, kw]), relative-position multi-head
 attention with the Transformer-XL rel-shift, and the GLU conv module with
 inference batch norm.  The module's convs are K = 1 pointwise convs and a
 depthwise conv (groups = d_model): ``nn.layers.conv1d`` sends both to the
@@ -23,11 +23,10 @@ from torch import nn
 from mlx_audio_tpu_torch.nn.layers import (
     BatchNorm,
     Conv1d,
+    Conv2d,
     LayerNorm,
     Linear,
     _param,
-    _uniform_,
-    promote_operands,
 )
 
 
@@ -190,31 +189,6 @@ class ConformerBlock(nn.Module):
         return self.norm_out(x)
 
 
-class Conv2dLayer(nn.Module):
-    """conv2d over NHWC data for the subsampling stack; weight [out,
-    in/groups, kh, kw] (``convert`` moves the JAX package's HWIO)."""
-
-    def __init__(self, in_ch, out_ch, kernel, stride, padding, groups=1):
-        super().__init__()
-        self.stride, self.padding, self.groups = stride, padding, groups
-        self.fan_in = in_ch * kernel * kernel / groups
-        self.weight = _param(out_ch, in_ch // groups, kernel, kernel)
-        self.bias = _param(out_ch)
-
-    def init_weights(self, generator: torch.Generator) -> None:
-        scale = 1.0 / math.sqrt(self.fan_in)
-        _uniform_(self.weight, scale, generator)
-        _uniform_(self.bias, scale, generator)
-
-    def forward(self, x):
-        # mixed operands promote (the JAX package's promote_conv_operands):
-        # a float32 log-mel takes a bf16 model's encoder to float32
-        x, w = promote_operands(x, self.weight)
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, self.bias.to(w.dtype), self.stride,
-                     self.padding, 1, self.groups)
-        return y.permute(0, 2, 3, 1)
-
-
 class DwStridingSubsampling(nn.Module):
     """Depthwise-striding 2-d subsampling, NHWC: a 3x3 stride-2 conv, then
     (log2(factor) - 1) times a depthwise 3x3 stride-2 and a pointwise conv,
@@ -228,10 +202,10 @@ class DwStridingSubsampling(nn.Module):
         final_freq = args.feat_in
         for _ in range(self._sampling_num):
             final_freq = (final_freq + 2 * self._padding - self._kernel_size) // 2 + 1
-        conv = [Conv2dLayer(1, ch, 3, 2, 1)]
+        conv = [Conv2d(1, ch, 3, 2, 1)]
         for _ in range(self._sampling_num - 1):
-            conv.append(Conv2dLayer(ch, ch, 3, 2, 1, groups=ch))
-            conv.append(Conv2dLayer(ch, ch, 1, 1, 0))
+            conv.append(Conv2d(ch, ch, 3, 2, 1, groups=ch))
+            conv.append(Conv2d(ch, ch, 1, 1, 0))
         self.conv = nn.ModuleList(conv)
         self.out = Linear(ch * final_freq, args.d_model)
 

@@ -1,7 +1,7 @@
 """IndexTTS's conditioning Conformer, wenet-style (counterpart of
 ``mlx_audio_tpu/models/tts/indextts/conformer.py``), channels last.
 
-A VALID-padded conv2d subsampling stack on Parakeet's ``Conv2dLayer``
+A VALID-padded conv2d subsampling stack on ``nn.layers.Conv2d``
 (NHWC data, H = time, W = frequency), whose [B, T', F', C] output is
 flattened C before F; then blocks of an optional macaron feed-forward,
 relative-position attention, the GLU conv module (LayerNorm in place of
@@ -18,13 +18,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mlx_audio_tpu_torch.models.stt.parakeet.conformer import Conv2dLayer
 from mlx_audio_tpu_torch.models.tts.indextts.attention import (
     MultiHeadAttention,
     RelPositionalEncoding,
     RelPositionMultiHeadAttention,
 )
-from mlx_audio_tpu_torch.nn.layers import Conv1d, LayerNorm, Linear
+from mlx_audio_tpu_torch.nn.layers import Conv1d, Conv2d, LayerNorm, Linear
 
 
 @dataclass
@@ -124,7 +123,7 @@ class Conv2dSubsampling(nn.Module):
         in_channels = 1
         out_freq = args.input_size
         for kernel_size, stride in self.CONV_LAYERS[args.input_layer]:
-            conv.append(Conv2dLayer(in_channels, args.output_size, kernel_size, stride, 0))
+            conv.append(Conv2d(in_channels, args.output_size, kernel_size, stride, 0))
             in_channels = args.output_size
             out_freq = (out_freq - kernel_size + stride) // stride
         self.conv = nn.ModuleList(conv)

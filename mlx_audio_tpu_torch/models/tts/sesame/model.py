@@ -29,8 +29,19 @@ decodes the frames to 24 kHz audio.
   package's does: every projection through ``quantized_matmul``'s bf16
   variant, the RoPE tables, Mimi, the watermark, the draft's caches and the
   sampling decisions in float32.
-* Left for later slices: the silentcipher watermark, the tokenizer loader
-  (pass ``text_tokenizer``), and the mesh and data-parallel branches.
+* Checkpoints: ``sanitize`` takes torchtune / MLX keys and, by their
+  ``backbone_model.*`` keys, HF-transformers ``CsmForConditionalGeneration``
+  ones (``sanitize_hf_csm``: the embedded Mimi through
+  ``sanitize_hf_mimi``), so ``utils.loader.load_model`` reads a local
+  ``sesame/csm-1b``-layout directory.
+* The text tokenizer is ``text_tokenizer=``, else the local directory named
+  by ``config["text_tokenizer"]`` (default ``"unsloth/Llama-3.2-1B"``, a
+  path relative to the working directory) through
+  ``tokenizer.load_llama3_tokenizer``.
+* Every output is watermarked (``watermarking.load_watermarker``:
+  SilentCipher on the model's device where a checkpoint is named, else the
+  DSSS mark).
+* Left for a later slice: the mesh and data-parallel branches.
 """
 
 from __future__ import annotations
@@ -45,7 +56,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mlx_audio_tpu_torch.codec.mimi import Mimi, mimi_202407, mimi_from_hf_config
+from mlx_audio_tpu_torch.codec.mimi import (
+    Mimi,
+    mimi_202407,
+    mimi_from_hf_config,
+    sanitize_hf_mimi,
+)
 from mlx_audio_tpu_torch.models.base import (
     GenerationResult,
     init_weights,
@@ -289,9 +305,11 @@ class Model(nn.Module):
     """User-facing CSM model.
 
     Runs on ``device``, "cuda" unless the caller asks for "cpu"; weights
-    are drawn from ``seed`` (load real ones with ``load_state_dict``).  The
-    text tokenizer is passed in: an object whose ``encode(text)`` returns
-    token ids (Llama-3's for a published checkpoint).
+    are drawn from ``seed`` (load real ones with ``load_state_dict`` or
+    ``utils.loader.load_model``).  ``text_tokenizer`` is an object whose
+    ``encode(text)`` returns token ids (Llama-3's for a published
+    checkpoint); without one, the first tokenization loads
+    ``config["text_tokenizer"]`` from a local directory.
     """
 
     def __init__(self, config: dict, mimi: Optional[Mimi] = None,
@@ -344,13 +362,17 @@ class Model(nn.Module):
     def _watermark(self, audio: np.ndarray) -> np.ndarray:
         if not self.apply_watermark:
             return audio
-        return watermark(load_watermarker(), audio, self._sample_rate,
-                         CSM_1B_GH_WATERMARK)
+        return watermark(load_watermarker(device=self.device), audio,
+                         self._sample_rate, CSM_1B_GH_WATERMARK)
 
     def _get_tokenizer(self):
         if self._text_tokenizer is None:
-            raise ValueError("CSM needs text_tokenizer= (an object with "
-                             "encode(text) -> ids); the port loads none")
+            from mlx_audio_tpu_torch.models.tts.sesame.tokenizer import (
+                load_llama3_tokenizer,
+            )
+
+            self._text_tokenizer = load_llama3_tokenizer(
+                self.config.get("text_tokenizer", "unsloth/Llama-3.2-1B"))
         return self._text_tokenizer
 
     # -- tokenization ------------------------------------------------------
@@ -617,13 +639,49 @@ def _prompt_bucket(n: int) -> int:
     return -(-n // 128) * 128
 
 
+def sanitize_hf_csm(weights: dict) -> dict:
+    """An HF-transformers ``CsmForConditionalGeneration`` checkpoint (the
+    ``sesame/csm-1b`` layout) -> the JAX package's paths.  The embedded
+    ``codec_model.*`` (Mimi) goes through ``sanitize_hf_mimi`` onto
+    ``_mimi``.  HF ties the backbone's and the depth decoder's audio
+    embedding tables, and ``save_pretrained`` keeps either key of the pair:
+    the depth decoder's copy is taken only where the backbone's is absent."""
+    codec = {k[len("codec_model."):]: v for k, v in weights.items()
+             if k.startswith("codec_model.")}
+    out = {f"_mimi.{k}": v for k, v in sanitize_hf_mimi(codec).items()} if codec else {}
+    has_backbone_audio = "backbone_model.embed_tokens.embed_audio_tokens.weight" in weights
+    for k, v in weights.items():
+        if k.startswith("codec_model."):
+            continue
+        v = np.asarray(v)
+        if k == "depth_decoder.model.embed_tokens.weight":
+            if not has_backbone_audio:
+                out["model.audio_embeddings.weight"] = v
+            continue
+        if k == "embed_text_tokens.weight":
+            k = "model.text_embeddings.weight"
+        elif k == "backbone_model.embed_tokens.embed_audio_tokens.weight":
+            k = "model.audio_embeddings.weight"
+        elif k == "lm_head.weight":
+            k = "model.codebook0_head.weight"
+        elif k == "depth_decoder.codebooks_head.weight":
+            k = "model.audio_head"
+        elif k == "depth_decoder.model.inputs_embeds_projector.weight":
+            k = "model.projection.weight"
+        elif k.startswith("depth_decoder.model."):
+            k = "model.decoder." + k[len("depth_decoder.model."):]
+        elif k.startswith("backbone_model."):
+            k = "model.backbone." + k[len("backbone_model."):]
+        out[k] = v
+    return out
+
+
 def sanitize(weights: dict) -> dict:
     """Map torchtune / MLX CSM checkpoint keys to this model's state_dict
-    keys (the JAX package's ``sanitize``).  HF-transformers checkpoints
-    (``backbone_model.*``) need the Mimi sanitizers, a later slice."""
+    keys (the JAX package's ``sanitize``); HF-transformers checkpoints
+    (``backbone_model.*``) go to ``sanitize_hf_csm``."""
     if any(k.startswith("backbone_model.") for k in weights):
-        raise NotImplementedError("HF-transformers CSM checkpoints are not "
-                                  "ported yet")
+        return sanitize_hf_csm(weights)
     out = {}
     for k, v in weights.items():
         if not k.startswith("model."):

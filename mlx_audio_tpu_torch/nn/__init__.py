@@ -7,6 +7,7 @@ from mlx_audio_tpu_torch.nn.layers import (
     AdaLayerNorm,
     BatchNorm,
     Conv1d,
+    Conv2d,
     Embedding,
     Identity,
     InstanceNorm1d,
@@ -30,7 +31,7 @@ from mlx_audio_tpu_torch.nn.recurrent import LSTM, lstm_scan, masked_flip
 
 __all__ = [
     "Linear", "Embedding", "LayerNorm", "RMSNorm", "InstanceNorm1d", "AdaIN1d",
-    "AdaLayerNorm", "BatchNorm", "Conv1d", "WNConv1d", "WNConvTranspose1d", "Identity",
+    "AdaLayerNorm", "BatchNorm", "Conv1d", "Conv2d", "WNConv1d", "WNConvTranspose1d", "Identity",
     "conv1d", "conv1d_route", "conv_transpose1d",
     "depthwise_conv_transpose1d", "weight_norm", "get_padding", "leaky_relu",
     "promote_operands", "snake", "snake_beta",

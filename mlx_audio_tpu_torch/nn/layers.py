@@ -444,3 +444,37 @@ class WNConvTranspose1d(nn.Module):
         y = conv_transpose1d(x, w, self.stride, self.padding,
                              self.output_padding, self.groups)
         return y + self.bias if self.bias is not None else y
+
+
+def _pair(v) -> tuple:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+class Conv2d(nn.Module):
+    """2-d conv over NHWC input, weight [out, in/groups, kh, kw] (the JAX
+    package stores HWIO; ``convert`` moves it).  Mixed dtypes promote
+    (``promote_operands``); every shape goes to torch.nn.functional.conv2d,
+    as the JAX package's goes to ``lax.conv_general_dilated``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size,
+                 stride=1, padding=0, dilation=1, groups: int = 1,
+                 bias: bool = True):
+        super().__init__()
+        kh, kw = _pair(kernel_size)
+        self.stride, self.padding = _pair(stride), _pair(padding)
+        self.dilation, self.groups = _pair(dilation), groups
+        self.fan_in = in_channels * kh * kw / groups
+        self.weight = _param(out_channels, in_channels // groups, kh, kw)
+        self.bias = _param(out_channels) if bias else None
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        scale = 1.0 / math.sqrt(self.fan_in)
+        _uniform_(self.weight, scale, generator)
+        if self.bias is not None:
+            _uniform_(self.bias, scale, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w = promote_operands(x, self.weight)
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, None, self.stride,
+                     self.padding, self.dilation, self.groups).permute(0, 2, 3, 1)
+        return y + self.bias if self.bias is not None else y

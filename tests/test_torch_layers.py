@@ -256,8 +256,8 @@ def test_snake_beta_matches_jax(logscale):
 
 def test_port_imports_no_jax():
     """Neither the port nor chip_smoke.py imports JAX or the JAX package;
-    the files it parses include utils/audio_io, Parakeet's, BigVGAN's and
-    IndexTTS's."""
+    the files it parses include utils/audio_io, Parakeet's, BigVGAN's,
+    IndexTTS's, S3's and CSM's SilentCipher and tokenizer loader."""
     files = sorted((ROOT / "mlx_audio_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
@@ -269,6 +269,9 @@ def test_port_imports_no_jax():
     assert {f"{port}models/tts/indextts/{m}.py" for m in (
         "__init__", "attention", "conformer", "ecapa", "gpt", "indextts", "normalize",
         "perceiver", "vocoder")} <= names
+    assert {port + "codec/s3/__init__.py", port + "codec/s3/s3.py",
+            port + "models/tts/sesame/silentcipher.py",
+            port + "models/tts/sesame/tokenizer.py"} <= names
 
     def banned(name):
         return (name in ("jax", "mlx_audio_tpu") or name.startswith("jax.")
