@@ -337,7 +337,18 @@ Phases; the failure of any one ends the script with a non-zero exit:
    lengths against the CPU's, a code differing only at a near-tie of the
    CPU's margin (below 1e-4), at most 1% of them; the directories' sizes,
    write and load seconds, frames a wall second, encode and decode ms;
-17. print one ``{"kernels": [...]}`` line, then the device line last.
+17. the device mesh on one card (``mesh_runs``): phase 16's int8 CSM-1B's
+   ``generate_batch`` of 4 texts, greedy, MESH_FRAMES frames, under no
+   mesh, under dp=2,tp=2 over [cuda:0] x 4 and under tp=2 alone: frames
+   equal to the unsharded run's, ``quantized_matmul`` held to its plain
+   version at every shape each run gave it (the shards' O/2 and I/2 among
+   them), its launches a frame printed; phase 14's Kokoro-82M checkpoint's
+   ``synthesize_batch`` of the 8 served texts under no mesh and under dp=4
+   over [cuda:0] x 4: durations equal, rows within phase 14's row bounds,
+   the dp run's conv and lstm launches 4x the unsharded run's and held to
+   their plain versions; the server set up from ``--mesh dp=0`` (dp=1 on
+   one card) serving one /tts;
+18. print one ``{"kernels": [...]}`` line, then the device line last.
 
 Phase 2 holds ``quantized_matmul`` at Orpheus-3B's, OuteTTS-1B's,
 Spark-TTS-0.5B's and Voxtral-Mini-3B's shapes too (int8, groups of 64, 1
@@ -346,7 +357,7 @@ BiCodec's routed resblock shapes (K=7, d = 1, 3, 9), at Whisper's conv1
 (batch 1 and 4) and S3 v1's (batch 2), and at BigVGAN-v2's resblocks ([1, 3752, 768] and [1,
 15008, 384], K = 3, 7, 11 at d = 1, 3, 5) and IndexTTS-1.5's ([1, 2408,
 768] and [1, 19264, 384], the same K and d).  Launch counters are set to 0
-just before each run of the probes' entry point and of phases 3 to 16, and
+just before each run of the probes' entry point and of phases 3 to 17, and
 read just after:
 each kernel of a run's path must have launched in it (Orpheus:
 ``quantized_matmul``; DAC's encode and decode: both conv kernels; OuteTTS
@@ -858,6 +869,20 @@ VOXTRAL_QMM_SHAPES = (((3072, 4096), "Voxtral q"), ((3072, 1024), "Voxtral k, v"
                       ((8192, 3072), "Voxtral down"), ((3072, 131_072), "Voxtral head"))
 
 
+# CSM-1B's shards under tp=2 (phase 17): the column-parallel q, k, v, gate
+# and up halve O, the row-parallel o and down halve I (down's 4 parts of
+# 2 048 columns fall 2 a shard); at 2 rows a step (dp=2) and 4 (tp=2 alone)
+CSM_TP2_QMM_SHAPES = (((2048, 1024), "llama-1B q shard"), ((2048, 256), "llama-1B k, v shard"),
+                      ((1024, 2048), "llama-1B o shard"),
+                      ((2048, 4096), "llama-1B gate, up shard"),
+                      ((4096, 2048), "llama-1B down shard"),
+                      ((1024, 512), "llama-100M q shard"), ((1024, 128), "llama-100M k, v shard"),
+                      ((512, 1024), "llama-100M o shard"),
+                      ((1024, 4096), "llama-100M gate, up shard"),
+                      ((4096, 1024), "llama-100M down shard"))
+CSM_TP2_QMM_ROWS = (2, 4)
+
+
 def _qmm_shapes():
     """(family, (I, O), role, group size, bits, row counts) of every
     quantized_matmul case."""
@@ -865,6 +890,8 @@ def _qmm_shapes():
         yield "csm", io, role, 128, 8, QMM_ROWS
         if role.startswith("llama-1B"):
             yield "csm", io, role, 128, 4, QMM_ROWS_INT4
+    for io, role in CSM_TP2_QMM_SHAPES:
+        yield "csm_tp2", io, role, 128, 8, CSM_TP2_QMM_ROWS
     for io, role in ORPHEUS_QMM_SHAPES:
         yield "orpheus", io, role, 64, 8, ORPHEUS_QMM_ROWS
     for io, role in OUTETTS_QMM_SHAPES:
@@ -941,7 +968,7 @@ def _qmm_bf16_cases(gen):
 
     bf16 = torch.bfloat16
     for family, (i, o), role, gs, bits, _ in _qmm_shapes():
-        if bits != 8:
+        if bits != 8 or family == "csm_tp2":  # the shards run in float32 here
             continue
         q = _quantized(gen, i, o, gs, bits)
         parts, _ = kernels.quantized_matmul_parts(i, o, gs, q.packed)
@@ -7191,6 +7218,9 @@ CSM_HF_CONFIG = {
         "num_semantic_quantizers": 1},
 }
 PHASE16_RUNS = ("csm_hf_generate_spec", "s3_v1_encode", "s3_v2_encode")
+# phase 17's runs
+MESH_RUNS = ("mesh_csm_none", "mesh_csm_dp2_tp2", "mesh_csm_tp2", "mesh_kokoro_none",
+             "mesh_kokoro_dp4", "mesh_serve_tts")
 MIMI_SECONDS = 2.0  # the clip Mimi's loaders encode
 S3_SECONDS = (30.0, 21.3)  # the batch of 2 the S3 tokenizers encode
 S3_TIE = 1e-4  # a code may differ from the CPU's where its margin is below this
@@ -7661,6 +7691,212 @@ def s3_runs(launches: dict, tmp: Path) -> dict:
             "conv_path_shapes": _per_kernel(conv_calls)}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the device mesh on one card
+# ---------------------------------------------------------------------------
+
+MESH_FRAMES = 24  # frames of each CSM generate_batch
+MESH_KOKORO_DP = 4
+
+
+def mesh_devices(n: int) -> list:
+    """One card listed n times: the mesh's devices on a one-card host."""
+    return [torch.device("cuda", 0)] * n
+
+
+def csm_mesh_runs(model, launches: dict) -> dict:
+    """CSM-1B int8 (phase 16's HF-loaded model): ``generate_batch`` of the 4
+    CSM_BATCH_TEXTS, greedy, MESH_FRAMES frames, under no mesh, under
+    dp=2,tp=2 over [cuda:0] * 4 and under tp=2 alone (dp=1): the frames of
+    each sharded run equal the unsharded run's; every ``quantized_matmul``
+    shape each run gave it held to the plain version on the run's operands.
+    Prints the kernel's launches a frame and the shard shapes."""
+    from mlx_audio_tpu_torch.nn import kernels
+    from mlx_audio_tpu_torch.parallel.context import activate_mesh, deactivate_mesh
+
+    ref = (np.random.default_rng(0).standard_normal(48_000) * 0.1).astype(np.float32)
+    kw = dict(temperature=0.0, ref_audio=ref, ref_text=CSM_REF_TEXT,
+              max_audio_length_ms=MESH_FRAMES * 80)
+    decode = model.mimi.decode
+    wall, out = {}, {}
+    run = path_runner(launches, wall)
+    for name, spec in (("mesh_csm_none", None), ("mesh_csm_dp2_tp2", dict(dp=2, tp=2)),
+                       ("mesh_csm_tp2", dict(dp=1, tp=2))):
+        codes, path_calls = [], {}
+        model.mimi.decode = lambda c: (codes.append(c.clone()), decode(c))[1]
+        qmm = record_qmm_calls(path_calls)
+        try:
+            if spec:
+                activate_mesh(devices=mesh_devices(4), **spec)
+            results = run(name, lambda: model.generate_batch(CSM_BATCH_TEXTS, **kw))
+        finally:
+            deactivate_mesh()
+            kernels.quantized_matmul = qmm
+            model.mimi.decode = decode
+        _check_results(f"csm {name}", results)
+        frames = torch.cat(codes)                  # [rows, 32, frames]
+        n_frames = frames.shape[-1]
+        lc = launches[name]
+        if not lc["quantized_matmul"]:
+            fail(f"{name}: quantized_matmul never launched")
+        err = check_qmm_path(path_calls, qmm, name)
+        out[name] = {"wall_s": wall[name], "frames": n_frames,
+                     "qmm_per_frame": lc["quantized_matmul"] / n_frames,
+                     "qmm_shapes": sorted({k[:3] for k in path_calls}),
+                     "qmm_path_err": err, "codes": frames.cpu()}
+    base = out["mesh_csm_none"]["codes"]
+    for name in ("mesh_csm_dp2_tp2", "mesh_csm_tp2"):
+        got = out[name].pop("codes")
+        if got.shape != base.shape or not torch.equal(got, base):
+            n = int((got != base).sum()) if got.shape == base.shape else -1
+            fail(f"csm {name}: greedy frames differ from the unsharded run's "
+                 f"({n} codes of {base.numel()}; shapes {list(got.shape)}, {list(base.shape)})")
+    out["mesh_csm_none"].pop("codes")
+    # the shards' shapes, and the replicas' row counts: (rows, I, O) the
+    # sharded runs gave the kernel that the unsharded run did not
+    plain_shapes = set(map(tuple, out["mesh_csm_none"]["qmm_shapes"]))
+    for name in ("mesh_csm_dp2_tp2", "mesh_csm_tp2"):
+        out[name]["new_shapes"] = sorted(set(map(tuple, out[name]["qmm_shapes"])) - plain_shapes)
+    print("phase 17 csm: frames under dp=2,tp=2 and tp=2 over [cuda:0] x 4 equal the "
+          f"unsharded run's ({len(CSM_BATCH_TEXTS)} rows x 32 codebooks x "
+          f"{out['mesh_csm_none']['frames']} frames); " + "; ".join(
+              f"{k}: {v['wall_s']:.3f} s, quantized_matmul {v['qmm_per_frame']:.2f} a frame"
+              f", (rows, I, O) the unsharded run did not give it {v.get('new_shapes', [])}"
+              for k, v in out.items()),
+          flush=True)
+    return out
+
+
+def kokoro_mesh_runs(launches: dict, kdir: str, voice: str) -> dict:
+    """Kokoro-82M from phase 14's native checkpoint: ``synthesize_batch`` of
+    the 8 SERVE_TEXTS under no mesh and under dp=MESH_KOKORO_DP over
+    [cuda:0] * 4: durations equal, each row held to the unsharded run's
+    past SERVE_HEAD by phase 14's row bounds; every conv and lstm launch of
+    the dp run held to its plain version on its operands; the dp run
+    launches each kernel MESH_KOKORO_DP times as often as the unsharded run
+    (each replica runs a whole synthesis of its rows)."""
+    from mlx_audio_tpu_torch.nn import kernels
+    from mlx_audio_tpu_torch.parallel.context import activate_mesh, deactivate_mesh
+    from mlx_audio_tpu_torch.utils.loader import load_model
+
+    model = load_model(kdir, device="cuda")
+    pack = np.load(voice)
+    refs = np.stack([pack[min(len(p), pack.shape[0]) - 1].reshape(-1) for p in SERVE_TEXTS])
+    wall, outs = {}, {}
+    run = path_runner(launches, wall)
+    for name, spec in (("mesh_kokoro_none", None), ("mesh_kokoro_dp4", f"dp={MESH_KOKORO_DP}")):
+        # both runs record their operands (the same overhead); the dp run's
+        # are held to the plain versions below
+        conv_calls, lstm_calls = {}, {}
+        convs, lstm = record_conv_calls(conv_calls), record_lstm_calls(lstm_calls)
+        try:
+            if spec:
+                activate_mesh(spec, devices=mesh_devices(4))
+            with torch.no_grad():
+                outs[name] = run(name, lambda: model.synthesize_batch(
+                    SERVE_TEXTS, refs, speeds=float(SERVE_SPEED)))
+        finally:
+            deactivate_mesh()
+            kernels.banded_conv1d, kernels.dilated_conv1d = convs
+            kernels.lstm = lstm
+    base, dp = outs["mesh_kokoro_none"], outs["mesh_kokoro_dp4"]
+    conv_err = check_conv_path(conv_calls, convs, "Kokoro dp=4")
+    lstm_err = check_lstm_path(lstm_calls, lstm, "Kokoro dp=4")
+    row_err = []
+    for i, ((a0, d0), (a1, d1)) in enumerate(zip(base, dp)):
+        if not np.array_equal(d0, d1) or a0.shape != a1.shape or not np.isfinite(a1).all():
+            fail(f"kokoro dp=4 row {i}: durations or samples differ ({a1.shape}, {a0.shape})")
+        diff = np.abs(a1[SERVE_HEAD:] - a0[SERVE_HEAD:])
+        row_err.append({"max_abs": float(diff.max()),
+                        "over_atol": int((diff > SERVE_ROW_ATOL).sum()),
+                        "rel_rms": rel_rms(torch.from_numpy(a1[SERVE_HEAD:]),
+                                           torch.from_numpy(a0[SERVE_HEAD:]))})
+    if any(e["over_atol"] > SERVE_FLIP_SAMPLES or e["max_abs"] > SERVE_FLIP_MAX_ABS
+           or e["rel_rms"] > SERVE_ROW_REL_RMS for e in row_err):
+        fail(f"kokoro dp=4 rows against the unsharded run past sample {SERVE_HEAD}: "
+             f"{row_err} (atol {SERVE_ROW_ATOL} but for {SERVE_FLIP_SAMPLES} samples "
+             f"within {SERVE_FLIP_MAX_ABS}, relative RMS {SERVE_ROW_REL_RMS})")
+    got = {k: launches["mesh_kokoro_dp4"][k] for k in KOKORO_KERNELS}
+    want = {k: MESH_KOKORO_DP * launches["mesh_kokoro_none"][k] for k in KOKORO_KERNELS}
+    if got != want or not all(want.values()):
+        fail(f"kokoro dp=4 launches {got}, expected {MESH_KOKORO_DP} x the unsharded "
+             f"run's {want}")
+    audio_s = sum(a.shape[0] for a, _ in base) / model.sample_rate
+    del model
+    torch.cuda.empty_cache()
+    out = {"wall_s": dict(wall), "audio_s": audio_s, "rows_past_head": row_err,
+           "conv_path_err": conv_err, "lstm_path_err": lstm_err,
+           "path_shapes": {**_per_kernel(conv_calls), "lstm": len(lstm_calls)},
+           "launches": {k: launches[k] for k in ("mesh_kokoro_none", "mesh_kokoro_dp4")}}
+    print(f"phase 17 kokoro: dp={MESH_KOKORO_DP} rows within phase 14's row bounds past "
+          f"sample {SERVE_HEAD}: relative RMS {max(e['rel_rms'] for e in row_err):.3e}, "
+          f"max_abs {max(e['max_abs'] for e in row_err):.3e}, samples over "
+          f"{SERVE_ROW_ATOL} {max(e['over_atol'] for e in row_err)}; launches "
+          f"{json.dumps({k: {n: launches[k][n] for n in KOKORO_KERNELS} for k in out['launches']})}"
+          f"; wall s {json.dumps(wall)} for {audio_s:.1f} audio-s", flush=True)
+    return out
+
+
+def server_mesh_run(launches: dict, kdir: str, voice: str, tmp: Path) -> dict:
+    """The server set up as ``server.main`` does from ``--mesh dp=0``: on one
+    card dp=1 (the batcher's max_batch stays 8); one /tts request, its wav
+    held to the loaded model's own ``generate_batch`` within one PCM step."""
+    import asyncio
+
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from mlx_audio_tpu_torch import server
+    from mlx_audio_tpu_torch.parallel.context import active_mesh, deactivate_mesh
+    from mlx_audio_tpu_torch.utils.audio_io import load_audio
+
+    args = server.parse_args(["--mesh", "dp=0", "--max-batch", str(SERVE_MAX_BATCH),
+                              "--batch-window-ms", str(SERVE_WINDOW_MS)])
+    state = server.build_state(args, output_folder=str(tmp / "mesh_served"))
+    wall = {}
+    try:
+        ctx = active_mesh()
+        if ctx is None or (ctx.dp, ctx.tp) != (1, 1) or state.batcher.max_batch != SERVE_MAX_BATCH:
+            fail(f"server --mesh dp=0 on one card: mesh {ctx and (ctx.dp, ctx.tp)}, "
+                 f"max_batch {state.batcher.max_batch}")
+
+        async def one():
+            async with TestClient(TestServer(server.create_app(state),
+                                             host="127.0.0.1")) as client:
+                return await _serve(client, launches, wall, "mesh_serve_tts",
+                                    SERVE_TEXTS[1:2], kdir, voice)
+
+        (name,) = asyncio.run(one())
+        wav = load_audio(Path(state.output_folder) / name)
+        with torch.no_grad():
+            (own,) = state.tts_model.generate_batch(SERVE_TEXTS[1:2], voice=voice,
+                                                    speed=float(SERVE_SPEED))
+    finally:
+        state.batcher.close()
+        deactivate_mesh()
+    err = float(np.abs(wav - _pcm(own.audio)).max()) if wav.shape == own.audio.shape else np.inf
+    if not (np.isfinite(wav).all() and err <= PCM_STEP):
+        fail(f"server --mesh dp=0: {wav.shape} samples, {err:.3e} from the model's own")
+    missing = [k for k in KOKORO_KERNELS if not launches["mesh_serve_tts"][k]]
+    if missing:
+        fail(f"server --mesh dp=0: kernels never launched: {missing}")
+    del state
+    torch.cuda.empty_cache()
+    print(f"phase 17 server --mesh dp=0: dp=1 tp=1 on one card, max_batch "
+          f"{SERVE_MAX_BATCH}; one /tts in {wall['mesh_serve_tts']:.3f} s, its wav "
+          f"{err:.3e} from the model's own", flush=True)
+    return {"wall_s": wall["mesh_serve_tts"], "max_abs_diff": err}
+
+
+def mesh_runs(launches: dict, csm, kdir: str, voice: str, tmp: Path) -> dict:
+    """Phase 17: the mesh on one card (CSM-1B, Kokoro-82M, the server)."""
+    t0 = time.perf_counter()
+    out = {"csm": csm_mesh_runs(csm, launches),
+           "kokoro": kokoro_mesh_runs(launches, kdir, voice),
+           "server": server_mesh_run(launches, kdir, voice, tmp)}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7954,23 +8190,35 @@ def main() -> int:
         phase_start(15)
         t15 = time.perf_counter()
         sts = sts_session_runs(launches, ckpts, voice, Path(tmp))
-    print(f"phase 15: {json.dumps({k: v for k, v in sts.items() if k != 'turns'})}; phase "
-          f"15 took {time.perf_counter() - t15:.1f} s; on {card}", flush=True)
+        print(f"phase 15: {json.dumps({k: v for k, v in sts.items() if k != 'turns'})}; "
+              f"phase 15 took {time.perf_counter() - t15:.1f} s; on {card}", flush=True)
 
-    # phase 16: an HF-transformers CSM-1B directory, Mimi's loaders,
-    # SilentCipher and the S3 speech tokenizers
-    phase_start(16)
-    t16 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        csm_hf = csm_hf_runs(launches, Path(tmp), csm_run)
-        silentcipher = silentcipher_runs(csm_hf, Path(tmp))
-        del csm_hf["model"], csm_hf["audio"]
+        # phase 16: an HF-transformers CSM-1B directory, Mimi's loaders,
+        # SilentCipher and the S3 speech tokenizers
+        phase_start(16)
+        t16 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp16:
+            csm_hf = csm_hf_runs(launches, Path(tmp16), csm_run)
+            silentcipher = silentcipher_runs(csm_hf, Path(tmp16))
+            del csm_hf["audio"]
+            torch.cuda.empty_cache()
+            s3 = s3_runs(launches, Path(tmp16))
+        csm_model = csm_hf.pop("model")
+        phase16 = {k: launches[k] for k in PHASE16_RUNS}
+        print(f"phase 16 launches: {json.dumps(phase16)}; csm hf {json.dumps(csm_hf)}; "
+              f"silentcipher {json.dumps(silentcipher)}; s3 {json.dumps(s3)}; phase 16 "
+              f"took {time.perf_counter() - t16:.1f} s; on {card}", flush=True)
+
+        # phase 17: the mesh on one card: phase 16's CSM-1B and phase 14's
+        # Kokoro-82M checkpoint sharded over [cuda:0] x 4, the server's --mesh
+        phase_start(17)
+        mesh = mesh_runs(launches, csm_model, str(Path(tmp) / "Kokoro-82M"), voice,
+                         Path(tmp))
+        del csm_model
         torch.cuda.empty_cache()
-        s3 = s3_runs(launches, Path(tmp))
-    phase16 = {k: launches[k] for k in PHASE16_RUNS}
-    print(f"phase 16 launches: {json.dumps(phase16)}; csm hf {json.dumps(csm_hf)}; "
-          f"silentcipher {json.dumps(silentcipher)}; s3 {json.dumps(s3)}; phase 16 took "
-          f"{time.perf_counter() - t16:.1f} s; on {card}", flush=True)
+    phase17 = {k: launches[k] for k in MESH_RUNS}
+    print(f"phase 17 launches: {json.dumps(phase17)}; mesh {json.dumps(mesh)}; phase 17 "
+          f"took {mesh['seconds']:.1f} s; on {card}", flush=True)
 
     kernel_line = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -8112,6 +8360,22 @@ def main() -> int:
             entry["launches_per_indextts_bf16_vocoder_call"] = launches[
                 "indextts_bf16_generate"][name]
         kernel_line.append(entry)
+    # phase 17: the mesh runs' launches and path errors
+    for entry in kernel_line:
+        name = entry["name"]
+        if name == "quantized_matmul":
+            runs = mesh["csm"]
+            entry["launches_per_mesh_csm_frame"] = {k: v["qmm_per_frame"]
+                                                    for k, v in runs.items()}
+            entry["mesh_shard_shapes"] = sorted({tuple(s) for v in runs.values()
+                                                 for s in v.get("new_shapes", [])})
+            entry["max_abs_err"] = max([entry["max_abs_err"]]
+                                       + [v["qmm_path_err"] for v in runs.values()])
+        elif name in KOKORO_KERNELS:
+            kok = mesh["kokoro"]
+            entry["launches_mesh_kokoro_dp4"] = launches["mesh_kokoro_dp4"][name]
+            entry["max_abs_err"] = max(entry["max_abs_err"], kok["lstm_path_err"]
+                                       if name == "lstm" else kok["conv_path_err"][name])
     # the speech-to-speech session's launches a turn (the last through the
     # WebRTC bridge), and its path errors
     for entry in kernel_line:
@@ -8122,7 +8386,7 @@ def main() -> int:
             entry["max_abs_err"] = max(entry["max_abs_err"], sts["lstm_path_err"]
                                        if name.startswith("lstm")
                                        else sts["conv_path_err"].get(name, 0.0))
-    phase_start(17)
+    phase_start(18)
     print(f"phase starts (s from the start): {json.dumps(starts)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

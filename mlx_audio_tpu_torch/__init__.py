@@ -15,6 +15,8 @@ Orpheus, OuteTTS, Dia and Bark (``models.tts.llama``, ``outetts``, ``dia``,
 ``bark``) on the causal-LM loop (``models.lm.causal``) or their own;
 Spark-TTS; Wav2Vec2, Whisper, Voxtral and Parakeet speech to text
 (``models.stt``); the SNAC, DAC and EnCodec codecs and the Vocos and
-BigVGAN vocoders (``codec``); audio file I/O (``utils.audio_io``); and
-the depth-draft probes (``mlx_audio_tpu_torch.scripts.probe_depth``).
+BigVGAN vocoders (``codec``); audio file I/O (``utils.audio_io``); the
+depth-draft probes (``mlx_audio_tpu_torch.scripts.probe_depth``); and the
+device mesh (``parallel``: data- and tensor-parallel placements that every
+batched entry point consults, and the CLIs' and the server's ``--mesh``).
 """

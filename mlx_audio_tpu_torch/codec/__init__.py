@@ -1,5 +1,5 @@
-"""Neural audio codecs of the port: Mimi, EnCodec, SNAC, DAC, Vocos and
-BigVGAN (counterpart of ``mlx_audio_tpu.codec``; S3 is not ported yet).
+"""Neural audio codecs of the port: Mimi, EnCodec, SNAC, DAC, Vocos,
+BigVGAN and the S3 tokenizers (counterpart of ``mlx_audio_tpu.codec``).
 
 Exported lazily, as in the JAX package, so that importing the package
 stays cheap: a codec's module loads on first attribute access.

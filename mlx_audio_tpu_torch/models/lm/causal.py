@@ -17,7 +17,13 @@ families (Orpheus first).
   JAX PRNG cannot be reproduced, so only greedy tokens are compared with it.
 * A tied head goes through the embedding's ``as_linear``: on a quantized
   model, the ``quantized_matmul`` kernel at decode row counts.
-* Left for later: the mesh and data-parallel branches.
+* Under an active mesh (``parallel.context``) with tp > 1 the Llama weights
+  split by ``tp_rules_llama``, and with dp > 1 the batch pads to a dp
+  multiple and each data row decodes its slice of the rows on its replica,
+  at the whole batch's prompt bucket, under ``row_offset`` so a row draws
+  as in the whole batch.  The replicas step in turn, a chunk at a time, and
+  the host's stop checks read every replica.  This one hook covers every
+  causal-LM family: Orpheus, OuteTTS, Spark, ``ChatLM`` and Voxtral's LM.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from torch import nn
 from mlx_audio_tpu_torch.models.lm.llama import LlamaConfig, LlamaModel, lm_dtype
 from mlx_audio_tpu_torch.models.sampling import (
     call_seed,
+    row_offset,
     sample_top_k_rows,
     sample_top_p_rows,
 )
@@ -107,12 +114,12 @@ def _decode_chunk(model, caches, pad_len, last, window, n, temperature, top_k,
 
 
 def _start(model, prompts, max_tokens, max_cache_len, repetition_penalty,
-           repetition_context_size):
-    """Left-pad the prompts to one bucket and make the decode state:
-    (caches, pad_len, prompt [B, bucket], the penalty tensor or None, an
-    empty window [B, R])."""
+           repetition_context_size, bucket: Optional[int] = None):
+    """Left-pad the prompts to one bucket (the least that fits unless given)
+    and make the decode state: (caches, pad_len, prompt [B, bucket], the
+    penalty tensor or None, an empty window [B, R])."""
     dev = model.model.rope_cos.device
-    bucket = _bucket(max(len(p) for p in prompts))
+    bucket = bucket or _bucket(max(len(p) for p in prompts))
     prompt = np.zeros((len(prompts), bucket), dtype=np.int64)
     pad = np.zeros((len(prompts),), dtype=np.int64)
     for i, p in enumerate(prompts):
@@ -127,6 +134,44 @@ def _start(model, prompts, max_tokens, max_cache_len, repetition_penalty,
                         dtype=torch.int32, device=dev)
     return (caches, torch.as_tensor(pad, device=dev),
             torch.as_tensor(prompt, device=dev), penalty, window)
+
+
+def _placement(model, batch: int):
+    """The active mesh's ``placement`` of a causal LM: split by
+    ``tp_rules_llama`` when tp > 1."""
+    from mlx_audio_tpu_torch.parallel.context import placement
+    from mlx_audio_tpu_torch.parallel.mesh import tp_rules_llama
+
+    return placement(model, batch, tp_rules_llama)
+
+
+class _Replica:
+    """One data row's decode state: its model, caches, window, last tokens
+    and the first batch row it holds."""
+
+    def __init__(self, model, lo, prompts, max_tokens, max_cache_len,
+                 repetition_penalty, repetition_context_size, bucket, seed):
+        self.model, self.lo = model, lo
+        (self.caches, self.pad_len, self.prompt, self.penalty,
+         self.window) = _start(model, prompts, max_tokens, max_cache_len,
+                               repetition_penalty, repetition_context_size,
+                               bucket)
+        # every replica takes the call seeds in the whole batch's order
+        self.generator = torch.Generator().manual_seed(seed)
+
+    def first(self, temperature, top_k, top_p) -> torch.Tensor:
+        with row_offset(self.lo):
+            logits = _prefill(self.model, self.caches, self.pad_len, self.prompt)
+            self.last = _sample(logits, temperature, top_k, top_p, self.generator)
+        self.window[:, -1] = self.last
+        return self.last
+
+    def chunk(self, n, temperature, top_k, top_p) -> torch.Tensor:
+        with row_offset(self.lo):
+            toks, self.window, self.last = _decode_chunk(
+                self.model, self.caches, self.pad_len, self.last, self.window, n,
+                temperature, top_k, top_p, self.penalty, self.generator)
+        return toks
 
 
 def generate_tokens_batch(
@@ -146,16 +191,18 @@ def generate_tokens_batch(
     """Batched decode: the B prompts share every weight read.  Stops are
     tracked per row on the host between chunks; finished rows keep stepping
     until all stop or the budget runs out.  Returns each prompt's generated
-    tokens (the stop token excluded)."""
+    tokens (the stop token excluded).  Under an active mesh the rows split
+    over its data replicas (see the module docstring)."""
     prompts = [np.asarray(p).reshape(-1) for p in prompts]
     b = len(prompts)
-    caches, pad_len, prompt, penalty, window = _start(
-        model, prompts, max_tokens, max_cache_len, repetition_penalty,
-        repetition_context_size)
-    generator = torch.Generator().manual_seed(seed)
-    logits = _prefill(model, caches, pad_len, prompt)
-    first = _sample(logits, temperature, top_k, top_p, generator)
-    first_np = first.cpu().numpy()
+    models, slices, n_rows = _placement(model, b)
+    rows = prompts + [prompts[-1]] * (n_rows - b)  # dp padding, dropped below
+    bucket = _bucket(max(len(p) for p in prompts))
+    reps = [_Replica(m, lo, rows[lo:hi], max_tokens, max_cache_len,
+                     repetition_penalty, repetition_context_size, bucket, seed)
+            for m, (lo, hi) in zip(models, slices)]
+    firsts = [r.first(temperature, top_k, top_p) for r in reps]
+    first_np = np.concatenate([f.cpu().numpy() for f in firsts])
 
     out = [[] for _ in range(b)]
     done = np.zeros((b,), dtype=bool)
@@ -164,15 +211,11 @@ def generate_tokens_batch(
             done[i] = True
         else:
             out[i].append(int(first_np[i]))
-    window[:, -1] = first
-    last = first
     produced = 1
     while produced < max_tokens and not done.all():
         n = min(chunk, max_tokens - produced)
-        toks, window, last = _decode_chunk(
-            model, caches, pad_len, last, window, n, temperature, top_k,
-            top_p, penalty, generator)
-        for row in toks.cpu().numpy():
+        toks = [r.chunk(n, temperature, top_k, top_p) for r in reps]
+        for row in np.concatenate([t.cpu().numpy() for t in toks], axis=1):
             for i in range(b):
                 if done[i]:
                     continue
@@ -200,27 +243,21 @@ def generate_tokens(
 ) -> Iterator[np.ndarray]:
     """Yield generated token chunks (int32 [<= chunk]) for one prompt [T]
     until a stop token or the budget; the host looks for stops a chunk at a
-    time."""
+    time.  Under a mesh with tp > 1 the weights split by
+    ``tp_rules_llama``."""
     input_ids = np.asarray(input_ids).reshape(-1)
-    caches, pad_len, prompt, penalty, window = _start(
-        model, [input_ids], max_tokens, max_cache_len, repetition_penalty,
-        repetition_context_size)
-    generator = torch.Generator().manual_seed(seed)
-    logits = _prefill(model, caches, pad_len, prompt)
-    first = _sample(logits, temperature, top_k, top_p, generator)
-    first_np = int(first[0])
+    (run,), _, _ = _placement(model, 1)
+    rep = _Replica(run, 0, [input_ids], max_tokens, max_cache_len,
+                   repetition_penalty, repetition_context_size, None, seed)
+    first_np = int(rep.first(temperature, top_k, top_p)[0])
     if first_np in stop_tokens:
         return
     yield np.asarray([first_np], dtype=np.int32)
 
-    window[:, -1] = first
-    last = first
     produced = 1
     while produced < max_tokens:
         n = min(chunk, max_tokens - produced)
-        toks, window, last = _decode_chunk(
-            model, caches, pad_len, last, window, n, temperature, top_k,
-            top_p, penalty, generator)
+        toks = rep.chunk(n, temperature, top_k, top_p)
         out = []
         for tok in toks[:, 0].cpu().numpy():
             if int(tok) in stop_tokens:

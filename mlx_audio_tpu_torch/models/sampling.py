@@ -12,10 +12,15 @@ by row: row i draws its noise from a generator of its own seeded
 call's seed, its row index and its own logits only, whatever rows share
 its batch (the JAX package keys row i with ``fold_in(key, i)``).  A decode
 loop takes each call's seed from ``call_seed`` on a host-side generator.
+A data-parallel replica that holds rows ``lo ..`` of a batch runs under
+``row_offset(lo)``: its row i draws as batch row ``lo + i`` does, so a row
+draws the same numbers whichever replica runs it.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional
 
 import torch
@@ -108,8 +113,24 @@ def call_seed(generator: torch.Generator) -> int:
     return int(torch.randint(0, 2 ** 62, (), generator=generator))
 
 
+_ROW_OFFSET = contextvars.ContextVar("row_offset", default=0)
+
+
+@contextlib.contextmanager
+def row_offset(lo: int):
+    """Within the block, row i of a batch draws as row ``lo + i``: a
+    data-parallel replica holding rows ``lo ..`` of a batch."""
+    token = _ROW_OFFSET.set(lo)
+    try:
+        yield
+    finally:
+        _ROW_OFFSET.reset(token)
+
+
 def row_generator(seed: int, row: int, device=None) -> torch.Generator:
-    """Row ``row``'s generator of a call seeded ``seed``."""
+    """Row ``row``'s generator of a call seeded ``seed`` (shifted by the
+    enclosing ``row_offset``)."""
+    row += _ROW_OFFSET.get()
     return torch.Generator(device).manual_seed((seed * 1_000_003 + row) % 2 ** 64)
 
 

@@ -14,8 +14,9 @@ merges the chunks' tokens (``alignment``).
 
 Models are built on ``device`` ("cuda" unless the caller passes "cpu")
 with weights drawn from ``seed``; ``from_pretrained`` loads a local NeMo-
-or HF-transformers-layout checkpoint directory (nothing is fetched).  The
-JAX package's data-parallel mesh branch of ``generate`` is not ported.
+or HF-transformers-layout checkpoint directory (nothing is fetched).
+Under an active mesh with dp > 1 the batch of full-length chunks pads to a
+dp multiple and each data row decodes its slice on its replica.
 """
 
 from __future__ import annotations
@@ -189,8 +190,18 @@ class BaseParakeet(nn.Module):
         full = [s for s in starts if s + chunk_samples <= len(audio_data)]
         batch_results = {}
         if len(full) > 1:
+            from mlx_audio_tpu_torch.parallel.context import data_parallel
+
             mels = torch.cat([self._mel(audio_data[s:s + chunk_samples]) for s in full])
-            batch_results = dict(zip(full, self.decode(mels)))
+            dp = data_parallel(len(full))
+            if dp is None:
+                results = self.decode(mels)
+            else:
+                mels, n = dp.pad_batch(mels)
+                parts = dp.map_rows(dp.place_replicated(self), mels.shape[0],
+                                    lambda m, lo, hi: m.decode(mels[lo:hi].to(m.device)))
+                results = [r for part in parts for r in part][:n]
+            batch_results = dict(zip(full, results))
 
         all_tokens = []
         for start in starts:

@@ -14,8 +14,10 @@ the audio tokens in place of the audio placeholders.
   row i samples with its own generator (``models.sampling``); the JAX PRNG
   cannot be reproduced, so only greedy tokens are compared with it.
 * An audio file path is read through ``utils.audio_io`` at 16 kHz.
-* Left for later: the mesh's tensor- and data-parallel branches of
-  ``_decode_window_rows``.
+* Under an active mesh (``parallel.context``) with tp > 1 the model's
+  projections split by ``tp_rules_llama``; with dp > 1 a batch of windows
+  pads to a dp multiple by repeating its last window, and each data row
+  decodes its windows on its replica under ``row_offset``.
 """
 
 from __future__ import annotations
@@ -267,13 +269,28 @@ class Model(nn.Module):
         emb = self.language_model.embed_tokens
         return emb.scales.dtype if hasattr(emb, "scales") else emb.weight.dtype
 
-    @torch.no_grad()
-    def _decode_window_rows(self, mels, input_ids, *, max_tokens: int,
-                            temperature: float, top_p: float, top_k: int,
-                            eos_token_ids, seed: int):
+    def _decode_window_rows(self, mels, input_ids, **kw):
         """Windows mels [W, frames, bins] with one shared prompt [T] ->
-        each window's generated token list.  The end-of-speech tokens are
-        checked on the host once a chunk of up to _CHUNK steps."""
+        each window's generated token list, on the active mesh's placement
+        (see the module docstring)."""
+        from mlx_audio_tpu_torch.parallel.context import active_mesh, placement
+        from mlx_audio_tpu_torch.parallel.mesh import tp_rules_llama
+
+        w = mels.shape[0]
+        models, _, n = placement(self, w, tp_rules_llama)
+        if len(models) == 1:
+            return models[0]._decode_rows(mels, input_ids, **kw)
+        mels = torch.cat([mels, mels[-1:].expand(n - w, *mels.shape[1:])])
+        parts = active_mesh().map_rows(models, n, lambda m, lo, hi: m._decode_rows(
+            mels[lo:hi], input_ids, **kw))
+        return [r for part in parts for r in part][:w]
+
+    @torch.no_grad()
+    def _decode_rows(self, mels, input_ids, *, max_tokens: int,
+                     temperature: float, top_p: float, top_k: int,
+                     eos_token_ids, seed: int):
+        """``_decode_window_rows`` on this model: the end-of-speech tokens
+        are checked on the host once a chunk of up to _CHUNK steps."""
         w = mels.shape[0]
         ids = np.asarray(input_ids).reshape(-1)
         t = len(ids)

@@ -6,8 +6,9 @@ decoding.py.
 The JAX package pads the prompt to a bucket of 32 for its jitted prefill;
 the padded positions are causally masked and overwritten by the decode, so
 no result depends on the bucket, and the port prefills the prompt as it
-is.  Left for later: the mesh's data-parallel branch of ``decode`` (the
-JAX package's ``_decode_impl`` is ``decode`` here).
+is.  Under an active mesh with dp > 1 a batch of windows pads to a dp
+multiple by repeating its last window, and each data row decodes its
+windows on its replica (``_decode_impl``, under ``row_offset``).
 """
 
 from __future__ import annotations
@@ -129,7 +130,23 @@ def decode(model, mel, options: DecodingOptions = DecodingOptions(),
            tokenizer: Optional[Tokenizer] = None,
            **kwargs) -> Union[DecodingResult, List[DecodingResult]]:
     """Decode 30 s mel windows [A?, 3000, n_mels] (NLC), or their audio
-    features; one result a window."""
+    features; one result a window.  Under a mesh with dp > 1 the windows
+    split over its data replicas."""
+    from mlx_audio_tpu_torch.parallel.context import data_parallel
+
+    dp = data_parallel(mel.shape[0] if getattr(mel, "ndim", 2) == 3 else 1)
+    if dp is None:
+        return _decode_impl(model, mel, options, tokenizer, **kwargs)
+    mel, n = dp.pad_batch(torch.as_tensor(mel))
+    parts = dp.map_rows(dp.place_replicated(model), mel.shape[0], lambda m, lo, hi: (
+        _decode_impl(m, mel[lo:hi], options, tokenizer, **kwargs)))
+    return [r for part in parts for r in part][:n]
+
+
+def _decode_impl(model, mel, options: DecodingOptions = DecodingOptions(),
+                 tokenizer: Optional[Tokenizer] = None,
+                 **kwargs) -> Union[DecodingResult, List[DecodingResult]]:
+    """``decode`` on one model."""
     if kwargs:
         options = replace(options, **kwargs)
     mel = torch.as_tensor(mel, device=model.device)

@@ -16,8 +16,12 @@ a host generator (seeded ``seed``, ``seed + 1``, ``seed + 2`` for the three
 stages), so a text's draws do not depend on the other rows of its batch;
 ``_cat_rows`` also takes the noise itself.  At a temperature of 1e-6 every
 stage takes the argmax, as the JAX package's does, and ``_fine_predict``
-takes it when the temperature is None.  Left for later: the data-parallel
-mesh branches.  The default tokenizer (``bert-base-multilingual-cased``)
+takes it when the temperature is None.  Under an active mesh with dp > 1
+``generate_batch`` pads its texts to a dp multiple, and every stage runs
+each data row's slice of the texts on its replica under ``row_offset``
+(the fine stage at the whole batch's window length), so a row draws and
+computes as in the whole batch.  The default tokenizer
+(``bert-base-multilingual-cased``)
 loads from local files only; pass ``tokenizer=`` otherwise.
 """
 
@@ -475,14 +479,14 @@ class Model(nn.Module):
         return self.generate_fine_batch([x_coarse_gen], temperature, seed)[0]
 
     def generate_fine_batch(self, coarse_list, temperature: Optional[float] = 0.7,
-                            seed: int = 0) -> list:
-        """Stage 3: rows pad to one length and fill their 1024-wide
-        non-causal windows together; each row is cut to its coarse
-        length."""
+                            seed: int = 0, t_max: Optional[int] = None) -> list:
+        """Stage 3: rows pad to one length (``t_max``, the least that fits
+        unless given) and fill their 1024-wide non-causal windows together;
+        each row is cut to its coarse length."""
         b = len(coarse_list)
         n_coarse = coarse_list[0].shape[0]
         t_rows = [c.shape[1] for c in coarse_list]
-        t_max = max(1024, max(t_rows))
+        t_max = t_max or max(1024, max(t_rows))
         in_rows = []
         for c in coarse_list:
             arr = np.concatenate([c, np.full((N_FINE_CODEBOOKS - n_coarse, c.shape[1]),
@@ -523,14 +527,34 @@ class Model(nn.Module):
         """B texts through the three stages in one batch loop each, then
         EnCodec: rows with equal fine lengths decode in one call.
         ``max_steps`` bounds the semantic stage (768).  One
-        GenerationResult per text."""
+        GenerationResult per text.  Under a mesh with dp > 1 the stages run
+        each data row's slice on its replica (see the module docstring)."""
+        from mlx_audio_tpu_torch.parallel.context import data_parallel
+
         start = time.perf_counter()
         b = len(texts)
-        sems = self.generate_text_semantic_batch(
-            list(texts), voice, temperature, seed,
-            max_steps=kwargs.get("max_steps", 768))
-        coarse = self.generate_coarse_batch(sems, voice, temperature, seed=seed)
-        fines = self.generate_fine_batch(coarse, temperature, seed=seed)
+        dp = data_parallel(b)
+        if dp is None:
+            sems = self.generate_text_semantic_batch(
+                list(texts), voice, temperature, seed,
+                max_steps=kwargs.get("max_steps", 768))
+            coarse = self.generate_coarse_batch(sems, voice, temperature, seed=seed)
+            fines = self.generate_fine_batch(coarse, temperature, seed=seed)
+        else:
+            run = list(texts) + [texts[-1]] * (dp.pad_rows(b) - b)  # padded rows
+            reps = dp.place_replicated(self)
+
+            def stage(fn):
+                return [x for part in dp.map_rows(reps, len(run), fn) for x in part]
+
+            sems = stage(lambda m, lo, hi: m.generate_text_semantic_batch(
+                run[lo:hi], voice, temperature, seed,
+                max_steps=kwargs.get("max_steps", 768)))
+            coarse = stage(lambda m, lo, hi: m.generate_coarse_batch(
+                sems[lo:hi], voice, temperature, seed=seed))
+            t_max = max(1024, max(c.shape[1] for c in coarse))
+            fines = stage(lambda m, lo, hi: m.generate_fine_batch(
+                coarse[lo:hi], temperature, seed=seed, t_max=t_max))
         elapsed = time.perf_counter() - start
         audios, groups = {}, {}
         for i in range(b):

@@ -14,9 +14,16 @@ sampled step draws text b's Gumbel noise from a generator of its own
 (``models.sampling.row_generator`` on a seed taken from a host generator
 seeded ``seed``), and a text's draws do not depend on its batch.  The
 encoder and decoder projections are float32 ``tensordot`` calls, as in the
-JAX package.  Left for later: the tensor- and data-parallel placements,
-and fetching the DAC from the hub (``dac_model`` is a DAC or a local
-checkpoint directory).
+JAX package.
+
+Under an active mesh (``parallel.context``) with tp > 1 the encoder and
+decoder projections split by ``tp_rules_dia`` (head-parallel attention,
+column- and row-parallel MLP, a vocabulary-split logits head); with dp > 1
+``generate_batch`` pads its texts to a dp multiple and each data row
+decodes its texts' row pairs on its replica, at the whole batch's encoder
+bucket and cross-key trim, under ``row_offset``, the replicas stepping in
+turn a chunk at a time.  Left for later: fetching the DAC from the hub
+(``dac_model`` is a DAC or a local checkpoint directory).
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ from mlx_audio_tpu_torch.models.base import (
     make_generation_result,
     model_device,
 )
-from mlx_audio_tpu_torch.models.sampling import call_seed, gumbel, row_generator
+from mlx_audio_tpu_torch.models.sampling import call_seed, gumbel, row_generator, row_offset
 from mlx_audio_tpu_torch.models.tts.dia.audio import (
     audio_to_codebook,
     codebook_to_audio,
@@ -105,14 +112,15 @@ def _dia_chunk(model, sa_caches, cross_kvs, ca_mask, last_tokens, step0: int,
     return torch.stack(preds), last
 
 
-def _trim_cross(cross_kvs, pad2, step: int = 64):
+def _trim_cross(cross_kvs, pad2, step: int = 64, s_real: Optional[int] = None):
     """Slice the cross-attention keys to a ``step``-bucket covering the
-    longest real text in the batch.  Pad keys are masked to -1e9, whose
-    float32 softmax weight underflows to exactly 0, so dropping them leaves
-    every output as it was.  Returns (cross_kvs, the cross mask [B, 1, 1,
-    S'])."""
+    longest real text in the batch (``s_real`` tokens, when given: a data
+    replica's slice trims as its whole batch).  Pad keys are masked to
+    -1e9, whose float32 softmax weight underflows to exactly 0, so dropping
+    them leaves every output as it was.  Returns (cross_kvs, the cross mask
+    [B, 1, 1, S'])."""
     s_len = pad2.shape[-1]
-    s_real = int(pad2.sum(-1).max())
+    s_real = int(pad2.sum(-1).max()) if s_real is None else s_real
     sl = min(s_len, max(step, -(-s_real // step) * step))
     if sl >= s_len:
         return cross_kvs, pad2[:, None, None, :]
@@ -174,18 +182,25 @@ class Model(nn.Module):
 
     # -- text prep ----------------------------------------------------------
 
-    def _prepare_text_input(self, text: str):
-        """Bytes with [S1]/[S2] as 0x01/0x02, padded to text_length: (src [1,
-        S], positions [1, S], pad mask [1, S], encoder mask [1, 1, S, S]).
-        The encoder mask is segment-compatible: real to real, pad to pad."""
+    def _text_bytes(self, text: str) -> np.ndarray:
+        """Bytes with [S1]/[S2] as 0x01/0x02, padded to text_length."""
         pad = self.config.data.text_pad_value
         max_len = self.config.data.text_length
         b = text.encode("utf-8").replace(b"[S1]", b"\x01").replace(b"[S2]", b"\x02")
         tokens = list(b)[:max_len]
         padded = np.full(max_len, pad, dtype=np.int64)
         padded[: len(tokens)] = tokens
-        src = torch.as_tensor(padded, device=self.device)[None]
-        positions = torch.arange(max_len, device=self.device)[None]
+        return padded
+
+    def _prepare_text_input(self, text: str, device=None):
+        """``_text_bytes`` on ``device`` (the model's): (src [1, S], positions
+        [1, S], pad mask [1, S], encoder mask [1, 1, S, S]).  The encoder
+        mask is segment-compatible: real to real, pad to pad."""
+        device = self.device if device is None else device
+        pad = self.config.data.text_pad_value
+        max_len = self.config.data.text_length
+        src = torch.as_tensor(self._text_bytes(text), device=device)[None]
+        positions = torch.arange(max_len, device=device)[None]
         pad_mask = src != pad
         q = pad_mask[:, :, None]
         kk = pad_mask[:, None, :]
@@ -209,8 +224,18 @@ class Model(nn.Module):
 
     # -- generation ---------------------------------------------------------
 
+    def _decode_placement(self, batch: int = 1):
+        """(models, row slices, padded batch): the active mesh's placement
+        of the DiaModel (``parallel.context.placement``, split by
+        ``tp_rules_dia``)."""
+        from mlx_audio_tpu_torch.parallel.context import placement
+        from mlx_audio_tpu_torch.parallel.mesh import tp_rules_dia
+
+        return placement(self.model, batch, tp_rules_dia)
+
     def _start(self, texts: List[str], cache_len: int, bucketed: bool = False,
-               encoder_len: Optional[int] = None, model: Optional[DiaModel] = None):
+               encoder_len: Optional[int] = None, model: Optional[DiaModel] = None,
+               s_real: Optional[int] = None):
         """Decode state of ``texts``: the encoder over (uncond, cond) row
         pairs, text b in rows (2b, 2b+1), every decoder layer's cross keys
         trimmed (``_trim_cross``), fresh self-attention caches of
@@ -219,17 +244,19 @@ class Model(nn.Module):
         of the longest real text (real positions never attend pad keys and
         the cross attention masks pad keys, so the codes stay as they
         were); ``encoder_len`` forces the length.  ``model`` is
-        ``self.model`` or a copy of it on another device.  Returns (caches,
-        cross keys, cross mask, the codes fed first [2B, C])."""
+        ``self.model`` or a placement of it; ``s_real``, the longest real
+        text of the whole batch, buckets and trims a data replica's slice as
+        the whole batch.  Returns (caches, cross keys, cross mask, the codes
+        fed first [2B, C])."""
         model = self.model if model is None else model
         dev = model.decoder.norm.weight.device
         data = self.config.data
-        parts = [self._prepare_text_input(t) for t in texts]
-        src, pos, pad, mask = (torch.cat(p).to(dev) for p in zip(*parts))
+        parts = [self._prepare_text_input(t, dev) for t in texts]
+        src, pos, pad, mask = (torch.cat(p) for p in zip(*parts))
         s_len = src.shape[1]
         if bucketed:
-            s_real = int(pad.sum(-1).max())
-            s_len = min(s_len, max(128, -(-s_real // 128) * 128))
+            s_enc = int(pad.sum(-1).max()) if s_real is None else s_real
+            s_len = min(s_len, max(128, -(-s_enc // 128) * 128))
         s_len = int(encoder_len or s_len)
         src, pos, pad = src[:, :s_len], pos[:, :s_len], pad[:, :s_len]
         mask = mask[:, :, :s_len, :s_len]
@@ -238,7 +265,7 @@ class Model(nn.Module):
         pos2, pad2, mask2 = (torch.repeat_interleave(a, 2, dim=0)
                              for a in (pos, pad, mask))
         _, cross_kvs = _encode_text(model, src2, pos2, mask2)
-        cross_kvs, ca_mask = _trim_cross(cross_kvs, pad2)
+        cross_kvs, ca_mask = _trim_cross(cross_kvs, pad2, s_real=s_real)
         caches = model.decoder.init_cache(2 * b, cache_len,
                                           dtype=model.decoder.norm.weight.dtype)
         last = torch.full((2 * b, data.channels), data.audio_bos_value,
@@ -255,7 +282,7 @@ class Model(nn.Module):
         bos, eos, pad_tok = data.audio_bos_value, data.audio_eos_value, data.audio_pad_value
         delay = data.delay_pattern
         max_tokens = max_tokens or data.audio_length
-        model = self.model
+        (model,), _, _ = self._decode_placement()
 
         if ref_text is not None:
             text = ref_text.strip() + " " + text
@@ -272,7 +299,7 @@ class Model(nn.Module):
         # the cache holds BOS, the prompt's frames and the generated ones
         n_prompt = 0 if prompt_np is None else prompt_np.shape[0]
         cache_len = max_tokens + n_prompt + 64
-        sa_caches, cross_kvs, ca_mask, last = self._start([text], cache_len)
+        sa_caches, cross_kvs, ca_mask, last = self._start([text], cache_len, model=model)
 
         if ref_audio is not None:
             frames = np.concatenate([generated[0][None], prompt_np], axis=0)
@@ -333,7 +360,8 @@ class Model(nn.Module):
         """B texts decode in one CFG loop over 2B interleaved (uncond, cond)
         rows, sharing every decoder weight read.  EOS is tracked per text on
         the host between chunks; rows of equal length synthesize through
-        one DAC call.  One GenerationResult per text."""
+        one DAC call.  One GenerationResult per text.  Under an active mesh
+        the texts split over its data replicas (see the module docstring)."""
         data = self.config.data
         c = data.channels
         bos, eos, pad_tok = (data.audio_bos_value, data.audio_eos_value,
@@ -341,27 +369,39 @@ class Model(nn.Module):
         delay = data.delay_pattern
         max_tokens = max_tokens or data.audio_length
         start_time = time.perf_counter()
-        model = self.model
         b = len(texts)
-
+        models, slices, n_rows = self._decode_placement(b)
+        run_texts = list(texts) + [texts[-1]] * (n_rows - b)  # dp padding
+        pad = self.config.data.text_pad_value
+        s_real = max(int((self._text_bytes(t) != pad).sum()) for t in run_texts)
         # a test hook: force the encoder length
-        sa_caches, cross_kvs, ca_mask, last = self._start(
-            texts, max_tokens + 64, bucketed=True,
-            encoder_len=kwargs.pop("_encoder_bucket", None))
+        encoder_len = kwargs.pop("_encoder_bucket", None)
+        reps = []
+        for r, (model, (lo, hi)) in enumerate(zip(models, slices)):
+            state = list(self._start(run_texts[lo:hi], max_tokens + 64, bucketed=True,
+                                     encoder_len=encoder_len, model=model,
+                                     s_real=s_real))
+            # every replica takes the call seeds in the whole batch's order
+            dev = state[3].device
+            reps.append([model, lo, state, torch.Generator().manual_seed(seed),
+                         torch.as_tensor(delay, device=dev)])
 
-        generator = torch.Generator().manual_seed(seed)
-        delay_t = torch.as_tensor(delay, device=self.device)
         first = np.full((c,), bos, dtype=np.int32)
         out_frames = [[first.copy()] for _ in range(b)]
         done = np.zeros((b,), dtype=bool)
         step = 0
         while step < max_tokens and not done.all():
             n = min(CHUNK, max_tokens - step)
-            preds, last = _dia_chunk(
-                model, sa_caches, cross_kvs, ca_mask, last, step, 0, delay_t,
-                generator, bos, chunk=n, temperature=temperature,
-                top_k=cfg_filter_top_k, cfg_scale=cfg_scale, force_bos=True)
-            for row in preds.cpu().numpy():     # [n, B, C]
+            preds = []
+            for model, lo, state, generator, delay_t in reps:
+                sa_caches, cross_kvs, ca_mask, last = state
+                with row_offset(lo):
+                    pred, state[3] = _dia_chunk(
+                        model, sa_caches, cross_kvs, ca_mask, last, step, 0, delay_t,
+                        generator, bos, chunk=n, temperature=temperature,
+                        top_k=cfg_filter_top_k, cfg_scale=cfg_scale, force_bos=True)
+                preds.append(pred.cpu().numpy())
+            for row in np.concatenate(preds, axis=1):     # [n, rows, C]
                 for i in range(b):
                     if done[i]:
                         continue

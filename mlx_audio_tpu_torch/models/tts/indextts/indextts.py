@@ -18,8 +18,11 @@ from a host generator seeded ``seed``, and row i draws with its own
 generator of that seed (the JAX package folds ``jax.random`` keys per
 row); temperature 0 is greedy.  A vocoder call encodes the speaker of
 the one reference mel once for all its rows (the JAX package encodes it
-for each row).  Left for later: the data-parallel mesh branch of
-``generate_batch``.  A tokenizer is passed in (any object with
+for each row).  Under an active mesh with dp > 1 ``generate_batch`` pads its
+texts to a dp multiple, builds every prompt on the model's device, and each
+data row decodes its slice on its replica at the whole batch's prompt
+bucket under ``row_offset``; the vocoder runs on the model's device.  A
+tokenizer is passed in (any object with
 ``encode(text) -> ids``), else a SentencePiece ``tokenizer.model`` is read
 from ``tokenizer_name``; ``from_pretrained`` loads a local directory only.
 """
@@ -29,7 +32,7 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -204,17 +207,21 @@ class Model(nn.Module):
                                   top_k=top_k, seed=seed, chunk=chunk)[0]
 
     @torch.no_grad()
-    def _start(self, texts: List[str], ref_mel: torch.Tensor, max_tokens: int):
-        """The texts' prompts, left-padded to a shared bucket, through the
-        prefill: (caches, pad_len [B], prompt_len [B], latent0 [B, D])."""
-        rows = self.prepare_input_embedding(texts, ref_mel)
-        rows = [rows] if len(texts) == 1 else rows
+    def _start(self, texts: List[str], ref_mel: torch.Tensor, max_tokens: int,
+               rows: Optional[list] = None, bucket: Optional[int] = None):
+        """The texts' prompts (``rows``, their embeddings, when given),
+        left-padded to a shared bucket (the least that fits unless given),
+        through the prefill: (caches, pad_len [B], prompt_len [B], latent0
+        [B, D])."""
+        if rows is None:
+            rows = self.prepare_input_embedding(texts, ref_mel)
+            rows = [rows] if len(texts) == 1 else rows
         b, d = len(rows), rows[0].shape[-1]
         lens = [int(r.shape[1]) for r in rows]
-        bucket = _bucket(max(lens))
+        bucket = bucket or _bucket(max(lens))
         padded = torch.zeros(b, bucket, d, device=self.device)
         for i, r in enumerate(rows):
-            padded[i, bucket - lens[i]:] = r[0]
+            padded[i, bucket - lens[i]:] = r[0].to(self.device)
         pad_len = torch.tensor([bucket - n for n in lens], device=self.device)
         caches = self.gpt.init_cache(b, bucket + max_tokens,
                                      dtype=self.mel_embedding.weight.dtype)
@@ -235,14 +242,16 @@ class Model(nn.Module):
     @torch.no_grad()
     def generate_latents(self, texts: List[str], ref_mel: torch.Tensor,
                          max_tokens: int = 5000, temperature: float = 0.8,
-                         top_k: int = 30, seed: int = 0):
+                         top_k: int = 30, seed: int = 0, rows: Optional[list] = None,
+                         bucket: Optional[int] = None):
         """The texts' prompts, their left-padded prefill and the lockstep
         decode loop -> (latent streams, codes): row i's stream [n_i,
         model_dim] (n_i <= max_tokens + 1) and its n_i mel codes, code k
         sampled from latent k (the last one the stop code, where the row
-        stopped)."""
+        stopped).  ``rows`` and ``bucket`` go to ``_start``."""
         stop = self.args.gpt.stop_mel_token
-        caches, pad_len, prompt_len, latent0 = self._start(texts, ref_mel, max_tokens)
+        caches, pad_len, prompt_len, latent0 = self._start(texts, ref_mel, max_tokens,
+                                                           rows, bucket)
         gen = torch.Generator().manual_seed(seed)
         first = last = sample_top_k_rows(self.mel_head(latent0), temperature, top_k,
                                          seed=call_seed(gen))
@@ -279,10 +288,23 @@ class Model(nn.Module):
         equal latent count share a vocoder call.  ``chunk`` is accepted for
         the JAX package's signature (its decode scans that many steps a
         call); here the loop steps once a Python iteration."""
+        from mlx_audio_tpu_torch.parallel.context import data_parallel
+
         ref_mel = self._reference_mel(ref_audio, ref_mel)
         t0 = time.perf_counter()
-        streams, _ = self.generate_latents(texts, ref_mel, max_tokens, temperature, top_k,
-                                           seed)
+        dp = data_parallel(len(texts))
+        if dp is None:
+            streams, _ = self.generate_latents(texts, ref_mel, max_tokens, temperature,
+                                               top_k, seed)
+        else:
+            run = list(texts) + [texts[-1]] * (dp.pad_rows(len(texts)) - len(texts))
+            with torch.no_grad():
+                rows = self.prepare_input_embedding(run, ref_mel)
+            bucket = _bucket(max(int(r.shape[1]) for r in rows))
+            parts = dp.map_rows(dp.place_replicated(self), len(run), lambda m, lo, hi: (
+                m.generate_latents(run[lo:hi], None, max_tokens, temperature, top_k,
+                                   seed, rows[lo:hi], bucket)[0]))
+            streams = [st.to(self.device) for part in parts for st in part][:len(texts)]
         elapsed = time.perf_counter() - t0  # the JAX package's clock stops here
         lengths = [int(s.shape[0]) for s in streams]
         length_groups: Dict[int, list] = {}

@@ -10,6 +10,14 @@ Two stages, both batched and mask-exact under bucket padding:
 
 The only host sync between the stages is the duration read-out that picks
 the frame bucket.  PyTorch runs eagerly, so the stages are plain functions.
+
+Under an active mesh with dp > 1 (``parallel.context``) a batch pads to a
+dp multiple by repeating its last row; every data replica runs the
+duration stage on its slice at the whole batch's phoneme bucket, the frame
+bucket is picked from every real row, and each replica then synthesizes
+its slice at that bucket with its rows' own source draws, so a row computes
+as it does in the whole batch.  ``generate`` then synthesizes all its
+segments in that one batched pass.
 """
 
 from __future__ import annotations
@@ -196,6 +204,8 @@ class Model(nn.Module):
         ``rows`` gives row i the source draws of batch row ``rows[i]``.
         With both, a string alone computes as it does in a larger batch.
         """
+        from mlx_audio_tpu_torch.parallel.context import data_parallel, pad_list
+
         b = len(phonemes_list)
         toks = [[0, *self.phonemes_to_ids(p), 0] for p in phonemes_list]
         n_valid = [len(t) for t in toks]
@@ -203,32 +213,47 @@ class Model(nn.Module):
             raise ValueError(f"phoneme sequence too long: {max(n_valid)} > "
                              f"{self.context_length}")
         bucket = pick_phoneme_bucket(max(n_valid)) if buckets is None else buckets[0]
-        ids = np.zeros((b, bucket), dtype=np.int64)
+        ref_rows = list(np.asarray(ref_s, dtype=np.float32).reshape(b, -1))
+        speed_rows = list(np.broadcast_to(np.asarray(
+            1.0 if speeds is None else speeds, np.float32), (b,)))
+        dp = data_parallel(b) if buckets is None and rows is None else None
+        if dp is None:
+            models, slices = [self], [(0, b)]
+        else:
+            toks, ref_rows, speed_rows = (pad_list(dp, x) for x in (toks, ref_rows, speed_rows))
+            models, slices = dp.place_replicated(self), dp.row_slices(len(toks))
+        stages = [m._duration_pass(toks[lo:hi], ref_rows[lo:hi], speed_rows[lo:hi], bucket)
+                  for m, (lo, hi) in zip(models, slices)]
+        pred_np = np.concatenate([st[3].cpu().numpy() for st in stages])
+        totals = pred_np.sum(axis=1)
+        f_bucket = pick_frame_bucket(int(totals[:b].max())) if buckets is None else buckets[1]
+        audio = []
+        for m, (lo, hi), st in zip(models, slices, stages):
+            own = rows if rows is not None else None if dp is None else range(lo, hi)
+            draws = (None, None) if own is None else source_noise(
+                hi - lo, self.SAMPLES_PER_FRAME * f_bucket,
+                self.decoder.generator.m_source.l_sin_gen.dim, m.device, seed, rows=own)
+            out, _ = synthesis_stage(m, *st, f_bucket, *draws, seed=seed)
+            audio.append(out.float().cpu().numpy())
+        audio_np = np.concatenate(audio)
+        return [(audio_np[i, :int(totals[i]) * self.SAMPLES_PER_FRAME],
+                 pred_np[i, :n_valid[i]]) for i in range(b)]
+
+    def _duration_pass(self, toks: list, ref_rows: list, speed_rows: list,
+                       bucket: int) -> tuple:
+        """Rows of ids ``toks`` padded to ``bucket``, on this model's device,
+        through the duration stage: (input_ids, lengths, d, pred_dur, ref),
+        the arguments of ``synthesis_stage`` before the frame bucket."""
+        ids = np.zeros((len(toks), bucket), dtype=np.int64)
         for i, t in enumerate(toks):
             ids[i, :len(t)] = t
         dev = self.device
         input_ids = torch.as_tensor(ids, device=dev)
-        lengths = torch.as_tensor(n_valid, device=dev)
-        ref = torch.as_tensor(np.asarray(ref_s, dtype=np.float32).reshape(b, -1),
-                              device=dev)
-        if speeds is None:
-            speeds = 1.0
-        speed = torch.as_tensor(np.broadcast_to(
-            np.asarray(speeds, np.float32), (b,)).copy(), device=dev)
-
-        d, pred_dur = duration_stage(self, input_ids, lengths, ref[:, 128:],
-                                     speed)
-        pred_np = pred_dur.cpu().numpy()
-        totals = pred_np.sum(axis=1)
-        f_bucket = pick_frame_bucket(int(totals.max())) if buckets is None else buckets[1]
-        draws = (None, None) if rows is None else source_noise(
-            b, self.SAMPLES_PER_FRAME * f_bucket,
-            self.decoder.generator.m_source.l_sin_gen.dim, dev, seed, rows=rows)
-        audio, _ = synthesis_stage(self, input_ids, lengths, d, pred_dur, ref,
-                                   f_bucket, *draws, seed=seed)
-        audio_np = audio.float().cpu().numpy()
-        return [(audio_np[i, :int(totals[i]) * self.SAMPLES_PER_FRAME],
-                 pred_np[i, :n_valid[i]]) for i in range(b)]
+        lengths = torch.as_tensor([len(t) for t in toks], device=dev)
+        ref = torch.as_tensor(np.stack(ref_rows), device=dev)
+        speed = torch.as_tensor(np.asarray(speed_rows, np.float32), device=dev)
+        d, pred_dur = duration_stage(self, input_ids, lengths, ref[:, 128:], speed)
+        return input_ids, lengths, d, pred_dur, ref
 
     def generate_batch(self, texts: list, voice: Optional[str] = None,
                        speed: float = 1.0, lang_code: str = "a",
@@ -274,8 +299,26 @@ class Model(nn.Module):
                  speed: float = 1.0, lang_code: str = "a",
                  split_pattern: str = r"\n+",
                  **kwargs) -> Iterator[GenerationResult]:
-        """Text -> audio segments with the standard metrics record."""
+        """Text -> audio segments with the standard metrics record.  Under a
+        mesh with dp > 1 every segment synthesizes in one batched pass."""
+        from mlx_audio_tpu_torch.parallel.context import data_parallel
+
         pipeline = KokoroPipeline(model=self, lang_code=lang_code)
+        if data_parallel() is not None:
+            pack = pipeline.load_voice(voice)
+            start = time.time()
+            segs = list(pipeline.iter_phoneme_segments(text, split_pattern))
+            if not segs:
+                return
+            refs = np.stack([pack[len(ps) - 1].reshape(-1) for _, ps, _ in segs])
+            outs = self.synthesize_batch([ps for _, ps, _ in segs], refs, speeds=speed)
+            elapsed = time.time() - start
+            for idx, ((_, ps, _), (audio, _)) in enumerate(zip(segs, outs)):
+                yield make_generation_result(
+                    audio=audio, sample_rate=self.config.sample_rate,
+                    segment_idx=idx, token_count=len(ps) if ps else 0,
+                    segment_time=elapsed / len(segs), device=self.device)
+            return
         start = time.time()
         for idx, (_, phonemes, audio) in enumerate(
             pipeline(text, voice=voice, speed=speed,

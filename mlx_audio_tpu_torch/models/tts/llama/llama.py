@@ -7,8 +7,10 @@ loop (``models.lm.causal``) are the JAX package's.  After
 ``quantize_model(model.lm, group_size=64, bits=8)`` every decode-sized
 projection and the tied head run through the ``quantized_matmul`` kernel.
 The JAX package runs bf16; the port runs float32 (or int8 weights with
-float32 activations).  Left for later: the data-parallel branch of
-``generate``, and tokenizer downloads (``tokenizer=`` or a local path).
+float32 activations).  Under a mesh with dp > 1 a multi-segment
+``generate`` without a reference decodes its segments as one
+``generate_batch`` (the loop's mesh branches are ``models.lm.causal``'s).
+Left for later: tokenizer downloads (``tokenizer=`` or a local path).
 """
 
 from __future__ import annotations
@@ -206,10 +208,19 @@ class Model(nn.Module):
                  repetition_penalty: float = 1.3,
                  repetition_context_size: int = 20, seed: int = 0, **kwargs):
         """One GenerationResult per segment of ``text`` (split on
-        ``split_pattern``), batch 1."""
+        ``split_pattern``), batch 1; under a mesh with dp > 1 the segments
+        of a call without ``ref_audio`` decode as one ``generate_batch``."""
+        from mlx_audio_tpu_torch.parallel.context import data_parallel
+
         prompt = text.replace("\\n", "\n").replace("\\t", "\t")
-        rows = self.prepare_input_ids(prompt.split(split_pattern), voice,
-                                      ref_audio, ref_text)
+        prompts = prompt.split(split_pattern)
+        if data_parallel(len(prompts)) is not None and ref_audio is None:
+            yield from self.generate_batch(
+                prompts, voice=voice, temperature=temperature, top_p=top_p,
+                max_tokens=max_tokens, repetition_penalty=repetition_penalty,
+                repetition_context_size=repetition_context_size, seed=seed)
+            return
+        rows = self.prepare_input_ids(prompts, voice, ref_audio, ref_text)
         for seg_idx, input_ids in enumerate(rows):
             start = time.perf_counter()
             tokens = list(input_ids)

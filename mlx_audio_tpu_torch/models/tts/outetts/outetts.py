@@ -6,9 +6,10 @@ c1/c2 code generation and streaming decode, on the port's causal-LM loop
 (``models.lm.causal``).  After ``quantize_model(model.lm, group_size=64,
 bits=8)`` the projections and the tied head (``QuantizedEmbedding.as_linear``)
 run through the ``quantized_matmul`` kernel at decode row counts; the 24 kHz
-DAC's resblock convs take the conv kernels their route names.  Left for
-later: the data-parallel branch of ``generate``, and tokenizer downloads
-(``tokenizer=`` or a local path).
+DAC's resblock convs take the conv kernels their route names.  Under a
+mesh with dp > 1 a multi-chunk, non-streaming ``generate`` without a
+reference decodes its chunks as one ``generate_batch``.  Left for later:
+tokenizer downloads (``tokenizer=`` or a local path).
 """
 
 from __future__ import annotations
@@ -175,7 +176,16 @@ class Model(nn.Module):
         stop = tuple(eos_id[-1:])
         interval = max(1, int(streaming_interval * TOKENS_PER_SECOND))
 
-        for seg_idx, prompt in enumerate(self.chunk_text(text)):
+        from mlx_audio_tpu_torch.parallel.context import data_parallel
+
+        chunks = self.chunk_text(text)
+        if data_parallel(len(chunks)) is not None and not stream and ref_audio is None:
+            yield from self.generate_batch(
+                chunks, voice=voice, temperature=temperature, top_p=top_p,
+                max_tokens=max_tokens, repetition_penalty=repetition_penalty,
+                repetition_context_size=repetition_context_size, seed=seed)
+            return
+        for seg_idx, prompt in enumerate(chunks):
             completion = prompt_processor.get_completion_prompt(prompt, speaker)
             input_ids = np.asarray(
                 tokenizer.encode(completion, add_special_tokens=False))

@@ -41,7 +41,15 @@ decodes the frames to 24 kHz audio.
 * Every output is watermarked (``watermarking.load_watermarker``:
   SilentCipher on the model's device where a checkpoint is named, else the
   DSSS mark).
-* Left for a later slice: the mesh and data-parallel branches.
+* Under an active mesh (``parallel.context``) with tp > 1 the backbone and
+  depth decoder split by ``tp_rules_llama`` (each quantized shard runs
+  ``quantized_matmul`` on its own codes), and with dp > 1 ``generate_batch``
+  pads its batch to a dp multiple: each data row prefills and decodes its
+  slice at the whole batch's prompt bucket under ``row_offset``, with its
+  own host generator seeded alike, the replicas stepping in turn a chunk
+  at a time, and Mimi decodes each slice on its replica.  A multi-segment
+  non-streaming ``generate`` goes through ``generate_batch`` then.  Spec
+  decode is taken at batch 1 only, so never under dp.
 """
 
 from __future__ import annotations
@@ -79,6 +87,7 @@ from mlx_audio_tpu_torch.models.sampling import (
     call_seed,
     gumbel,
     row_generator,
+    row_offset,
     sample_top_k_rows,
 )
 from mlx_audio_tpu_torch.nn import kernels
@@ -200,22 +209,24 @@ class SesameModel(nn.Module):
     def _use_spec(self, batch: int) -> bool:
         return self.spec_decode and batch == 1 and self._spec_packed is not None
 
-    def first_frame(self, last_h, temp, top_k, generator):
+    def first_frame(self, last_h, temp, top_k, generator, spec: bool = True):
         """The frame after hidden state last_h [B, D]: codebook 0 from the
         backbone's head, then the depth decode.  ``generator`` (CPU) gives
-        each sampling call's seed."""
+        each sampling call's seed; ``spec=False`` keeps a batch-1 slice of a
+        larger batch (a data replica) off the spec decode."""
         c0 = sample_top_k_rows(self.codebook0_head(last_h), temp, top_k,
                                call_seed(generator))[:, None].long()
-        if self._use_spec(last_h.shape[0]):
+        if spec and self._use_spec(last_h.shape[0]):
             return self._depth_decode_spec(last_h, c0, temp, top_k, generator)
         return self._depth_decode(last_h, c0, temp, top_k, generator)
 
     def generate_frame_step(self, caches: list, pad_len: torch.Tensor,
                             embeds: torch.Tensor, temp: float, top_k: int,
-                            generator: Optional[torch.Generator] = None):
+                            generator: Optional[torch.Generator] = None,
+                            spec: bool = True):
         """embeds [B, S, D] -> (frame codes [B, nc], caches)."""
         h, caches = self.backbone.step(caches, embeds, pad_len)
-        return self.first_frame(h[:, -1], temp, top_k, generator), caches
+        return self.first_frame(h[:, -1], temp, top_k, generator, spec), caches
 
     def _depth_decode(self, last_h, c0, temp, top_k, generator):
         """The nc - 1 sequential depth-decoder steps of a frame."""
@@ -431,14 +442,26 @@ class Model(nn.Module):
 
     # -- decoding ----------------------------------------------------------
 
-    def _prefill(self, prompts: list, max_frames: int):
-        """Left-pad the prompts to one bucket, prefill the backbone, and
-        return (caches, pad_len, first frame [B, nc])."""
+    def _decode_placement(self, batch: int = 1):
+        """(models, row slices, padded batch): the active mesh's placement
+        of the LM (``parallel.context.placement``, split by
+        ``tp_rules_llama``)."""
+        from mlx_audio_tpu_torch.parallel.context import placement
+        from mlx_audio_tpu_torch.parallel.mesh import tp_rules_llama
+
+        return placement(self.model, batch, tp_rules_llama)
+
+    def _prefill(self, prompts: list, max_frames: int, bucket: Optional[int] = None,
+                 lm: Optional[SesameModel] = None):
+        """Left-pad the prompts to one bucket (the least that fits unless
+        given), prefill the backbone of ``lm`` (``self.model`` or a placement
+        of it), and return (caches, pad_len, the last hidden state [B, D])."""
+        lm = self.model if lm is None else lm
         longest = max(p.shape[0] for p, _ in prompts)
         max_seq_len = self.model.backbone_cfg.max_position_embeddings - max_frames
         if longest >= max_seq_len:
             raise ValueError(f"Inputs too long, must be below {max_seq_len}")
-        bucket = _prompt_bucket(longest)
+        bucket = bucket or _prompt_bucket(longest)
         b, nc1 = len(prompts), self.audio_num_codebooks + 1
         tokens = np.zeros((b, bucket, nc1), dtype=np.int64)
         mask = np.zeros((b, bucket, nc1), dtype=bool)
@@ -447,35 +470,39 @@ class Model(nn.Module):
             pad[i] = bucket - p.shape[0]
             tokens[i, pad[i]:] = p
             mask[i, pad[i]:] = m
-        dev = self.device
+        dev = lm.backbone.rope_cos.device
         pad_len = torch.as_tensor(pad, device=dev)
-        caches = self.model.backbone.init_cache(b, max_len=bucket + max_frames,
-                                                dtype=self.model.lm_dtype())
-        embeds = self.model.embed_tokens(torch.as_tensor(tokens, device=dev),
-                                         torch.as_tensor(mask, device=dev))
-        h, caches = self.model.backbone.prefill(caches, embeds, pad_len)
+        caches = lm.backbone.init_cache(b, max_len=bucket + max_frames,
+                                        dtype=self.model.lm_dtype())
+        embeds = lm.embed_tokens(torch.as_tensor(tokens, device=dev),
+                                 torch.as_tensor(mask, device=dev))
+        h, caches = lm.backbone.prefill(caches, embeds, pad_len)
         return caches, pad_len, h[:, -1]
 
-    def _frame_chunk(self, caches, pad_len, last_frame, n, temp, top_k):
+    def _frame_chunk(self, caches, pad_len, last_frame, n, temp, top_k,
+                     lm: Optional[SesameModel] = None, generator=None,
+                     spec: bool = True):
         """n frames from the decode state; last_frame [B, nc] is the first
         input.  Returns frames [n, B, nc]."""
+        lm = self.model if lm is None else lm
+        generator = self.generator if generator is None else generator
         frames = []
         for _ in range(n):
-            b = last_frame.shape[0]
             tokens = F.pad(last_frame, (0, 1))[:, None]
             mask = torch.ones_like(tokens, dtype=torch.bool)
             mask[..., -1] = False
-            embeds = self.model.embed_tokens(tokens, mask)
-            last_frame, caches = self.model.generate_frame_step(
-                caches, pad_len, embeds, temp, top_k, self.generator)
+            embeds = lm.embed_tokens(tokens, mask)
+            last_frame, caches = lm.generate_frame_step(
+                caches, pad_len, embeds, temp, top_k, generator, spec)
             frames.append(last_frame)
         return torch.stack(frames)
 
     @torch.no_grad()
     def _generate_frames(self, prompt, max_frames, chunk, temp, top_k) -> list:
         """Batch-1 frames until the end-of-speech frame or ``max_frames``."""
-        caches, pad_len, last_h = self._prefill([prompt], max_frames)
-        frame = self.model.first_frame(last_h, temp, top_k, self.generator)
+        (lm,), _, _ = self._decode_placement()
+        caches, pad_len, last_h = self._prefill([prompt], max_frames, lm=lm)
+        frame = lm.first_frame(last_h, temp, top_k, self.generator)
         frames = []
         last = frame
         out = frame[None]
@@ -492,7 +519,7 @@ class Model(nn.Module):
             if done:
                 return frames
             n = min(chunk, max_frames - len(frames))
-            out = self._frame_chunk(caches, pad_len, last, n, temp, top_k)
+            out = self._frame_chunk(caches, pad_len, last, n, temp, top_k, lm)
             last = out[-1]
 
     def generate(self, text, voice: Optional[str] = None, speaker: int = 0,
@@ -507,11 +534,21 @@ class Model(nn.Module):
         """Text -> one GenerationResult per text segment (batch 1), or with
         ``stream=True`` one per chunk of frames as they are decoded: the
         first ``min(3, max frames)``, then 4, then
-        ``max(1, int(streaming_interval * 12.5))`` at a time."""
+        ``max(1, int(streaming_interval * 12.5))`` at a time.  Under a mesh
+        with dp > 1 the segments of a non-streaming call decode as one
+        ``generate_batch``."""
+        from mlx_audio_tpu_torch.parallel.context import data_parallel
+
         context = self._context(context, speaker, ref_audio, ref_text)
         max_frames = int(max_audio_length_ms / 80)
         if isinstance(text, str):
             text = re.split(split_pattern, text.strip()) if split_pattern else [text]
+        if not stream and data_parallel(len(text)) is not None:
+            yield from self.generate_batch(
+                list(text), speaker=speaker, context=context,
+                max_audio_length_ms=max_audio_length_ms, voice_match=voice_match,
+                temperature=temperature, top_k=top_k, seed=seed)
+            return
         self.generator.manual_seed(seed)
         for seg_idx, prompt in enumerate(text):
             start = time.perf_counter()
@@ -551,13 +588,14 @@ class Model(nn.Module):
             start = time.perf_counter()
             return result
 
-        caches, pad_len, last_h = self._prefill([prompt], max_frames)
-        last = self.model.first_frame(last_h, temp, top_k, self.generator)
+        (lm,), _, _ = self._decode_placement()
+        caches, pad_len, last_h = self._prefill([prompt], max_frames, lm=lm)
+        last = lm.first_frame(last_h, temp, top_k, self.generator)
         n_first = min(3, max_frames)
         out = last[None]
         if n_first > 1:
             out = torch.cat([out, self._frame_chunk(caches, pad_len, last,
-                                                    n_first - 1, temp, top_k)])
+                                                    n_first - 1, temp, top_k, lm)])
         eos = np.nonzero((out[:, 0].cpu().numpy() == 0).all(axis=1))[0]
         n_valid = int(eos[0]) if len(eos) else n_first
         if n_valid:
@@ -567,7 +605,7 @@ class Model(nn.Module):
         produced, last, ramp = n_first, out[-1], [4]
         while produced < max_frames:
             n = min(ramp.pop(0) if ramp else chunk, max_frames - produced)
-            out = self._frame_chunk(caches, pad_len, last, n, temp, top_k)
+            out = self._frame_chunk(caches, pad_len, last, n, temp, top_k, lm)
             frames = []
             for f in out[:, 0].cpu().numpy():
                 if (f == 0).all():
@@ -591,29 +629,46 @@ class Model(nn.Module):
                        seed: int = 0, chunk: int = FRAME_CHUNK) -> List[GenerationResult]:
         """All ``texts`` in one batched decode: the rows share every weight
         read.  Finished rows keep stepping (their frames are dropped) until
-        all are done."""
+        all are done.  Under an active mesh the rows split over its data
+        replicas (see the module docstring)."""
         context = self._context(context, speaker, ref_audio, ref_text)
         max_frames = int(max_audio_length_ms / 80)
         start = time.perf_counter()
         self.generator.manual_seed(seed)
         prompts = [self._prompt(t, context, speaker, voice_match) for t in texts]
         b = len(prompts)
-        caches, pad_len, last_h = self._prefill(prompts, max_frames)
-        last = self.model.first_frame(last_h, temperature, top_k, self.generator)
-        first = last.cpu().numpy()
+        lms, slices, n_rows = self._decode_placement(b)
+        rows = prompts + [prompts[-1]] * (n_rows - b)  # dp padding, dropped below
+        bucket = _prompt_bucket(max(p.shape[0] for p, _ in prompts))
+        spec = n_rows == 1
+        reps = []
+        for r, (lm, (lo, hi)) in enumerate(zip(lms, slices)):
+            # every replica takes the call seeds in the whole batch's order
+            gen = self.generator if r == 0 else torch.Generator().manual_seed(seed)
+            with row_offset(lo):
+                caches, pad_len, last_h = self._prefill(rows[lo:hi], max_frames,
+                                                        bucket, lm)
+                last = lm.first_frame(last_h, temperature, top_k, gen, spec)
+            reps.append([lm, lo, caches, pad_len, last, gen])
+        first = np.concatenate([rep[4].cpu().numpy() for rep in reps])
         all_frames = [first]
-        done = (first == 0).all(axis=1)
+        done = (first[:b] == 0).all(axis=1)
         n_frames = np.where(done, 0, 1)
         while len(all_frames) < max_frames and not done.all():
             n = min(chunk, max_frames - len(all_frames))
-            out = self._frame_chunk(caches, pad_len, last, n, temperature, top_k)
-            for f in out.cpu().numpy():
-                done = done | (f == 0).all(axis=1)
+            outs = []
+            for rep in reps:
+                lm, lo, caches, pad_len, last, gen = rep
+                with row_offset(lo):
+                    outs.append(self._frame_chunk(caches, pad_len, last, n,
+                                                  temperature, top_k, lm, gen, spec))
+                rep[4] = outs[-1][-1]
+            for f in np.concatenate([o.cpu().numpy() for o in outs], axis=1):
+                done = done | (f[:b] == 0).all(axis=1)
                 n_frames = np.where(done, n_frames, n_frames + 1)
                 all_frames.append(f)
-            last = out[-1]
-        codes = torch.as_tensor(np.stack(all_frames, axis=-1), device=self.device)
-        audio = self._mimi.decode(codes)[:, 0].cpu().numpy()
+        codes = np.stack(all_frames, axis=-1)              # [rows, nc, T]
+        audio = self._decode_rows(codes, slices)[:b]
         spf = self._mimi.samples_per_frame
         elapsed = time.perf_counter() - start
         results = []
@@ -624,6 +679,20 @@ class Model(nn.Module):
                                                   int(n_frames[i]), elapsed / b,
                                                   self.device))
         return results
+
+    def _decode_rows(self, codes: np.ndarray, slices) -> np.ndarray:
+        """Mimi's audio [rows, samples] of codes [rows, nc, T]: each data
+        row's slice on its replica of Mimi under a mesh with dp > 1."""
+        from mlx_audio_tpu_torch.parallel.context import active_mesh
+
+        if len(slices) == 1:
+            codes_t = torch.as_tensor(codes, device=self.device)
+            return self._mimi.decode(codes_t)[:, 0].cpu().numpy()
+        ctx = active_mesh()
+        mimis = ctx.place_replicated(self._mimi)
+        return np.concatenate([
+            mimi.decode(torch.as_tensor(codes[lo:hi], device=ctx.home(r)))[:, 0].cpu().numpy()
+            for r, (mimi, (lo, hi)) in enumerate(zip(mimis, slices))])
 
     # -- weights -----------------------------------------------------------
 

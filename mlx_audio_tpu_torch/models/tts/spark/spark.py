@@ -9,8 +9,9 @@ Llama architecture with biased q, k and v projections and a tied head.
 After ``quantize_model(model.lm, group_size=64, bits=8)`` its projections
 and the tied head (``QuantizedEmbedding.as_linear``) run through the
 ``quantized_matmul`` kernel at decode row counts; BiCodec's wave generator
-runs both conv kernels (``bicodec.py``).  Left for later: the data-parallel
-mesh branch of ``generate``.  A tokenizer is passed in, or loads from
+runs both conv kernels (``bicodec.py``).  Under a mesh with dp > 1 a
+multi-segment control-mode ``generate`` decodes its segments as one
+``generate_batch``.  A tokenizer is passed in, or loads from
 ``config.tokenizer_name`` (or ``config.model_path``) with
 ``local_files_only=True``: an object whose ``tokenizer(text,
 return_tensors="np").input_ids`` are ids and whose ``decode(ids,
@@ -183,9 +184,18 @@ class Model(nn.Module):
         ``split_pattern``), batch 1.  With ``ref_audio`` (samples) the voice
         is cloned, and the reference is tokenized once for every segment;
         else ``gender``, ``pitch`` and ``speed`` set it."""
+        from mlx_audio_tpu_torch.parallel.context import data_parallel
+
         pitch_level, speed_level = _level(pitch), _level(speed)
         if ref_audio is not None:  # voice cloning overrides the attributes
             gender = None
+        segments = [s for s in text.split(split_pattern) if s.strip()]
+        if data_parallel(len(segments)) is not None and gender is not None:
+            yield from self.generate_batch(
+                segments, gender=gender, pitch=pitch, speed=speed,
+                temperature=temperature, top_k=top_k, top_p=top_p,
+                max_tokens=max_tokens, seed=seed, **kwargs)
+            return
         ref_tokens = (self._audio_tokenizer.tokenize(ref_audio)
                       if ref_audio is not None else None)
         for segment_idx, text_split in enumerate(text.split(split_pattern)):

@@ -14,7 +14,10 @@ language) are coalesced by :class:`DynamicBatcher` into one
 ``generate_batch`` of exactly the rows it gathered, never more than
 ``max_batch``: the JAX package pads a group to the next power of two to
 bound its jit keys (``mlx_audio_tpu/server.py:332``), which can exceed
-``max_batch``; eager PyTorch has no jit key to bound.
+``max_batch``; eager PyTorch has no jit key to bound.  ``--mesh
+'dp=N[,tp=M]'`` activates the device mesh (``parallel.context``): a batch
+splits over the data replicas, the batcher takes up to ``max_batch x dp``
+requests a pass, and flushes a dp multiple of them when more than dp wait.
 """
 
 from __future__ import annotations
@@ -273,6 +276,15 @@ class DynamicBatcher:
                         break
                     self._cond.wait(timeout=remaining)
                 group = [p for p in self._pending if p[0] == key0][: self.max_batch]
+                # a batch that is not a dp multiple pays a duplicated row a
+                # pad: with more than dp requests gathered, flush the largest
+                # dp multiple and leave the rest for the next round
+                from mlx_audio_tpu_torch.parallel.context import active_mesh
+
+                ctx = active_mesh()
+                if (ctx is not None and ctx.dp > 1 and len(group) > ctx.dp
+                        and len(group) % ctx.dp):
+                    group = group[: (len(group) // ctx.dp) * ctx.dp]
                 for g in group:
                     self._pending.remove(g)
             self._run_group(key0, group)
@@ -591,16 +603,16 @@ def prewarm(state: ServerState) -> int:
                          server_state=state).prewarm()
 
 
-def main(argv=None):
-    from aiohttp import web
-
+def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="mlx_audio_tpu_torch server")
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--verbose", action="store_true")
     parser.add_argument("--max-batch", type=int, default=8,
-                        help="most /tts requests one batched pass takes "
-                             "(0 disables dynamic batching)")
+                        help="most /tts requests one batched pass takes per "
+                             "data replica (0 disables dynamic batching); "
+                             "with --mesh dp=N a pass takes up to "
+                             "max_batch x N")
     parser.add_argument("--batch-window-ms", type=float, default=30.0,
                         help="how long to wait coalescing concurrent requests")
     parser.add_argument("--device", type=str, default="cuda",
@@ -611,17 +623,43 @@ def main(argv=None):
                              "window, a chat turn when a chat LM is "
                              "configured), so that no live turn pays for the "
                              "kernels' and libraries' first use")
-    args = parser.parse_args(argv)
+    parser.add_argument("--mesh", type=str, default=None,
+                        help="device mesh spec 'dp=N[,tp=M]': batched "
+                             "synthesis shards over the data axis; the "
+                             "micro-batcher targets mesh capacity")
+    return parser.parse_args(argv)
+
+
+def build_state(args, **state_kw) -> ServerState:
+    """The server's state as ``main`` sets it up from its arguments: the
+    mesh, the batcher sized to it, the prewarm.  ``state_kw`` go to
+    ``ServerState`` (an ``output_folder``)."""
+    state = ServerState(device=args.device, **state_kw)
+    dp = 1
+    if args.mesh:
+        from mlx_audio_tpu_torch.parallel.context import activate_cli_mesh
+
+        ctx = activate_cli_mesh(args.mesh, args.device)
+        dp = ctx.dp
+        logger.info(f"Mesh active: dp={ctx.dp} tp={ctx.tp} "
+                    f"({ctx.dp * ctx.tp} devices)")
+    if args.max_batch > 0:
+        state.batcher = DynamicBatcher(state, max_batch=args.max_batch * dp,
+                                       max_wait_ms=args.batch_window_ms)
+    if args.prewarm:
+        prewarm(state)
+    return state
+
+
+def main(argv=None):
+    from aiohttp import web
+
+    args = parse_args(argv)
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s %(name)s [%(funcName)s:%(lineno)d] %(message)s",
     )
-    state = ServerState(device=args.device)
-    if args.max_batch > 0:
-        state.batcher = DynamicBatcher(state, max_batch=args.max_batch,
-                                       max_wait_ms=args.batch_window_ms)
-    if args.prewarm:
-        prewarm(state)
+    state = build_state(args)
     try:
         web.run_app(create_app(state), host=args.host, port=args.port)
     finally:

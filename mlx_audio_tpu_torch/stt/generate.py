@@ -4,7 +4,9 @@ Counterpart of ``mlx_audio_tpu/stt/generate.py``: load a local checkpoint
 through the registry, transcribe, write txt/srt/vtt/tsv/json (Whisper's
 writers; Parakeet's ``AlignedResult`` passes as its sentences) and report
 the wall time and peak device memory.  Runs on ``--device`` (``cuda``
-unless ``cpu`` is asked for); there is no ``--mesh``.
+unless ``cpu`` is asked for).  ``--mesh 'dp=N'`` activates the device mesh
+(``parallel.context.activate_cli_mesh``): Parakeet's chunks, Whisper's and
+Voxtral's windows decode data-parallel.
 """
 
 from __future__ import annotations
@@ -39,14 +41,24 @@ def parse_args(argv=None):
                              "seconds (Parakeet; batched decode)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on (cuda, or cpu)")
+    parser.add_argument("--mesh", type=str, default=None,
+                        help="device mesh spec 'dp=N': shard batched chunk "
+                             "and window decodes over the data axis")
     return parser.parse_args(argv)
 
 
 def generate(model_path: str, audio_path: str, output_path: str = ".",
-             output_format: str = "txt", device: str = "cuda", **kwargs):
+             output_format: str = "txt", device: str = "cuda",
+             mesh: str = None, **kwargs):
     from mlx_audio_tpu_torch.models.base import peak_memory_gb
     from mlx_audio_tpu_torch.models.stt.whisper.writers import get_writer
     from mlx_audio_tpu_torch.utils.loader import load_model
+
+    if mesh:
+        from mlx_audio_tpu_torch.parallel.context import activate_cli_mesh
+
+        ctx = activate_cli_mesh(mesh, device)
+        print(f"Mesh active: dp={ctx.dp} tp={ctx.tp} ({ctx.dp * ctx.tp} devices)")
 
     model = load_model(model_path, domain="stt", device=device)
 
@@ -91,7 +103,7 @@ def main(argv=None):
         kwargs["chunk_duration"] = args.chunk_duration
     generate(
         args.model, args.audio, args.output_path, args.format,
-        device=args.device,
+        device=args.device, mesh=args.mesh,
         task=args.task, word_timestamps=args.word_timestamps,
         verbose=args.verbose or None, **kwargs,
     )

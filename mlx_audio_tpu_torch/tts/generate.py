@@ -4,8 +4,10 @@ Counterpart of ``mlx_audio_tpu/tts/generate.py``: load a local checkpoint
 through the registry, optionally take a reference clip (transcribed with
 the port's Whisper when ``--ref_text`` is absent), generate the segments,
 then play, save or join them with the real-time-factor report.  Runs on
-``--device`` (``cuda`` unless ``cpu`` is asked for).  There is no
-``--mesh``: the port targets one card.
+``--device`` (``cuda`` unless ``cpu`` is asked for).  ``--mesh 'dp=N[,tp=M]'``
+activates the device mesh (``parallel.context.activate_cli_mesh``): the
+segments synthesize data-parallel and the decoders with tensor-parallel
+rules split their weights; on one card ``dp=0`` resolves to dp=1.
 """
 
 from __future__ import annotations
@@ -48,15 +50,25 @@ def generate_audio(
     stt_model: str = "mlx-community/whisper-large-v3-turbo",
     trace_dir: Optional[str] = None,
     device: str = "cuda",
+    mesh: Optional[str] = None,
     **kwargs,
 ):
     """Generate speech from text; returns the list of GenerationResults.
 
     ``model_path`` and ``stt_model`` are local checkpoint directories.
     ``trace_dir`` records the generation's CUDA activity
-    (``utils.profiling.trace``)."""
+    (``utils.profiling.trace``).  ``mesh`` ('dp=N[,tp=M]') activates the
+    device mesh."""
     from mlx_audio_tpu_torch.utils.loader import load_model
     from mlx_audio_tpu_torch.utils.profiling import trace
+
+    if mesh:
+        from mlx_audio_tpu_torch.parallel.context import activate_cli_mesh
+
+        ctx = activate_cli_mesh(mesh, device)
+        if verbose:
+            print(f"Mesh active: dp={ctx.dp} tp={ctx.tp} "
+                  f"({ctx.dp * ctx.tp} devices)")
 
     if model is None:
         model = load_model(model_path, domain="tts", device=device)
@@ -167,6 +179,10 @@ def parse_args(argv=None):
                         help="record the generation's CUDA activity into this dir")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on (cuda, or cpu)")
+    parser.add_argument("--mesh", type=str, default=None,
+                        help="device mesh spec 'dp=N[,tp=M]': shard batched "
+                             "synthesis over data, TP-capable decoders over "
+                             "model")
     return parser.parse_args(argv)
 
 
@@ -204,6 +220,7 @@ def main(argv=None):
         stt_model=args.stt_model,
         trace_dir=args.trace_dir,
         device=args.device,
+        mesh=args.mesh,
     )
 
 
