@@ -92,7 +92,7 @@ Phases; the failure of any one ends the script with a non-zero exit:
    and each batch row's tokens shared with its one-row run are printed;
    ``quantized_matmul`` held against its plain version on the path's
    operands; tokens/s at batch 1 and 4, the SNAC decode, the real-time
-   factor, peak memory, a profile of 32 decode steps.  Then DAC-44kHz (the
+   factor, peak memory, a profile of 16 decode steps.  Then DAC-44kHz (the
    published config, seeded random weights): encode and decode 3 s, with
    the route of every conv printed, ``compress`` and ``decompress`` 3 s,
    and the same 3 s encoded and decoded on the CPU with the same weights:
@@ -108,7 +108,7 @@ Phases; the failure of any one ends the script with a non-zero exit:
    the defaults; a one-prompt ``generate_tokens_batch`` must equal the
    greedy run; ``quantized_matmul`` held against its plain version on the
    path's operands; tokens/s at batch 1 and 4, the DAC decode, the
-   real-time factor, a profile of 32 steps; then the model cast with
+   real-time factor, a profile of 16 steps; then the model cast with
    ``.to(torch.bfloat16)`` (its DAC too): a greedy ``generate``.  Then
    Dia-1.6B at the published
    widths (float32, seeded random weights with channel 0's EOS logit held
@@ -117,7 +117,7 @@ Phases; the failure of any one ends the script with a non-zero exit:
    equal to the greedy run's), the encoder bucket against all 1024
    positions (codes equal), one sampled ``generate`` at the defaults; the
    encoder time, decode steps/s at batch 1 and 4, the DAC decode, the
-   real-time factor, launches a step, a profile of 32 steps, peak memory;
+   real-time factor, launches a step, a profile of 16 steps, peak memory;
    then the greedy codes fed, teacher-forced, through the same weights on
    the card and on the CPU for 4 steps: logits within the tolerance; then
    the model cast with ``.to(torch.bfloat16)`` (the DAC given at
@@ -142,7 +142,7 @@ Phases; the failure of any one ends the script with a non-zero exit:
    ``generate_batch([text])`` (a determinism check: tokens equal, audio
    within the tolerance); every run must make its whole semantic budget; semantic and coarse steps/s at batch 1 and
    4, the fine stage, EnCodec's decode, the real-time factor, a profile of
-   32 semantic steps, peak memory; the greedy tokens fed, teacher-forced,
+   16 semantic steps, peak memory; the greedy tokens fed, teacher-forced,
    through the card's weights and the CPU's: logits within the tolerance.
    After the EnCodec's bf16 run, Bark cast with ``.to(torch.bfloat16)``: a
    greedy-like ``generate`` whose EnCodec decode launches ``lstm_bf16`` on
@@ -174,7 +174,7 @@ Phases; the failure of any one ends the script with a non-zero exit:
    ``detokenize`` of the greedy tokens (audio within the tolerance) and the
    int8 LM's teacher-forced logits over 8 steps (within the tolerance);
    tokens/s at batch 1 and 4, the time of ``tokenize`` and ``detokenize``,
-   the real-time factor, peak memory, a profile of 32 decode steps; then
+   the real-time factor, peak memory, a profile of 16 decode steps; then
    the model cast with ``.to(torch.bfloat16)`` (BiCodec too; its float32
    speaker embedding promotes the wave generator to float32 as in the JAX
    package): a greedy control-mode ``generate``;
@@ -193,7 +193,7 @@ Phases; the failure of any one ends the script with a non-zero exit:
    CPU's greedy choice (equal where its margin exceeds 1e-5, the
    near-ties counted); encoder ms a window at batch 1 and 4, tokens/s at
    batch 1 and 4, beam steps/s, the real-time factor, peak memory, a
-   profile of 32 decode steps; then the model cast with
+   profile of 16 decode steps; then the model cast with
    ``.to(torch.bfloat16)``: an encode at batch 4 and a greedy ``decode`` of
    one window, each launching ``dilated_conv1d_bf16`` once (conv1) and no
    other kernel, encoder ms a window and tokens/s beside float32's.  Then
@@ -204,7 +204,7 @@ Phases; the failure of any one ends the script with a non-zero exit:
    windows as one batch); ``dilated_conv1d`` once an encode,
    ``quantized_matmul`` 211 times a decode step (and once for the prompt's
    head), both held to their plain versions on the path's operands;
-   tokens/s, the real-time factor, peak memory, a profile of 32 decode
+   tokens/s, the real-time factor, peak memory, a profile of 16 decode
    steps; then the
    model cast with ``.to(torch.bfloat16)``: one 30 s window, the float32
    log-mel and audio embeddings promoting through the tower and the
@@ -348,7 +348,35 @@ Phases; the failure of any one ends the script with a non-zero exit:
    the dp run's conv and lstm launches 4x the unsharded run's and held to
    their plain versions; the server set up from ``--mesh dp=0`` (dp=1 on
    one card) serving one /tts;
-18. print one ``{"kernels": [...]}`` line, then the device line last.
+18. ``export.py`` (``export_runs``, in a process of its own started after
+   phase 4, beside phases 5-17, whose result phase 18 reads): each kind of
+   program exported with ``torch.export`` at published widths, saved,
+   loaded back with
+   ``load_program`` and run on the card against the live port on the same
+   inputs, its kernels' launches against the live run's, with its export
+   and load seconds, graph nodes, custom-op nodes and artifact bytes:
+   Kokoro-82M at batch 1, 512 phonemes and 1300 frames against
+   ``synthesize_batch`` fed the same source draws (durations equal, audio
+   within 1e-5; 12 ``lstm``, 21 ``dilated_conv1d`` and 36 ``banded_conv1d``
+   nodes, launched as many times), loaded again in a fresh process that
+   imports only the op module and the loader (no ``models`` or ``codec``
+   module imported; the same launches), which runs while the rest
+   export; CSM-1B at sesame/csm-1b's widths with its backbone and depth
+   decoder cut to EXPORT_LAYERS layers (tracing and saving take time in
+   proportion to graph nodes and weight bytes), int8, spec decode: its
+   prefill and a chunk of EXPORT_CSM_CHUNK greedy frames against
+   ``_prefill``, ``first_frame`` and ``_frame_chunk`` (frames equal;
+   ``quantized_matmul`` and ``depth_draft`` launches equal, one
+   ``depth_draft`` node in the chunk); its whole Mimi's batch decode
+   (within 1e-5) and the stateful stream decode in 3 chunks (within 1e-4
+   of the batch decode, 1e-5 of the live frame-by-frame decode);
+   Orpheus-3B int8 cut to EXPORT_LAYERS layers, a greedy session of a
+   prefill and two chunks against ``generate_tokens_batch`` (tokens and
+   launches equal), and its whole SNAC decode (within 1e-5);
+   Whisper-large-v3-turbo with EXPORT_LAYERS encoder and decoder layers,
+   its greedy window program against ``decode`` (tokens equal, one
+   ``dilated_conv1d`` node and launch);
+19. print one ``{"kernels": [...]}`` line, then the device line last.
 
 Phase 2 holds ``quantized_matmul`` at Orpheus-3B's, OuteTTS-1B's,
 Spark-TTS-0.5B's and Voxtral-Mini-3B's shapes too (int8, groups of 64, 1
@@ -357,7 +385,7 @@ BiCodec's routed resblock shapes (K=7, d = 1, 3, 9), at Whisper's conv1
 (batch 1 and 4) and S3 v1's (batch 2), and at BigVGAN-v2's resblocks ([1, 3752, 768] and [1,
 15008, 384], K = 3, 7, 11 at d = 1, 3, 5) and IndexTTS-1.5's ([1, 2408,
 768] and [1, 19264, 384], the same K and d).  Launch counters are set to 0
-just before each run of the probes' entry point and of phases 3 to 17, and
+just before each run of the probes' entry point and of phases 3 to 18, and
 read just after:
 each kernel of a run's path must have launched in it (Orpheus:
 ``quantized_matmul``; DAC's encode and decode: both conv kernels; OuteTTS
@@ -394,6 +422,8 @@ from __future__ import annotations
 
 import itertools
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1516,7 +1546,7 @@ def profile_pass(run_once) -> None:
 CSM_CONFIG = {"backbone_flavor": "llama-1B", "decoder_flavor": "llama-100M",
               "text_vocab_size": 128_256, "audio_vocab_size": 2051,
               "audio_num_codebooks": 32}
-CSM_FRAMES = 25  # 2 s of audio a greedy generate
+CSM_FRAMES = 13  # 1.04 s of audio a greedy generate: the schedule's 3, 4 and 6
 CSM_TEXT = "The port speaks with a borrowed voice."
 CSM_BATCH_TEXTS = ["One short line.", "A second line, a little longer.",
                    "Three.", "And the fourth line closes the batch."]
@@ -2012,7 +2042,7 @@ def csm_breakdown(model) -> dict:
 
 def csm_stream_breakdown(model) -> dict:
     """Where a streamed generate's time goes: the same greedy streamed run
-    again (warm), the stateful Mimi decode of 25 frames alone against the
+    again (warm), the stateful Mimi decode of CSM_FRAMES frames alone against the
     batch decode of the same codes, and a profile of one 6-frame stateful
     decode."""
     from torch.profiler import ProfilerActivity, profile
@@ -2069,7 +2099,7 @@ ORPHEUS_TOKENS = 70  # generated: 10 SNAC frames of 7 tokens, 0.85 s of audio
 ORPHEUS_FRAME_SAMPLES = 2048  # a frame: 4 steps of SNAC's 512-sample hop
 ORPHEUS_TEXT = "The port speaks in a voice of its own."
 ORPHEUS_BATCH_TEXTS = CSM_BATCH_TEXTS
-PROFILE_STEPS = 32  # decode steps a profile of the LM loops covers
+PROFILE_STEPS = 16  # decode steps a profile of the LM loops covers
 DAC_SECONDS = 3.0
 
 
@@ -2082,16 +2112,18 @@ class OrpheusStubTokenizer:
         return SimpleNamespace(input_ids=StubTokenizer().encode(text))
 
 
-def build_orpheus():
+def build_orpheus(layers=None):
     """Orpheus-3B at the published widths (ModelConfig's defaults) with
     seeded random weights on the card, and SNAC-24kHz; int8 in groups of
-    64, as mlx-community/orpheus-3b-0.1-ft-8bit is quantized."""
+    64, as mlx-community/orpheus-3b-0.1-ft-8bit is quantized.  ``layers``
+    cuts the depth (phase 18)."""
     from mlx_audio_tpu_torch.models.tts.llama import Model, ModelConfig
     from mlx_audio_tpu_torch.models.tts.llama.llama import AUDIO_MARK, STOP_AUDIO
     from mlx_audio_tpu_torch.nn.quantize import quantize_model
 
     t0 = time.perf_counter()
-    model = Model(ModelConfig(), tokenizer=OrpheusStubTokenizer(), device="cuda")
+    cfg = ModelConfig() if layers is None else ModelConfig(num_hidden_layers=layers)
+    model = Model(cfg, tokenizer=OrpheusStubTokenizer(), device="cuda")
     # a trained Orpheus ends its audio with STOP_AUDIO; with random weights
     # the stop and the audio marker (which restarts the parsed codes) would
     # come at random, so their rows of the tied embedding are held at 0:
@@ -2102,9 +2134,9 @@ def build_orpheus():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     nbytes = sum(t.numel() * t.element_size() for t in model.lm.state_dict().values())
-    print(f"Orpheus-3B built and quantized (int8, groups of 64) in "
-          f"{time.perf_counter() - t0:.1f} s; LM state {nbytes / 1e9:.3f} GB",
-          flush=True)
+    print(f"Orpheus-3B built ({cfg.num_hidden_layers} layers) and quantized (int8, "
+          f"groups of 64) in {time.perf_counter() - t0:.1f} s; LM state "
+          f"{nbytes / 1e9:.3f} GB", flush=True)
     return model
 
 
@@ -3782,8 +3814,9 @@ def _timed(fn) -> float:
     return time.perf_counter() - t0
 
 
-def build_whisper():
-    """Whisper-large-v3-turbo at the published dims with seeded random
+def build_whisper(dims=WHISPER_DIMS):
+    """Whisper-large-v3-turbo at the published dims (or ``dims``, a depth
+    cut: phase 18) with seeded random
     weights on the card, f32, and the stub tokenizer.  The weights are
     arranged so that every decode runs its whole budget of 224 tokens and
     ends a window with a lone timestamp, Whisper's sign that the window was
@@ -3808,17 +3841,17 @@ def build_whisper():
     from mlx_audio_tpu_torch.models.stt.whisper.tokenizer import Tokenizer
 
     t0 = time.perf_counter()
-    model = Model(ModelDimensions(**WHISPER_DIMS), device="cuda", seed=0)
+    model = Model(ModelDimensions(**dims), device="cuda", seed=0)
     tok = Tokenizer(encoding=WhisperStubEncoding(model.num_languages),
                     num_languages=model.num_languages, language="en", task="transcribe")
     model._tokenizer = lambda language=None, task=None: tok
     dec = model.decoder
-    d = WHISPER_DIMS["n_text_state"]
+    d = dims["n_text_state"]
     g = torch.Generator(device="cuda").manual_seed(1)
     u = torch.randn(d, generator=g, device="cuda")
     u = (u - u.mean()) / (u - u.mean()).norm()
     ones = torch.ones(d, device="cuda")
-    ts0, last = tok.timestamp_begin, WHISPER_DIMS["n_vocab"] - 1
+    ts0, last = tok.timestamp_begin, dims["n_vocab"] - 1
     end_pos = len(tok.sot_sequence) + WHISPER_SAMPLE_LEN - 2
     with torch.no_grad():
         emb = dec.token_embedding.weight
@@ -4052,7 +4085,7 @@ def whisper_breakdown(model, run: dict) -> dict:
     """Encoder ms a window at batch 1 and 4 (CUDA events); greedy tokens/s
     at batch 1 and 4 and beam steps/s, each decode of 224 tokens from
     precomputed audio features (cross keys and values and the prefill
-    included; warm, synced); a profile of 32 decode steps (with their
+    included; warm, synced); a profile of 16 decode steps (with their
     prefill) at batch 1."""
     from mlx_audio_tpu_torch.models.stt.whisper import DecodingOptions
 
@@ -4231,7 +4264,7 @@ def _voxtral_steps(model, caches, pad_len, tokens):
 def voxtral_breakdown(model, run: dict) -> dict:
     """The audio tower and projector's ms a window (CUDA events), decode
     tokens/s at batch 1 (the greedy loop's steps after the prompt; warm,
-    synced), and a profile of 32 decode steps."""
+    synced), and a profile of 16 decode steps."""
     from mlx_audio_tpu_torch.nn import kernels
 
     mel, ids = model._prepare_inputs(run["clip"])
@@ -7695,7 +7728,7 @@ def s3_runs(launches: dict, tmp: Path) -> dict:
 # phase 17: the device mesh on one card
 # ---------------------------------------------------------------------------
 
-MESH_FRAMES = 24  # frames of each CSM generate_batch
+MESH_FRAMES = 12  # frames of each CSM generate_batch
 MESH_KOKORO_DP = 4
 
 
@@ -7897,6 +7930,511 @@ def mesh_runs(launches: dict, csm, kdir: str, voice: str, tmp: Path) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 18: export.py -- the port's programs through torch.export, the
+# kernels custom-op nodes, loaded back and launched
+# ---------------------------------------------------------------------------
+
+# Depth cut of the exported LMs and Whisper: tracing and saving a program
+# take time in proportion to its graph nodes and weight bytes (about 6 ms a
+# node on the card's host, 8 GB for Orpheus-3B's two programs at full
+# depth), so CSM-1B's backbone and depth decoder, Orpheus-3B and Whisper's
+# encoder and decoder keep EXPORT_LAYERS layers at their published widths
+EXPORT_LAYERS = 2
+EXPORT_CSM_CHUNK = 4  # frames of the CSM chunk program
+EXPORT_CSM_MAX = 16  # frames of the exported CSM caches past the prompt
+EXPORT_MIMI_FRAMES = 5  # codes of the batch Mimi program
+EXPORT_MIMI_CHUNK = 1  # frames a stateful Mimi chunk (3 chunks)
+EXPORT_TOKENS_CHUNK = 8  # tokens of the Orpheus chunk program (2 chunks)
+EXPORT_SNAC_FRAMES = 8  # finest-level codes of the SNAC program
+EXPORT_KERNELS = ("lstm", "dilated_conv1d", "banded_conv1d", "quantized_matmul",
+                  "depth_draft")
+EXPORT_AUDIO_ATOL = 1e-5  # a loaded program's audio against the live port's
+EXPORT_STREAM_ATOL = 1e-4  # the stateful Mimi chunks against the batch decode (JAX's)
+
+_EXPORT_LOADER = r"""
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from mlx_audio_tpu_torch.export import load_program
+from mlx_audio_tpu_torch.nn import kernels
+# f32 means f32, as in the calling process: cuDNN convolutions default to TF32
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+args = torch.load(sys.argv[3])
+program = load_program(sys.argv[2])
+kernels.reset_launches()
+out = program(*args)
+torch.cuda.synchronize()
+torch.save([t.cpu() for t in out], sys.argv[4])
+model_code = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "mlx_audio_tpu")
+                    or m.startswith(tuple("mlx_audio_tpu_torch." + p for p in (
+                        "models", "codec", "tts", "stt", "sts", "parallel"))))
+print(json.dumps({"launches": {k: v for k, v in kernels.LAUNCHES.items() if v},
+                  "model_modules": model_code}))
+"""
+
+
+def _graph_nodes(program) -> int:
+    return sum(len(m.graph.nodes) for m in program.modules()
+               if isinstance(m, torch.fx.GraphModule))
+
+
+def _exported(records, name, export_fn, path):
+    """Export with ``export_fn(path)``, load ``path`` back; (program, the
+    record: export and load seconds, artifact bytes, graph nodes, the
+    kernels' op nodes)."""
+    from mlx_audio_tpu_torch import export, ops
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    export_fn(path)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    program = export.load_program(path)
+    load_s = time.perf_counter() - t0
+    record = {"export_s": round(export_s, 2), "load_s": round(load_s, 2),
+              "bytes": Path(path).stat().st_size, "graph_nodes": _graph_nodes(program),
+              "op_nodes": {k: v for k, v in ops.graph_ops(program).items() if v}}
+    records[name] = record
+    return program, record
+
+
+def _exported_session(export_fn, prefix: Path):
+    """``export_fn()`` writes ``<prefix>.prefill`` and ``.chunk`` and
+    returns the export's info; both are loaded back and their files
+    removed.  Returns (prefill, chunk, info, the record: export and load
+    seconds, artifact bytes, graph nodes and op nodes of each)."""
+    from mlx_audio_tpu_torch import export, ops
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    info = export_fn()
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    programs = {k: export.load_program(f"{prefix}.{k}") for k in ("prefill", "chunk")}
+    load_s = time.perf_counter() - t0
+    for k in programs:
+        Path(f"{prefix}.{k}").unlink()
+    rec = {"export_s": round(export_s, 2), "load_s": round(load_s, 2),
+           "bytes": info["prefill_bytes"] + info["chunk_bytes"],
+           "graph_nodes": {k: _graph_nodes(p) for k, p in programs.items()},
+           "op_nodes": {k: {n: v for n, v in ops.graph_ops(p).items() if v}
+                        for k, p in programs.items()}}
+    return programs["prefill"], programs["chunk"], info, rec
+
+
+def _kernel_launches(launches: dict, name: str) -> dict:
+    return {k: launches[name][k] for k in EXPORT_KERNELS if launches[name][k]}
+
+
+def _same_launches(launches: dict, live: str, prog: str, what: str) -> dict:
+    a, b = _kernel_launches(launches, live), _kernel_launches(launches, prog)
+    if a != b:
+        fail(f"export {what}: the loaded program launched {b}, the live port {a}")
+    return a
+
+
+def _kokoro_export(launches, records, tmp: Path) -> tuple:
+    """Kokoro-82M's program against ``synthesize_batch`` fed the same
+    source draws; starts the fresh-process load and returns (its process,
+    its start), which ``_kokoro_fresh`` reads."""
+    from mlx_audio_tpu_torch import export
+    from mlx_audio_tpu_torch.models.tts.kokoro import Model
+    from mlx_audio_tpu_torch.models.tts.kokoro.istftnet import source_noise
+    from mlx_audio_tpu_torch.models.tts.kokoro.presets import kokoro_82m_config
+
+    model = Model(kokoro_82m_config(), device="cuda")
+    path = tmp / "kokoro.pt2"
+    program, rec = _exported(records, "kokoro", lambda p: export.export_kokoro(
+        model, p, batch=1, phoneme_bucket=N_BUCKET, frame_bucket=F_BUCKET), path)
+    phonemes = TEXT.split("\n")[0]
+    toks = [0, *model.phonemes_to_ids(phonemes), 0]
+    pack = np.random.default_rng(0).standard_normal((510, 1, 256)).astype(np.float32) * 0.1
+    ref = pack[len(phonemes) - 1].reshape(1, -1)
+    ids = torch.zeros((1, N_BUCKET), dtype=torch.int64, device="cuda")
+    ids[0, :len(toks)] = torch.as_tensor(toks)
+    draws = source_noise(1, model.SAMPLES_PER_FRAME * F_BUCKET,
+                         model.decoder.generator.m_source.l_sin_gen.dim, "cuda", 0)
+    args = (ids, torch.tensor([len(toks)], device="cuda"), torch.as_tensor(ref, device="cuda"),
+            torch.full((1,), SPEED, device="cuda"), *draws)
+    run = path_runner(launches, {})
+    (live_audio, live_dur), = run("export_kokoro_live", lambda: model.synthesize_batch(
+        [phonemes], ref, speeds=SPEED, buckets=(N_BUCKET, F_BUCKET), seed=0))
+    audio, dur = run("export_kokoro_program", lambda: program(*args))
+    n = len(live_audio)
+    err = float(np.abs(audio[0, :n].cpu().numpy() - live_audio).max())
+    same_dur = np.array_equal(dur[0, :len(toks)].cpu().numpy(), live_dur)
+    if not same_dur or err > EXPORT_AUDIO_ATOL:
+        fail(f"export kokoro: durations equal {same_dur}, audio {err:.3e} from "
+             f"synthesize_batch's")
+    per = _same_launches(launches, "export_kokoro_live", "export_kokoro_program", "kokoro")
+    if per != rec["op_nodes"] or set(per) != set(KOKORO_KERNELS):
+        fail(f"export kokoro: op nodes {rec['op_nodes']}, launches {per}")
+    rec.update(audio_err=err, frames=int(live_dur.sum()), launches=per)
+    # a fresh process that imports the op module and the loader only; it
+    # runs while the other programs export, and _kokoro_fresh reads it
+    torch.save(list(args), tmp / "kokoro_args.pt")
+    torch.save(audio.cpu(), tmp / "kokoro_audio.pt")
+    # its output to files: a pipe nobody reads while the rest runs could fill
+    with open(tmp / "kokoro_fresh.out", "w") as out_f, \
+            open(tmp / "kokoro_fresh.err", "w") as err_f:
+        proc = subprocess.Popen([sys.executable, "-c", _EXPORT_LOADER, str(ROOT), str(path),
+                                 str(tmp / "kokoro_args.pt"), str(tmp / "kokoro_out.pt")],
+                                stdout=out_f, stderr=err_f)
+    print(f"export kokoro: {json.dumps(rec)}", flush=True)
+    return proc, time.perf_counter()
+
+
+def _kokoro_fresh(records, tmp: Path, proc, t0: float) -> None:
+    """The fresh process's launches and audio: the same launches, within
+    EXPORT_AUDIO_ATOL of this process's run of the program (another
+    process may pick other cuDNN algorithms for the library convs)."""
+    try:
+        proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode:
+        fail(f"export kokoro: the fresh-process load failed: "
+             f"{(tmp / 'kokoro_fresh.err').read_text()[-2000:]}")
+    sub = json.loads((tmp / "kokoro_fresh.out").read_text().strip().splitlines()[-1])
+    rec = records["kokoro"]
+    sub_err = float((torch.load(tmp / "kokoro_out.pt")[0]
+                     - torch.load(tmp / "kokoro_audio.pt")).abs().max())
+    if sub["model_modules"] or sub["launches"] != rec["launches"] or sub_err > EXPORT_AUDIO_ATOL:
+        fail(f"export kokoro: fresh process {sub}, audio {sub_err:.3e} from this one's")
+    rec["fresh_process"] = {"launches": sub["launches"], "model_modules": 0,
+                            "audio_err": sub_err,
+                            "seconds": round(time.perf_counter() - t0, 2)}
+    (tmp / "kokoro.pt2").unlink()
+    print(f"export kokoro: fresh process {json.dumps(rec['fresh_process'])}", flush=True)
+
+
+def build_export_csm():
+    """CSM-1B at ``CSM_HF_CONFIG``'s widths (its Mimi whole), the backbone
+    and depth decoder cut to EXPORT_LAYERS layers, seeded random weights,
+    int8 in groups of 128, spec decode on."""
+    from mlx_audio_tpu_torch.models.tts.sesame import Model
+    from mlx_audio_tpu_torch.nn.quantize import quantize_model
+
+    cfg = {**CSM_HF_CONFIG, "num_hidden_layers": EXPORT_LAYERS,
+           "depth_decoder_config": {**CSM_HF_CONFIG["depth_decoder_config"],
+                                    "num_hidden_layers": EXPORT_LAYERS}}
+    model = Model(cfg, text_tokenizer=StubTokenizer(), device="cuda")
+    quantize_model(model.model, group_size=128, bits=8)
+    model.model.enable_spec_decode()
+    return model
+
+
+def _csm_export(launches, records, tmp: Path, model) -> None:
+    """The int8 CSM with spec decode: the prefill and chunk programs
+    against ``_prefill``, ``first_frame`` and ``_frame_chunk``."""
+    from mlx_audio_tpu_torch import export
+    from mlx_audio_tpu_torch.models.tts.sesame import Segment
+    from mlx_audio_tpu_torch.models.tts.sesame.model import _prompt_bucket
+
+    lm = model.model
+    if not lm._use_spec(1):
+        fail("export csm: spec decode is off")
+    ref = (np.random.default_rng(0).standard_normal(48_000) * 0.1).astype(np.float32)
+    prompt = model._prompt(CSM_TEXT, [Segment(0, CSM_REF_TEXT, ref)], 0, True)
+    bucket = _prompt_bucket(prompt[0].shape[0])
+    prefix = tmp / "csm"
+    prefill, chunk, info, rec = _exported_session(lambda: export.export_csm_session(
+        lm, str(prefix), prompt_bucket=bucket, max_frames=EXPORT_CSM_MAX,
+        chunk_frames=EXPORT_CSM_CHUNK, temp=0.0, top_k=50), prefix)
+    if rec["op_nodes"]["chunk"].get("depth_draft") != 1:
+        fail(f"export csm: chunk op nodes {rec['op_nodes']['chunk']}")
+    nc = lm.audio_num_codebooks
+    pad = bucket - prompt[0].shape[0]
+    tokens = torch.zeros((1, bucket, nc + 1), dtype=torch.int64, device="cuda")
+    mask = torch.zeros((1, bucket, nc + 1), dtype=torch.bool, device="cuda")
+    tokens[0, pad:] = torch.as_tensor(prompt[0])
+    mask[0, pad:] = torch.as_tensor(prompt[1])
+    pad_len = torch.tensor([pad], device="cuda")
+    state = [torch.zeros(s, dtype=getattr(torch, d), device="cuda")
+             for s, d in zip(info["cache_shapes"], info["cache_dtypes"])]
+    noise = {k: torch.zeros(s, device="cuda") for k, s in info["noise_shapes"].items()}
+    run = path_runner(launches, {})
+
+    def live_prefill():
+        caches, live_pad, last_h = model._prefill([prompt], EXPORT_CSM_MAX, bucket)
+        return caches, live_pad, lm.first_frame(last_h, 0.0, 50, model.generator)
+
+    caches, live_pad, first = run("export_csm_live_prefill", live_prefill)
+    frames = run("export_csm_live_chunk", lambda: model._frame_chunk(
+        caches, live_pad, first, EXPORT_CSM_CHUNK, 0.0, 50))
+    pre = run("export_csm_program_prefill", lambda: prefill(tokens, mask, pad_len,
+                                                            noise["prefill"], *state))
+    out = run("export_csm_program_chunk", lambda: chunk(pre[0], pad_len, noise["chunk"],
+                                                        *pre[1:]))
+    if not (torch.equal(pre[0], first) and torch.equal(out[0], frames)):
+        fail("export csm: the loaded programs' frames differ from the live decode's")
+    per_chunk = _same_launches(launches, "export_csm_live_chunk", "export_csm_program_chunk",
+                               "csm chunk")
+    if set(per_chunk) != {"quantized_matmul", "depth_draft"}:
+        fail(f"export csm: chunk launches {per_chunk}")
+    prog_pre = _same_launches(launches, "export_csm_live_prefill",
+                              "export_csm_program_prefill", "csm prefill")
+    rec.update(layers=EXPORT_LAYERS, frames=1 + EXPORT_CSM_CHUNK, per_frame={
+        k: v / EXPORT_CSM_CHUNK for k, v in per_chunk.items()}, prefill_launches=prog_pre)
+    records["csm"] = rec
+    print(f"export csm: {json.dumps(rec)}", flush=True)
+
+
+def _mimi_export(launches, records, tmp: Path, mimi) -> None:
+    from mlx_audio_tpu_torch import export
+
+    nq = mimi.cfg.quantizer_nq
+    n = max(EXPORT_MIMI_FRAMES, 3 * EXPORT_MIMI_CHUNK)
+    codes = torch.as_tensor(np.random.default_rng(5).integers(
+        0, mimi.cfg.quantizer_bins, (1, nq, n)), device="cuda")
+    path = tmp / "mimi.pt2"
+    program, rec = _exported(records, "mimi", lambda p: export.export_mimi_decode(
+        mimi, p, frames=EXPORT_MIMI_FRAMES), path)
+    batch_codes = codes[:, :, :EXPORT_MIMI_FRAMES]
+    live = mimi.decode(batch_codes)
+    got = program(batch_codes)
+    err = float((got - live).abs().max())
+    if err > EXPORT_AUDIO_ATOL:
+        fail(f"export mimi: {err:.3e} from the live decode")
+    rec["audio_err"] = err
+    path.unlink()
+    spath = tmp / "mimi_stream.pt2"
+    t0 = time.perf_counter()
+    info = export.export_mimi_stream_decode(mimi, spath, chunk_frames=EXPORT_MIMI_CHUNK)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step = export.load_program(spath)
+    load_s = time.perf_counter() - t0
+    state = [torch.zeros(s, dtype=getattr(torch, d), device="cuda") if v == "zeros"
+             else torch.full(s, v, dtype=getattr(torch, d), device="cuda")
+             for s, d, v in zip(info["state_shapes"], info["state_dtypes"], info["state_init"])]
+    chunks = []
+    for i in range(3):
+        out = step(codes[:, :, EXPORT_MIMI_CHUNK * i:EXPORT_MIMI_CHUNK * (i + 1)], *state)
+        chunks.append(out[0])
+        state = list(out[1:])
+    stream = torch.cat(chunks, dim=-1)
+    streamed = codes[:, :, :3 * EXPORT_MIMI_CHUNK]
+    whole = mimi.decode(streamed)
+    s_err = float((stream - whole).abs().max())
+    f_err = float((stream - mimi.decode_frames(streamed)).abs().max())
+    if s_err > EXPORT_STREAM_ATOL or f_err > EXPORT_AUDIO_ATOL:
+        fail(f"export mimi stream: {s_err:.3e} from the batch decode, {f_err:.3e} from "
+             f"the live frame-by-frame decode")
+    records["mimi_stream"] = {
+        "export_s": round(export_s, 2), "load_s": round(load_s, 2), "bytes": info["bytes"],
+        "graph_nodes": _graph_nodes(step), "state_leaves": len(state),
+        "batch_err": s_err, "frames_err": f_err, "audio_rms": float(whole.pow(2).mean().sqrt())}
+    spath.unlink()
+    print(f"export mimi: {json.dumps(records['mimi'])}; stream "
+          f"{json.dumps(records['mimi_stream'])}", flush=True)
+
+
+def _orpheus_export(launches, records, tmp: Path) -> None:
+    from mlx_audio_tpu_torch import export
+    from mlx_audio_tpu_torch.models.lm.causal import _bucket, generate_tokens_batch
+
+    model = build_orpheus(EXPORT_LAYERS)
+    lm = model.lm
+    prompt_ids = np.random.default_rng(3).integers(1_000, 120_000, 20)
+    bucket = _bucket(len(prompt_ids))
+    max_tokens = 1 + 2 * EXPORT_TOKENS_CHUNK
+    prefix = tmp / "orpheus"
+    prefill, chunk, info, rec = _exported_session(lambda: export.export_causal_session(
+        lm, str(prefix), prompt_bucket=bucket, max_tokens=max_tokens,
+        chunk_tokens=EXPORT_TOKENS_CHUNK, temp=0.0), prefix)
+    run = path_runner(launches, {})
+    live = run("export_orpheus_live", lambda: generate_tokens_batch(
+        lm, [prompt_ids], max_tokens=max_tokens, temperature=0.0,
+        chunk=EXPORT_TOKENS_CHUNK)[0])
+    prompt = torch.zeros((1, bucket), dtype=torch.int64, device="cuda")
+    prompt[0, bucket - len(prompt_ids):] = torch.as_tensor(prompt_ids)
+    pad_len = torch.tensor([bucket - len(prompt_ids)], device="cuda")
+    state = [torch.zeros(s, dtype=getattr(torch, d), device="cuda")
+             for s, d in zip(info["cache_shapes"], info["cache_dtypes"])]
+    noise = {k: torch.zeros(s, device="cuda") for k, s in info["noise_shapes"].items()}
+
+    def program_run():
+        pre = prefill(prompt, pad_len, noise["prefill"], *state)
+        toks, last, flat = [pre[0]], pre[0], list(pre[1:])
+        for _ in range(2):
+            out = chunk(last, pad_len, noise["chunk"], *flat)
+            toks.append(out[0][:, 0])
+            last, flat = out[0][-1], list(out[1:])
+        return torch.cat(toks)
+
+    got = run("export_orpheus_program", program_run).cpu().numpy()
+    if not np.array_equal(got, live):
+        fail(f"export orpheus: tokens {got.tolist()} against generate_tokens_batch's "
+             f"{live.tolist()}")
+    per = _same_launches(launches, "export_orpheus_live", "export_orpheus_program", "orpheus")
+    rec.update(layers=EXPORT_LAYERS, tokens=int(len(live)),
+               distinct=int(len(set(live.tolist()))),
+               per_token={k: v / max_tokens for k, v in per.items()})
+    if set(per) != {"quantized_matmul"}:
+        fail(f"export orpheus: launches {per}")
+    del prefill, chunk
+    snac = model._snac
+    spath = tmp / "snac.pt2"
+    snac_prog, srec = _exported(records, "snac", lambda p: export.export_snac_decode(
+        snac, p, frames=EXPORT_SNAC_FRAMES), spath)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    codes = [torch.randint(0, snac.config.codebook_size, (1, EXPORT_SNAC_FRAMES // s),
+                           generator=g, device="cuda") for s in snac.vq_strides]
+    draws = [torch.randn(s, generator=g, device="cuda")
+             for s in export.snac_noise_shapes(snac, EXPORT_SNAC_FRAMES)]
+    s_err = float((snac_prog(*codes, *draws) - snac.decode(codes, noise=draws)).abs().max())
+    if s_err > EXPORT_AUDIO_ATOL:
+        fail(f"export snac: {s_err:.3e} from the live decode")
+    srec["audio_err"] = s_err
+    spath.unlink()
+    records["orpheus"] = rec
+    print(f"export orpheus: {json.dumps(rec)}; snac {json.dumps(srec)}", flush=True)
+
+
+def _whisper_export(launches, records, tmp: Path) -> None:
+    from mlx_audio_tpu_torch import export
+    from mlx_audio_tpu_torch.models.stt.whisper import api
+    from mlx_audio_tpu_torch.models.stt.whisper.audio import log_mel_spectrogram, pad_or_trim
+    from mlx_audio_tpu_torch.models.stt.whisper.decoding import DecodingOptions
+
+    model, tok = build_whisper({**WHISPER_DIMS, "n_audio_layer": EXPORT_LAYERS,
+                                "n_text_layer": EXPORT_LAYERS})
+    path = tmp / "whisper.pt2"
+    meta = {}
+
+    def do_export(p):
+        meta.update(export.export_whisper_greedy(model, p, batch=1,
+                                                 sample_len=WHISPER_SAMPLE_LEN))
+
+    program, rec = _exported(records, "whisper", do_export, path)
+    mel = pad_or_trim(log_mel_spectrogram(_clip(11, 30.0), n_mels=128, device="cuda"),
+                      3000, axis=0)[None]
+    run = path_runner(launches, {})
+    live = run("export_whisper_live", lambda: api.decode(
+        model, mel, DecodingOptions(language="en", temperature=0.0,
+                                    sample_len=WHISPER_SAMPLE_LEN), tokenizer=tok))[0]
+    toks, t_end, _, ns = run("export_whisper_program", lambda: program(mel))
+    sb, eot = meta["finalize"]["sample_begin"], meta["finalize"]["eot"]
+    seq = toks[0, sb:int(t_end)].tolist()
+    if eot in seq:
+        seq = seq[:seq.index(eot)]
+    if seq != live.tokens or abs(float(ns[0]) - live.no_speech_prob) > 1e-6:
+        fail(f"export whisper: {len(seq)} tokens against decode's {len(live.tokens)} "
+             f"(equal {seq == live.tokens}), no-speech {float(ns[0])} / {live.no_speech_prob}")
+    per = _same_launches(launches, "export_whisper_live", "export_whisper_program", "whisper")
+    if per != {"dilated_conv1d": 1} or rec["op_nodes"] != per:
+        fail(f"export whisper: launches {per}, op nodes {rec['op_nodes']}")
+    rec.update(layers=EXPORT_LAYERS, tokens=len(seq), launches=per)
+    path.unlink()
+    print(f"export whisper: {json.dumps(rec)}", flush=True)
+
+
+def export_runs(launches: dict, tmp: Path) -> dict:
+    """Phase 18: every kind of ``mlx_audio_tpu_torch.export`` at published
+    widths, each program exported, saved, loaded back and run on the card
+    against the live port on the same inputs, its launches against the live
+    run's."""
+    records = {"seconds": {}}
+    t0 = time.perf_counter()
+    fresh = None
+    try:
+        csm = None
+        for name in ("kokoro", "csm", "mimi", "orpheus", "whisper"):
+            t = time.perf_counter()
+            if name == "kokoro":
+                fresh = _kokoro_export(launches, records, tmp)
+            elif name == "csm":
+                csm = build_export_csm()
+                _csm_export(launches, records, tmp, csm)
+            elif name == "mimi":
+                _mimi_export(launches, records, tmp, csm.mimi)
+                del csm
+            elif name == "orpheus":
+                _orpheus_export(launches, records, tmp)
+            else:
+                _whisper_export(launches, records, tmp)
+            torch.cuda.empty_cache()
+            records["seconds"][name] = round(time.perf_counter() - t, 1)
+            print(f"export {name} took {records['seconds'][name]} s", flush=True)
+        t = time.perf_counter()
+        _kokoro_fresh(records, tmp, *fresh)
+        records["seconds"]["kokoro_fresh_wait"] = round(time.perf_counter() - t, 1)
+    finally:
+        if fresh is not None and fresh[0].poll() is None:
+            fresh[0].kill()
+            fresh[0].wait()
+    records["seconds"]["total"] = round(time.perf_counter() - t0, 1)
+    return records
+
+
+def export_worker(tmp: str) -> None:
+    """Phase 18 in a process of its own (``start_export_worker``): the
+    kernels as phase 1 built them, ``export_runs`` into ``tmp``, and its
+    records and launches to ``tmp/records.json``.  A failure exits non-zero
+    with its message on stderr."""
+    # second to the main process on the host: its phases measure walls
+    os.nice(10)
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launches = {}
+    records = export_runs(launches, Path(tmp))
+    with open(Path(tmp) / "records.json", "w") as f:
+        json.dump({"records": records, "launches": launches}, f)
+
+
+def start_export_worker(tmp: Path):
+    """Start phase 18 beside the later phases: exporting is host work
+    (tracing, about 6 ms a graph node, and writing the weights), which
+    would otherwise add minutes to the script; its card work is a few
+    seconds of model builds and program runs.  Its output goes to files
+    in ``tmp``; the process is killed at exit if still running."""
+    import atexit
+
+    out = open(tmp / "worker.out", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+         "import chip_smoke; chip_smoke.export_worker(sys.argv[2])", str(ROOT), str(tmp)],
+        stdout=out, stderr=subprocess.STDOUT)
+    out.close()
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    atexit.register(stop)
+    return proc, time.perf_counter()
+
+
+def join_export_worker(worker, tmp: Path, launches: dict) -> dict:
+    """Wait for phase 18's process, fail with its log's tail if it failed,
+    print its log, and merge its launches into ``launches``."""
+    proc, t0 = worker
+    try:
+        proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log = (tmp / "worker.out").read_text()
+    lines = [ln for ln in log.splitlines() if ln.startswith("export ")]
+    print("\n".join(lines), flush=True)
+    if proc.returncode:
+        fail(f"phase 18 (export) failed: {log[-3000:]}")
+    out = json.loads((tmp / "records.json").read_text())
+    launches.update(out["launches"])
+    out["records"]["seconds"]["worker_wall"] = round(time.perf_counter() - t0, 1)
+    return out["records"]
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7977,6 +8515,10 @@ def main() -> int:
     profile_pass(run_once)
     del model, run_once
     torch.cuda.empty_cache()
+
+    # phase 18 runs in a process of its own beside phases 5-17
+    export_tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_export_"))
+    export_worker = start_export_worker(export_tmp)
 
     phase_start(5)
     csm = build_csm()
@@ -8214,11 +8756,21 @@ def main() -> int:
         phase_start(17)
         mesh = mesh_runs(launches, csm_model, str(Path(tmp) / "Kokoro-82M"), voice,
                          Path(tmp))
+        phase17 = {k: launches[k] for k in MESH_RUNS}
+        print(f"phase 17 launches: {json.dumps(phase17)}; mesh {json.dumps(mesh)}; "
+              f"phase 17 took {mesh['seconds']:.1f} s; on {card}", flush=True)
+
         del csm_model
         torch.cuda.empty_cache()
-    phase17 = {k: launches[k] for k in MESH_RUNS}
-    print(f"phase 17 launches: {json.dumps(phase17)}; mesh {json.dumps(mesh)}; phase 17 "
-          f"took {mesh['seconds']:.1f} s; on {card}", flush=True)
+
+    # phase 18: export.py, from its process started after phase 4
+    phase_start(18)
+    t18 = time.perf_counter()
+    exported = join_export_worker(export_worker, export_tmp, launches)
+    shutil.rmtree(export_tmp, ignore_errors=True)
+    print(f"phase 18: {json.dumps(exported)}; its process took "
+          f"{exported['seconds']['total']:.1f} s beside phases 5-17, phase 18 waited "
+          f"{time.perf_counter() - t18:.1f} s for it; on {card}", flush=True)
 
     kernel_line = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -8386,7 +8938,13 @@ def main() -> int:
             entry["max_abs_err"] = max(entry["max_abs_err"], sts["lstm_path_err"]
                                        if name.startswith("lstm")
                                        else sts["conv_path_err"].get(name, 0.0))
-    phase_start(18)
+    # phase 18: each kernel's launches in the exported programs' runs
+    for entry in kernel_line:
+        per = {k.removeprefix("export_"): launches[k][entry["name"]] for k in launches
+               if k.startswith("export_") and "_program" in k and launches[k][entry["name"]]}
+        if per:
+            entry["launches_exported_programs"] = per
+    phase_start(19)
     print(f"phase starts (s from the start): {json.dumps(starts)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

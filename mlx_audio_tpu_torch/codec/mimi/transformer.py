@@ -60,7 +60,8 @@ def rope_traditional(x: torch.Tensor, positions: torch.Tensor,
 
 class RotCacheState(NamedTuple):
     """Rotating KV cache: [B, H, W, D] ring buffers and the number of tokens
-    written so far (slot p % W holds position p)."""
+    written so far (slot p % W holds position p), an int, or a 0-d integer
+    tensor in an exported program's state (``step`` takes either)."""
 
     k: torch.Tensor
     v: torch.Tensor

@@ -178,13 +178,19 @@ class LlamaModel(nn.Module):
             return self.rope_cos, self.rope_sin
         ext = self._rope_longer
         if ext is None or ext[0].shape[0] < length or ext[0].device != self.rope_cos.device:
+            if torch.compiler.is_compiling():
+                raise RuntimeError(f"RoPE rows past the table ({length}): call "
+                                   f"_rope({length}) before tracing")
             cos, sin = rope_table(self.cfg.head_dim, length, base=self.cfg.rope_theta,
                                   scaling=self.cfg.rope_scaling)
             self._rope_longer = (cos.to(self.rope_cos.device), sin.to(self.rope_cos.device))
         return self._rope_longer
 
     def _run(self, h, start, mask, caches):
-        rope = self._rope(start + h.shape[1])
+        # a tensor start (an exported program's) reads rows below the
+        # caches' capacity
+        rope = self._rope(caches[0].k.shape[-2] if isinstance(start, torch.Tensor)
+                          else start + h.shape[1])
         for i, layer in enumerate(self.layers):
             h, _ = layer(h, rope, start, mask,
                          None if caches is None else caches[i])

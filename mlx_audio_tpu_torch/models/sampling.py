@@ -51,7 +51,7 @@ def _bisect_threshold(z: torch.Tensor, keep_fn, iters: int = 48) -> torch.Tensor
     so masking ``z >= tau`` keeps exactly the sorted-threshold set (ties at
     the boundary kept)."""
     finite = torch.isfinite(z)
-    inf = torch.tensor(float("inf"), device=z.device)
+    inf = torch.full((), float("inf"), device=z.device)
     lo = torch.where(finite, z, inf).amin(-1, keepdim=True)
     hi = torch.where(finite, z, -inf).amax(-1, keepdim=True)
     for _ in range(iters):
@@ -150,6 +150,23 @@ def sample_top_k_rows(logits: torch.Tensor, temp: float = 1.0, top_k: int = 0,
     # the large-vocabulary path draws among the k kept values
     n = top_k if 0 < top_k < v and v >= _BISECT_MIN_VOCAB else v
     return sample_top_k(logits, temp, top_k, noise=_row_noise(logits, n, seed))
+
+
+def sample_from_noise(logits: torch.Tensor, temp: float, top_k: int,
+                      top_p: float, noise: torch.Tensor) -> torch.Tensor:
+    """The draw of ``sample_top_p_rows`` (top_p < 1) or
+    ``sample_top_k_rows`` over [B, V] logits from given Gumbel rows noise
+    [B, V] in place of the rows' generators' (an exported program's
+    input): the large-vocabulary top-k draw reads the first k of a row.
+    With each row's noise drawn as those functions draw it, the tokens
+    are theirs.  Returns int32 [B]."""
+    if temp == 0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    if top_p < 1.0:
+        return sample_top_p(logits, temp, top_p, noise=noise)
+    v = logits.shape[-1]
+    n = top_k if 0 < top_k < v and v >= _BISECT_MIN_VOCAB else v
+    return sample_top_k(logits, temp, top_k, noise=noise[..., :n])
 
 
 def sample_top_p_rows(logits: torch.Tensor, temp: float = 1.0,

@@ -92,15 +92,22 @@ class FilterConfig(NamedTuple):
     apply_timestamp_rules: bool
 
 
-def apply_filters(logits: torch.Tensor, tokens: torch.Tensor, t: int,
+def apply_filters(logits: torch.Tensor, tokens: torch.Tensor, t,
                   sample_begin: int, p: FilterConfig,
                   suppress_mask: torch.Tensor, blank_mask: torch.Tensor) -> torch.Tensor:
-    """logits [B, V]; tokens [B, L], a buffer whose first ``t`` are valid."""
-    t, sample_begin = int(t), int(sample_begin)
+    """logits [B, V]; tokens [B, L], a buffer whose first ``t`` are valid.
+    ``t`` is an int, or a 0-d tensor in an exported program's loop (the
+    rules then select with ``torch.where``; the values are the same)."""
+    traced = isinstance(t, torch.Tensor)
+    if not traced:
+        t = int(t)
+    sample_begin = int(sample_begin)
     v = logits.shape[-1]
     logits = logits + suppress_mask
     at_start = t == sample_begin
-    if at_start:
+    if traced:
+        logits = torch.where(at_start, logits + blank_mask, logits)
+    elif at_start:
         logits = logits + blank_mask
     if not p.apply_timestamp_rules:
         return logits
@@ -113,8 +120,12 @@ def apply_filters(logits: torch.Tensor, tokens: torch.Tensor, t: int,
 
     pos = torch.arange(tokens.shape[1], device=dev)[None, :]
     in_seq = (pos >= sample_begin) & (pos < t)
-    last = tokens[:, max(t - 1, 0)]
-    penult = tokens[:, max(t - 2, 0)]
+    if traced:
+        last = tokens.index_select(1, (t - 1).clamp(min=0).reshape(1))[:, 0]
+        penult = tokens.index_select(1, (t - 2).clamp(min=0).reshape(1))[:, 0]
+    else:
+        last = tokens[:, max(t - 1, 0)]
+        penult = tokens[:, max(t - 2, 0)]
     seq_len = t - sample_begin
     last_was_ts = (last >= ts_begin) & (seq_len >= 1)
     penult_was_ts = (penult >= ts_begin) | (seq_len < 2)
@@ -137,11 +148,12 @@ def apply_filters(logits: torch.Tensor, tokens: torch.Tensor, t: int,
                          & (vocab_ids < floor[:, None]), ninf, logits)
 
     # at the very beginning: timestamps only, up to max_initial_timestamp
-    if at_start:
+    if traced or at_start:
         start_mask = vocab_ids < ts_begin
         if p.max_initial_timestamp_index >= 0:
             start_mask = start_mask | (vocab_ids > ts_begin + p.max_initial_timestamp_index)
-        logits = torch.where(start_mask, ninf, logits)
+        logits = torch.where(start_mask & at_start if traced else start_mask, ninf,
+                             logits)
 
     # a timestamp is forced where their total probability beats the best
     # text token
@@ -207,6 +219,54 @@ def greedy_decode_loop(model, caches, cross_kv, tokens_buf, t0: int,
         if (t - t0) % _CHECK_EVERY == 0 and bool(finished.all()):
             break
     return tokens, min(int(t_done), t), sum_lp
+
+
+def greedy_decode_graph(model, caches, cross_kv, tokens_buf, t0: int,
+                        sample_begin: int, suppress_mask, blank_mask,
+                        sample_len: int, params: FilterConfig):
+    """``greedy_decode_loop`` at temperature 0 as one traced loop, for an
+    exported program: a ``while_loop`` over the step ``t``, the token
+    buffer, the finished rows, their log-probabilities and the caches
+    (each ``KVCache`` with a tensor write index), stopping once every row
+    has emitted EOT, as the JAX package's ``lax.while_loop``.
+
+    Returns (tokens_buf, t_end 0-d, sum_logprobs [B]); the tokens and sums
+    are ``greedy_decode_loop``'s, and t_end its second result."""
+    from torch._higher_order_ops import while_loop
+
+    from mlx_audio_tpu_torch.nn.attention import KVCache
+
+    b, l = tokens_buf.shape
+    eot = params.eot
+    dev = tokens_buf.device
+    end = min(t0 + sample_len, l)
+    n_layers = len(caches)
+
+    def cond(t, tokens, finished, sum_lp, *flat):
+        return (t < end) & ~finished.all()
+
+    def body(t, tokens, finished, sum_lp, *flat):
+        cs = [KVCache(*flat[3 * i:3 * i + 3]) for i in range(n_layers)]
+        last = tokens.index_select(1, (t - 1).reshape(1))
+        logits, cs = model.decoder.step(cs, last, cross_kv)
+        logits = apply_filters(logits.float(), tokens, t, sample_begin, params,
+                               suppress_mask, blank_mask)
+        next_tok = torch.argmax(logits, dim=-1)
+        logprobs = torch.log_softmax(logits, dim=-1)
+        cur_lp = torch.gather(logprobs, 1, next_tok[:, None])[:, 0]
+        sum_lp = sum_lp + torch.where(finished, 0.0, cur_lp)
+        next_tok = torch.where(finished, eot, next_tok)
+        tokens = tokens.index_copy(1, t.reshape(1), next_tok[:, None].to(tokens.dtype))
+        finished = finished | (next_tok == eot)
+        return (t + 1, tokens, finished, sum_lp,
+                *[x for c in cs for x in (c.k, c.v, c.idx)])
+
+    state = (torch.full((), t0, dtype=torch.int64, device=dev), tokens_buf,
+             torch.zeros(b, dtype=torch.bool, device=dev),
+             torch.zeros(b, dtype=torch.float32, device=dev),
+             *[x for c in caches for x in (c.k, c.v, c.idx)])
+    t_end, tokens, _, sum_lp, *_ = while_loop(cond, body, state)
+    return tokens, t_end, sum_lp
 
 
 # ---------------------------------------------------------------------------

@@ -185,9 +185,13 @@ class TextDecoder(nn.Module):
                                self.positional_embedding.device)
                 for _ in self.blocks]
 
-    def _positions(self, start: int, length: int) -> torch.Tensor:
+    def _positions(self, start, length: int) -> torch.Tensor:
         # lax.dynamic_slice's clamp: a slice that would run past the table
         # starts where it ends at the last row
+        if isinstance(start, torch.Tensor):
+            start = start.clamp(0, self.n_ctx - length)
+            return self.positional_embedding[
+                start + torch.arange(length, device=start.device)]
         start = max(0, min(start, self.n_ctx - length))
         return self.positional_embedding[start:start + length]
 

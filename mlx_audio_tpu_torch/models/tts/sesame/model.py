@@ -88,9 +88,11 @@ from mlx_audio_tpu_torch.models.sampling import (
     gumbel,
     row_generator,
     row_offset,
+    sample_top_k,
     sample_top_k_rows,
 )
 from mlx_audio_tpu_torch.nn import kernels
+from mlx_audio_tpu_torch.nn.attention import KVCache, row_at
 from mlx_audio_tpu_torch.nn.layers import Embedding, Linear, _uniform_
 from mlx_audio_tpu_torch.nn.pallas_depth import _dense, gumbel_argmax, pack_depth
 from mlx_audio_tpu_torch.models.tts.sesame.watermarking import (
@@ -201,8 +203,9 @@ class SesameModel(nn.Module):
         plain depth decode, the spec decode's verify pass and its finishing
         steps all take this one product a position, so a position's logits
         do not depend on the path that computes them (in bf16 a batched
-        product over the verify's 31 positions may round otherwise)."""
-        return h @ self.audio_head[i]
+        product over the verify's 31 positions may round otherwise).  ``i``
+        is an int, or a 0-d tensor in a traced loop."""
+        return h @ row_at(self.audio_head, i)
 
     # -- one frame ---------------------------------------------------------
 
@@ -228,8 +231,24 @@ class SesameModel(nn.Module):
         h, caches = self.backbone.step(caches, embeds, pad_len)
         return self.first_frame(h[:, -1], temp, top_k, generator, spec), caches
 
-    def _depth_decode(self, last_h, c0, temp, top_k, generator):
-        """The nc - 1 sequential depth-decoder steps of a frame."""
+    def frame_from_noise(self, last_h, noise, temp, top_k):
+        """The frame after hidden state last_h [B, D], drawn from given
+        Gumbel rows noise [B, nc, Vp] (Vp: the vocabulary padded to 128, as
+        the draft pads it) in place of the host generator's: codebook k
+        draws with noise[:, k, :V], the spec decode's depth codebooks with
+        noise[0, 1:] (``spec_frame``).  Greedy when ``temp`` is 0, where the
+        noise is not read.  An exported program's frame."""
+        v = self.audio_vocab_size
+        c0 = sample_top_k(self.codebook0_head(last_h), temp, top_k,
+                          noise=noise[:, 0, :v])[:, None].long()
+        if self._use_spec(last_h.shape[0]):
+            return self.spec_frame(last_h, c0, noise[0, 1:], temp, top_k)
+        return self._depth_decode(last_h, c0, temp, top_k, None, noise)
+
+    def _depth_decode(self, last_h, c0, temp, top_k, generator, noise=None):
+        """The nc - 1 sequential depth-decoder steps of a frame; codebook
+        i + 1 draws from ``generator``'s seed, or from noise[:, i + 1, :V]
+        when ``noise`` [B, nc, Vp] is given."""
         b = last_h.shape[0]
         nc = self.audio_num_codebooks
         caches = self.decoder.init_cache(b, max_len=nc + 1, dtype=last_h.dtype)
@@ -242,8 +261,10 @@ class SesameModel(nn.Module):
                 embed = self.embed_audio(i, codes[-1])
                 h, _ = self.decoder.step(caches, self.projection(embed), pad0)
             logits = self.head_logits(h[:, -1], i)
-            codes.append(sample_top_k_rows(logits, temp, top_k,
-                                           call_seed(generator))[:, None].long())
+            tok = (sample_top_k_rows(logits, temp, top_k, call_seed(generator))
+                   if noise is None else sample_top_k(
+                       logits, temp, top_k, noise=noise[:, i + 1, :logits.shape[-1]]))
+            codes.append(tok[:, None].long())
         return torch.cat(codes, dim=1)
 
     # -- speculative depth decode (batch 1) --------------------------------
@@ -262,16 +283,60 @@ class SesameModel(nn.Module):
         self.spec_decode = True
 
     def _depth_decode_spec(self, last_h, c0, temp, top_k, generator):
+        """``spec_frame`` with the noise block of ``generator``'s next
+        seed."""
+        nc = self.audio_num_codebooks
+        vpad = self._spec_packed.heads.shape[1]
+        dev = last_h.device
+        # one row: its noise block comes from the row-0 generator of a seed
+        noise = (gumbel((nc - 1, vpad), row_generator(call_seed(generator), 0, dev),
+                        dev) if temp > 0 else torch.zeros(nc - 1, vpad, device=dev))
+        return self.spec_frame(last_h, c0, noise, temp, top_k)
+
+    def _spec_tail_token(self, caches, tokens, j, noise, temp, top_k, pad0):
+        """Token c_{j+1} of the rejected tail, one depth step on the verify
+        cache from c_j = tokens[j - 1]; ``j`` an int, or a 0-d tensor in an
+        exported program's loop."""
+        v = self.audio_vocab_size
+        embed = self.audio_embeddings(row_at(tokens, j - 1).reshape(1, 1) + j * v)
+        hh, _ = self.decoder.step(caches, self.projection(embed), pad0)
+        logits = F.pad(self.head_logits(hh[:, -1], j), (0, noise.shape[1] - v),
+                       value=float("-inf"))
+        return gumbel_argmax(logits, row_at(noise, j)[None], v, temp, top_k)[0]
+
+    def _spec_tail_loop(self, caches, tokens, m, noise, temp, top_k, pad0):
+        """The rejected tail of an exported program's frame: a
+        ``while_loop`` over c_{m+2}.., the loop state the verify caches, the
+        tokens and the step, as the JAX package's ``lax.while_loop``."""
+        from torch._higher_order_ops import while_loop
+
+        nc = self.audio_num_codebooks
+        n_layers = len(caches)
+
+        def cond(j, toks, *flat):
+            return j < nc - 1
+
+        def body(j, toks, *flat):
+            cs = [KVCache(*flat[3 * i:3 * i + 3]) for i in range(n_layers)]
+            tok = self._spec_tail_token(cs, toks, j, noise, temp, top_k, pad0)
+            toks = toks.index_copy(0, j.reshape(1), tok.reshape(1).to(toks.dtype))
+            return (j + 1, toks, *[t for c in cs for t in (c.k, c.v, c.idx)])
+
+        for c in caches:
+            c.idx = m + 2
+        flat = [t for c in caches for t in (c.k, c.v, c.idx)]
+        return while_loop(cond, body, (m + 1, tokens, *flat))[1]
+
+    def spec_frame(self, last_h, c0, noise, temp, top_k):
         """Draft c2..c31 with the int8 kernel, verify them with one
-        teacher-forced pass, finish the rejected tail step by step."""
+        teacher-forced pass, finish the rejected tail step by step, with
+        Gumbel rows noise [nc - 1, Vp] (c1's first).  Returns the frame
+        [1, nc]."""
         nc, v = self.audio_num_codebooks, self.audio_vocab_size
         packed = self._spec_packed
         vpad = packed.heads.shape[1]
         dev = last_h.device
         pad0 = torch.zeros(1, dtype=torch.long, device=dev)
-        # one row: its noise block comes from the row-0 generator of a seed
-        noise = (gumbel((nc - 1, vpad), row_generator(call_seed(generator), 0, dev),
-                        dev) if temp > 0 else torch.zeros(nc - 1, vpad, device=dev))
 
         def padded(logits):
             return F.pad(logits, (0, vpad - v), value=float("-inf"))
@@ -295,6 +360,14 @@ class SesameModel(nn.Module):
         logits = torch.cat([self.head_logits(vh[:, t + 1], t) for t in range(nc - 1)])
         targets = gumbel_argmax(padded(logits), noise, v, temp, top_k)
 
+        if torch.compiler.is_compiling():  # a traced program's frame
+            mis = targets != draft_full
+            m = torch.where(mis.any(), torch.argmax(mis.int()), nc - 1)
+            tokens = torch.where(torch.arange(nc - 1, device=dev) < m, draft_full,
+                                 targets)
+            tokens = self._spec_tail_loop(ver_caches, tokens, m, noise, temp,
+                                          top_k, pad0)
+            return torch.cat([c0, tokens[None]], dim=1)
         mismatch = torch.nonzero(targets != draft_full).flatten().tolist()
         m = mismatch[0] if mismatch else nc - 1
         self.spec_stats[0] += max(m - 1, 0)
@@ -305,10 +378,8 @@ class SesameModel(nn.Module):
         for c in ver_caches:
             c.idx = m + 2
         for j in range(m + 1, nc - 1):
-            embed = self.audio_embeddings(tokens[j - 1].reshape(1, 1) + j * v)
-            hh, _ = self.decoder.step(ver_caches, self.projection(embed), pad0)
-            tokens[j] = gumbel_argmax(padded(self.head_logits(hh[:, -1], j)),
-                                      noise[j:j + 1], v, temp, top_k)[0]
+            tokens[j] = self._spec_tail_token(ver_caches, tokens, j, noise, temp,
+                                              top_k, pad0)
         return torch.cat([c0, tokens[None]], dim=1)
 
 

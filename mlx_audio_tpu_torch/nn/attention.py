@@ -5,7 +5,12 @@ tables and the decode KV cache (counterpart of
 The JAX package threads an immutable cache through its jitted steps; here
 ``KVCache`` is a small mutable object whose ``update`` writes the new keys
 and values into its fixed-capacity buffers in place (no copy of the cache per
-step) and advances a Python-int write index.
+step) and advances a Python-int write index.  An exported program
+(``mlx_audio_tpu_torch.export``) takes its caches as inputs and reads the
+write position from them: there the index is a 0-d integer tensor, and
+``update`` writes out of place at tensor positions (``index_copy``), which
+a traced loop body may do; ``valid_mask`` and ``apply_rope`` take either
+kind of position and compute the same values.
 """
 
 from __future__ import annotations
@@ -88,15 +93,27 @@ def rope_table(head_dim: int, max_len: int, base: float = 10000.0,
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-               start: int = 0) -> torch.Tensor:
-    """Rotate [B, H, L, D] queries or keys at positions start .. start+L-1.
-    Pairs are (x[..., :D/2], x[..., D/2:]), the half-split convention of
-    Llama checkpoints."""
+               start=0) -> torch.Tensor:
+    """Rotate [B, H, L, D] queries or keys at positions start .. start+L-1
+    (``start`` an int or a 0-d integer tensor).  Pairs are (x[..., :D/2],
+    x[..., D/2:]), the half-split convention of Llama checkpoints."""
     length = x.shape[-2]
-    c = cos[start:start + length].to(x.dtype)
-    s = sin[start:start + length].to(x.dtype)
+    if isinstance(start, torch.Tensor):
+        rows = start + torch.arange(length, device=cos.device)
+        c, s = cos[rows].to(x.dtype), sin[rows].to(x.dtype)
+    else:
+        c = cos[start:start + length].to(x.dtype)
+        s = sin[start:start + length].to(x.dtype)
     x1, x2 = x.chunk(2, dim=-1)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+def row_at(x: torch.Tensor, i) -> torch.Tensor:
+    """x[i] for an int or a 0-d integer tensor ``i`` (a traced loop's
+    position, which the trace cannot read as a number)."""
+    if isinstance(i, torch.Tensor):
+        return x.index_select(0, i.reshape(1))[0]
+    return x[i]
 
 
 # ---------------------------------------------------------------------------
@@ -106,9 +123,10 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
 
 class KVCache:
     """Fixed-capacity decode cache: k, v [B, Hkv, max_len, D] and the next
-    write position ``idx``."""
+    write position ``idx``, an int, or a 0-d integer tensor in an exported
+    program."""
 
-    def __init__(self, k: torch.Tensor, v: torch.Tensor, idx: int = 0):
+    def __init__(self, k: torch.Tensor, v: torch.Tensor, idx=0):
         self.k, self.v, self.idx = k, v, idx
 
     @classmethod
@@ -121,8 +139,16 @@ class KVCache:
 
     def update(self, k_new: torch.Tensor, v_new: torch.Tensor) -> "KVCache":
         """Write [B, Hkv, S, D] at the write position, in place, and advance
-        it.  Returns self."""
+        it; at a tensor position the buffers are replaced by written copies
+        (no check of the capacity, which the exporter sizes).  Returns
+        self."""
         s = k_new.shape[-2]
+        if isinstance(self.idx, torch.Tensor):
+            pos = self.idx + torch.arange(s, device=self.k.device)
+            self.k = self.k.index_copy(2, pos, k_new.to(self.k.dtype))
+            self.v = self.v.index_copy(2, pos, v_new.to(self.v.dtype))
+            self.idx = self.idx + s
+            return self
         if self.idx + s > self.k.shape[-2]:
             raise ValueError(f"KV cache full: {self.idx} + {s} > "
                              f"{self.k.shape[-2]}")

@@ -46,6 +46,14 @@ CPU, and only then.  For a CUDA tensor it launches the kernel or raises:
 there is no fallback.  Every launch adds one to the kernel's entry in
 ``LAUNCHES``, so a run can show that it went through the kernels.
 
+While a program is traced (``torch.compiler.is_compiling()``: under
+``torch.export``, and in the loop bodies that ``while_loop`` compiles) the
+five kernels of the model paths (``lstm``, ``dilated_conv1d``,
+``banded_conv1d``, ``quantized_matmul``, ``depth_draft``) go through their
+custom ops (``mlx_audio_tpu_torch.ops``), so the traced graph holds them as
+nodes; an op's implementation is the wrapper itself, which then launches as
+above.  In eager code the wrappers never go through the dispatcher.
+
 The three Kokoro kernels and ``quantized_matmul`` take float32 or bf16
 (``BF16_KERNELS``): a bf16 launch runs the kernel's bf16 variant, built from
 the same source, and counts under ``<name>_bf16``; it accumulates in float32
@@ -203,6 +211,12 @@ def bf16_steps(got: torch.Tensor, exact: torch.Tensor) -> float:
     return float(((got - exact).abs() / step).max()) if mag.numel() else 0.0
 
 
+def _op(name: str):
+    """The custom op of kernel ``name`` (``ops``, imported at the end of
+    this module), which a traced graph holds in place of the launch."""
+    return getattr(torch.ops.mlx_audio_tpu_torch, name)
+
+
 def _kernel_name(name: str, t: torch.Tensor) -> str:
     """The LAUNCHES and _SIGNATURES name of ``name``'s launch on ``t``."""
     return f"{name}_bf16" if t.dtype == torch.bfloat16 else name
@@ -290,6 +304,9 @@ def lstm(x_proj: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor,
     On the card it launches the kernel ``lstm_route(H)`` names, or its bf16
     variant.
     """
+    if torch.compiler.is_compiling():
+        hs, cs, h_last, c_last = _op("lstm")(x_proj, wh, h0, c0)
+        return hs, cs, (h_last, c_last)
     if _on_cpu("lstm", x_proj, wh, h0, c0):
         return lstm_plain(x_proj, wh, h0, c0)
     b, t, h4 = x_proj.shape
@@ -382,6 +399,8 @@ def dilated_conv1d(x: torch.Tensor, w: torch.Tensor,
     tap reading one staged window at row offset tap * dilation; it takes C
     and Cout multiples of 8, 16-byte aligned x and w, and a window whose
     stages fit a block's shared memory.  The output has x's dtype."""
+    if torch.compiler.is_compiling():
+        return _op("dilated_conv1d")(x, w, dilation)
     if _on_cpu("dilated_conv1d", x, w):
         return dilated_conv1d_plain(x, w, dilation)
     if dilation < 1:
@@ -449,6 +468,8 @@ def banded_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     for bf16 operands); the plain version still goes through W_band.  The
     kernel takes C and Cout multiples of 8, 16-byte aligned x and w, and K
     up to 13.  The output has x's dtype."""
+    if torch.compiler.is_compiling():
+        return _op("banded_conv1d")(x, w)
     if _on_cpu("banded_conv1d", x, w):
         return banded_conv1d_plain(x, w)
     k = w.shape[0]
@@ -518,6 +539,8 @@ def quantized_matmul(x: torch.Tensor, codes: torch.Tensor,
     a bf16 model quantized after its cast holds them).  A bf16 launch runs
     the bf16 variant (``LAUNCHES["quantized_matmul_bf16"]``): x and the
     scales converted to float32 on load, float32 sums, one rounding."""
+    if torch.compiler.is_compiling():
+        return _op("quantized_matmul")(x, codes, scales, biases, group_size, packed)
     if _on_cpu("quantized_matmul", x, other=(codes, scales, biases)):
         return quantized_matmul_plain(x, codes, scales, biases, group_size,
                                       packed)
@@ -611,6 +634,9 @@ def depth_draft(packed: PackedDepth, cache_k0: torch.Tensor,
     ``depth_draft_pallas``: caches [L, Hkv, Cap, Dh] float32 with positions
     0 and 1 filled, c1 a 0-dim (or [1]) integer tensor, noise [S, Vp]
     Gumbel rows (zeros when greedy).  Returns int32 tokens [S]."""
+    if torch.compiler.is_compiling():
+        return _op("depth_draft")(list(packed), cache_k0, cache_v0, c1, noise,
+                                  vocab, float(temp), int(top_k))
     return _depth_draft(packed, cache_k0, cache_v0, c1, noise, vocab, temp,
                         top_k)
 
@@ -810,3 +836,7 @@ def probe_auto(w_chunked: torch.Tensor, steps: int) -> torch.Tensor:
     _launch("probe_auto", w_chunked.device, w_chunked.data_ptr(),
             out.data_ptr(), w_chunked.element_size(), c, dm, cw, steps)
     return out
+
+
+# the custom ops of the wrappers above; ``ops`` imports this module
+from mlx_audio_tpu_torch import ops as _ops  # noqa: E402,F401

@@ -46,7 +46,7 @@ def _gsz(n: int) -> int:
 def _tensor(value: float, like: torch.Tensor) -> torch.Tensor:
     # PyTorch's CUDA division by a Python scalar multiplies by its
     # reciprocal; a tensor divisor keeps IEEE division, as the kernel has it
-    return torch.tensor(value, dtype=like.dtype, device=like.device)
+    return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
 def quantize_int8(w: torch.Tensor):

@@ -29,7 +29,8 @@ class ConvState(NamedTuple):
     """Carry of a streaming causal conv: the trailing receptive-field tail."""
 
     buf: torch.Tensor  # [B, K_eff - S, C_in]
-    first: bool        # the left pad is not applied yet
+    first: bool        # the left pad is not applied yet (a 0-d bool tensor
+    #                    in an exported program's state)
 
 
 class ConvTrState(NamedTuple):
@@ -103,7 +104,9 @@ class StreamableConv1d(nn.Module):
         pad = self.effective_ksize - self.stride
         if pad > 0:
             init = state.buf
-            if self.pad_mode == "edge" and state.first:
+            if self.pad_mode == "edge" and isinstance(state.first, torch.Tensor):
+                init = torch.where(state.first, x[:, :1].expand_as(init), init)
+            elif self.pad_mode == "edge" and state.first:
                 init = x[:, :1].expand_as(init)
             full = torch.cat([init, x], dim=1)
         else:
@@ -112,7 +115,9 @@ class StreamableConv1d(nn.Module):
         if self.bias is not None:
             y = y + self.bias
         new_buf = full[:, full.shape[1] - pad:] if pad > 0 else state.buf
-        return y, ConvState(buf=new_buf, first=False)
+        first = (torch.zeros_like(state.first) if isinstance(state.first, torch.Tensor)
+                 else False)
+        return y, ConvState(buf=new_buf, first=first)
 
 
 class StreamableConvTranspose1d(nn.Module):

@@ -625,3 +625,62 @@ def test_probe_auto_kernel_equals_plain(cuda, dtype):
     got = kernels.probe_auto(chunked, 2)
     torch.cuda.synchronize()
     assert int(got) == int(kernels.probe_stream_plain(chunked, 2))
+
+
+# ---------------------------------------------------------------------------
+# The kernels as custom ops (mlx_audio_tpu_torch.ops): what an exported
+# program launches
+# ---------------------------------------------------------------------------
+
+
+def _op_cases(device, dtype):
+    rng = np.random.default_rng(7)
+
+    def r(shape, scale=0.3):
+        return _randn(rng, shape, scale, device).to(dtype)
+
+    codes = torch.as_tensor(rng.integers(0, 256, (1024, 2048)), dtype=torch.uint8,
+                            device=device)
+    return {
+        "lstm": (r((2, 64, 1024)), r((256, 1024), 0.1), r((2, 256), 0.1),
+                 r((2, 256), 0.1)),
+        "dilated_conv1d": (r((1, 3000, 128)), r((3, 128, 1280), 0.05), 1),
+        "banded_conv1d": (r((2, 2600, 256)), r((7, 256, 256), 0.05)),
+        "quantized_matmul": (r((2, 2048)), codes, r((1024, 16), 0.01).abs(),
+                             r((1024, 16), 0.01), 128, False),
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["lstm", "dilated_conv1d", "banded_conv1d",
+                                  "quantized_matmul"])
+def test_custom_op_equals_the_direct_launch(cuda, name, dtype):
+    """On a CUDA tensor an op launches the kernel (its bf16 variant for bf16
+    tensors), counted once, and returns the direct launch's result bit for
+    bit."""
+    from mlx_audio_tpu_torch import ops
+
+    args = _op_cases(cuda, dtype)[name]
+    key = kernels._kernel_name(name, args[0])
+    direct = getattr(kernels, name)(*args)
+    before = kernels.LAUNCHES[key]
+    got = getattr(ops, name)(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[key] == before + 1
+    if name == "lstm":
+        direct = (*direct[:2], *direct[2])
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    direct if isinstance(direct, tuple) else (direct,)):
+        assert a.dtype == dtype and torch.equal(a, b)
+
+
+def test_depth_draft_op_equals_the_direct_launch(cuda):
+    from mlx_audio_tpu_torch import ops
+
+    packed, kc, vc, c1, noise, vocab = _draft_inputs(cuda, 0.9, nc=32)
+    direct = kernels.depth_draft(packed, kc, vc, c1, noise, vocab, 0.9, 20)
+    before = kernels.LAUNCHES["depth_draft"]
+    got = ops.depth_draft(list(packed), kc, vc, c1, noise, vocab, 0.9, 20)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["depth_draft"] == before + 1
+    assert torch.equal(got, direct)
