@@ -296,14 +296,18 @@ Phases; the failure of any one ends the script with a non-zero exit:
    encode launches ``dilated_conv1d_bf16`` once and nothing else of ours,
    and the tokens equal the written model's own ``generate``; the save and
    load seconds, the batch's and the lone request's wall seconds, peak
-   memory;
+   memory; then Kokoro's ``prewarm`` (``kokoro_prewarm_runs``) in a fresh
+   process on the written checkpoint, at 128 phonemes: its seconds, stage
+   calls, kernel libraries loaded and launches, then a novel length's first
+   and second ``synthesize`` (the first may load no kernel library);
 15. one speech-to-speech session on the card, as ``scripts/bench_sts.py``
    drives it (``sts_session_runs``): phase 14's bf16 Whisper checkpoint
    behind a greedy English shim, a chat LM at Qwen2.5-0.5B-Instruct's
    widths in bf16 (written as an HF-layout directory and read with
    ``ChatLM.from_pretrained``), phase 14's bf16 Kokoro with its duration
-   head at the trained rate; the server's ``prewarm`` (one call a stage),
-   3 turns through /ws/sts (2 s of speech, real-time silence frames, then
+   head at the trained rate; the server's ``prewarm`` (Kokoro's stage grid
+   at 128 phonemes, a chat turn, 5 STT lengths),
+   2 turns through /ws/sts (2 s of speech, real-time silence frames, then
    "flush") and one through the WebRTC bridge at 48 kHz: every turn gives
    its transcript, a chunk a reply sentence and the final reply; each
    chunk equals a direct ``generate`` of its sentence, each reply a direct
@@ -346,8 +350,11 @@ Phases; the failure of any one ends the script with a non-zero exit:
    ``synthesize_batch`` of the 8 served texts under no mesh and under dp=4
    over [cuda:0] x 4: durations equal, rows within phase 14's row bounds,
    the dp run's conv and lstm launches 4x the unsharded run's and held to
-   their plain versions; the server set up from ``--mesh dp=0`` (dp=1 on
-   one card) serving one /tts;
+   their plain versions; the same batch over two processes joined by
+   ``parallel.distributed`` (gloo, both on cuda:0), 4 rows each: durations
+   equal, rows within phase 14's row bounds, each process's wall seconds
+   against the unsharded run's; the server set up from ``--mesh dp=0``
+   (dp=1 on one card) serving one /tts;
 18. ``export.py`` (``export_runs``, in a process of its own started after
    phase 4, beside phases 5-17, whose result phase 18 reads): each kind of
    program exported with ``torch.export`` at published widths, saved,
@@ -504,6 +511,22 @@ def gpu_line() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def cpu_twin(build, source: torch.nn.Module) -> torch.nn.Module:
+    """``build()`` (a model on the CPU) holding ``source``'s weights, which
+    ``load_state_dict`` (strict) sets, every one.  The model's init draws
+    (``uniform_`` and ``normal_`` into its empty parameters, about 10 ns a
+    weight on one host thread) are skipped while it is built: a reference
+    of a large model would spend seconds drawing weights it overwrites."""
+    from unittest import mock
+
+    skip = lambda t, *a, **k: t  # noqa: E731
+    with mock.patch.object(torch.Tensor, "uniform_", skip), \
+            mock.patch.object(torch.Tensor, "normal_", skip):
+        twin = build()
+    twin.load_state_dict({k: v.cpu() for k, v in source.state_dict().items()})
+    return twin
 
 
 def median_ms(fn, reps: int) -> float:
@@ -2412,8 +2435,7 @@ def dac_runs(launches: dict) -> dict:
 
     # the same weights and clip on the CPU
     t0 = time.perf_counter()
-    ref = DAC(config, device="cpu")
-    ref.load_state_dict({k: v.cpu() for k, v in dac.state_dict().items()})
+    ref = cpu_twin(lambda: DAC(config, device="cpu"), dac)
     z_ref, codes_ref, latents_ref = ref.encode(x)
     y_ref = ref.decode(z_ref)
     cpu_s = time.perf_counter() - t0
@@ -3007,8 +3029,7 @@ def encodec_runs(codec, launches: dict, lstm_routes: dict) -> dict:
     path_err = check_lstm_path(path_calls, lstm, "EnCodec")
 
     t0 = time.perf_counter()
-    ref = Encodec(codec.config, device="cpu")
-    ref.load_state_dict({k: v.cpu() for k, v in codec.state_dict().items()})
+    ref = cpu_twin(lambda: Encodec(codec.config, device="cpu"), codec)
     codes_ref, scales_ref = ref.encode(x, mask, bandwidth=ENCODEC_BANDWIDTH)
     y_ref = ref.decode(codes_ref, scales_ref, mask)
     cpu_s = time.perf_counter() - t0
@@ -3369,8 +3390,7 @@ def vocos_runs(launches: dict) -> dict:
         fail(f"vocos: mel {tuple(mel.shape)}, audio {tuple(y.shape)}")
     print_routes("vocos", routes)
     t0 = time.perf_counter()
-    ref = Vocos.from_hparams(config, device="cpu")
-    ref.load_state_dict({k: v.cpu() for k, v in vocos.state_dict().items()})
+    ref = cpu_twin(lambda: Vocos.from_hparams(config, device="cpu"), vocos)
     y_ref, y2_ref = ref(audio), ref.decode(mel.cpu())
     cpu_s = time.perf_counter() - t0
     errs = [float((a.cpu() - b).abs().max()) for a, b in ((y, y_ref), (y2, y2_ref))]
@@ -3607,10 +3627,8 @@ def spark_tokenize_against_cpu(model, run: dict) -> dict:
     tok = model._audio_tokenizer
     w2v = tok.feature_extractor
     t0 = time.perf_counter()
-    cpu_codec = BiCodec(model.bicodec.config, device="cpu")
-    cpu_codec.load_state_dict({k: v.cpu() for k, v in model.bicodec.state_dict().items()})
-    cpu_w2v = Wav2Vec2Model(w2v.config, device="cpu")
-    cpu_w2v.load_state_dict({k: v.cpu() for k, v in w2v.state_dict().items()})
+    cpu_codec = cpu_twin(lambda: BiCodec(model.bicodec.config, device="cpu"), model.bicodec)
+    cpu_w2v = cpu_twin(lambda: Wav2Vec2Model(w2v.config, device="cpu"), w2v)
     cpu_tok = BiCodecTokenizer(cpu_codec, cpu_w2v, config=tok.config)
 
     def tokens(t):
@@ -4050,8 +4068,7 @@ def whisper_card_against_cpu(model, tok, run: dict) -> dict:
     from mlx_audio_tpu_torch.models.stt.whisper.audio import log_mel_spectrogram
 
     t0 = time.perf_counter()
-    cpu = Model(ModelDimensions(**WHISPER_DIMS), device="cpu")
-    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu = cpu_twin(lambda: Model(ModelDimensions(**WHISPER_DIMS), device="cpu"), model)
     pad = 3000 * 160
     with torch.no_grad():
         mel = log_mel_spectrogram(run["clip"], n_mels=128, padding=pad, device="cuda")
@@ -4506,8 +4523,7 @@ def parakeet_card_against_cpu(model, ctc, run: dict) -> dict:
     from mlx_audio_tpu_torch.models.stt.parakeet.audio import log_mel_spectrogram
 
     t0 = time.perf_counter()
-    cpu = Model(parakeet_config(), device="cpu")
-    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu = cpu_twin(lambda: Model(parakeet_config(), device="cpu"), model)
     w_ctc = ctc.decoder.decoder_layers[0]
     pre = model.preprocessor_config
     audio = _clip(11, PARAKEET_CHUNK)
@@ -4703,8 +4719,7 @@ def bigvgan_card_against_cpu(model, run: dict) -> float:
     from mlx_audio_tpu_torch.codec.bigvgan import BigVGAN
 
     t0 = time.perf_counter()
-    cpu = BigVGAN(bigvgan_config(), device="cpu")
-    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu = cpu_twin(lambda: BigVGAN(bigvgan_config(), device="cpu"), model)
     ref = cpu(run["mel"][:1])
     err = float((run["audio"].cpu() - ref).abs().max())
     print(f"bigvgan card against the CPU ({time.perf_counter() - t0:.1f} s): audio "
@@ -4720,6 +4735,7 @@ def bigvgan_card_against_cpu(model, run: dict) -> float:
 # ---------------------------------------------------------------------------
 
 INDEXTTS_TOKENS = 255  # mel codes a run past the first: 256 latents
+INDEXTTS_TIMED_STEPS = 64  # decode steps a timed decode of the breakdown
 INDEXTTS_SECONDS = (INDEXTTS_TOKENS + 1) * 1024 / 24_000  # 10.92 s of 24 kHz audio
 INDEXTTS_REF_SECONDS = 3.0  # the reference clip
 INDEXTTS_TEXT = ORPHEUS_TEXT
@@ -4957,7 +4973,8 @@ def _indextts_decode_steps(model, state, n: int):
 
 def indextts_breakdown(model, run: dict) -> dict:
     """The log-mel, conditioning and prefill ms (CUDA events), decode steps/s
-    of generate_latents at batch 1 and 4 (its wall time less the prompt's),
+    of generate_latents of INDEXTTS_TIMED_STEPS at batch 1 and 4 (its wall
+    time less the prompt's),
     the vocoder ms a call at batch 1 and 4, generate's real-time factor
     (warm: the runs before it were its untimed calls), then profiles of 32
     decode steps and of one vocoder call (``vocoder_profile``)."""
@@ -4980,10 +4997,11 @@ def indextts_breakdown(model, run: dict) -> dict:
         pad_len = torch.tensor([bucket - row.shape[1]], device="cuda")
         out["prefill_ms"] = median_ms(lambda: model.gpt.prefill_left(
             model.gpt.init_cache(1, bucket + n), padded, pad_len), 5)
+        timed = INDEXTTS_TIMED_STEPS
         for b, texts in ((1, [INDEXTTS_TEXT]), (4, INDEXTTS_BATCH_TEXTS)):
-            start = _wall(lambda: model._start(texts, mel, n))
-            total = _wall(lambda: model.generate_latents(texts, mel, n, temperature=0))
-            out[f"decode_steps_per_s_batch{b}"] = n / (total - start)
+            start = _wall(lambda: model._start(texts, mel, timed))
+            total = _wall(lambda: model.generate_latents(texts, mel, timed, temperature=0))
+            out[f"decode_steps_per_s_batch{b}"] = timed / (total - start)
         stream = run["stream"][None]
         out["vocoder_ms_batch1"] = median_ms(lambda: model.bigvgan(stream, mel), 3)
         out["vocoder_ms_batch4"] = median_ms(
@@ -5017,8 +5035,8 @@ def indextts_card_against_cpu(model, run: dict) -> dict:
     from mlx_audio_tpu_torch.models.tts.indextts.vocoder import log_mel_spectrogram
 
     t0 = time.perf_counter()
-    cpu = Model(indextts_config(), tokenizer=IndexTTSStubTokenizer(), device="cpu")
-    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu = cpu_twin(lambda: Model(indextts_config(), tokenizer=IndexTTSStubTokenizer(),
+                                 device="cpu"), model)
     out, errs = {}, {}
 
     def hold(name, card, ref):
@@ -5111,15 +5129,16 @@ def _check_only(name: str, lc: dict, want: dict) -> None:
              f"(of {sorted(kernels.LAUNCHES)})")
 
 
-def kokoro_bf16_runs(launches: dict, f32_bench: dict, voice_path: str) -> dict:
+def kokoro_bf16_runs(launches: dict, f32_bench: dict, voice_path: str,
+                     before_bench=lambda: None) -> dict:
     """Phase 13: Kokoro-82M cast with .to(torch.bfloat16) at bench.py's own
     shape (batch 32, phoneme bucket 512, frame bucket 1300, durations capped
     at alternating 2/3, the reference and speed in bf16): one iteration
     with every conv and lstm launch recorded and held to its plain version
-    on the path's operands, then the median of 5 synced iterations, peak
-    memory and one profiled iteration; every launch must be of a bf16
-    variant, KOKORO_BF16_PER_SYNTHESIS a synthesis.  Then ``generate`` on the
-    card against the same bf16 weights on the CPU."""
+    on the path's operands, then (after ``before_bench()``) the median of 5
+    synced iterations, peak memory and one profiled iteration; every launch
+    must be of a bf16 variant, KOKORO_BF16_PER_SYNTHESIS a synthesis.  Then
+    ``generate`` on the card against the same bf16 weights on the CPU."""
     from mlx_audio_tpu_torch.models.tts.kokoro import Model
     from mlx_audio_tpu_torch.models.tts.kokoro.presets import kokoro_82m_config
     from mlx_audio_tpu_torch.nn import kernels
@@ -5147,6 +5166,7 @@ def kokoro_bf16_runs(launches: dict, f32_bench: dict, voice_path: str) -> dict:
     del conv_calls, lstm_calls, audio, total
     torch.cuda.empty_cache()
 
+    before_bench()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     bench = bench_pass(run_once, batch=BF16_BENCH_BATCH)
@@ -5201,8 +5221,8 @@ def kokoro_bf16_card_against_cpu(model, voice_path: str, launches: dict) -> dict
         (_, dur_card), = model.synthesize_batch([text], ref, speeds=SPEED)
         launches["kokoro_bf16_generate"] = dict(kernels.LAUNCHES)
         t0 = time.perf_counter()
-        cpu_model = Model(kokoro_82m_config(), device="cpu").to(torch.bfloat16)
-        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        cpu_model = cpu_twin(lambda: Model(kokoro_82m_config(), device="cpu").to(torch.bfloat16),
+                             model)
         cpu = list(cpu_model.generate(text, voice=voice_path, speed=SPEED))
         (_, dur_cpu), = cpu_model.synthesize_batch([text], ref, speeds=SPEED)
         cpu_s = time.perf_counter() - t0
@@ -5340,8 +5360,7 @@ def encodec_bf16_runs(codec, launches: dict, lstm_routes: dict) -> dict:
         fail(f"encodec bf16: audio {y.dtype}")
     path_err = check_lstm_path(path_calls, lstm, "EnCodec bf16")
     t0 = time.perf_counter()
-    ref = Encodec(codec.config, device="cpu").to(torch.bfloat16)
-    ref.load_state_dict({k: v.cpu() for k, v in codec.state_dict().items()})
+    ref = cpu_twin(lambda: Encodec(codec.config, device="cpu").to(torch.bfloat16), codec)
     codes_ref, scales_ref = ref.encode(x, mask, bandwidth=ENCODEC_BANDWIDTH)
     codes = codes.cpu()
     y_ref = ref.decode(codes, scales_ref, mask)
@@ -6717,6 +6736,209 @@ def entry_point_runs(launches: dict, per_synthesis: dict, voice: str, tmp: Path)
     return out, {"kokoro_bf16": bdir, "whisper": wdir}
 
 
+WORKER_WAIT_S = 1200  # the longest an early-started worker waits for its go file
+WORKER_READY_S = 180  # the longest phase 13's bench waits for the workers' set-up
+
+
+def start_worker(call: str, args: list, go: Path, log: Path) -> tuple:
+    """A fresh process that imports torch, makes its CUDA context, imports
+    this script and runs ``chip_smoke.<call>(go, ready, *args)`` (string
+    arguments).  The call does its set-up, then ``hold(go, ready)``: it
+    creates the file ``ready`` and waits for the file ``go`` before its
+    timed work, so its start-up runs where the caller starts it and its
+    timed work runs alone.  Its output goes to ``log``; it is killed at exit
+    if still running.  Returns (the process, ``ready``)."""
+    import atexit
+
+    ready = log.with_suffix(".ready")
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", "import sys; import torch; torch.cuda.init(); "
+             "sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+             "getattr(chip_smoke, sys.argv[2])(*sys.argv[3:])",
+             str(ROOT), call, str(go), str(ready), *map(str, args)],
+            stdout=out, stderr=subprocess.STDOUT)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)
+    return proc, ready
+
+
+def hold(go: str, ready: str) -> None:
+    """A worker's end of set-up: create ``ready``, then return once the
+    file ``go`` exists (raise after WORKER_WAIT_S)."""
+    Path(ready).touch()
+    t0 = time.perf_counter()
+    while not Path(go).exists():
+        if time.perf_counter() - t0 > WORKER_WAIT_S:
+            raise TimeoutError(f"no {go} in {WORKER_WAIT_S} s")
+        time.sleep(0.05)
+
+
+def wait_ready(workers: list, timeout: float) -> float:
+    """Wait until every (process, ready file, log) of ``workers`` has set
+    up; fail with a log's tail if one exits first or the wait outlasts
+    ``timeout`` s.  Returns the seconds waited."""
+    t0 = time.perf_counter()
+    for proc, ready, log in workers:
+        while not ready.exists():
+            if proc.poll() is not None:
+                fail(f"a worker exited during its set-up: {Path(log).read_text()[-3000:]}")
+            if time.perf_counter() - t0 > timeout:
+                fail(f"a worker did not set up in {timeout} s: {Path(log).read_text()[-3000:]}")
+            time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def join_workers(name: str, procs: list, go: Path, logs: list, timeout: float) -> None:
+    """Release early-started workers (create ``go``) and wait for each
+    within ``timeout`` s; fail with a log's tail if one fails or runs over
+    (every worker is then killed)."""
+    go.touch()
+    t0 = time.perf_counter()
+    for proc in procs:
+        try:
+            proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            fail(f"{name}: no end in {timeout} s")
+    for proc, log in zip(procs, logs):
+        if proc.returncode:
+            fail(f"{name}: a worker failed: {Path(log).read_text()[-3000:]}")
+
+
+# Kokoro's prewarm in a fresh process: the grid up to PREWARM_MAX_PHONEMES,
+# then a text of a length the grid did not run (63 ids: the 64 bucket) made
+# twice; the duration head held at the trained rate (as in phase 15), so the
+# text's frames stay inside the warmed frame buckets
+PREWARM_MAX_PHONEMES = 128
+PREWARM_TEXT = "ðə pɹˈiːwɔːɹm wɔːɹmz ˈɛvɹi bˈʌkɪt bɪfˈɔːɹ ðə fˈɜːst ɹɪkwˈɛst."
+PREWARM_TIMEOUT_S = 300
+
+
+def kokoro_prewarm_worker(go: str, ready: str, kdir: str, voice: str, out: str) -> None:
+    """A fresh process (``start_worker``, released by
+    ``kokoro_prewarm_runs``): the port's modules imported before its
+    release; then phase 14's Kokoro-82M checkpoint loaded,
+    ``Model.prewarm(max_phonemes=PREWARM_MAX_PHONEMES)``, then
+    ``synthesize`` of PREWARM_TEXT twice; for each step its wall seconds,
+    the kernel libraries it loaded (``build.load``'s first load in this
+    process) and its kernel launches, to ``out``."""
+    from mlx_audio_tpu_torch import build
+    from mlx_audio_tpu_torch.models.tts.kokoro.model import (
+        pick_frame_bucket,
+        pick_phoneme_bucket,
+    )
+    from mlx_audio_tpu_torch.nn import kernels
+    from mlx_audio_tpu_torch.utils.loader import load_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hold(go, ready)
+    t0 = time.perf_counter()
+    model = load_model(kdir, device="cuda")
+    with torch.no_grad():
+        model.predictor.duration_proj.weight.zero_()
+        model.predictor.duration_proj.bias.fill_(STS_DURATION_BIAS)
+    torch.cuda.synchronize()
+    rec = {"load_s": time.perf_counter() - t0}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        libs = len(build._loaded)
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        rec[name] = {"s": time.perf_counter() - t0,
+                     "libraries_loaded": len(build._loaded) - libs,
+                     "launches": {k: kernels.LAUNCHES[k] for k in KOKORO_KERNELS}}
+        return result
+
+    issued = step("prewarm", lambda: model.prewarm(max_phonemes=PREWARM_MAX_PHONEMES))
+    rec["prewarm"]["issued"] = issued
+    ref = np.load(voice)[len(PREWARM_TEXT) - 1].reshape(-1)
+    with torch.no_grad():
+        for name in ("first_synthesize", "second_synthesize"):
+            audio, dur = step(name, lambda: model.synthesize(PREWARM_TEXT, ref))
+            rec[name].update(samples=int(audio.shape[0]), finite=bool(np.isfinite(audio).all()))
+    n_ids = len(model.phonemes_to_ids(PREWARM_TEXT)) + 2
+    rec["buckets"] = [pick_phoneme_bucket(n_ids), pick_frame_bucket(int(dur.sum()))]
+    with open(out, "w") as f:
+        json.dump(rec, f)
+
+
+def prewarm_grid_calls(max_phonemes: int, frames_per_phoneme: int = 3) -> int:
+    """The stage calls of one ``Model.prewarm`` at batch 1: a duration call
+    a phoneme bucket up to max_phonemes's, a synthesis call a frame bucket
+    up to frames_per_phoneme frames a phoneme of that bucket."""
+    from mlx_audio_tpu_torch.models.tts.kokoro.model import (
+        FRAME_BUCKET_STEP,
+        PHONEME_BUCKETS,
+        pick_frame_bucket,
+        pick_phoneme_bucket,
+    )
+
+    top = pick_phoneme_bucket(max_phonemes)
+    return sum(1 + pick_frame_bucket(p * frames_per_phoneme) // FRAME_BUCKET_STEP
+               for p in PHONEME_BUCKETS if p <= top)
+
+
+def start_prewarm_worker(kdir: str, voice: str, tmp: Path) -> tuple:
+    """Start phase 14's prewarm process (at phase 13's start);
+    it sets up, then waits for ``kokoro_prewarm_runs`` to release it once
+    the checkpoint is written and the entry points are done."""
+    paths = {k: tmp / f"prewarm.{k}" for k in ("go", "log", "json")}
+    proc, paths["ready"] = start_worker("kokoro_prewarm_worker", [kdir, voice, paths["json"]],
+                                        paths["go"], paths["log"])
+    return proc, paths
+
+
+def kokoro_prewarm_runs(launches: dict, worker: tuple) -> dict:
+    """Phase 14's prewarm step: release ``kokoro_prewarm_worker`` (started
+    and set up early, ``start_prewarm_worker``) and read it.  Its prewarm must issue
+    the grid's stage calls and launch every Kokoro kernel; its first
+    ``synthesize`` after it must load no kernel library, launch every
+    Kokoro kernel and run at buckets the grid ran.  Prints each step's
+    seconds, libraries loaded and launches."""
+    from mlx_audio_tpu_torch.models.tts.kokoro.model import pick_frame_bucket, pick_phoneme_bucket
+
+    proc, paths = worker
+    t0 = time.perf_counter()
+    join_workers("kokoro prewarm", [proc], paths["go"], [paths["log"]], PREWARM_TIMEOUT_S)
+    warm = json.loads(paths["json"].read_text())
+    warm["released_s"] = time.perf_counter() - t0
+    want = prewarm_grid_calls(PREWARM_MAX_PHONEMES)
+    top = pick_phoneme_bucket(PREWARM_MAX_PHONEMES)
+    p_bucket, f_bucket = warm["buckets"]
+    first = warm["first_synthesize"]
+    if warm["prewarm"]["issued"] != want or not all(warm["prewarm"]["launches"].values()):
+        fail(f"kokoro prewarm: {warm['prewarm']} (expected {want} stage calls, every "
+             "Kokoro kernel launched)")
+    if first["libraries_loaded"] or not all(first["launches"].values()) or not (
+            p_bucket <= top and f_bucket <= pick_frame_bucket(3 * p_bucket)) or not (
+            first["finite"] and first["samples"]):
+        fail(f"kokoro prewarm: the first synthesize after it {first} at buckets "
+             f"{warm['buckets']} (no kernel library may load; buckets within the grid)")
+    for name in ("prewarm", "first_synthesize", "second_synthesize"):
+        launches[f"kokoro_prewarm_{name}"] = warm[name]["launches"]
+    print(f"phase 14 prewarm: Kokoro-82M prewarm(max_phonemes={PREWARM_MAX_PHONEMES}) in a "
+          f"fresh process: {warm['prewarm']['issued']} stage calls in "
+          f"{warm['prewarm']['s']:.3f} s, {warm['prewarm']['libraries_loaded']} kernel "
+          f"libraries loaded, launches {json.dumps(warm['prewarm']['launches'])}; then a "
+          f"novel length ({p_bucket} phoneme, {f_bucket} frame bucket): first synthesize "
+          f"{first['s']:.4f} s ({first['libraries_loaded']} libraries loaded, launches "
+          f"{json.dumps(first['launches'])}), second {warm['second_synthesize']['s']:.4f} s"
+          f"; the model's load {warm['load_s']:.3f} s, the process's work after its release "
+          f"{warm['released_s']:.1f} s; on {gpu_line()}", flush=True)
+    return warm
+
+
 # ---------------------------------------------------------------------------
 # phase 15: one speech-to-speech session: /ws/sts, --prewarm and WebRTC
 # ---------------------------------------------------------------------------
@@ -6728,7 +6950,7 @@ QWEN25_05B_CONFIG = {"model_type": "qwen2", "hidden_size": 896, "intermediate_si
                      "num_key_value_heads": 2, "rms_norm_eps": 1e-6,
                      "rope_theta": 1_000_000.0, "tie_word_embeddings": True,
                      "vocab_size": 151_936, "max_position_embeddings": 32_768}
-STS_TURNS = 3  # /ws/sts turns; then one through the WebRTC bridge
+STS_TURNS = 2  # /ws/sts turns; then one through the WebRTC bridge
 STS_UTT_SECONDS = 2.0  # each turn's utterance
 STS_FRAME_SECONDS = 0.15  # the client's silence frames, sent in real time
 STS_ENDPOINT_SECONDS = 1.2  # the client's endpointing window before "flush"
@@ -7058,8 +7280,10 @@ def sts_session_runs(launches: dict, ckpts: dict, voice: str, tmp: Path) -> dict
         issued = server.prewarm(state)
         torch.cuda.synchronize()
         prewarm_s = time.perf_counter() - t0
-        if issued != 3:
-            fail(f"--prewarm: {issued} calls, not one a stage (synthesis, STT, chat)")
+        want = prewarm_grid_calls(128) + 1 + len(vp.VoicePipeline.PREWARM_STT_SECONDS)
+        if issued != want:
+            fail(f"--prewarm: {issued} calls, not {want} (Kokoro's stage grid at 128 "
+                 "phonemes, a chat turn, the STT lengths)")
         spoken.clear()
 
         async def session():
@@ -7194,12 +7418,13 @@ def sts_session_runs(launches: dict, ckpts: dict, voice: str, tmp: Path) -> dict
     for i, row in enumerate(per_turn):
         label = "WebRTC bridge turn" if i == STS_TURNS else f"/ws/sts turn {i}"
         print(f"sts {label}: {json.dumps(row)}; on {card}", flush=True)
-    print(f"sts session: prewarm (3 calls) {prewarm_s:.3f} s; built in {build_s:.1f} s; "
+    print(f"sts session: prewarm ({issued} calls) {prewarm_s:.3f} s; built in {build_s:.1f} s; "
           f"chunks {'bit for bit' if exact else f'within {err:.3e}'} a direct generate's; "
           f"replies equal a direct respond_stream's; bridge audio {bridge_err:.3e} from a "
           f"direct generate resampled; peak memory {peak:.2f} GB; a direct synthesis "
           f"launches {json.dumps(per_synthesis)}; on {card}", flush=True)
-    return {"prewarm_s": prewarm_s, "build_s": build_s, "turns": per_turn,
+    return {"prewarm_s": prewarm_s, "prewarm_calls": issued, "build_s": build_s,
+            "turns": per_turn,
             "chunks_exact": exact, "chunk_max_abs": err, "bridge_max_abs": bridge_err,
             "chat_against_float32": tf, "conv_path_err": conv_err, "lstm_path_err": lstm_err,
             "path_shapes": path_shapes, "per_synthesis": per_synthesis,
@@ -7595,8 +7820,7 @@ def silentcipher_runs(csm: dict, tmp: Path) -> dict:
         fail("silentcipher: the watermarked CSM output is not finite or changed length")
 
     cfg = wm.cfg
-    cpu = SilentCipherModel(cfg, device="cpu")
-    cpu.load_state_dict({k: t.cpu() for k, t in wm.state_dict().items()})
+    cpu = cpu_twin(lambda: SilentCipherModel(cfg, device="cpu"), wm)
     clip = (np.random.default_rng(17).standard_normal(int(MIMI_SECONDS * 44_100)) * 0.1
             ).astype(np.float32)
     out = {"verify": bool(verified), "csm_watermark_s": mark_s,
@@ -7693,8 +7917,7 @@ def s3_runs(launches: dict, tmp: Path) -> dict:
         want = {"dilated_conv1d": 1} if run_name == "s3_v1_encode" else {}
         _check_only(run_name, launches[run_name], want)
         encode_ms = _timed(lambda: tok.quantize(mel, mel_len)) * 1e3
-        cpu = cls(name, device="cpu")
-        cpu.load_state_dict({k: t.cpu() for k, t in tok.state_dict().items()})
+        cpu = cpu_twin(lambda: cls(name, device="cpu"), tok)
         with torch.no_grad():
             hidden, lens_cpu = cpu.encoder(mel_cpu, len_cpu)
             codes_cpu = cpu.quantizer.encode(hidden)
@@ -7800,21 +8023,22 @@ def csm_mesh_runs(model, launches: dict) -> dict:
     return out
 
 
-def kokoro_mesh_runs(launches: dict, kdir: str, voice: str) -> dict:
+def kokoro_mesh_runs(launches: dict, kdir: str, voice: str, workers: tuple) -> dict:
     """Kokoro-82M from phase 14's native checkpoint: ``synthesize_batch`` of
     the 8 SERVE_TEXTS under no mesh and under dp=MESH_KOKORO_DP over
     [cuda:0] * 4: durations equal, each row held to the unsharded run's
     past SERVE_HEAD by phase 14's row bounds; every conv and lstm launch of
     the dp run held to its plain version on its operands; the dp run
     launches each kernel MESH_KOKORO_DP times as often as the unsharded run
-    (each replica runs a whole synthesis of its rows)."""
+    (each replica runs a whole synthesis of its rows).  Then the same
+    batch over MESH_PROCESSES processes (``kokoro_process_runs``, the
+    ``workers`` that ``start_process_workers`` started)."""
     from mlx_audio_tpu_torch.nn import kernels
     from mlx_audio_tpu_torch.parallel.context import activate_mesh, deactivate_mesh
     from mlx_audio_tpu_torch.utils.loader import load_model
 
     model = load_model(kdir, device="cuda")
-    pack = np.load(voice)
-    refs = np.stack([pack[min(len(p), pack.shape[0]) - 1].reshape(-1) for p in SERVE_TEXTS])
+    refs = _serve_refs(voice)
     wall, outs = {}, {}
     run = path_runner(launches, wall)
     for name, spec in (("mesh_kokoro_none", None), ("mesh_kokoro_dp4", f"dp={MESH_KOKORO_DP}")):
@@ -7857,7 +8081,9 @@ def kokoro_mesh_runs(launches: dict, kdir: str, voice: str) -> dict:
     audio_s = sum(a.shape[0] for a, _ in base) / model.sample_rate
     del model
     torch.cuda.empty_cache()
+    processes = kokoro_process_runs(launches, workers, base, wall["mesh_kokoro_none"])
     out = {"wall_s": dict(wall), "audio_s": audio_s, "rows_past_head": row_err,
+           "processes": processes,
            "conv_path_err": conv_err, "lstm_path_err": lstm_err,
            "path_shapes": {**_per_kernel(conv_calls), "lstm": len(lstm_calls)},
            "launches": {k: launches[k] for k in ("mesh_kokoro_none", "mesh_kokoro_dp4")}}
@@ -7867,6 +8093,147 @@ def kokoro_mesh_runs(launches: dict, kdir: str, voice: str) -> dict:
           f"{SERVE_ROW_ATOL} {max(e['over_atol'] for e in row_err)}; launches "
           f"{json.dumps({k: {n: launches[k][n] for n in KOKORO_KERNELS} for k in out['launches']})}"
           f"; wall s {json.dumps(wall)} for {audio_s:.1f} audio-s", flush=True)
+    return out
+
+
+MESH_PROCESSES = 2
+MESH_PROCESS_TIMEOUT_S = 300
+
+
+def _serve_refs(voice: str) -> np.ndarray:
+    """The voice-pack references of the 8 SERVE_TEXTS, as
+    ``synthesize_batch`` takes them."""
+    pack = np.load(voice)
+    return np.stack([pack[min(len(p), pack.shape[0]) - 1].reshape(-1) for p in SERVE_TEXTS])
+
+
+def kokoro_process_worker(go: str, ready: str, kdir: str, voice: str, tmp: str,
+                          pid: str) -> None:
+    """One of MESH_PROCESSES processes of phase 17's two-process step.
+    Before its release it imports the port and joins the gloo group through
+    a FileStore in ``tmp`` with [cuda:0] as its device.  Then it loads
+    phase 14's checkpoint, warms up with the shortest of SERVE_TEXTS
+    alone (this process's first use of the kernel libraries, cuBLAS and
+    cuDNN), activates the mesh over the group (``activate_mesh()``: dp =
+    MESH_PROCESSES, a data row a process) and calls ``synthesize_batch`` on
+    the 8 SERVE_TEXTS once: the port runs this process's rows and gathers
+    every row from the group.  Writes its wall seconds, launches, rows and
+    every row's durations and audio to ``tmp``."""
+    from mlx_audio_tpu_torch.nn import kernels
+    from mlx_audio_tpu_torch.parallel import distributed
+    from mlx_audio_tpu_torch.parallel.context import activate_mesh, deactivate_mesh
+    from mlx_audio_tpu_torch.utils.loader import load_model
+
+    pid = int(pid)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(MESH_PROCESSES, pid,
+                           store=torch.distributed.FileStore(f"{tmp}/store", MESH_PROCESSES),
+                           local_devices=[torch.device("cuda", 0)])
+    hold(go, ready)
+    t0 = time.perf_counter()
+    model = load_model(kdir, device="cuda")
+    refs = _serve_refs(voice)
+    short = SERVE_TEXTS.index(min(SERVE_TEXTS, key=len))
+    with torch.no_grad():
+        model.synthesize(SERVE_TEXTS[short], refs[short], speed=float(SERVE_SPEED))
+        torch.cuda.synchronize()
+        set_up_s = time.perf_counter() - t0
+        ctx = activate_mesh()
+        try:
+            torch.distributed.barrier()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            outs = model.synthesize_batch(SERVE_TEXTS, refs, speeds=float(SERVE_SPEED))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            deactivate_mesh()
+    slices = ctx.row_slices(ctx.pad_rows(len(SERVE_TEXTS)))
+    own = [slices[r] for r in ctx.own_rows()]
+    np.savez(f"{tmp}/rows{pid}.npz", **{f"audio{i}": a for i, (a, _) in enumerate(outs)},
+             **{f"dur{i}": d for i, (_, d) in enumerate(outs)})
+    with open(f"{tmp}/proc{pid}.json", "w") as f:
+        json.dump({"wall_s": wall, "load_and_warm_s": set_up_s,
+                   "rows": [own[0][0], own[-1][1]], "dp": ctx.dp,
+                   "processes": ctx.processes,
+                   "mesh": [list(ctx.mesh.devices.shape), ctx.mesh.processes.tolist()],
+                   "launches": {k: kernels.LAUNCHES[k] for k in KOKORO_KERNELS}}, f)
+    distributed.shutdown()
+
+
+def start_process_workers(kdir: str, voice: str, tmp: Path) -> tuple:
+    """Start phase 17's MESH_PROCESSES ``kokoro_process_worker`` processes
+    (at phase 13's start); they join their group, then wait for
+    ``kokoro_process_runs`` to release them."""
+    work = tmp / "processes"
+    work.mkdir()
+    started = [start_worker("kokoro_process_worker", [kdir, voice, work, pid], work / "go",
+                            work / f"log{pid}") for pid in range(MESH_PROCESSES)]
+    return [proc for proc, _ in started], [ready for _, ready in started], work
+
+
+def kokoro_process_runs(launches: dict, workers: tuple, base: list,
+                        base_wall: float) -> dict:
+    """Phase 17's two-process step: release the MESH_PROCESSES processes of
+    ``kokoro_process_worker`` (``start_process_workers``), both on cuda:0,
+    the group over gloo (NCCL does not put two ranks on one card; its path
+    waits for a host with a card a process).  Each process's
+    ``synthesize_batch`` returns every row: its durations must equal the
+    unsharded run's (``base``), each row its unsharded row within phase
+    14's row bounds past SERVE_HEAD, and the two processes' rows each
+    other's bit for bit; the processes own disjoint rows that cover the
+    batch, and each launches every Kokoro kernel.  Prints each process's
+    wall seconds against the unsharded run's."""
+    procs, _, work = workers
+    t0 = time.perf_counter()
+    join_workers(f"kokoro over {MESH_PROCESSES} processes", procs, work / "go",
+                 [work / f"log{pid}" for pid in range(MESH_PROCESSES)], MESH_PROCESS_TIMEOUT_S)
+    recs = [json.loads((work / f"proc{pid}.json").read_text()) for pid in range(MESH_PROCESSES)]
+    rows = [np.load(work / f"rows{pid}.npz") for pid in range(MESH_PROCESSES)]
+    row_err = []
+    for i, (a0, d0) in enumerate(base):
+        for pid, got in enumerate(rows):
+            a1 = got[f"audio{i}"]
+            if not np.array_equal(got[f"dur{i}"], d0):
+                fail(f"kokoro process {pid}: row {i}'s durations differ from the unsharded run's")
+            if a1.shape != a0.shape or not np.isfinite(a1).all():
+                fail(f"kokoro process {pid} row {i}: {a1.shape} samples, unsharded {a0.shape}")
+            if pid and not np.array_equal(a1, rows[0][f"audio{i}"]):
+                fail(f"kokoro process {pid} row {i}: differs from process 0's row")
+        diff = np.abs(rows[0][f"audio{i}"][SERVE_HEAD:] - a0[SERVE_HEAD:])
+        row_err.append({"max_abs": float(diff.max()),
+                        "over_atol": int((diff > SERVE_ROW_ATOL).sum()),
+                        "rel_rms": rel_rms(torch.from_numpy(rows[0][f"audio{i}"][SERVE_HEAD:]),
+                                           torch.from_numpy(a0[SERVE_HEAD:]))})
+    for pid, rec in enumerate(recs):
+        if not all(rec["launches"].values()) or rec["processes"] != MESH_PROCESSES:
+            fail(f"kokoro process {pid}: launches {rec['launches']}, processes "
+                 f"{rec['processes']}")
+        launches[f"mesh_kokoro_process{pid}"] = rec["launches"]
+    if sorted(r for rec in recs for r in range(*rec["rows"])) != list(range(len(SERVE_TEXTS))):
+        fail(f"kokoro over {MESH_PROCESSES} processes: rows {[r['rows'] for r in recs]}")
+    if any(e["over_atol"] > SERVE_FLIP_SAMPLES or e["max_abs"] > SERVE_FLIP_MAX_ABS
+           or e["rel_rms"] > SERVE_ROW_REL_RMS for e in row_err):
+        fail(f"kokoro over {MESH_PROCESSES} processes: rows against the unsharded run past "
+             f"sample {SERVE_HEAD}: {row_err}")
+    out = {"process_wall_s": [r["wall_s"] for r in recs],
+           "process_load_and_warm_s": [r["load_and_warm_s"] for r in recs],
+           "unsharded_wall_s": base_wall,
+           "total_s": time.perf_counter() - t0, "rows": [r["rows"] for r in recs],
+           "mesh": recs[0]["mesh"],
+           "launches": [r["launches"] for r in recs], "rows_past_head": row_err}
+    print(f"phase 17 kokoro over {MESH_PROCESSES} processes (gloo, both on cuda:0; the NCCL "
+          f"path waits for a host with a card a process): synthesize_batch under "
+          f"activate_mesh() over the group, mesh {recs[0]['mesh']}, rows {out['rows']}; "
+          f"every process returns every row, durations equal the unsharded run's, rows "
+          f"within phase 14's row bounds past sample {SERVE_HEAD} (relative RMS "
+          f"{max(e['rel_rms'] for e in row_err):.3e}, max_abs "
+          f"{max(e['max_abs'] for e in row_err):.3e}); wall s "
+          f"{', '.join(f'{w:.4f}' for w in out['process_wall_s'])} (after a one-row warm-up; "
+          f"load and warm-up {', '.join(f'{w:.2f}' for w in out['process_load_and_warm_s'])}) "
+          f"against the unsharded run's {base_wall:.4f}; launches a process "
+          f"{json.dumps(out['launches'])}; the step took {out['total_s']:.1f} s", flush=True)
     return out
 
 
@@ -7920,11 +8287,12 @@ def server_mesh_run(launches: dict, kdir: str, voice: str, tmp: Path) -> dict:
     return {"wall_s": wall["mesh_serve_tts"], "max_abs_diff": err}
 
 
-def mesh_runs(launches: dict, csm, kdir: str, voice: str, tmp: Path) -> dict:
-    """Phase 17: the mesh on one card (CSM-1B, Kokoro-82M, the server)."""
+def mesh_runs(launches: dict, csm, kdir: str, voice: str, tmp: Path, workers: tuple) -> dict:
+    """Phase 17: the mesh on one card (CSM-1B, Kokoro-82M, the server).
+    The two-process step's ``workers`` were started and set up before."""
     t0 = time.perf_counter()
     out = {"csm": csm_mesh_runs(csm, launches),
-           "kokoro": kokoro_mesh_runs(launches, kdir, voice),
+           "kokoro": kokoro_mesh_runs(launches, kdir, voice, workers),
            "server": server_mesh_run(launches, kdir, voice, tmp)}
     out["seconds"] = time.perf_counter() - t0
     return out
@@ -8701,13 +9069,28 @@ def main() -> int:
           f"took {time.perf_counter() - t12:.1f} s; "
           f"on {card}", flush=True)
 
-    # phase 13: Kokoro-82M in bf16 at bench.py's shape and dtype
+    # phase 13: Kokoro-82M in bf16 at bench.py's shape and dtype; phases
+    # 14 and 17's workers start, in phases 14-17's directory, and set up
+    # beside its path checks; its bench waits for them, so that their
+    # start-up overlaps no timed work
     phase_start(13)
     t13 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        voice = str(Path(tmp) / "voice.npy")
-        np.save(voice, pack.astype(np.float32))
-        kokoro_bf16 = kokoro_bf16_runs(launches, bench, voice)
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    voice = str(Path(tmp) / "voice.npy")
+    np.save(voice, pack.astype(np.float32))
+    kdir = str(Path(tmp) / "Kokoro-82M")
+    workers = {"prewarm": start_prewarm_worker(kdir, voice, Path(tmp)),
+               "processes": start_process_workers(kdir, voice, Path(tmp))}
+    (proc, paths), (procs, readies, work) = workers["prewarm"], workers["processes"]
+    ready = {}
+
+    def wait_workers():
+        ready["wait_s"] = wait_ready([(proc, paths["ready"], paths["log"])]
+                                     + [(p, r, work / f"log{i}") for i, (p, r) in
+                                        enumerate(zip(procs, readies))], WORKER_READY_S)
+
+    kokoro_bf16 = kokoro_bf16_runs(launches, bench, voice, wait_workers)
     torch.cuda.empty_cache()
     bf16_per_call = {k: v // kokoro_bf16["bench"]["calls"]
                      for k, v in launches["kokoro_bf16_bench"].items()}
@@ -8719,10 +9102,10 @@ def main() -> int:
     # phase 14: the entry points: native checkpoints, the TTS CLI, the server
     phase_start(14)
     t14 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        voice = str(Path(tmp) / "voice.npy")
-        np.save(voice, pack.astype(np.float32))
+    with tmp_dir:
         entry_out, ckpts = entry_point_runs(launches, per_call, voice, Path(tmp))
+        entry_out["prewarm"] = kokoro_prewarm_runs(launches, workers["prewarm"])
+        entry_out["workers_ready_wait_s"] = ready["wait_s"]
         phase14 = {k: launches[k] for k in launches if k.startswith("serve_")}
         print(f"phase 14 launches: {json.dumps(phase14)}; entry points "
               f"{json.dumps(entry_out)}; phase 14 took {time.perf_counter() - t14:.1f} s; "
@@ -8754,8 +9137,7 @@ def main() -> int:
         # phase 17: the mesh on one card: phase 16's CSM-1B and phase 14's
         # Kokoro-82M checkpoint sharded over [cuda:0] x 4, the server's --mesh
         phase_start(17)
-        mesh = mesh_runs(launches, csm_model, str(Path(tmp) / "Kokoro-82M"), voice,
-                         Path(tmp))
+        mesh = mesh_runs(launches, csm_model, kdir, voice, Path(tmp), workers["processes"])
         phase17 = {k: launches[k] for k in MESH_RUNS}
         print(f"phase 17 launches: {json.dumps(phase17)}; mesh {json.dumps(mesh)}; "
               f"phase 17 took {mesh['seconds']:.1f} s; on {card}", flush=True)
@@ -8926,6 +9308,9 @@ def main() -> int:
         elif name in KOKORO_KERNELS:
             kok = mesh["kokoro"]
             entry["launches_mesh_kokoro_dp4"] = launches["mesh_kokoro_dp4"][name]
+            entry["launches_mesh_kokoro_processes"] = [
+                launches[f"mesh_kokoro_process{p}"][name] for p in range(MESH_PROCESSES)]
+            entry["launches_kokoro_prewarm"] = launches["kokoro_prewarm_prewarm"][name]
             entry["max_abs_err"] = max(entry["max_abs_err"], kok["lstm_path_err"]
                                        if name == "lstm" else kok["conv_path_err"][name])
     # the speech-to-speech session's launches a turn (the last through the

@@ -18,5 +18,14 @@ Spark-TTS; Wav2Vec2, Whisper, Voxtral and Parakeet speech to text
 BigVGAN vocoders (``codec``); audio file I/O (``utils.audio_io``); the
 depth-draft probes (``mlx_audio_tpu_torch.scripts.probe_depth``); and the
 device mesh (``parallel``: data- and tensor-parallel placements that every
-batched entry point consults, and the CLIs' and the server's ``--mesh``).
+batched entry point consults, the CLIs' and the server's ``--mesh``, and a
+mesh over several processes through ``parallel.distributed``).  The
+package exports what the JAX package's does.
 """
+
+__version__ = "0.1.0"
+
+from mlx_audio_tpu_torch import dsp
+from mlx_audio_tpu_torch.dsp import istft, mel_filters, stft
+
+__all__ = ["dsp", "stft", "istft", "mel_filters", "__version__"]

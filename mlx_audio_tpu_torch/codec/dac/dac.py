@@ -200,11 +200,17 @@ class VectorQuantize(nn.Module):
         self.out_proj = WNConv1d(codebook_dim, input_dim, kernel_size=1)
         self.codebook = Embedding(codebook_size, codebook_dim)
 
+    def decode_latents(self, z_e):
+        """z_e [B, T, D] -> (z_q [B, T, D], indices [B, T]): the nearest
+        codebook rows after L2 normalisation."""
+        indices = nearest_code(z_e, self.codebook.weight)
+        return self.codebook(indices), indices
+
     def forward(self, z):
         """z [B, T, input_dim] -> (z_q, indices [B, T], z_e)."""
         z_e = self.in_proj(z)
-        indices = nearest_code(z_e, self.codebook.weight)
-        return self.out_proj(self.codebook(indices)), indices, z_e
+        z_q, indices = self.decode_latents(z_e)
+        return self.out_proj(z_q), indices, z_e
 
     def decode_code(self, indices):
         """A code outside the codebook decodes to NaN, as the JAX package's

@@ -2,17 +2,19 @@
 local-path branch of ``mlx_audio_tpu/codec/loading.py``).
 
 A checkpoint directory holds ``config.json`` and one or more
-``*.safetensors`` files; ``load_weights_files`` is the port's copy of the
-shard-collecting helper of ``mlx_audio_tpu/utils/loader.py``.  Nothing is
-fetched: a path that does not exist raises.  ``safetensors`` is imported
-only when weights are read.
+``*.safetensors`` files, which ``load_safetensors`` reads through
+``utils.loader.load_weights_files``.  Nothing is fetched: a path that does
+not exist raises.  ``safetensors`` is imported only when weights are
+read.
 """
 
 from __future__ import annotations
 
-import glob
 import json
 from pathlib import Path
+from typing import Optional
+
+from mlx_audio_tpu_torch.utils.loader import load_weights_files
 
 
 def checkpoint_dir(path: str) -> Path:
@@ -30,17 +32,11 @@ def load_config(path: Path) -> dict:
         return json.load(f)
 
 
-def load_weights_files(path: Path) -> dict:
-    """numpy weights of every ``*.safetensors`` in ``path`` (HF shard
-    layouts), else in ``path/LLM``."""
-    from safetensors.numpy import load_file
+def load_safetensors(path: Path, filename: Optional[str] = None) -> dict:
+    """numpy weights of ``path/filename``, or of every ``*.safetensors`` in
+    the directory ``path`` (HF shard layouts)."""
+    if filename is not None:
+        from safetensors.numpy import load_file
 
-    files = glob.glob(str(path / "*.safetensors"))
-    if not files:
-        files = glob.glob(str(path / "LLM" / "*.safetensors"))
-    if not files:
-        raise FileNotFoundError(f"No safetensors found in {path}")
-    weights = {}
-    for f in files:
-        weights.update(load_file(f))
-    return weights
+        return load_file(str(Path(path) / filename))
+    return load_weights_files(Path(path))

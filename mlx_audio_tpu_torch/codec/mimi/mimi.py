@@ -162,6 +162,16 @@ class Mimi(nn.Module):
         x = self.decoder_transformer(x)[0]
         return self.decoder(x).transpose(1, 2)
 
+    def warmup(self) -> None:
+        """Encode, then decode, 4 frames of silence on the model's device,
+        and wait for the device: the first use of its kernels and library
+        handles before a stream starts."""
+        device = next(self.parameters()).device
+        pcm = torch.zeros((1, 1, self.samples_per_frame * 4), device=device)
+        self.decode(self.encode(pcm))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
     # -- streaming ---------------------------------------------------------
 
     def init_state(self, batch: int, dtype=torch.float32) -> MimiState:

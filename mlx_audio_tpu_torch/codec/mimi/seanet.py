@@ -35,6 +35,10 @@ class SeanetConfig:
     compress: int
 
 
+def elu(x: torch.Tensor) -> torch.Tensor:
+    return F.elu(x, alpha=1.0)
+
+
 class SeanetResnetBlock(nn.Module):
     def __init__(self, cfg: SeanetConfig, dim: int, ksizes_and_dilations: list):
         super().__init__()
@@ -52,7 +56,7 @@ class SeanetResnetBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         residual = x
         for conv in self.block:
-            x = conv(F.elu(x))
+            x = conv(elu(x))
         return x + (residual if self.shortcut is None else self.shortcut(residual))
 
     def init_state(self, batch: int, dtype=torch.float32) -> dict:
@@ -65,7 +69,7 @@ class SeanetResnetBlock(nn.Module):
         residual = x
         new_block = []
         for conv, s in zip(self.block, state["block"]):
-            x, s = conv.step(s, F.elu(x))
+            x, s = conv.step(s, elu(x))
             new_block.append(s)
         new_state = {"block": new_block}
         if self.shortcut is None:
@@ -91,7 +95,7 @@ class EncoderLayer(nn.Module):
     def forward(self, x):
         for r in self.residuals:
             x = r(x)
-        return self.downsample(F.elu(x))
+        return self.downsample(elu(x))
 
     def init_state(self, batch: int, dtype=torch.float32) -> dict:
         return {"residuals": [r.init_state(batch, dtype) for r in self.residuals],
@@ -102,7 +106,7 @@ class EncoderLayer(nn.Module):
         for r, s in zip(self.residuals, state["residuals"]):
             x, s = r.step(s, x)
             rs.append(s)
-        x, ds = self.downsample.step(state["downsample"], F.elu(x))
+        x, ds = self.downsample.step(state["downsample"], elu(x))
         return x, {"residuals": rs, "downsample": ds}
 
 
@@ -123,7 +127,7 @@ class SeanetEncoder(nn.Module):
         x = self.init_conv1d(x)
         for layer in self.layers:
             x = layer(x)
-        return self.final_conv1d(F.elu(x))
+        return self.final_conv1d(elu(x))
 
     def init_state(self, batch: int, dtype=torch.float32) -> dict:
         return {"init": self.init_conv1d.init_state(batch, dtype),
@@ -136,7 +140,7 @@ class SeanetEncoder(nn.Module):
         for layer, s in zip(self.layers, state["layers"]):
             x, s = layer.step(s, x)
             ls.append(s)
-        x, sf = self.final_conv1d.step(state["final"], F.elu(x))
+        x, sf = self.final_conv1d.step(state["final"], elu(x))
         return x, {"init": si, "layers": ls, "final": sf}
 
 
@@ -149,7 +153,7 @@ class DecoderLayer(nn.Module):
         self.residuals = _residuals(cfg, mult * cfg.nfilters // 2)
 
     def forward(self, x):
-        x = self.upsample(F.elu(x))
+        x = self.upsample(elu(x))
         for r in self.residuals:
             x = r(x)
         return x
@@ -159,7 +163,7 @@ class DecoderLayer(nn.Module):
                 "residuals": [r.init_state(batch, dtype) for r in self.residuals]}
 
     def step(self, state: dict, x: torch.Tensor):
-        x, us = self.upsample.step(state["upsample"], F.elu(x))
+        x, us = self.upsample.step(state["upsample"], elu(x))
         rs = []
         for r, s in zip(self.residuals, state["residuals"]):
             x, s = r.step(s, x)
@@ -184,7 +188,7 @@ class SeanetDecoder(nn.Module):
         x = self.init_conv1d(x)
         for layer in self.layers:
             x = layer(x)
-        return self.final_conv1d(F.elu(x))
+        return self.final_conv1d(elu(x))
 
     def init_state(self, batch: int, dtype=torch.float32) -> dict:
         return {"init": self.init_conv1d.init_state(batch, dtype),
@@ -197,5 +201,5 @@ class SeanetDecoder(nn.Module):
         for layer, s in zip(self.layers, state["layers"]):
             x, s = layer.step(s, x)
             ls.append(s)
-        x, sf = self.final_conv1d.step(state["final"], F.elu(x))
+        x, sf = self.final_conv1d.step(state["final"], elu(x))
         return x, {"init": si, "layers": ls, "final": sf}

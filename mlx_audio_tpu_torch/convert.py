@@ -25,8 +25,8 @@ module of the port ``module`` that owns it, not its path or its rank: a
 conv (``Conv1d``, grouped ones such as Vocos's depthwise ``dwconv`` too,
 ``WNConv1d``, ``StreamableConv1d``, EnCodec's ``EncodecConv1d``, and
 wav2vec2's ``PositionalConvEmbedding``, whose ``g`` is per tap) or a
-transposed conv (``WNConvTranspose1d``, the depthwise one of Spark's
-``SamplingBlock`` too, ``StreamableConvTranspose1d``, EnCodec's
+transposed conv (``ConvTranspose1d``, ``WNConvTranspose1d``, the depthwise
+one of Spark's ``SamplingBlock`` too, ``StreamableConvTranspose1d``, EnCodec's
 ``EncodecConvTranspose1d``; DAC's sits at ``decoder.model.N.block.1`` and
 SNAC's at ``decoder.blocks.i.pre.1``).
 A 4-d ``weight`` moves when its owner is ``nn.layers.Conv2d``.  The sinusoid table ``pe`` that IndexTTS's
@@ -65,6 +65,7 @@ def conv_kinds(module: nn.Module) -> dict[str, str]:
     from mlx_audio_tpu_torch.nn.layers import (
         Conv1d,
         Conv2d,
+        ConvTranspose1d,
         WNConv1d,
         WNConvTranspose1d,
     )
@@ -79,8 +80,8 @@ def conv_kinds(module: nn.Module) -> dict[str, str]:
             kinds[name] = "conv"
         elif isinstance(m, PositionalConvEmbedding):
             kinds[name] = "conv_tap"
-        elif isinstance(m, (WNConvTranspose1d, StreamableConvTranspose1d,
-                            EncodecConvTranspose1d)):
+        elif isinstance(m, (ConvTranspose1d, WNConvTranspose1d,
+                            StreamableConvTranspose1d, EncodecConvTranspose1d)):
             kinds[name] = "convt"
         elif isinstance(m, Conv2d):
             kinds[name] = "conv2d"

@@ -1,12 +1,11 @@
 """DSP core for the port: windows, STFT/ISTFT as matmul-DFT, overlap-add, and
 the mel filterbank.
 
-Counterpart of the parts of ``mlx_audio_tpu/dsp.py`` that the ported
-families use.  The
-STFT is the same matmul against a windowed real-DFT basis (built in float64
-numpy, applied in float32), and the ISTFT the same window-sum normalised
-overlap-add with the same trims, so the port rounds where the reference
-does.
+Counterpart of ``mlx_audio_tpu/dsp.py``: the same windows (symmetric, or
+DFT-even as ``<name>_periodic``), the same STFT, a matmul against a
+windowed real-DFT basis (built in float64 numpy, applied in float32), and
+the ISTFT the same window-sum normalised overlap-add with the same trims,
+so the port rounds where the reference does.
 """
 
 from __future__ import annotations
@@ -32,7 +31,33 @@ def _window_np(name: str, size: int) -> np.ndarray:
         return 0.5 * (1 - np.cos(2 * np.pi * n / (size - 1)))
     if name == "hamming":
         return 0.54 - 0.46 * np.cos(2 * np.pi * n / (size - 1))
+    if name == "blackman":
+        return (0.42 - 0.5 * np.cos(2 * np.pi * n / (size - 1))
+                + 0.08 * np.cos(4 * np.pi * n / (size - 1)))
+    if name == "bartlett":
+        return 1 - 2 * np.abs(n - (size - 1) / 2) / (size - 1)
     raise ValueError(f"Unknown window function: {name}")
+
+
+def _window(name: str, size: int, device) -> torch.Tensor:
+    return torch.tensor(_window_np(name, size), dtype=torch.float32, device=device)
+
+
+def hanning(size: int, device=None) -> torch.Tensor:
+    """The symmetric Hann window, float32 on ``device``."""
+    return _window("hann", size, device)
+
+
+def hamming(size: int, device=None) -> torch.Tensor:
+    return _window("hamming", size, device)
+
+
+def blackman(size: int, device=None) -> torch.Tensor:
+    return _window("blackman", size, device)
+
+
+def bartlett(size: int, device=None) -> torch.Tensor:
+    return _window("bartlett", size, device)
 
 
 def get_window(window: Union[str, np.ndarray], size: int) -> np.ndarray:

@@ -64,6 +64,23 @@ def check_array_shape(arr) -> bool:
     return (out_channels >= kh) and (out_channels >= kw) and (kh == kw)
 
 
+def adjust_speed(audio: torch.Tensor, speed_factor: float) -> torch.Tensor:
+    """Speed change by linear resampling along the first axis: ``audio``
+    [T, ...] -> [int(T / speed_factor), ...] (the JAX package's
+    ``adjust_speed``; the positions and weights computed in float64 numpy
+    as there, the weights applied in float32)."""
+    audio = torch.as_tensor(audio)
+    old_length = audio.shape[0]
+    new_idx = np.linspace(0, old_length - 1, int(old_length / speed_factor))
+    lo = np.floor(new_idx).astype(np.int64)
+    hi = np.minimum(lo + 1, old_length - 1)
+    shape = (-1,) + (1,) * (audio.ndim - 1)
+    w_hi = torch.tensor((new_idx - lo).astype(np.float32),
+                        device=audio.device).reshape(shape)
+    lo, hi = torch.as_tensor(lo, device=audio.device), torch.as_tensor(hi, device=audio.device)
+    return (1.0 - w_hi) * audio[lo] + w_hi * audio[hi]
+
+
 @dataclass
 class GenerationResult:
     """Per-segment TTS output + metrics."""

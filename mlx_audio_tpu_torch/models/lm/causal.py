@@ -36,6 +36,7 @@ from torch import nn
 
 from mlx_audio_tpu_torch.models.lm.llama import LlamaConfig, LlamaModel, lm_dtype
 from mlx_audio_tpu_torch.models.sampling import (
+    apply_repetition_penalty,
     call_seed,
     row_offset,
     sample_top_k_rows,
@@ -78,17 +79,6 @@ def _sample(logits, temperature, top_k, top_p, generator):
     return sample_top_k_rows(logits, temperature, top_k, seed)
 
 
-def _penalize(logits, window, penalty: torch.Tensor):
-    """Logits of the tokens in window [B, R] (-1 = empty) divided by the
-    penalty where positive, multiplied where not."""
-    b, v = logits.shape
-    hist = torch.where(window < 0, v, window).long()
-    seen = torch.zeros((b, v + 1), dtype=torch.bool, device=logits.device)
-    seen.scatter_(1, hist, True)
-    penalized = torch.where(logits > 0, logits / penalty, logits * penalty)
-    return torch.where(seen[:, :v], penalized, logits)
-
-
 @torch.no_grad()
 def _prefill(model, caches, pad_len, prompt):
     h, caches = model.model.prefill(caches, prompt, pad_len)
@@ -106,7 +96,7 @@ def _decode_chunk(model, caches, pad_len, last, window, n, temperature, top_k,
         h, _ = model.model.step(caches, last[:, None], pad_len)
         logits = model.logits(h[:, -1]).float()
         if penalty is not None:
-            logits = _penalize(logits, window, penalty)
+            logits = apply_repetition_penalty(logits, window, penalty)
         last = _sample(logits, temperature, top_k, top_p, generator)
         window = torch.cat([window[:, 1:], last[:, None]], dim=1)
         toks.append(last)

@@ -107,6 +107,36 @@ def sample_top_p(logits: torch.Tensor, temp: float = 1.0, top_p: float = 1.0,
     return _categorical(logits, generator, noise)
 
 
+def make_sampler(temp: float = 1.0, top_k: int = 0, top_p: float = 1.0):
+    """``sampler(logits, generator=None, noise=None) -> tokens``: nucleus
+    sampling when ``top_p < 1``, else top-k (mlx_lm's factory, as the JAX
+    package's ``make_sampler``, with torch's draws in place of a key)."""
+    if top_p < 1.0:
+        return lambda logits, generator=None, noise=None: sample_top_p(
+            logits, temp, top_p, generator, noise)
+    return lambda logits, generator=None, noise=None: sample_top_k(
+        logits, temp, top_k, generator, noise)
+
+
+def apply_repetition_penalty(logits: torch.Tensor, history: torch.Tensor,
+                             penalty) -> torch.Tensor:
+    """Logits [..., V] with every token of ``history`` [..., H] (int, -1
+    pads) penalised: a positive logit divided by ``penalty``, a negative one
+    multiplied by it; a ``penalty`` of 1.0 returns ``logits``.  A float
+    penalty becomes a tensor first: CUDA divides by a Python scalar as a
+    multiplication by its reciprocal, which rounds otherwise."""
+    if not isinstance(penalty, torch.Tensor):
+        if penalty == 1.0:
+            return logits
+        penalty = torch.tensor(penalty, dtype=logits.dtype, device=logits.device)
+    v = logits.shape[-1]
+    hist = torch.where(history < 0, v, history).long()  # pads past the vocabulary
+    seen = torch.zeros((*hist.shape[:-1], v + 1), dtype=torch.bool,
+                       device=logits.device).scatter_(-1, hist, True)[..., :v]
+    penalized = torch.where(logits > 0, logits / penalty, logits * penalty)
+    return torch.where(seen, penalized, logits)
+
+
 def call_seed(generator: torch.Generator) -> int:
     """The seed of one sampling call: 62 random bits from a CPU generator
     (drawn on the host, so a decode loop does not wait for the card)."""

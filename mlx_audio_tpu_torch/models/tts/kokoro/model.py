@@ -17,11 +17,15 @@ duration stage on its slice at the whole batch's phoneme bucket, the frame
 bucket is picked from every real row, and each replica then synthesizes
 its slice at that bucket with its rows' own source draws, so a row computes
 as it does in the whole batch.  ``generate`` then synthesizes all its
-segments in that one batched pass.
+segments in that one batched pass.  When the mesh spans a process group
+(``parallel.distributed``), every process is given the whole batch, runs
+the data rows of its own devices, and gathers the durations (for the frame
+bucket) and the audio of every row from the group.
 """
 
 from __future__ import annotations
 
+import json
 import time
 from dataclasses import dataclass
 from typing import Dict, Iterator, Optional
@@ -221,10 +225,14 @@ class Model(nn.Module):
             models, slices = [self], [(0, b)]
         else:
             toks, ref_rows, speed_rows = (pad_list(dp, x) for x in (toks, ref_rows, speed_rows))
-            models, slices = dp.place_replicated(self), dp.row_slices(len(toks))
+            replicas, row_slices = dp.place_replicated(self), dp.row_slices(len(toks))
+            models = [replicas[r] for r in dp.own_rows()]
+            slices = [row_slices[r] for r in dp.own_rows()]
         stages = [m._duration_pass(toks[lo:hi], ref_rows[lo:hi], speed_rows[lo:hi], bucket)
                   for m, (lo, hi) in zip(models, slices)]
         pred_np = np.concatenate([st[3].cpu().numpy() for st in stages])
+        if dp is not None:
+            pred_np = dp.gather_rows(pred_np)
         totals = pred_np.sum(axis=1)
         f_bucket = pick_frame_bucket(int(totals[:b].max())) if buckets is None else buckets[1]
         audio = []
@@ -236,6 +244,8 @@ class Model(nn.Module):
             out, _ = synthesis_stage(m, *st, f_bucket, *draws, seed=seed)
             audio.append(out.float().cpu().numpy())
         audio_np = np.concatenate(audio)
+        if dp is not None:
+            audio_np = dp.gather_rows(audio_np)
         return [(audio_np[i, :int(totals[i]) * self.SAMPLES_PER_FRAME],
                  pred_np[i, :n_valid[i]]) for i in range(b)]
 
@@ -333,6 +343,54 @@ class Model(nn.Module):
                 segment_time=seg_time, device=self.device,
             )
 
+    # -- serving -----------------------------------------------------------
+
+    def prewarm(self, max_phonemes: int = 128, frames_per_phoneme: int = 3,
+                batch_sizes=(1,), generator: Optional[torch.Generator] = None) -> int:
+        """Run every stage shape a live request can reach before traffic
+        arrives: for each batch size, one ``duration_stage`` call a phoneme
+        bucket up to ``max_phonemes``'s, and one ``synthesis_stage`` call a
+        frame bucket up to ``frames_per_phoneme`` frames a phoneme of that
+        bucket (the JAX package's grid; pred_dur is at least 1, and real
+        speech sits near 2.5 frames a phoneme).  The dummy inputs have the
+        dtypes ``synthesize`` gives the stages; the source's draws come from
+        ``generator``, or, when it is None, from seed 0's row generators as
+        a ``synthesize`` draws them.
+
+        Eager PyTorch keeps no compiled graph a shape, so what this warms on
+        the card is a process's first use of each library: the first
+        ``build.load`` of each kernel the path launches (an ``nvcc`` build
+        when the build cache is cold), cuBLAS's and cuDNN's handles and
+        algorithm choices, and the caching allocator's growth to the
+        largest bucket.  Synchronizes the device at the end; returns the
+        number of stage calls."""
+        dev = self.device
+        harmonics = self.decoder.generator.m_source.l_sin_gen.dim
+        issued = 0
+        top = pick_phoneme_bucket(max_phonemes)
+        for b in batch_sizes:
+            for p in PHONEME_BUCKETS:
+                if p > top:
+                    break
+                input_ids = torch.zeros((b, p), dtype=torch.int64, device=dev)
+                lengths = torch.full((b,), p, dtype=torch.int64, device=dev)
+                ref_s = torch.zeros((b, 256), dtype=torch.float32, device=dev)
+                speed = torch.ones((b,), dtype=torch.float32, device=dev)
+                d, pred_dur = duration_stage(self, input_ids, lengths, ref_s[:, 128:], speed)
+                issued += 1
+                f_max = pick_frame_bucket(p * frames_per_phoneme)
+                for f in range(FRAME_BUCKET_STEP, f_max + 1, FRAME_BUCKET_STEP):
+                    draws = (None, None) if generator is None else (
+                        torch.randn((b, harmonics), generator=generator, device=dev),
+                        torch.randn((b, self.SAMPLES_PER_FRAME * f, harmonics),
+                                    generator=generator, device=dev))
+                    synthesis_stage(self, input_ids, lengths, d, pred_dur, ref_s, f,
+                                    *draws)
+                    issued += 1
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return issued
+
     # -- checkpoint loading ------------------------------------------------
 
     def sanitize(self, weights: dict) -> dict:
@@ -380,3 +438,11 @@ def sanitize(weights: dict) -> dict:
         else:
             out[key] = w
     return out
+
+
+def load_config(config_path_or_dict) -> ModelConfig:
+    """A ``ModelConfig`` from a dict or from a ``config.json`` path."""
+    if isinstance(config_path_or_dict, dict):
+        return ModelConfig.from_dict(config_path_or_dict)
+    with open(config_path_or_dict) as f:
+        return ModelConfig.from_dict(json.load(f))

@@ -58,6 +58,10 @@ class SamplingBlock(nn.Module):
                 padding=downsample_scale // 2 + downsample_scale % 2, groups=groups)
 
     @staticmethod
+    def repeat_upsampler(x, scale):
+        return torch.repeat_interleave(x, scale, dim=1)
+
+    @staticmethod
     def skip_downsampler(x, scale):
         b, t, c = x.shape
         t2 = t - t % scale
@@ -65,7 +69,7 @@ class SamplingBlock(nn.Module):
 
     def forward(self, x):
         if self.upsample_scale > 1:
-            repeat_res = torch.repeat_interleave(x, self.upsample_scale, dim=1)
+            repeat_res = self.repeat_upsampler(x, self.upsample_scale)
             upmerge = repeat_res + self.de_conv_upsampler(leaky_relu(x, 0.2))
         else:
             upmerge = repeat_res = x

@@ -1,5 +1,6 @@
-"""Attention: scaled dot-product attention with grouped-query heads, rotary
-tables and the decode KV cache (counterpart of
+"""Attention: scaled dot-product attention with grouped-query heads, the
+causal mask, rotary tables, the decode KV cache and the generic
+``MultiHeadAttention`` module (counterpart of
 ``mlx_audio_tpu/nn/attention.py``).
 
 The JAX package threads an immutable cache through its jitted steps; here
@@ -20,8 +21,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch import nn
 
-from mlx_audio_tpu_torch.nn.layers import promote_operands
+from mlx_audio_tpu_torch.nn.layers import Linear, promote_operands
 
 
 def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor,
@@ -60,6 +62,12 @@ def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor,
     return torch.matmul(*promote_operands(probs, v))
 
 
+def causal_mask(length: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """[length, length] additive causal mask: -1e9 above the diagonal."""
+    i = torch.arange(length, device=device)
+    return torch.where(i[None, :] > i[:, None], -1e9, 0.0).to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # Rotary embeddings
 # ---------------------------------------------------------------------------
@@ -95,10 +103,16 @@ def rope_table(head_dim: int, max_len: int, base: float = 10000.0,
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                start=0) -> torch.Tensor:
     """Rotate [B, H, L, D] queries or keys at positions start .. start+L-1
-    (``start`` an int or a 0-d integer tensor).  Pairs are (x[..., :D/2],
-    x[..., D/2:]), the half-split convention of Llama checkpoints."""
+    (``start`` an int or a 0-d integer tensor), or at the positions that
+    ``start`` lists, [L] or one row a batch row [B, L].  Pairs are
+    (x[..., :D/2], x[..., D/2:]), the half-split convention of Llama
+    checkpoints."""
     length = x.shape[-2]
-    if isinstance(start, torch.Tensor):
+    if isinstance(start, torch.Tensor) and start.ndim > 0:
+        c, s = cos[start].to(x.dtype), sin[start].to(x.dtype)
+        if start.ndim == 2:  # [B, L, D/2] -> [B, 1, L, D/2]
+            c, s = c[:, None], s[:, None]
+    elif isinstance(start, torch.Tensor):
         rows = start + torch.arange(length, device=cos.device)
         c, s = cos[rows].to(x.dtype), sin[rows].to(x.dtype)
     else:
@@ -179,3 +193,57 @@ def cached_attention(q: torch.Tensor, k_new: torch.Tensor,
     if extra_mask is not None:
         mask = mask + extra_mask
     return scaled_dot_product_attention(q, cache.k, cache.v, mask), cache
+
+
+# ---------------------------------------------------------------------------
+# Modules
+# ---------------------------------------------------------------------------
+
+
+class MultiHeadAttention(nn.Module):
+    """Attention with separate q/k/v/o projections and grouped-query heads
+    over NLC input (the JAX package's generic ``MultiHeadAttention``)."""
+
+    def __init__(self, dim: int, num_heads: int,
+                 num_kv_heads: Optional[int] = None,
+                 head_dim: Optional[int] = None, bias: bool = False,
+                 out_dim: Optional[int] = None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.num_kv_heads = num_kv_heads or num_heads
+        self.head_dim = head_dim or dim // num_heads
+        inner = self.num_heads * self.head_dim
+        inner_kv = self.num_kv_heads * self.head_dim
+        self.q_proj = Linear(dim, inner, bias=bias)
+        self.k_proj = Linear(dim, inner_kv, bias=bias)
+        self.v_proj = Linear(dim, inner_kv, bias=bias)
+        self.o_proj = Linear(inner, out_dim or dim, bias=bias)
+
+    def _split(self, x: torch.Tensor, heads: int) -> torch.Tensor:
+        b, l, _ = x.shape
+        return x.reshape(b, l, heads, self.head_dim).transpose(1, 2)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                rope: Optional[tuple] = None, positions=None,
+                cache: Optional[KVCache] = None,
+                xk: Optional[torch.Tensor] = None):
+        """Self-attention, or cross-attention over ``xk``; ``rope`` (cos,
+        sin) rotates queries and keys at ``positions`` (``apply_rope``'s
+        ``start``: none is 0).  With a ``cache`` the keys and values append
+        to it and the caller's ``mask`` adds to the cache's validity mask.
+        Returns the output, or (output, cache) when a cache is passed."""
+        q = self._split(self.q_proj(x), self.num_heads)
+        src = x if xk is None else xk
+        k = self._split(self.k_proj(src), self.num_kv_heads)
+        v = self._split(self.v_proj(src), self.num_kv_heads)
+        if rope is not None:
+            start = 0 if positions is None else positions
+            q = apply_rope(q, *rope, start)
+            k = apply_rope(k, *rope, start)
+        if cache is not None:
+            out, cache = cached_attention(q, k, v, cache, extra_mask=mask)
+        else:
+            out = scaled_dot_product_attention(q, k, v, mask)
+        b, h, l, d = out.shape
+        out = self.o_proj(out.transpose(1, 2).reshape(b, l, h * d))
+        return out if cache is None else (out, cache)

@@ -246,6 +246,11 @@ class Identity(nn.Module):
         return x
 
 
+def zero_pad_time(x: torch.Tensor, pad: tuple[int, int]) -> torch.Tensor:
+    """Zero-pad the time (second-to-last) axis of NLC input."""
+    return F.pad(x, (0, 0, *pad))
+
+
 # ---------------------------------------------------------------------------
 # Convolutions (NLC)
 # ---------------------------------------------------------------------------
@@ -412,6 +417,39 @@ class WNConv1d(nn.Module):
     def forward(self, x):
         w = weight_norm(self.weight_v, self.weight_g)
         y = conv1d(x, w, self.stride, self.padding, self.dilation, self.groups)
+        return y + self.bias if self.bias is not None else y
+
+
+class ConvTranspose1d(nn.Module):
+    """Transposed conv1d over NLC input: weight [in, out, k], or [C, 1, k]
+    when depthwise (groups = in = out); the JAX package stores [k, in, out]
+    and [k, C, 1], which ``convert`` moves."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, output_padding: int = 0,
+                 groups: int = 1, bias: bool = True):
+        super().__init__()
+        if groups != 1 and not in_channels == out_channels == groups:
+            raise NotImplementedError("grouped convT supports depthwise only")
+        self.stride, self.padding = stride, padding
+        self.output_padding, self.groups = output_padding, groups
+        self.fan_in = in_channels * kernel_size / groups
+        self.weight = _param(in_channels, out_channels // groups, kernel_size)
+        self.bias = _param(out_channels) if bias else None
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        scale = 1.0 / math.sqrt(self.fan_in)
+        _uniform_(self.weight, scale, generator)
+        if self.bias is not None:
+            _uniform_(self.bias, scale, generator)
+
+    def forward(self, x):
+        if self.groups == 1:
+            y = conv_transpose1d(x, self.weight, self.stride, self.padding,
+                                 self.output_padding)
+        else:
+            y = depthwise_conv_transpose1d(x, self.weight, self.stride,
+                                           self.padding, self.output_padding)
         return y + self.bias if self.bias is not None else y
 
 

@@ -6,8 +6,13 @@ its own process, and every batched synthesis or decode path asks
 ``active_mesh()``: with dp > 1 it pads its batch to a dp multiple, runs
 each data row's slice of the rows on that row's replica, and puts the rows
 back in order; with tp > 1 the families with rules run weights split by
-``parallel.mesh``'s wrappers.  One process drives every device; there is no
-process group.
+``parallel.mesh``'s wrappers.  One process drives every device, unless
+``parallel.distributed.initialize`` has formed a group before the
+activation: the mesh then spans every process's devices, each process runs
+the data rows of its own devices and the rows are gathered across the
+group.  Kokoro's ``synthesize_batch`` (and ``generate`` and
+``generate_batch`` over it) runs a batch so; every other path raises under
+such a mesh.
 
 The devices are every visible CUDA device unless ``devices=`` names them
 (a device may repeat: ``[cuda:0] * 4`` is a dp=2, tp=2 grid on one card,
@@ -24,6 +29,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from mlx_audio_tpu_torch.parallel import distributed
 from mlx_audio_tpu_torch.parallel.mesh import (
     Mesh,
     cuda_devices,
@@ -119,9 +125,35 @@ class MeshContext:
     def home(self, r: int) -> torch.device:
         return self.mesh.home(r)
 
+    @property
+    def processes(self) -> int:
+        """The processes whose devices the mesh spans (1 without a group)."""
+        return int(self.mesh.processes.max()) + 1
+
+    def own_rows(self) -> List[int]:
+        """The data rows this process drives: every row in one process."""
+        return self.mesh.local_rows(distributed.process_index())
+
+    def gather_rows(self, local: np.ndarray) -> np.ndarray:
+        """The rows of this process's data rows (``own_rows``, in order)
+        joined with every other process's, in data-row order: ``local``
+        itself in one process."""
+        if self.processes == 1:
+            return local
+        return distributed.all_gather_rows(torch.from_numpy(local)).numpy()
+
+    def one_process(self, what: str) -> None:
+        """Raise when the mesh spans processes: ``what`` runs its rows in
+        one process only."""
+        if self.processes > 1:
+            raise NotImplementedError(
+                f"{what} runs in one process; over a process group only Kokoro's "
+                "synthesize_batch splits a batch")
+
     def shard_batch(self, *tensors):
         """Each tensor's leading axis cut into one slice a data row, on the
         row's home device: a list over the rows for each tensor."""
+        self.one_process("shard_batch")
         out = []
         for t in tensors:
             out.append([t[lo:hi].to(self.home(r))
@@ -130,13 +162,18 @@ class MeshContext:
 
     def place_replicated(self, model) -> list:
         """The model on every data row's home device (cached per model): the
-        model itself where it already lives, else one copy a device."""
+        model itself where it already lives, else one copy a device; None
+        for the rows of another process."""
         hit = self._replicated.get(id(model))
         if hit is not None and hit[0] is model:
             return hit[1]
         by_device = {module_device(model): model}
         placed = []
+        own = set(self.own_rows())
         for r in range(self.dp):
+            if r not in own:
+                placed.append(None)
+                continue
             home = self.home(r)
             if home not in by_device:
                 by_device[home] = place_on(model, home)
@@ -148,6 +185,7 @@ class MeshContext:
         """The model with its weights split by ``rules`` over each data
         row's 'model' devices (cached per model); rows over the same devices
         share one copy."""
+        self.one_process("a tensor-parallel placement")
         hit = self._tp_sharded.get(id(model))
         if hit is not None and hit[0] is model:
             return hit[1]
@@ -174,6 +212,7 @@ class MeshContext:
         draw as in the whole batch; the results in row order."""
         from mlx_audio_tpu_torch.models.sampling import row_offset
 
+        self.one_process("map_rows")
         out = []
         for r, (lo, hi) in enumerate(self.row_slices(n)):
             with row_offset(lo):
@@ -188,7 +227,10 @@ def activate_mesh(spec: Optional[str] = None, *, dp: Optional[int] = None,
 
     dp=0 (or a tp-only spec) claims all remaining devices for the data
     axis.  dp*tp must not exceed the devices (every visible CUDA device
-    unless ``devices`` names them; a device may repeat)."""
+    unless ``devices`` names them; a device may repeat).  Once
+    ``parallel.distributed.initialize`` has formed a group and ``devices``
+    is not given, the devices are every process's, and dp*tp must cover
+    them all."""
     global _ACTIVE
     if spec is not None:
         s_dp, s_tp = parse_mesh_spec(spec)
@@ -196,7 +238,9 @@ def activate_mesh(spec: Optional[str] = None, *, dp: Optional[int] = None,
         tp = s_tp if tp is None else tp
     dp = dp if dp is not None else 0
     tp = tp if tp is not None else 1
-    devs = list(devices if devices is not None else cuda_devices())
+    grouped = devices is None and distributed.is_initialized()
+    devs = ([d for _, d in distributed.global_devices()] if grouped
+            else list(devices if devices is not None else cuda_devices()))
     if tp < 1:
         raise ValueError(f"tp must be >= 1, got {tp}")
     if dp < 0:
@@ -209,7 +253,10 @@ def activate_mesh(spec: Optional[str] = None, *, dp: Optional[int] = None,
     if need > len(devs):
         raise ValueError(
             f"mesh dp={dp} x tp={tp} needs {need} devices, have {len(devs)}")
-    mesh = get_mesh(model_parallel=tp, devices=devs[:need])
+    if grouped and need != len(devs):
+        raise ValueError(f"a mesh over {distributed.process_count()} processes spans all "
+                         f"{len(devs)} of their devices, not dp={dp} x tp={tp}")
+    mesh = get_mesh(model_parallel=tp, devices=None if grouped else devs[:need])
     _ACTIVE = MeshContext(mesh=mesh, dp=dp, tp=tp)
     return _ACTIVE
 
@@ -250,6 +297,7 @@ def placement(model, batch: int, rules: Optional[Callable] = None):
     ctx = _ACTIVE
     if ctx is None:
         return [model], [(0, batch)], batch
+    ctx.one_process("placement")
     models = ctx.replicas(model, rules)
     dp = data_parallel(batch)
     if dp is None:

@@ -1,7 +1,9 @@
 """Distribution layer: the ('data', 'model') device grid, placement, and the
 tensor-parallel rules (counterpart of ``mlx_audio_tpu/parallel/mesh.py``).
 
-One process drives every device (the JAX package's single controller):
+One process drives every device (the JAX package's single controller), or,
+after ``parallel.distributed.initialize``, each process of a group drives
+the grid rows of its own devices (``Mesh.processes``):
 
 * A ``Mesh`` is a ``dp x tp`` grid of ``torch.device``s.  Row r of the grid
   holds data replica r; its first device is the replica's home, where the
@@ -69,11 +71,16 @@ def cuda_devices() -> List[torch.device]:
 
 
 class Mesh:
-    """A ('data', 'model') grid of devices: ``devices`` [dp, tp]."""
+    """A ('data', 'model') grid of devices: ``devices`` [dp, tp], and the
+    rank of the process that drives each (``processes`` [dp, tp], all 0 in
+    one process)."""
 
-    def __init__(self, devices: np.ndarray, axis_names=("data", "model")):
+    def __init__(self, devices: np.ndarray, axis_names=("data", "model"),
+                 processes: Optional[np.ndarray] = None):
         self.devices = devices
         self.axis_names = tuple(axis_names)
+        self.processes = (np.zeros(devices.shape, dtype=np.int64)
+                          if processes is None else processes)
 
     @property
     def shape(self) -> dict:
@@ -87,20 +94,39 @@ class Mesh:
         """Data row ``r``'s first device."""
         return self.devices[r][0]
 
+    def local_rows(self, process: int = 0) -> List[int]:
+        """The data rows that process ``process`` drives."""
+        return [r for r in range(self.devices.shape[0])
+                if self.processes[r, 0] == process]
+
 
 def get_mesh(model_parallel: int = 1, devices: Optional[Sequence] = None,
              axis_names: tuple = ("data", "model")) -> Mesh:
-    """The ('data', 'model') grid over ``devices`` (every visible card by
-    default): ``model_parallel`` devices a row, the rest the data axis."""
-    devs = [canonical_device(d) for d in
-            (devices if devices is not None else cuda_devices())]
+    """The ('data', 'model') grid over ``devices``: ``model_parallel``
+    devices a row, the rest the data axis.  By default the devices are every
+    visible card, or, once ``parallel.distributed.initialize`` has formed a
+    group, every process's devices in rank order (the 'model' axis
+    innermost, so each row lies within one process)."""
+    from mlx_audio_tpu_torch.parallel import distributed
+
+    if devices is None and distributed.is_initialized():
+        procs, devs = zip(*distributed.global_devices())
+    else:
+        devs = [canonical_device(d) for d in
+                (devices if devices is not None else cuda_devices())]
+        procs = [0] * len(devs)
     n = len(devs)
     if n % model_parallel != 0:
         raise ValueError(f"{n} devices not divisible by model_parallel={model_parallel}")
-    grid = np.empty((n // model_parallel, model_parallel), dtype=object)
+    shape = (n // model_parallel, model_parallel)
+    grid = np.empty(shape, dtype=object)
     for i, d in enumerate(devs):
         grid[i // model_parallel, i % model_parallel] = d
-    return Mesh(grid, axis_names)
+    ranks = np.asarray(procs, dtype=np.int64).reshape(shape)
+    if (ranks != ranks[:, :1]).any():
+        raise ValueError(f"model_parallel={model_parallel} splits a process's devices "
+                         "across rows: each process needs a multiple of it")
+    return Mesh(grid, axis_names, ranks)
 
 
 # ---------------------------------------------------------------------------

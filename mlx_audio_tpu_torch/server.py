@@ -4,8 +4,8 @@ Endpoints: POST /tts, GET /audio/{filename}, POST /stt, POST /play,
 POST /stop, GET /languages, GET /models, POST /open_output_folder,
 POST /speech_to_speech_input, GET /ws/sts (speech to speech over a
 websocket), POST /webrtc/offer (the same over WebRTC; 501 without aiortc)
-and GET / (the web player).  ``--prewarm`` runs one call of each
-speech-to-speech stage before the server takes traffic.
+and GET / (the web player).  ``--prewarm`` warms each speech-to-speech
+stage (``VoicePipeline.prewarm``) before the server takes traffic.
 
 Models load through the port's registry (``utils.loader.load_model``) from
 local checkpoint directories, on the server's device, and are hot-swapped
@@ -593,14 +593,14 @@ def create_app(state: Optional[ServerState] = None):
     return app
 
 
-def prewarm(state: ServerState) -> int:
-    """One call of each speech-to-speech stage on the server's models
-    (``VoicePipeline.prewarm``): every later session shares them.  Returns
-    the calls issued."""
+def prewarm(state: ServerState, max_phonemes: int = 128) -> int:
+    """Warm every speech-to-speech stage on the server's models
+    (``VoicePipeline.prewarm``; the TTS stage grid up to ``max_phonemes``):
+    every later session shares them.  Returns the calls issued."""
     from mlx_audio_tpu_torch.sts.voice_pipeline import VoicePipeline, VoicePipelineConfig
 
     return VoicePipeline(config=VoicePipelineConfig(**state.sts_options),
-                         server_state=state).prewarm()
+                         server_state=state).prewarm(max_phonemes=max_phonemes)
 
 
 def parse_args(argv=None):
@@ -618,11 +618,12 @@ def parse_args(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device the models run on (cuda, or cpu)")
     parser.add_argument("--prewarm", action="store_true",
-                        help="before taking traffic, run one call of each "
-                             "speech-to-speech stage (a synthesis, an STT "
-                             "window, a chat turn when a chat LM is "
-                             "configured), so that no live turn pays for the "
-                             "kernels' and libraries' first use")
+                        help="before taking traffic, warm each "
+                             "speech-to-speech stage (the TTS model's stage "
+                             "grid, a chat turn when a chat LM is "
+                             "configured, 5 STT lengths), so that no live "
+                             "turn pays for the kernels' and libraries' "
+                             "first use")
     parser.add_argument("--mesh", type=str, default=None,
                         help="device mesh spec 'dp=N[,tp=M]': batched "
                              "synthesis shards over the data axis; the "

@@ -9,12 +9,13 @@ LM -> TTS -> speaker, with barge-in (counterpart of
 * The models load through the server's cache or the port's
   ``utils.loader.load_model`` on the pipeline's device, "cuda" unless the
   caller asks for "cpu".
-* :meth:`VoicePipeline.prewarm` issues one call of each configured stage.
-  The JAX package compiles a graph a shape bucket and warms each; eager
-  PyTorch compiles nothing a shape, so what a first live turn would pay
-  for is the kernels' first build or load and the libraries' handles.
-  A stage that fails to warm raises (the JAX package logs an STT failure
-  and goes on).
+* :meth:`VoicePipeline.prewarm` warms the stages in the JAX package's
+  order: the TTS model's stage grid (Kokoro's ``prewarm``), the chat LM,
+  and 5 STT lengths.  Eager PyTorch compiles nothing a shape, so what a
+  first live turn would otherwise pay for is the kernels' first build or
+  load, the libraries' handles and the allocator's growth.  A stage that
+  fails to warm raises (the JAX package logs an STT failure and goes
+  on).
 """
 
 from __future__ import annotations
@@ -261,17 +262,25 @@ class VoicePipeline:
                                        device=self.device)
         return self
 
-    def prewarm(self) -> int:
-        """One call of each configured stage before serving: one short
-        synthesis, one STT window and, when a chat LM is configured, one
-        chat turn (``ChatLM.prewarm``, or a plain call).  Logs a warning
-        when no chat LM is configured: the chat stage is then not warmed.
-        Returns the calls issued."""
+    # the STT lengths the prewarm transcribes: the conversational buckets
+    # (an utterance past 8 s is rare enough to take its first use live)
+    PREWARM_STT_SECONDS = (0.5, 1.0, 2.0, 4.0, 8.0)
+
+    def prewarm(self, max_phonemes: int = 128) -> int:
+        """Warm each configured stage before serving, in the JAX package's
+        order: the TTS model's own ``prewarm(max_phonemes=...)`` when it has
+        one (Kokoro's stage grid), else one short synthesis; the chat LM's
+        ``prewarm`` (one turn), or one plain call; one STT window at each of
+        PREWARM_STT_SECONDS.  Logs a warning when no chat LM is configured:
+        the chat stage is then not warmed.  Returns the calls issued."""
         self.init_models()
         t0 = time.perf_counter()
-        list(self.speak("Hello."))
-        self.transcribe(np.zeros(int(self.config.sample_rate), dtype=np.float32))
-        issued = 2
+        tts_warm = getattr(self._tts, "prewarm", None)
+        if callable(tts_warm):
+            issued = tts_warm(max_phonemes=max_phonemes)
+        else:
+            list(self.speak("Hello."))
+            issued = 1
         if self._llm is None:
             logger.warning("prewarm: no chat LM is configured (llm_model); the chat "
                            "stage was not warmed")
@@ -282,6 +291,9 @@ class VoicePipeline:
             else:
                 self._llm("Hello.")
                 issued += 1
+        for secs in self.PREWARM_STT_SECONDS:
+            self.transcribe(np.zeros(int(secs * self.config.sample_rate), dtype=np.float32))
+            issued += 1
         logger.info("prewarm: %d calls in %.1f s", issued, time.perf_counter() - t0)
         return issued
 

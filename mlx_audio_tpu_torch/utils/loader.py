@@ -18,6 +18,7 @@ local files only.
 
 from __future__ import annotations
 
+import glob
 import importlib
 import json
 import logging
@@ -26,14 +27,28 @@ from typing import List, Optional, Union
 
 import torch
 
-from mlx_audio_tpu_torch.codec.loading import load_weights_files
-
 MODEL_REMAPPING = {"outetts": "outetts", "spark": "spark", "csm": "sesame",
                    "styletts2": "kokoro", "wav2vec2": "wav2vec",
                    "parakeet_ctc": "parakeet"}
 
 DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16,
           "float32": torch.float32}
+
+
+def load_weights_files(model_path: Path) -> dict:
+    """numpy weights of every ``*.safetensors`` in ``model_path`` (HF shard
+    layouts), else in ``model_path/LLM`` (Spark's layout)."""
+    from safetensors.numpy import load_file
+
+    files = glob.glob(str(Path(model_path) / "*.safetensors"))
+    if not files:
+        files = glob.glob(str(Path(model_path) / "LLM" / "*.safetensors"))
+    if not files:
+        raise FileNotFoundError(f"No safetensors found in {model_path}")
+    weights = {}
+    for f in files:
+        weights.update(load_file(f))
+    return weights
 
 
 def get_model_path(path_or_hf_repo: Union[str, Path]) -> Path:

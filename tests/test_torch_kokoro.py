@@ -295,3 +295,68 @@ def test_model_runs_on_cuda_unless_asked_for_the_cpu():
         pytest.skip("a GPU is present: the default device is usable")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Model(_port_config())
+
+
+def _record_stages(monkeypatch, module, dur_name, synth_name, call_through, frames_of):
+    """Wrap a package's two stage functions to record (batch, phoneme
+    bucket) and (batch, phoneme bucket, frame bucket) of every call; with
+    ``call_through`` False the stages only record and return zeros."""
+    seen = {"duration": [], "synthesis": []}
+    dur, synth = getattr(module, dur_name), getattr(module, synth_name)
+    zeros = (lambda: (jnp.zeros(1), jnp.zeros(1))) if module.__name__.startswith(
+        "mlx_audio_tpu.") else (lambda: (torch.zeros(1), torch.zeros(1)))
+
+    def rec_dur(model, input_ids, *a, **k):
+        seen["duration"].append(tuple(input_ids.shape))
+        return dur(model, input_ids, *a, **k) if call_through else zeros()
+
+    def rec_synth(model, input_ids, *a, **k):
+        seen["synthesis"].append((*input_ids.shape, frames_of(a)))
+        return synth(model, input_ids, *a, **k) if call_through else zeros()
+
+    monkeypatch.setattr(module, dur_name, rec_dur)
+    monkeypatch.setattr(module, synth_name, rec_synth)
+    return seen
+
+
+@pytest.mark.parametrize("max_phonemes,batch_sizes", [(16, (1,)), (32, (1,)), (128, (1, 2)),
+                                                      (512, (1,))])
+def test_prewarm_walks_the_jax_grid(models, monkeypatch, max_phonemes, batch_sizes):
+    """The port's prewarm calls the stages at the JAX package's (batch,
+    phoneme bucket) and (batch, phoneme bucket, frame bucket) grid, in its
+    order, and counts the calls as it does (stages recorded, not run)."""
+    import mlx_audio_tpu.models.tts.kokoro.model as jkm
+    import mlx_audio_tpu_torch.models.tts.kokoro.model as tkm
+
+    jax_model, port = models
+    jseen = _record_stages(monkeypatch, jkm, "_duration_stage", "_synthesis_stage", False,
+                           lambda a: a[-1].shape[0])
+    tseen = _record_stages(monkeypatch, tkm, "duration_stage", "synthesis_stage", False,
+                           lambda a: a[4])
+    kw = dict(max_phonemes=max_phonemes, frames_per_phoneme=3, batch_sizes=batch_sizes)
+    assert port.prewarm(**kw) == jax_model.prewarm(**kw) == (
+        len(jseen["duration"]) + len(jseen["synthesis"]))
+    assert tseen == jseen and jseen["duration"]
+
+
+def test_prewarm_covers_serve_buckets(models, monkeypatch):
+    """The twin of tests/test_kokoro.py's prewarm test: at max_phonemes=32
+    the prewarm issues 4 stage calls (phoneme buckets 16 and 32, one
+    100-frame bucket each), and a synthesize of a novel length at speed 20
+    afterwards runs at buckets the prewarm ran."""
+    import mlx_audio_tpu_torch.models.tts.kokoro.model as tkm
+
+    port = models[1]
+    seen = _record_stages(monkeypatch, tkm, "duration_stage", "synthesis_stage", True,
+                          lambda a: a[4])
+    assert port.prewarm(max_phonemes=32, frames_per_phoneme=3) == 4
+    warmed = {k: set(v) for k, v in seen.items()}
+    assert warmed == {"duration": {(1, 16), (1, 32)},
+                      "synthesis": {(1, 16, 100), (1, 32, 100)}}
+    seen["duration"].clear()
+    seen["synthesis"].clear()
+    ref_s = np.random.default_rng(7).standard_normal(256).astype(np.float32) * 0.1
+    audio, pred_dur = port.synthesize("hello world abc", ref_s, speed=20.0)
+    assert int(pred_dur.sum()) <= 100 and audio.size > 0
+    assert seen["duration"] == [(1, 32)] and seen["synthesis"] == [(1, 32, 100)]
+    assert set(seen["synthesis"]) <= warmed["synthesis"]

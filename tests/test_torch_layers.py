@@ -104,6 +104,15 @@ def _case_convtranspose(depthwise):
     return j(jnp.asarray(x)), _carry(j, t)(torch.as_tensor(x))
 
 
+def _case_plain_convtranspose(cin, cout, k, stride, pad, outpad, groups=1):
+    """``nn.layers.ConvTranspose1d`` (tests/test_layers.py's shapes), its
+    JAX [k, in, out] weight carried to torch's [in, out, k]."""
+    kw = dict(stride=stride, padding=pad, output_padding=outpad, groups=groups)
+    j, t = jnn.ConvTranspose1d(cin, cout, k, **kw), tnn.ConvTranspose1d(cin, cout, k, **kw)
+    x = _x((2, 30, cin))
+    return j(jnp.asarray(x)), _carry(j, t)(torch.as_tensor(x))
+
+
 def _case_lstm_lengths():
     j, t = jnn.LSTM(12, 8), tnn.LSTM(12, 8)
     x = _x((3, 10, 12))
@@ -158,6 +167,11 @@ CASES = {
                                                         dilation=3),
     "wnconvtranspose1d": lambda: _case_convtranspose(False),
     "wnconvtranspose1d_depthwise": lambda: _case_convtranspose(True),
+    "convtranspose1d": lambda: _case_plain_convtranspose(8, 16, 4, 2, 1, 0),
+    "convtranspose1d_stride1": lambda: _case_plain_convtranspose(8, 4, 3, 1, 1, 0),
+    "convtranspose1d_k20": lambda: _case_plain_convtranspose(6, 6, 20, 10, 5, 0),
+    "convtranspose1d_output_padding": lambda: _case_plain_convtranspose(8, 16, 4, 2, 1, 1),
+    "convtranspose1d_depthwise": lambda: _case_plain_convtranspose(8, 8, 3, 2, 1, 0, groups=8),
     "lstm_lengths": _case_lstm_lengths,
     "interpolate_nearest": lambda: _case_interpolate("nearest", None, 25),
     "interpolate_linear": lambda: _case_interpolate("linear", None, 4),
@@ -174,6 +188,25 @@ def test_layer_matches_jax(case):
     assert tuple(got.shape) == tuple(ref.shape)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
                                atol=ATOL, rtol=0)
+
+
+def test_kv_cache_decode_equals_full_attention():
+    """tests/test_layers.py's cache test in the port: step-by-step cached
+    attention equals full attention under ``causal_mask``, and the mask is
+    the JAX package's."""
+    b, h, d, steps = 1, 2, 8, 5
+    qs, ks, vs = (torch.as_tensor(_x((b, h, steps, d), seed, 1.0)) for seed in (0, 1, 2))
+    mask = tnn.causal_mask(steps)
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(jnn.causal_mask(steps)))
+    assert tnn.causal_mask(3, torch.bfloat16).dtype == torch.bfloat16
+    full = tnn.scaled_dot_product_attention(qs, ks, vs, mask)
+    cache = tnn.KVCache.create(b, h, 16, d)
+    outs = []
+    for t in range(steps):
+        out, cache = tnn.cached_attention(qs[:, :, t:t + 1], ks[:, :, t:t + 1],
+                                          vs[:, :, t:t + 1], cache)
+        outs.append(out)
+    np.testing.assert_allclose(torch.cat(outs, dim=2).numpy(), full.numpy(), atol=ATOL)
 
 
 KOKORO_FRAMES = 1300  # the frame bucket of a full 510-phoneme segment

@@ -7,9 +7,11 @@ utterances, events (kinds, sentences, audio), websocket messages (JSON keys
 and values, binary chunks).  The chat LM is the JAX package's tiny chat LM
 carried across with ``convert.params_from_jax``.
 
-Divergences, each with a test: the prewarm runs one call of each stage
-(the JAX package warms a graph a shape bucket), warns when no chat LM is
-configured, and lets a stage's failure raise; a chat path that is not a
+Divergences, each with a test: the prewarm follows the JAX package's
+order (the TTS model's own prewarm, the chat LM, 5 STT lengths) but warms
+the chat LM with one turn (the JAX package warms a graph a prompt bucket)
+and a TTS without a prewarm hook with one synthesis, warns when no chat LM
+is configured, and lets a stage's failure raise; a chat path that is not a
 local directory raises and fetches nothing (tests/test_torch_chat.py); a
 decode that its prompt's bucket takes past the RoPE table computes the
 rows there (the JAX package reads NaN); /ws/sts drops the silent tail of
@@ -220,31 +222,38 @@ class _LenSTT:
 
 
 def test_voice_pipeline_prewarm_warms_all_stages():
-    """The JAX package's prewarm: the TTS model's own prewarm (5), the chat
-    LM's buckets (64, 128, 192 of a 248-token budget: 3) and 5 STT length
-    buckets, 13.  The port's: one short synthesis, one 1 s STT window and
-    one chat turn, 3; the TTS model's prewarm hook is not called."""
+    """Both packages' prewarm: the TTS model's own prewarm at the given
+    max_phonemes (5), the chat LM, and the 5 STT lengths 0.5-8 s.  The JAX
+    package warms the chat LM's buckets (64, 128, 192 of a 248-token budget:
+    3), 13 in all; the port one chat turn, 11.  Neither speaks."""
     jllm, llm = chat_pair()
     jtts, tts = _WarmableTTS(), _WarmableTTS()
     jstt, stt = _LenSTT(), _LenSTT()
     assert jax_vp.VoicePipeline(stt_model=jstt, llm=jllm, tts_model=jtts).prewarm(
         max_phonemes=64) == 13
     assert jtts.warmed == 64 and len(jstt.seen) == 5
-    assert vp.VoicePipeline(stt_model=stt, llm=llm, tts_model=tts, device="cpu").prewarm() == 3
-    assert tts.calls == ["Hello."] and not hasattr(tts, "warmed")
-    assert stt.seen == [16000]
+    assert vp.VoicePipeline(stt_model=stt, llm=llm, tts_model=tts, device="cpu").prewarm(
+        max_phonemes=64) == 11
+    assert tts.warmed == 64 and tts.calls == jtts.calls == []
+    assert stt.seen == jstt.seen == [8000, 16000, 32000, 64000, 128000]
 
 
 def test_prewarm_without_a_chat_lm_warns_and_counts_two(caplog):
     """With no chat LM configured the port's prewarm warns that the chat
-    stage was not warmed (the JAX package says nothing) and issues 2."""
+    stage was not warmed (the JAX package says nothing).  A TTS without a
+    prewarm hook: the port speaks once, the JAX package not at all, so the
+    port issues 6 (a synthesis and the 5 STT lengths; 2, a synthesis and
+    one STT window, before the STT lengths followed the JAX package's), the
+    JAX package 5."""
     tts, stt = _CountingTTS(), _LenSTT()
+    jtts, jstt = _CountingTTS(), _LenSTT()
     with caplog.at_level(logging.WARNING):
-        assert jax_vp.VoicePipeline(stt_model=_LenSTT(), tts_model=_CountingTTS()).prewarm() == 5
+        assert jax_vp.VoicePipeline(stt_model=jstt, tts_model=jtts).prewarm() == 5
         assert "chat stage was not warmed" not in caplog.text
-        assert vp.VoicePipeline(stt_model=stt, tts_model=tts, device="cpu").prewarm() == 2
+        assert vp.VoicePipeline(stt_model=stt, tts_model=tts, device="cpu").prewarm() == 6
     assert "chat stage was not warmed" in caplog.text
-    assert tts.calls == ["Hello."] and stt.seen == [16000]
+    assert tts.calls == ["Hello."] and jtts.calls == []
+    assert stt.seen == jstt.seen == [8000, 16000, 32000, 64000, 128000]
 
 
 def test_prewarm_raises_what_a_stage_raises():
@@ -280,7 +289,8 @@ def test_server_prewarm_flag_warms_the_servers_models(tmp_path, monkeypatch, cap
     with caplog.at_level(logging.WARNING):
         port_server.main(["--prewarm", "--device", "cpu", "--max-batch", "0"])
     assert ran == [(["Hello."], {"host": "0.0.0.0", "port": 8000})]
-    assert stt.seen == [16000] and "chat stage was not warmed" in caplog.text
+    assert stt.seen == [8000, 16000, 32000, 64000, 128000]
+    assert "chat stage was not warmed" in caplog.text
 
 
 def test_transcribe_buckets_audio_length():
