@@ -19,7 +19,7 @@ kernels and their bf16 variants.
 
 Phases; the failure of any one ends the script with a non-zero exit:
 
-1. print the card (``nvidia-smi``), torch and CUDA versions; build the eight
+1. print the card (``nvidia-smi``), torch and CUDA versions; build the nine
    kernels from ``mlx_audio_tpu_torch/csrc/`` with ``nvcc`` for ``sm_90a``
    into ``mlx_audio_tpu_torch/csrc/build/`` (one ``nvcc`` each, together);
 2. hold every kernel against its plain PyTorch version on the card at the
@@ -45,7 +45,8 @@ Phases; the failure of any one ends the script with a non-zero exit:
    three ways);
    then run the probes' entry point (``scripts/probe_depth.py``, every
    mode, int8 and bf16); the bf16 variants of ``lstm``, ``dilated_conv1d``
-   and ``banded_conv1d`` (counted as ``<name>_bf16``) at Kokoro's bench
+   and ``banded_conv1d`` (counted as ``<name>_bf16``; both convs' launch
+   ``csrc/conv1d_bf16.cu``, the banded one at d = 1) at Kokoro's bench
    shapes (``lstm`` at B=32, T=512 and 1300, H=256, both directions, and
    the conv shapes above), BigVGAN-v2's resblocks, EnCodec's H=512 row
    route, Whisper's conv1 (batch 1 and 4) and Dia's DAC-44kHz resblocks
@@ -270,8 +271,9 @@ Phases; the failure of any one ends the script with a non-zero exit:
    at alternating 2/3, reference and speed in bf16): one iteration with
    every conv and ``lstm`` launch held to its plain version on the path's
    operands (one bf16 step of float64), then the median of 5 synced
-   iterations, audio-s/s beside phase 4's float32 figure, peak memory, one
-   profiled iteration; ``dilated_conv1d_bf16`` 21, ``banded_conv1d_bf16``
+   iterations, audio-s/s beside phase 4's float32 figure and beside the
+   681.98 audio-s/s of the earlier mma.sync bf16 convs (PERF.md §5), peak
+   memory, one profiled iteration; ``dilated_conv1d_bf16`` 21, ``banded_conv1d_bf16``
    36 and ``lstm_bf16`` 12 launches a synthesis and no other kernel; then
    one bf16 ``generate`` (and ``synthesize_batch``) on the card against
    the same bf16 weights on the CPU, the source's draws made on the CPU
@@ -477,10 +479,13 @@ KERNEL_INFO = {
     "probe_auto": ("mlx_audio_tpu_torch/csrc/probe_auto.cu",
                    "scripts/probe_depth.py:177"),
 }
-# the bf16 variants: each built from its float32 kernel's source, standing
-# in for the same TPU kernel (which the JAX package runs in bf16 too)
+# the bf16 variants, standing in for the same TPU kernel (which the JAX
+# package runs in bf16 too): lstm's and quantized_matmul's built from their
+# float32 kernel's source, both convs' one wgmma kernel of its own
 for _name in ("lstm", "dilated_conv1d", "banded_conv1d", "quantized_matmul"):
     KERNEL_INFO[f"{_name}_bf16"] = KERNEL_INFO[_name]
+for _name in ("dilated_conv1d_bf16", "banded_conv1d_bf16"):
+    KERNEL_INFO[_name] = ("mlx_audio_tpu_torch/csrc/conv1d_bf16.cu", KERNEL_INFO[_name][1])
 # the kernels each main-path run must launch
 KOKORO_KERNELS = ("lstm", "dilated_conv1d", "banded_conv1d")
 KOKORO_BF16_KERNELS = tuple(f"{k}_bf16" for k in KOKORO_KERNELS)
@@ -1479,10 +1484,10 @@ def bench_pass(run_once, iters: int = 5, batch: int = BENCH_BATCH) -> dict:
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
+# both bf16 convs launch conv1d_bf16_kernel: its group counts both
 KERNEL_GROUPS = (("lstm_cluster_kernel<__nv_bfloat16>", "lstm_bf16 (this repo)"),
                  ("lstm_row_kernel<__nv_bfloat16>", "lstm_bf16 (this repo)"),
-                 ("dilated_conv1d_kernel<__nv_bfloat16", "dilated_conv1d_bf16 (this repo)"),
-                 ("banded_conv1d_kernel<__nv_bfloat16>", "banded_conv1d_bf16 (this repo)"),
+                 ("conv1d_bf16_kernel", "conv1d_bf16 (this repo)"),
                  ("lstm_cluster_kernel", "lstm (this repo)"),
                  ("lstm_row_kernel", "lstm (this repo)"),
                  ("dilated_conv1d_kernel", "dilated_conv1d (this repo)"),
@@ -2287,6 +2292,8 @@ def profile_steps(label: str, run_steps, steps: int = PROFILE_STEPS,
         print(f"  {group:28s} {ms:10.3f} ms  {ms / device_ms:7.2%}  {k:6d} launches")
     for name, (ms, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"  {ms:10.3f} ms {k:6d}x  {name[:90]}")
+    counted["conv1d_bf16"] = (counted["banded_conv1d_bf16"]
+                              + counted["dilated_conv1d_bf16"])
     for group in {g for _, g in table if g.endswith(" (this repo)")}:
         kernel = group.removesuffix(" (this repo)")
         traced = groups.get(group, (0.0, 0))[1]
@@ -5092,6 +5099,9 @@ BF16_BENCH_BATCH = 32  # bench.py's default batch, at which it runs bf16
 # stages): phase 4's float32 counts
 KOKORO_BF16_PER_SYNTHESIS = {"dilated_conv1d_bf16": 21, "banded_conv1d_bf16": 36,
                              "lstm_bf16": 12}
+# phase 13's audio-s/s with the mma.sync bf16 convs that conv1d_bf16.cu
+# replaced (PERF.md §5; H100 80GB HBM3 at 700 W)
+MMA_SYNC_BF16_AUDIO_S_PER_S = 681.98
 # bf16 audio on the card against the same weights and inputs in bf16 on the
 # CPU (relative RMS): both round to bf16 at the same places, but cuBLAS,
 # cuDNN and the kernels sum in other orders than the CPU, a last-bit
@@ -5184,7 +5194,9 @@ def kokoro_bf16_runs(launches: dict, f32_bench: dict, voice_path: str,
           f"{bench['duration_stage_s']:.4f} s, synthesis stage {bench['synthesis_stage_s']:.4f} "
           f"s; iterations {', '.join(f'{t:.4f}' for t in bench['iter_s'])} s), peak "
           f"{bench['peak_memory_gb']:.2f} GB; beside phase 4's float32 (batch {BENCH_BATCH}) "
-          f"{f32_bench['audio_seconds_per_second']:.2f} audio-s/s; launches a synthesis "
+          f"{f32_bench['audio_seconds_per_second']:.2f} audio-s/s and the mma.sync bf16 "
+          f"convs' {MMA_SYNC_BF16_AUDIO_S_PER_S} audio-s/s (PERF.md §5, H100 80GB HBM3 at "
+          f"700 W); launches a synthesis "
           f"{json.dumps({k: v // bench['calls'] for k, v in launches['kokoro_bf16_bench'].items() if v})}"
           f", lstm by route {json.dumps(routes)}; built and checked in "
           f"{time.perf_counter() - t0:.1f} s; on {card}", flush=True)

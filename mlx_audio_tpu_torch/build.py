@@ -20,8 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNELS = ("lstm", "dilated_conv1d", "banded_conv1d", "quantized_matmul",
-           "depth_draft", "probe_depth", "probe_vpu", "probe_auto")
+KERNELS = ("lstm", "dilated_conv1d", "banded_conv1d", "conv1d_bf16",
+           "quantized_matmul", "depth_draft", "probe_depth", "probe_vpu", "probe_auto")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

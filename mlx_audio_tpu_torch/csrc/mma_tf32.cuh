@@ -1,7 +1,7 @@
 // Helpers shared by the two 3xTF32 convolution kernels (banded_conv1d.cu,
 // dilated_conv1d.cu): cp.async copies into shared memory, the TF32 split of
-// a float32 value, ldmatrix, the m16n8k8 TF32 tensor-core product and a
-// warp's 3xTF32 k8 step.
+// a float32 value, ldmatrix, the m16n8k8 TF32 tensor-core product, a warp's
+// 3xTF32 k8 step and the store of two outputs.
 //
 // Both kernels sum each tap's products in an accumulator of their own,
 // zeroed a tap, and add it to the running sum in float32 (fold_into): the
@@ -90,6 +90,11 @@ __device__ inline void mma_3xtf32(float (&acc)[M][N][4],
   for (int i = 0; i < M; ++i)
 #pragma unroll
     for (int j = 0; j < N; ++j) mma_tf32(acc[i][j], ab[i], bb[j]);
+}
+
+// out[0], out[1] = lo, hi
+__device__ inline void store2(float* out, float lo, float hi) {
+  *reinterpret_cast<float2*>(out) = make_float2(lo, hi);
 }
 
 // acc += part, in float32 (round to nearest)

@@ -16,6 +16,12 @@ main path:
   forms no band; its plain version keeps the banded formulation, with
   ``banded_weight`` the port of ``_banded_weight``.
 
+On bf16 operands both conv wrappers launch one kernel,
+``csrc/conv1d_bf16.cu`` (banded_conv1d at d = 1, dilated_conv1d at its d):
+a warp-specialised wgmma implicit GEMM fed by TMA through an mbarrier
+ring; its launches count under ``banded_conv1d_bf16`` and
+``dilated_conv1d_bf16`` by the entry point that made them.
+
 Two carry CSM-1B's quantized, speculative decode:
 
 * ``quantized_matmul`` (``csrc/quantized_matmul.cu``) replaces
@@ -55,8 +61,9 @@ nodes; an op's implementation is the wrapper itself, which then launches as
 above.  In eager code the wrappers never go through the dispatcher.
 
 The three Kokoro kernels and ``quantized_matmul`` take float32 or bf16
-(``BF16_KERNELS``): a bf16 launch runs the kernel's bf16 variant, built from
-the same source, and counts under ``<name>_bf16``; it accumulates in float32
+(``BF16_KERNELS``): a bf16 launch runs the kernel's bf16 variant (for
+``lstm`` and ``quantized_matmul`` built from the same source, for the two
+convs ``conv1d_bf16.cu``) and counts under ``<name>_bf16``; it accumulates in float32
 and rounds each output to bf16 once, as the plain version does (float32
 compute, one rounding).  ``quantized_matmul``'s bf16 variant takes bf16
 activations with bf16 or float32 scales and biases, as the TPU kernel does.
@@ -91,10 +98,8 @@ _SIGNATURES = {
     "dilated_conv1d": ("dilated_conv1d_forward", [_P] * 3 + [_I] * 6 + [_P]),
     "banded_conv1d": ("banded_conv1d_forward", [_P] * 3 + [_I] * 5 + [_P]),
     "lstm_bf16": ("lstm_forward_bf16", [_P] * 8 + [_I] * 4 + [_P]),
-    "dilated_conv1d_bf16": ("dilated_conv1d_forward_bf16",
-                            [_P] * 3 + [_I] * 6 + [_P]),
-    "banded_conv1d_bf16": ("banded_conv1d_forward_bf16",
-                           [_P] * 3 + [_I] * 5 + [_P]),
+    "dilated_conv1d_bf16": ("conv1d_bf16_forward", [_P] * 3 + [_I] * 6 + [_P]),
+    "banded_conv1d_bf16": ("conv1d_bf16_forward", [_P] * 3 + [_I] * 6 + [_P]),
     "quantized_matmul": ("quantized_matmul_forward", [_P] * 6 + [_I] * 5 + [_P]),
     "quantized_matmul_bf16": ("quantized_matmul_forward_bf16",
                               [_P] * 6 + [_I] * 6 + [_P]),
@@ -110,10 +115,16 @@ SMEM_LIMIT_BYTES = 232448
 # csrc/banded_conv1d.cu and csrc/dilated_conv1d.cu: kTileM, kTileN; window
 # rows padded by 16 bytes, weight rows by 8 values
 _MMA_TILE_M, _MMA_TILE_N = 192, 128
-# csrc/dilated_conv1d.cu kConfigs and kConfigsBf16: (channel slice, stages),
-# in the order tried
-_DILATED_CONFIGS = {torch.float32: ((32, 2), (8, 3), (8, 2)),
-                    torch.bfloat16: ((32, 2), (16, 3), (16, 2))}
+# csrc/dilated_conv1d.cu kConfigs: (channel slice, stages), in the order tried
+_DILATED_CONFIGS = ((32, 2), (8, 3), (8, 2))
+# csrc/conv1d_bf16.cu: the tile's rows (128), input channels a window stage
+# (64, one 128-byte row a sample), rows a TMA box, the alignment of the
+# stages (1024), the bytes of a weight stage (64 channels by 128 outputs)
+# and of the output staging (128 rows by 128 outputs)
+_BF16_TILE_M, _BF16_CHUNK, _BF16_MAX_BOX, _BF16_ALIGN = 128, 64, 256, 1024
+_BF16_W_STAGE, _BF16_STAGING = 2 * 64 * 128, 2 * 128 * 128
+# the library each kernel name's launches go to, where it is not its own
+_SOURCES = {"banded_conv1d_bf16": "conv1d_bf16", "dilated_conv1d_bf16": "conv1d_bf16"}
 
 
 def reset_launches() -> None:
@@ -130,9 +141,10 @@ _QUERIES = {
 
 
 def _source(name: str) -> str:
-    """The kernel whose source (and library) holds ``name``: a bf16 variant
-    lives with its float32 kernel."""
-    return name.removesuffix("_bf16")
+    """The kernel whose source (and library) holds ``name``: the two convs'
+    bf16 launches go to ``conv1d_bf16``, any other bf16 variant lives with
+    its float32 kernel."""
+    return _SOURCES.get(name, name.removesuffix("_bf16"))
 
 
 def _library(name: str, variant=None):
@@ -328,27 +340,39 @@ def lstm(x_proj: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# The two 3xTF32 implicit-GEMM convolutions: dilated, and dense (banded in
-# its plain version)
+# The convolutions: two 3xTF32 implicit GEMMs in float32 (dilated, and
+# dense, banded in its plain version), one wgmma implicit GEMM in bf16
 # ---------------------------------------------------------------------------
 
 
-def _mma_conv_smem_bytes(k: int, span: int, channels: int, stages: int,
-                         dtype: torch.dtype = torch.float32) -> int:
-    """Shared memory of one block of the conv kernels: ``stages`` stages of
-    the halo window (192 + span rows of ``channels``, padded by 16 bytes)
-    and K [channels, 128] weight slices (padded by 8 values); float32 keeps
-    the split remainder of one window besides, bf16 splits nothing."""
-    size = torch.empty((), dtype=dtype).element_size()
-    window = (_MMA_TILE_M + span) * (channels + 16 // size)
+def _mma_conv_smem_bytes(k: int, span: int, channels: int, stages: int) -> int:
+    """Shared memory of one block of the float32 conv kernels: ``stages``
+    stages of the halo window (192 + span rows of ``channels``, padded by 16
+    bytes) and K [channels, 128] weight slices (padded by 8 values), and the
+    split remainder of one window."""
+    window = (_MMA_TILE_M + span) * (channels + 4)
     weights = k * channels * (_MMA_TILE_N + 8)
-    split = window if dtype == torch.float32 else 0
-    return size * (stages * (window + weights) + split)
+    return 4 * (stages * (window + weights) + window)
+
+
+def conv1d_bf16_smem_bytes(k: int, dilation: int) -> int:
+    """The least shared memory one block of csrc/conv1d_bf16.cu needs (its
+    ``conv1d_bf16_smem_bytes``): one window stage of its 128-row tile, one
+    weight stage, the staging of a 128 x 128 output tile, the alignment
+    slack and 16 bytes of mbarriers a stage.  The window is 128 + (K - 1) d
+    rows of 128 bytes cut into at most 256-row TMA boxes (rows rounded up
+    to 8), or K boxes of 128 rows where that is fewer (taps farther apart
+    than the tile)."""
+    rows = _BF16_TILE_M + (k - 1) * dilation
+    pieces = -(-rows // _BF16_MAX_BOX)
+    rows = pieces * ((-(-rows // pieces) + 7) // 8 * 8)
+    rows = min(rows, k * _BF16_TILE_M)
+    return _BF16_ALIGN + rows * 2 * _BF16_CHUNK + _BF16_W_STAGE + _BF16_STAGING + 16 * 2
 
 
 def _check_mma_conv(name: str, x: torch.Tensor, w: torch.Tensor,
                     smem: int) -> None:
-    """What the 3xTF32 conv kernels take: K odd, C and Cout multiples of 8,
+    """What the conv kernels take: K odd, C and Cout multiples of 8,
     16-byte aligned x and w, a block's shared memory within the limit."""
     b, l, c = x.shape
     k, c_w, c_out = w.shape
@@ -364,12 +388,15 @@ def _check_mma_conv(name: str, x: torch.Tensor, w: torch.Tensor,
 
 def dilated_conv1d_smem_bytes(k: int, dilation: int,
                               dtype: torch.dtype = torch.float32) -> int:
-    """Shared memory of one dilated_conv1d block (csrc/dilated_conv1d.cu),
-    or of its bf16 variant: that of the first (slice, stages) in
-    ``_DILATED_CONFIGS`` that fits a block, or of the last when none does."""
+    """Shared memory of one dilated_conv1d block: in float32
+    (csrc/dilated_conv1d.cu) that of the first (slice, stages) in
+    ``_DILATED_CONFIGS`` that fits a block, or of the last when none does;
+    in bf16 ``conv1d_bf16_smem_bytes(k, dilation)``."""
+    if dtype == torch.bfloat16:
+        return conv1d_bf16_smem_bytes(k, dilation)
     span = (k - 1) * dilation
-    for channels, stages in _DILATED_CONFIGS[dtype]:
-        smem = _mma_conv_smem_bytes(k, span, channels, stages, dtype)
+    for channels, stages in _DILATED_CONFIGS:
+        smem = _mma_conv_smem_bytes(k, span, channels, stages)
         if smem <= SMEM_LIMIT_BYTES:
             break
     return smem
@@ -394,11 +421,12 @@ def dilated_conv1d_plain(x, w, dilation: int = 1):
 def dilated_conv1d(x: torch.Tensor, w: torch.Tensor,
                    dilation: int = 1) -> torch.Tensor:
     """'Same'-padded dilated conv, NLC: x [B, L, C] * w [K, C, Cout] ->
-    [B, L, Cout].  K odd.  The kernel computes 3xTF32 products on the
-    tensor cores (bf16 products for bf16 operands, into float32 sums), every
-    tap reading one staged window at row offset tap * dilation; it takes C
-    and Cout multiples of 8, 16-byte aligned x and w, and a window whose
-    stages fit a block's shared memory.  The output has x's dtype."""
+    [B, L, Cout].  K odd.  The float32 kernel computes 3xTF32 products on
+    the tensor cores, bf16 operands go to csrc/conv1d_bf16.cu (wgmma, into
+    float32 sums); in both every tap reads one staged window at row offset
+    tap * dilation.  They take C and Cout multiples of 8, 16-byte aligned x
+    and w, and a window whose stages fit a block's shared memory.  The
+    output has x's dtype."""
     if torch.compiler.is_compiling():
         return _op("dilated_conv1d")(x, w, dilation)
     if _on_cpu("dilated_conv1d", x, w):
@@ -417,11 +445,12 @@ def dilated_conv1d(x: torch.Tensor, w: torch.Tensor,
 
 
 def banded_conv1d_smem_bytes(k: int, dtype: torch.dtype = torch.float32) -> int:
-    """Shared memory of one banded_conv1d block (csrc/banded_conv1d.cu):
-    three stages of a window of 192 + K - 1 rows, of 8 channels (16 in the
-    bf16 variant)."""
-    return _mma_conv_smem_bytes(k, k - 1, 8 if dtype == torch.float32 else 16,
-                                3, dtype)
+    """Shared memory of one banded_conv1d block: in float32
+    (csrc/banded_conv1d.cu) three stages of a window of 192 + K - 1 rows of
+    8 channels; in bf16 ``conv1d_bf16_smem_bytes(k, 1)``."""
+    if dtype == torch.bfloat16:
+        return conv1d_bf16_smem_bytes(k, 1)
+    return _mma_conv_smem_bytes(k, k - 1, 8, 3)
 
 
 def banded_groups(k: int) -> int:
@@ -464,10 +493,11 @@ def banded_conv1d_plain(x, w):
 def banded_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Dense (dilation-1) 'same'-padded conv, NLC: x [B, L, C] * w
     [K, C, Cout] -> [B, L, Cout].  K odd.  The kernel reads w as it is and
-    forms no banded weight (3xTF32 products on the tensor cores, bf16 ones
-    for bf16 operands); the plain version still goes through W_band.  The
-    kernel takes C and Cout multiples of 8, 16-byte aligned x and w, and K
-    up to 13.  The output has x's dtype."""
+    forms no banded weight (3xTF32 products on the tensor cores; bf16
+    operands go to csrc/conv1d_bf16.cu at d = 1); the plain version still
+    goes through W_band.  The kernels take C and Cout multiples of 8,
+    16-byte aligned x and w, and K up to 13 in float32.  The output has x's
+    dtype."""
     if torch.compiler.is_compiling():
         return _op("banded_conv1d")(x, w)
     if _on_cpu("banded_conv1d", x, w):
@@ -477,8 +507,10 @@ def banded_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     b, l, c = x.shape
     c_out = w.shape[2]
     out = torch.empty((b, l, c_out), device=x.device, dtype=x.dtype)
+    # the bf16 kernel takes the dilation: 1 here
+    dilation = (1,) if x.dtype == torch.bfloat16 else ()
     _launch(_kernel_name("banded_conv1d", x), x.device, x.data_ptr(), w.data_ptr(),
-            out.data_ptr(), b, l, c, c_out, k)
+            out.data_ptr(), b, l, c, c_out, k, *dilation)
     return out
 
 

@@ -260,9 +260,10 @@ def banded_conv_supported(k: int, c: int, c_out: int, l: int,
                           dtype: torch.dtype = torch.float32) -> bool:
     """Shape rules of the JAX package's banded gate: K >= 5 and odd, C and
     Cout multiples of 128, at least 4096 rows, and a band waste 8Q/K <= 3.
-    Its 10 MiB VMEM budget for W_band is a TPU fact: the Hopper kernel
-    forms no band, and its own limit is shared memory, whose stages grow
-    with K: K <= 13 in float32's tiles, K <= 15 in bf16's."""
+    Its 10 MiB VMEM budget for W_band is a TPU fact: the Hopper kernels
+    form no band, and their own limit is shared memory: the float32
+    kernel's stages grow with K (K <= 13), the bf16 kernel streams one tap's
+    weights a stage and is bound by its window alone."""
     if k < 5 or k % 2 == 0 or c % 128 or c_out % 128 or l < 4096:
         return False
     return (8 * kernels.banded_groups(k) / k <= 3.0

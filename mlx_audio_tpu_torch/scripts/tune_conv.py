@@ -19,11 +19,16 @@ to see which of them it tells apart.  The variants run in one order, then
 in the reverse one.  Prints one line a kernel, variant, shape and round,
 then the card's name and power limit.
 
-With ``--bf16`` it compares the bf16 variants' two accumulations instead
-(``default``, folded a tap, and ``one-chain``) at Kokoro-82M's shapes and
-BigVGAN-v2's and DAC-44kHz's widest on bf16 operands: each output's error against
-the plain version in float64, in bf16 steps (``kernels.bf16_steps``; "step
-ok" at most one step), and its time.
+With ``--bf16`` it builds ``csrc/conv1d_bf16.cu``, the kernel both convs
+launch on bf16 operands, at three fold depths (``CONV_BF16_FOLD``: a
+partial sum over 64 channels of one tap, the port's build, or over 32 or
+16) and holds each at Kokoro-82M's shapes and BigVGAN-v2's and DAC-44kHz's
+widest: each output's error against the plain version in float64, in bf16
+steps (``kernels.bf16_steps``; "step ok" at most one step), and its time.
+Then it times the port's build at Kokoro's K = 7 and K = 11 with d = 3 and
+5 at its own d (the dilated entry point) against the residue fold around
+its d = 1 launch (``nn.layers.conv1d``'s route for those).  cuDNN's conv on
+the same operands and the bound stand beside every case.
 """
 
 from __future__ import annotations
@@ -56,51 +61,69 @@ SHAPES = (
     ("banded_conv1d", (1, 16576, 384), 7, 1), ("banded_conv1d", (1, 16576, 384), 7, 3),
     ("banded_conv1d", (2, 26000, 256), 7, 1),
 )
-# the same for the bf16 variants: Kokoro-82M's shapes as chip_smoke.py's
-# phase 2 holds them (batch 2), BigVGAN-v2's widest resblocks and
-# DAC-44kHz's C = 768 (C K = 8448 and 5376, the longest sums)
+# the same for the bf16 kernel: Kokoro-82M's shapes as chip_smoke.py's
+# phase 2 holds them (batch 2), BigVGAN-v2's widest resblocks (K = 11, d =
+# 5: the fold depth's limit) and DAC-44kHz's C = 768 (C K = 8448 and 5376,
+# the longest sums)
 SHAPES_BF16 = (
-    ("dilated_conv1d", (2, 26000, 256), 3, 1), ("dilated_conv1d", (2, 26000, 256), 3, 5),
-    ("dilated_conv1d", (2, 156001, 128), 3, 1), ("dilated_conv1d", (1, 3752, 768), 11, 5),
+    ("dilated_conv1d", (2, 26000, 256), 3, 1), ("dilated_conv1d", (2, 26000, 256), 3, 3),
+    ("dilated_conv1d", (2, 26000, 256), 3, 5), ("dilated_conv1d", (2, 156001, 128), 3, 1),
+    ("dilated_conv1d", (1, 3752, 768), 11, 5), ("dilated_conv1d", (1, 15008, 384), 11, 5),
     ("dilated_conv1d", (1, 2072, 768), 7, 1),
     ("banded_conv1d", (2, 26000, 256), 7, 1), ("banded_conv1d", (2, 156001, 128), 11, 1),
     ("banded_conv1d", (2, 26000, 256), 7, 3), ("banded_conv1d", (1, 15008, 384), 11, 1),
 )
+# csrc/conv1d_bf16.cu's fold depths: CONV_BF16_FOLD channels of one tap (64,
+# the port's build)
+BF16_VARIANTS = {"fold-64": (), "fold-32": ("-DCONV_BF16_FOLD=32",),
+                 "fold-16": ("-DCONV_BF16_FOLD=16",)}
+# Kokoro-82M's banded shapes at d = 3 and 5: the kernel at its own d against
+# the residue fold around its d = 1 launch
+DIRECT_BF16 = tuple(((2, 26000, 256), 7, d) for d in (3, 5)) + tuple(
+    ((2, 156001, 128), 11, d) for d in (3, 5))
+# one H100 SXM's dense bf16 and TF32 tensor-core peaks and HBM3 rate (the
+# 3xTF32 kernels take three TF32 products a multiply-add)
+PEAK_BF16_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES_PER_S = 989e12, 495e12, 3.35e12
 TOL = {"atol": 1e-4, "rtol": 1e-4}
 
 
-def build_variants(out: Path) -> dict:
-    """(kernel, variant) -> a shared library; every nvcc runs together."""
+def build_variants(out: Path, bf16: bool = False) -> dict:
+    """(kernel, variant) -> a shared library; every nvcc runs together.  In
+    bf16 both kernels map to the one build of conv1d_bf16.cu."""
+    sources = {"conv1d_bf16": BF16_VARIANTS} if bf16 else {
+        "dilated_conv1d": VARIANTS, "banded_conv1d": VARIANTS}
     procs = {}
-    for kernel in ("dilated_conv1d", "banded_conv1d"):
-        for name, flags in VARIANTS.items():
-            lib = out / f"{kernel}_{name}.so"
+    for source, variants in sources.items():
+        for name, flags in variants.items():
+            lib = out / f"{source}_{name}.so"
             cmd = [build.nvcc_path(), *build.NVCC_FLAGS, *flags, "-I", str(build.CSRC),
-                   "-o", str(lib), str(build.CSRC / f"{kernel}.cu")]
-            procs[kernel, name] = (subprocess.Popen(
+                   "-o", str(lib), str(build.CSRC / f"{source}.cu")]
+            procs[source, name] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     libs = {}
-    for (kernel, name), (proc, lib) in procs.items():
+    for (source, name), (proc, lib) in procs.items():
         log, _ = proc.communicate(timeout=build.NVCC_TIMEOUT_S)
         if proc.returncode:
-            raise RuntimeError(f"{kernel} variant {name} did not build:\n{log}")
+            raise RuntimeError(f"{source} variant {name} did not build:\n{log}")
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
-                print(f"built {kernel} {name}: {line.strip()}", flush=True)
-        libs[kernel, name] = ctypes.CDLL(str(lib))
+                print(f"built {source} {name}: {line.strip()}", flush=True)
+        for kernel in (("dilated_conv1d", "banded_conv1d") if bf16 else (source,)):
+            libs[kernel, name] = ctypes.CDLL(str(lib))
     return libs
 
 
 def variant_fn(kernel: str, lib, d: int):
     """f(x, w): the conv through the variant's library (launches not counted),
     the banded kernel with d > 1 through the residue fold, as the port does;
-    bf16 operands take the library's bf16 entry point."""
+    bf16 operands take conv1d_bf16's entry point (d = 1 for the banded
+    kernel)."""
     def launch(x, w, dilation=1):
         b, l, c = x.shape
         k, _, c_out = w.shape
         out = torch.empty((b, l, c_out), device=x.device, dtype=x.dtype)
         args = [x.data_ptr(), w.data_ptr(), out.data_ptr(), b, l, c, c_out, k]
-        if kernel == "dilated_conv1d":
+        if kernel == "dilated_conv1d" or x.dtype == torch.bfloat16:
             args.append(dilation)
         name = f"{kernel}_bf16" if x.dtype == torch.bfloat16 else kernel
         kernels._launch(name, x.device, *args, variant=lib)
@@ -120,13 +143,48 @@ def plain_fn(kernel: str, d: int, dtype):
                                                 kernels.banded_conv1d_plain)
 
 
+def library_fn(x, w, d: int):
+    """cuDNN's conv on the same operands (NCL, [Cout, C, K]), 'same' padded."""
+    x_ncl, w_lib = x.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous()
+    pad = (w.shape[0] - 1) * d // 2
+    return lambda: torch.nn.functional.conv1d(x_ncl, w_lib, None, 1, pad, d)
+
+
+def bound_ms(b: int, l: int, c: int, c_out: int, k: int, size: int, peak: float) -> tuple:
+    """(ms, "bytes" or "operations"): the larger of the conv's operations at
+    ``peak`` and its bytes (x and w read once, out written once) at HBM3's."""
+    ops = 2.0 * b * l * c * c_out * k / peak * 1e3
+    moved = size * (b * l * (c + c_out) + k * c * c_out) / PEAK_BYTES_PER_S * 1e3
+    return (ops, "operations") if ops >= moved else (moved, "bytes")
+
+
+def direct_against_fold(libs: dict, gen) -> None:
+    """The port's build at Kokoro's K = 7 and 11 with d = 3 and 5: at its own
+    d against the residue fold around its d = 1 launch, cuDNN beside."""
+    for (b, l, c), k, d in DIRECT_BF16:
+        x = (torch.randn(b, l, c, generator=gen, device="cuda") * 0.3).to(torch.bfloat16)
+        w = (torch.randn(k, c, c, generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
+        ref64 = plain_fn("dilated_conv1d", d, torch.float64)(x, w)
+        line = []
+        for label, kernel in (("own d", "dilated_conv1d"), ("residue fold", "banded_conv1d")):
+            fn = variant_fn(kernel, libs[kernel, "fold-64"], d)
+            steps = kernels.bf16_steps(fn(x, w), ref64)
+            ms = events_ms(lambda fn=fn: fn(x, w))
+            line.append(f"{label} {ms:.4f} ms ({steps:.3f} bf16 steps)")
+        lib_ms = events_ms(library_fn(x, w, d))
+        bound, by = bound_ms(b, l, c, c, k, 2, PEAK_BF16_FLOPS)
+        print(f"direct [{b}, {l}, {c}] K={k} d={d}: " + ", ".join(line)
+              + f"; cuDNN bf16 {lib_ms:.4f} ms; bound {bound:.4f} ms ({by})", flush=True)
+        del ref64
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
                     help="directory for the variants' libraries (a temporary one by default)")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--bf16", action="store_true",
-                    help="compare the bf16 variants' fold with one chain")
+                    help="hold conv1d_bf16.cu's fold depths against each other")
     args = ap.parse_args()
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -134,7 +192,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(args.out or tmp)
         out.mkdir(parents=True, exist_ok=True)
-        libs = build_variants(out)
+        libs = build_variants(out, args.bf16)
         gen = torch.Generator(device="cuda").manual_seed(0)
         cases = []
         for kernel, (b, l, c), k, d in (SHAPES_BF16 if args.bf16 else SHAPES):
@@ -143,11 +201,15 @@ def main() -> None:
             ref64 = plain_fn(kernel, d, torch.float64)(x, w)
             ref32 = plain_fn(kernel, d, torch.float32)(x, w)
             plain_err = float((ref32.double() - ref64).abs().max())
+            lib_ms = events_ms(library_fn(x, w, d))
+            bound, by = bound_ms(b, l, c, c, k, x.element_size(),
+                                 PEAK_BF16_FLOPS if args.bf16 else PEAK_TF32_FLOPS / 3)
             print(f"{kernel} [{b}, {l}, {c}] K={k} d={d} (C K = {c * k}): max |out| "
                   f"{float(ref64.abs().max()):.3f}; float32 plain against float64 "
-                  f"{plain_err:.3e}", flush=True)
+                  f"{plain_err:.3e}; cuDNN {lib_ms:.4f} ms; bound {bound:.4f} ms ({by})",
+                  flush=True)
             cases.append((kernel, (b, l, c), k, d, x, w, ref64, ref32))
-        names = ["default", "one-chain"] if args.bf16 else list(VARIANTS)
+        names = list(BF16_VARIANTS if args.bf16 else VARIANTS)
         for rnd in range(args.rounds):
             for name in (names if rnd % 2 == 0 else names[::-1]):
                 for kernel, (b, l, c), k, d, x, w, ref64, ref32 in cases:
@@ -167,6 +229,9 @@ def main() -> None:
                           f"d={d}: {ms:.4f} ms, against float64 {err64:.3e}, "
                           f"{check}", flush=True)
                     del got
+        del cases
+        if args.bf16:
+            direct_against_fold(libs, gen)
     print(card_line(torch.device("cuda", 0)))
 
 

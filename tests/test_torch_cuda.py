@@ -203,7 +203,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 # ---------------------------------------------------------------------------
 # bf16 variants: each output within one bf16 step of a float64 run of the
-# plain version (kernels.bf16_steps <= 1), launches counted as <name>_bf16
+# plain version (kernels.bf16_steps <= 1), launches counted as <name>_bf16.
+# Both convs' bf16 launches run csrc/conv1d_bf16.cu: tiles of 128 rows by
+# 128 outputs, windows of 64 channels, boxes of at most 256 rows (K boxes of
+# one tile where d > the tile)
 # ---------------------------------------------------------------------------
 
 
@@ -244,13 +247,21 @@ def test_lstm_bf16_kernel_within_a_bf16_step(cuda, b, t, h):
 @pytest.mark.parametrize("b,l,c,c_out,k,d", [
     (2, 2600, 256, 256, 3, 1),     # Kokoro's resblocks, K = 3
     (2, 4133, 128, 128, 3, 5),
-    (1, 3752, 768, 768, 11, 5),    # BigVGAN-v2's widest: (32, 2) at 225 KB
+    (1, 3752, 768, 768, 11, 5),    # BigVGAN-v2's widest, C K = 8448
     (1, 3752, 768, 768, 7, 3),
-    (2, 100, 128, 128, 3, 1),      # L below one 192-sample tile
+    (1, 15008, 384, 384, 11, 5),   # BigVGAN-v2's 384-wide resblocks
+    (2, 100, 128, 128, 3, 1),      # L below one tile
     (2, 7, 128, 128, 3, 5),        # L below the span: taps off both ends
-    (2, 4133, 128, 128, 15, 1),    # (16, 3)
+    (2, 30, 128, 128, 11, 5),      # L below the span at K = 11
+    (2, 1001, 128, 128, 3, 1),     # L not a multiple of the tile
+    (3, 4133, 128, 128, 3, 5),     # B = 3: the padding between batch rows
+    (2, 2600, 128, 384, 3, 1),     # Cout 384: three 128-output tiles
+    (1, 3000, 128, 1280, 3, 1),    # Whisper's conv1, Cout 1280
+    (2, 4133, 128, 128, 15, 1),
+    (2, 1000, 128, 128, 3, 300),   # d past the tile: K boxes, no window
+    (2, 4133, 128, 128, 11, 123),  # the widest span the mma.sync variant took at K = 11
     (2, 1000, 64, 72, 3, 1),       # Cout not a multiple of the 128 tile
-    (2, 1000, 72, 64, 3, 1),       # C not a multiple of the 16-channel k step
+    (2, 1000, 72, 64, 3, 1),       # C not a multiple of the 64-channel window
 ])
 def test_dilated_conv_bf16_kernel_within_a_bf16_step(cuda, b, l, c, c_out, k, d):
     rng = np.random.default_rng(4)
@@ -266,14 +277,18 @@ def test_dilated_conv_bf16_kernel_within_a_bf16_step(cuda, b, l, c, c_out, k, d)
 
 @pytest.mark.parametrize("b,l,c,c_out,k,d", [
     (2, 5200, 128, 128, 7, 1),     # Kokoro's
+    (2, 5201, 256, 256, 7, 1),     # Kokoro's widths, L not a multiple of the tile
     (2, 15601, 128, 128, 11, 1),
     (2, 9001, 128, 128, 11, 5),    # through the residue fold
-    (1, 15008, 384, 384, 11, 1),   # BigVGAN-v2's 384-wide resblocks
+    (1, 15008, 384, 384, 11, 1),   # BigVGAN-v2's 384-wide resblocks, Cout 384
+    (1, 3752, 768, 768, 7, 1),     # C = 768
+    (2, 2000, 128, 1280, 7, 1),    # Cout 1280: ten 128-output tiles
+    (3, 5000, 128, 128, 7, 1),     # B = 3: the padding between batch rows
     (2, 100, 128, 128, 11, 1),     # L below one tile
     (2, 9, 128, 128, 11, 1),       # L below K
-    (2, 4133, 128, 128, 15, 1),    # K = 15 fits three bf16 stages
+    (2, 4133, 128, 128, 15, 1),    # K = 15
     (2, 1000, 64, 72, 7, 1),       # Cout not a multiple of the 128 tile
-    (2, 1000, 72, 64, 7, 1),       # C not a multiple of the 16-channel slice
+    (2, 1000, 72, 64, 7, 1),       # C not a multiple of the 64-channel window
 ])
 def test_banded_conv_bf16_kernel_within_a_bf16_step(cuda, b, l, c, c_out, k, d):
     rng = np.random.default_rng(5)
@@ -292,10 +307,52 @@ def test_banded_conv_bf16_kernel_within_a_bf16_step(cuda, b, l, c, c_out, k, d):
 @pytest.mark.parametrize("k,d", [(3, 1), (3, 5), (7, 3), (11, 5), (13, 1),
                                  (15, 1), (3, 1000)])
 def test_conv_bf16_shared_memory_agrees_with_the_kernels(cuda, k, d):
-    dilated = build.load("dilated_conv1d").dilated_conv1d_smem_bytes_bf16
-    assert dilated(k, d) == kernels.dilated_conv1d_smem_bytes(k, d, torch.bfloat16)
-    banded = build.load("banded_conv1d").banded_conv1d_smem_bytes_bf16
-    assert banded(k) == kernels.banded_conv1d_smem_bytes(k, torch.bfloat16)
+    """Both bf16 wrappers' shared-memory counts, which conv1d_route gates
+    on, are csrc/conv1d_bf16.cu's own least figure."""
+    smem = build.load("conv1d_bf16").conv1d_bf16_smem_bytes
+    assert smem(k, d) == kernels.dilated_conv1d_smem_bytes(k, d, torch.bfloat16)
+    assert smem(k, 1) == kernels.banded_conv1d_smem_bytes(k, torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,l,c,c_out,k,d", [
+    (2, 2600, 256, 256, 7, 1), (2, 1001, 128, 384, 3, 5), (1, 700, 768, 768, 11, 5)])
+def test_conv_bf16_kernel_is_deterministic(cuda, b, l, c, c_out, k, d):
+    """Each output's sums run in one fixed order (chunk, tap, fold), whatever
+    block takes its tile: two launches give the same bits, and at d = 1 the
+    banded entry point the same as the dilated one."""
+    rng = np.random.default_rng(6)
+    x = _bf16(rng, (b, l, c), 0.3, cuda)
+    w = _bf16(rng, (k, c, c_out), 0.05, cuda)
+    first = kernels.dilated_conv1d(x, w, d)
+    outs = [kernels.dilated_conv1d(x, w, d)]
+    if d == 1:
+        outs.append(kernels.banded_conv1d(x, w))
+    torch.cuda.synchronize()
+    for out in outs:
+        assert torch.equal(out, first)
+    _within_a_bf16_step(first, kernels.dilated_conv1d_plain(x.double(), w.double(), d))
+
+
+def test_bf16_conv_wrappers_reject_what_the_kernel_does_not_take(cuda):
+    """On bf16 CUDA tensors both conv wrappers launch conv1d_bf16.cu or
+    raise: C or Cout not a multiple of 8, K even, or a window past a block's
+    shared memory (K = 31, d = 100: 3128 rows of 128 bytes) raise
+    ValueError, and nothing is launched."""
+    x = torch.zeros(1, 64, 128, device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros(3, 128, 128, device=cuda, dtype=torch.bfloat16)
+    cases = [(x[..., :124].contiguous(), w[:, :124].contiguous(), 1),
+             (x, w[..., :124].contiguous(), 1),
+             (x, torch.zeros(4, 128, 128, device=cuda, dtype=torch.bfloat16), 1),
+             (x, torch.zeros(31, 128, 128, device=cuda, dtype=torch.bfloat16), 100)]
+    assert kernels.dilated_conv1d_smem_bytes(31, 100, torch.bfloat16) > kernels.SMEM_LIMIT_BYTES
+    before = dict(kernels.LAUNCHES)
+    for xb, wb, d in cases:
+        with pytest.raises(ValueError):
+            kernels.dilated_conv1d(xb, wb, d)
+        if d == 1:
+            with pytest.raises(ValueError):
+                kernels.banded_conv1d(xb, wb)
+    assert kernels.LAUNCHES == before
 
 
 def test_wrappers_reject_f16_and_mixed_dtypes(cuda):
